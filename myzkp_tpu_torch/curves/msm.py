@@ -1,0 +1,369 @@
+"""Multi-scalar multiplication: signed-digit Pippenger over G1.
+
+Counterpart of ``myzkp_tpu/curves/msm.py``.  Per group of windows: one stable
+sort of the window digits, one row gather of the projective point table in
+step-major order, the bucket scan (kernel K4), then the merge of the lanes'
+partial sums (K2) and, over all windows at once, the hierarchical weighted
+bucket sum (K2, K3) and the Horner combine.
+
+The port always takes the row-major scan path of the reference (its
+``_rows_scan``), since K4 accepts any lane count.  Scalars enter as
+standard-domain ``(L, n)`` int32 limb tensors; everything runs on their device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _ext
+from ..fields import limb
+from ..fields.spec import FieldSpec
+from . import curve_kernels, weierstrass as wst
+from .weierstrass import Point
+
+
+# ---------------------------------------------------------------------------
+# Scalar digit / bit extraction
+# ---------------------------------------------------------------------------
+
+def scalar_bits(s_limbs, nbits: int | None = None):
+    """(L, n) 16-bit limbs -> (nbits, n) LSB-first int32 bits."""
+    nbits = nbits or 16 * s_limbs.shape[0]
+    return torch.stack([(s_limbs[b // 16] >> (b % 16)) & 1
+                        for b in range(nbits)])
+
+
+def scalar_digits(s_limbs, c: int):
+    """(L, n) 16-bit limbs -> (W, n) int32 window digits, W = ceil(16L/c).
+
+    Digit w is bits [w*c, (w+1)*c).  Requires c <= 31."""
+    if not 1 <= c <= 31:
+        raise ValueError(f"window {c} outside [1, 31]")
+    s = s_limbs.long()
+    L = s.shape[0]
+    W = (16 * L + c - 1) // c
+    out = []
+    for w in range(W):
+        li, off = divmod(w * c, 16)
+        val = s[li] >> off
+        have, j = 16 - off, li + 1
+        while have < c and j < L:
+            val = val | (s[j] << have)
+            have += 16
+            j += 1
+        out.append(val & ((1 << c) - 1))
+    return torch.stack(out).int()
+
+
+def signed_digits(digits, c: int):
+    """Unsigned digits (W, n) -> (magnitude, negative) in signed-digit form.
+
+    Each digit is rewritten into [-2^(c-1), 2^(c-1) - 1] with a carry into the
+    next window, keeping sum_w d_w 2^(cw).  For scalars < 2^255 the top window
+    never carries out."""
+    half, full = 1 << (c - 1), 1 << c
+    carry = torch.zeros_like(digits[0])
+    out = []
+    for d in digits:
+        v = d + carry
+        over = v >= half
+        carry = over.int()
+        out.append(torch.where(over, v - full, v))
+    signed = torch.stack(out)
+    return signed.abs(), signed < 0
+
+
+# ---------------------------------------------------------------------------
+# Naive batched MSM (golden model for small n)
+# ---------------------------------------------------------------------------
+
+def msm_naive(F, b3, points: Point, s_limbs) -> Point:
+    """sum_i [s_i] P_i via batched double-and-add and a tree sum."""
+    per_point = wst.scalar_mul_bits(F, b3, points, scalar_bits(s_limbs))
+    return wst.tree_sum(F, b3, per_point, axis=0)
+
+
+# ---------------------------------------------------------------------------
+# Window choice
+# ---------------------------------------------------------------------------
+
+def _bucket_sum_cost(c: int) -> int:
+    """Modelled EC adds of the hierarchical weighted-bucket sum at window c."""
+    if c <= _WSUM_BASE_C:
+        return c * (1 << c)
+    k = c // 2
+    return 2 * (1 << c) + _bucket_sum_cost(c - k) + _bucket_sum_cost(k) + k
+
+
+# Cost ratios measured on a TPU v5e (sort + row gather ~1.6 EC-add units per
+# window and point), kept as the reference has them; refitting them on the
+# H100 is open work (ROADMAP).
+_SORT_GATHER_W = 1.6
+_NARROW_W = 1.0
+
+
+def default_window(n: int) -> int:
+    """Bucket window size minimising the modelled work in EC-add units
+    (signed digits: 2^(c-1) + 1 buckets per window)."""
+    best_c, best_cost = 4, None
+    for c in range(4, 20):
+        W = -(-256 // c)
+        bsum = _bucket_sum_cost(c - 1) + (c - 1) + 1
+        cost = W * (n * (1 + _SORT_GATHER_W) + _NARROW_W * bsum + 24 * c)
+        if best_cost is None or cost < best_cost:
+            best_c, best_cost = c, cost
+    return best_c
+
+
+# ---------------------------------------------------------------------------
+# Row-major point tables
+# ---------------------------------------------------------------------------
+
+def _rows_of_point(pt: Point, lanes: int | None = None):
+    """(L, N) coordinates -> (N, lanes) int32 rows, x | y | z limbs side by
+    side and zero-padded to a multiple of 64.  Returns (rows, C)."""
+    rows = torch.cat(tuple(pt), dim=0).T
+    C = rows.shape[1]
+    lanes = lanes or -(-C // 64) * 64
+    return torch.nn.functional.pad(rows, (0, lanes - C)).contiguous(), C
+
+
+def _point_of_rows(rows, C: int, shape) -> Point:
+    """Inverse of _rows_of_point: (N, lanes) -> Point of (L, *shape)."""
+    planes = rows[:, :C].T.reshape((C,) + tuple(shape))
+    return Point(*planes.split(C // 3, dim=0))
+
+
+# ---------------------------------------------------------------------------
+# Bucket accumulation
+# ---------------------------------------------------------------------------
+
+def _bucket_accumulate_rows(F, b3, rows, vsort, dsort, num_buckets: int,
+                            K: int) -> Point:
+    """Bucket sums of G windows: step-major row gather + bucket scan (K4).
+
+    dsort / vsort: (G, n_pad) sorted digits and packed (index << 1 | negate)
+    values.  Returns a (G, num_buckets) point batch (bucket 0 unused)."""
+    spec = F.spec
+    L = spec.L
+    G, n_pad = dsort.shape
+    B = n_pad // K
+    slots = num_buckets + 1  # +1 per-window dummy slot, dropped at the end
+    w_off = (torch.arange(G, device=dsort.device) * slots)[:, None]
+
+    d2 = dsort.reshape(G, B, K)
+    prev = torch.cat([d2[..., :1], d2[..., :-1]], dim=-1)
+    head = torch.cat([torch.ones_like(d2[..., :1], dtype=torch.bool),
+                      d2[..., 1:] != d2[..., :-1]], dim=-1)
+
+    def sm(x):  # (G, B, K) -> (K, G*B) step-major
+        return x.permute(2, 0, 1).reshape(K, G * B)
+
+    v2 = vsort.reshape(G, B, K)
+    g_rows = rows.index_select(0, sm(v2 >> 1).reshape(-1))
+    tag = (sm(v2 & 1) | (sm(head.int()) << 1)).reshape(-1).contiguous()
+    acc_planes, flush_rows = curve_kernels.bucket_scan_rows(
+        spec, g_rows, tag, b3, K)
+    acc = Point(*(acc_planes[i * L:(i + 1) * L].reshape(L, G, B)
+                  for i in range(3)))
+    # No flush at step 0: nothing has ended inside the lane yet.  A flush
+    # there would scatter the fresh infinity accumulator of a lane whose first
+    # digit continues the previous lane's segment onto that segment's real
+    # target (the reference's c = 14 fault, myzkp_tpu/curves/msm.py:321-328).
+    flush = head & (prev > 0)
+    flush[..., 0] = False
+    tgt = torch.where(flush, prev, num_buckets) + w_off[:, :, None]
+    return _merge_lane_partials(F, b3, acc, d2, flush_rows,
+                                sm(tgt).reshape(-1), num_buckets, slots, w_off)
+
+
+def _seg_scan_hs(F, b3, pts: Point, head) -> Point:
+    """Segmented inclusive prefix sum across the lane axis (Hillis-Steele).
+
+    pts: leaves (L, G, B); head: (G, B) segment-head flags.  log2(B) levels,
+    each one full-width K2 launch."""
+    B = pts.x.shape[-1]
+    lane = torch.arange(B, device=head.device)
+    inf = wst.infinity(F, tuple(head.shape), head.device)
+    x, flags = pts, head
+    d = 1
+    while d < B:
+        valid = lane >= d
+        xs = Point(*(torch.roll(a, d, dims=-1) for a in x))
+        xs = wst.pselect(F, valid, xs, inf)
+        fs = torch.roll(flags, d, dims=-1) & valid
+        added = wst.padd(F, b3, xs, x)
+        x = wst.pselect(F, flags, x, added)
+        flags = flags | fs
+        d *= 2
+    return x
+
+
+def _check_unique_targets(tgt, num_buckets: int, slots: int) -> None:
+    real = tgt[tgt % slots != num_buckets]
+    if real.unique().numel() != real.numel():
+        raise RuntimeError("two flushes target one bucket")
+
+
+def _merge_lane_partials(F, b3, acc: Point, d2, flush_rows, tgt_flat,
+                         num_buckets: int, slots: int, w_off) -> Point:
+    """Scatter the mid-lane flushes into the bucket table, merge the lanes'
+    end partials (segmented sum across lanes in sorted order) and land the
+    segment totals in their buckets.
+
+    Scatters go through a per-window dummy slot that is sliced off at the
+    end: real targets are unique (checked on the plain path), and the dummies
+    collide harmlessly however index_put_ orders duplicates."""
+    G, B, K = d2.shape
+    device = d2.device
+    lanes = flush_rows.shape[1]
+    if not _ext.use_kernel(tgt_flat):
+        _check_unique_targets(tgt_flat, num_buckets, slots)
+    bk_rows, C = _rows_of_point(wst.infinity(F, (G * slots,), device), lanes)
+    bk_rows[tgt_flat] = flush_rows
+
+    d_end = d2[..., -1]  # (G, B)
+    ones = torch.ones((G, 1), dtype=torch.bool, device=device)
+    seg_head = torch.cat([ones, d_end[:, 1:] != d_end[:, :-1]], dim=-1)
+    seg_total = _seg_scan_hs(F, b3, acc, seg_head)
+    is_end = torch.cat([d_end[:, :-1] != d_end[:, 1:], ones], dim=-1)
+    tgt = (torch.where(is_end, d_end, num_buckets) + w_off).reshape(-1)
+    if not _ext.use_kernel(tgt):
+        _check_unique_targets(tgt, num_buckets, slots)
+    cur = _point_of_rows(bk_rows[tgt], C, (G, B))
+    merged = wst.padd(F, b3, cur, seg_total)
+    merged_rows, _ = _rows_of_point(
+        Point(*(a.reshape(a.shape[0], -1) for a in merged)), lanes)
+    bk_rows[tgt] = merged_rows
+    buckets = _point_of_rows(bk_rows, C, (G, slots))
+    return Point(*(a[..., :num_buckets] for a in buckets))
+
+
+# Below this window size the bit-decomposition base case takes over.
+_WSUM_BASE_C = 5
+
+
+def _weighted_bucket_sum(F, b3, buckets: Point, c: int) -> Point:
+    """sum_{b=1}^{2^c-1} b * B_b over a (G, 2^c) bucket batch -> (G,).
+
+    Hierarchical split b = hi * 2^k + lo (k = c // 2): row sums and column
+    sums by tree sums, two half-width weighted sums, k doublings.  Bucket 0
+    is weighted by zero on every path."""
+    L = buckets.x.shape[0]
+    Gw = buckets.x.shape[1]
+    device = buckets.x.device
+    if c > _WSUM_BASE_C:
+        k = c // 2
+        hi_n, lo_n = 1 << (c - k), 1 << k
+        grid = Point(*(a.reshape(L, Gw, hi_n, lo_n) for a in buckets))
+        rows = wst.tree_sum(F, b3, grid, axis=2)  # (G, hi_n): sum over lo
+        cols = wst.tree_sum(F, b3, grid, axis=1)  # (G, lo_n): sum over hi
+        s_hi = _weighted_bucket_sum(F, b3, rows, c - k)
+        s_lo = _weighted_bucket_sum(F, b3, cols, k)
+        for _ in range(k):
+            s_hi = wst.pdbl(F, b3, s_hi)
+        return wst.padd(F, b3, s_hi, s_lo)
+    num = 1 << c
+    idx = torch.arange(num, device=device)
+    bitmask = ((idx[None, :] >> torch.arange(c, device=device)[:, None]) & 1) == 1
+    stacked = Point(*(a[:, :, None, :].expand(L, Gw, c, num) for a in buckets))
+    inf_wide = wst.infinity(F, (Gw, c, num), device)
+    sel = wst.pselect(F, bitmask, stacked, inf_wide)
+    totals = wst.tree_sum(F, b3, sel, axis=2)  # (G, c)
+    acc = wst.infinity(F, (Gw,), device)
+    for j in reversed(range(c)):  # high bit first
+        acc = wst.padd(F, b3, wst.pdbl(F, b3, acc),
+                       Point(*(a[..., j] for a in totals)))
+    return acc
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+def _group_size(n_pad: int, W: int, slots: int = 0) -> int:
+    """Windows per bucket-accumulation pass: caps the gathered copy and the
+    bucket table at ~2^21 points each."""
+    cap = (1 << 21) // max(n_pad, slots, 1)
+    return int(min(W, max(1, cap)))
+
+
+def msm_pippenger(F, b3, points: Point, s_limbs, c: int | None = None,
+                  K: int | None = None) -> Point:
+    """sum_i [s_i] P_i.  points: (n,) batch; s_limbs: (L, n) int32 standard
+    domain.  Returns one (unbatched) projective point.
+
+    Signed digits lie in [-2^(c-1), 2^(c-1)]; negative ones enter the scan
+    negated, which halves the buckets.  The W = ceil(256 / c) windows go in
+    groups of G (sized by _group_size) through one stable sort, one row
+    gather and one K-step bucket scan each (G * n / K lanes)."""
+    n = s_limbs.shape[1]
+    device = s_limbs.device
+    if c is None:
+        c = default_window(n)
+    if not 2 <= c <= 31:
+        raise ValueError(f"window {c} outside [2, 31]")
+    half = 1 << (c - 1)
+    num_buckets = half + 1
+    W = -(-16 * s_limbs.shape[0] // c)
+    G = _group_size(n, W, num_buckets + 1)
+    if K is None:
+        # per-step width G * n / K of ~2^15 lanes: a smaller K costs more
+        # lane-merge adds, a larger one narrows each scan step
+        K = int(min(n, max(8, _next_pow2(G * n // (1 << 15)))))
+    # pad n to a multiple of K with digit 0 (bucket 0 is dropped)
+    n_pad = -(-n // K) * K
+    if n_pad != n:
+        pad = n_pad - n
+        points = Point(*(torch.cat([a, a[:, :1].expand(-1, pad)], dim=1)
+                         for a in points))
+        s_limbs = torch.nn.functional.pad(s_limbs, (0, pad))
+
+    rows, C = _rows_of_point(points)
+    digits, dneg = signed_digits(scalar_digits(s_limbs, c), c)  # (W, n_pad)
+    W_pad = -(-W // G) * G
+    if W_pad != W:
+        # zero-digit filler windows at the MSB end: their sums are infinity
+        digits = torch.nn.functional.pad(digits, (0, 0, 0, W_pad - W))
+        dneg = torch.nn.functional.pad(dneg, (0, 0, 0, W_pad - W))
+    iota = torch.arange(n_pad, dtype=torch.int32, device=device)
+    vals = (iota[None] << 1) | dneg.int()
+    d_sorted, order = torch.sort(digits, dim=1, stable=True)
+    v_sorted = vals.gather(1, order)
+
+    groups = [_bucket_accumulate_rows(F, b3, rows, v_sorted[g:g + G],
+                                      d_sorted[g:g + G], num_buckets, K)
+              for g in range(0, W_pad, G)]
+    buckets = Point(*(torch.cat(cs, dim=1) for cs in zip(*groups)))
+    # magnitudes span [0, half]: the power-of-two weighted sum covers
+    # [1, half - 1] and the top bucket adds half * B_half
+    main = Point(*(a[..., :half] for a in buckets))
+    top = Point(*(a[..., half] for a in buckets))
+    s_w = _weighted_bucket_sum(F, b3, main, c - 1)
+    for _ in range(c - 1):
+        top = wst.pdbl(F, b3, top)
+    s_w = wst.padd(F, b3, s_w, top)  # (W_pad,)
+    # Horner, most significant window first: res = sum_w 2^(cw) S_w
+    res = wst.infinity(F, (), device)
+    for w in reversed(range(W_pad)):
+        for _ in range(c):
+            res = wst.pdbl(F, b3, res)
+        res = wst.padd(F, b3, res, Point(*(a[:, w] for a in s_w)))
+    return res
+
+
+# Below this size one 256-step double-and-add ladder beats the bucket method.
+_PIPPENGER_MIN_N = 128
+
+
+def msm(F, b3, points: Point, s_limbs, **kw) -> Point:
+    """sum_i [s_i] P_i: the naive ladder below _PIPPENGER_MIN_N points unless
+    Pippenger's c or K is given, else msm_pippenger."""
+    if not kw and s_limbs.shape[1] < _PIPPENGER_MIN_N:
+        return msm_naive(F, b3, points, s_limbs)
+    return msm_pippenger(F, b3, points, s_limbs, **kw)
+
+
+def scalars_from_int(spec: FieldSpec, values, device=None) -> torch.Tensor:
+    """Host ints -> standard-domain (L, n) limb tensor for the MSM."""
+    return limb.from_int(spec, list(values), device)

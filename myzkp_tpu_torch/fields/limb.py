@@ -1,0 +1,300 @@
+"""Batched 16-bit-limb prime-field arithmetic in PyTorch.
+
+Layout: an element batch is an ``int32`` tensor of shape ``(L, *batch)`` holding
+little-endian 16-bit limbs, the same integers as the uint32 arrays of
+``myzkp_tpu/fields/limb.py``.  Every function returns canonical values (< p),
+so results agree with the reference limb for limb.
+
+The plain versions compute in int64: PyTorch on the CPU lacks uint32 ``+``,
+``-``, ``>>`` and ``>``, and int64 leaves room for whole 32-bit limb products
+in a column, so the Montgomery product needs no lo/hi split.
+
+``mont_mul`` is kernel K1 (csrc/mont_mul.cu) for CUDA tensors and
+``mont_mul_ref`` for CPU tensors (the rule of ``_ext.use_kernel``).  Add, sub
+and the rest were plain array code in the reference too and stay plain here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _ext
+from .spec import MASK, W, FieldSpec
+
+I32 = torch.int32
+I64 = torch.int64
+
+
+# ---------------------------------------------------------------------------
+# Host <-> tensor conversion
+# ---------------------------------------------------------------------------
+
+def from_int(spec: FieldSpec, x, device=None) -> torch.Tensor:
+    """Python int / nested list of ints -> limb tensor (standard domain)."""
+    xs = np.asarray(x, dtype=object)
+    flat = xs.reshape(-1)
+    nb = 2 * spec.L
+    p = spec.p
+    buf = b"".join((int(v) % p).to_bytes(nb, "little") for v in flat.tolist())
+    out = np.frombuffer(buf, dtype="<u2").reshape(flat.size, spec.L).T
+    out = torch.from_numpy(out.astype(np.int32)).reshape((spec.L,) + xs.shape)
+    return out.to(device) if device is not None else out
+
+
+def to_int(spec: FieldSpec, a: torch.Tensor) -> np.ndarray:
+    """Limb tensor (standard domain) -> numpy object array of Python ints."""
+    arr = a.detach().cpu().numpy().reshape(spec.L, -1)
+    raw = np.ascontiguousarray(arr.T.astype("<u2")).tobytes()
+    w = 2 * spec.L
+    out = np.empty(arr.shape[1], dtype=object)
+    for k in range(arr.shape[1]):
+        out[k] = int.from_bytes(raw[k * w:(k + 1) * w], "little") % spec.p
+    return out.reshape(tuple(a.shape[1:]))
+
+
+def _limb_column(limbs, ndim: int, device, dtype=I32) -> torch.Tensor:
+    return torch.tensor(limbs, dtype=dtype, device=device).reshape(
+        (len(limbs),) + (1,) * ndim)
+
+
+def const(spec: FieldSpec, x: int, batch_shape=(), device=None) -> torch.Tensor:
+    """Broadcast a host constant (standard domain) to a limb tensor."""
+    col = _limb_column(spec.to_limbs(x), len(batch_shape), device)
+    return col.expand((spec.L,) + tuple(batch_shape))
+
+
+def zeros(spec: FieldSpec, batch_shape=(), device=None) -> torch.Tensor:
+    return torch.zeros((spec.L,) + tuple(batch_shape), dtype=I32, device=device)
+
+
+def one_mont(spec: FieldSpec, batch_shape=(), device=None) -> torch.Tensor:
+    col = _limb_column(spec.one_limbs, len(batch_shape), device)
+    return col.expand((spec.L,) + tuple(batch_shape))
+
+
+def _broadcast_pair(L: int, a: torch.Tensor, b: torch.Tensor):
+    """Right-aligned batch broadcast of two (L, *batch) limb tensors."""
+    bshape = torch.broadcast_shapes(tuple(a.shape[1:]), tuple(b.shape[1:]))
+
+    def bc(x):
+        bx = tuple(x.shape[1:])
+        x = x.reshape((L,) + (1,) * (len(bshape) - len(bx)) + bx)
+        return x.expand((L,) + tuple(bshape))
+
+    return bc(a), bc(b)
+
+
+# ---------------------------------------------------------------------------
+# int64 carry machinery (plain versions)
+# ---------------------------------------------------------------------------
+
+def _limb_shifts(t: torch.Tensor) -> torch.Tensor:
+    return torch.arange(t.shape[0], device=t.device).reshape(
+        (t.shape[0],) + (1,) * (t.dim() - 1))
+
+
+def _resolve(s: torch.Tensor):
+    """Carry-resolve limbs s_0 < 2^17, s_i <= 2^17 - 2 (i > 0): returns
+    (limbs < 2^16, carry-out).
+
+    Carries are then 0 or 1, so the carry into every limb comes from one
+    binary addition over per-element bit masks (bit i of G: limb i generates
+    a carry; bit i of X: it generates or propagates one) instead of a limb
+    by limb loop."""
+    sh = _limb_shifts(s)
+    g = s >> W
+    r = s & MASK
+    G = (g << sh).sum(0)
+    X = G | ((r == MASK).long() << sh).sum(0)
+    C = (X + G) ^ X ^ G  # bit i: carry into limb i
+    return (r + ((C.unsqueeze(0) >> sh) & 1)) & MASK, C >> s.shape[0]
+
+
+def _carry(t: torch.Tensor):
+    """Propagate carries of lazy nonnegative limbs below 2^40; returns
+    (limbs, carry-out).  Three folding passes bring every limb below 2^17."""
+    top = torch.zeros_like(t[0])
+    for _ in range(3):
+        hi = t >> W
+        t = t & MASK
+        t[1:] += hi[:-1]
+        top = top + hi[-1]
+    out, c = _resolve(t)
+    return out, top + c
+
+
+def _complement(b: torch.Tensor) -> torch.Tensor:
+    """2^(16L) - b as limbs, unresolved: (MASK - b_i), plus 1 in limb 0."""
+    nb = MASK - b
+    nb[0] += 1
+    return nb
+
+
+def _cond_sub_p(spec: FieldSpec, a: torch.Tensor, top=None) -> torch.Tensor:
+    """a - p where a >= p or top > 0, else a (canonical limbs, a < 2p)."""
+    p = _limb_column(spec.p_limbs, a.dim() - 1, a.device, I64)
+    d, no_borrow = _resolve(a + _complement(p))
+    need = no_borrow > 0
+    if top is not None:
+        need = need | (top > 0)
+    return torch.where(need, d, a)
+
+
+def _add64(spec: FieldSpec, a, b):
+    t, c = _resolve(a + b)
+    return _cond_sub_p(spec, t, top=c)
+
+
+def _sub64(spec: FieldSpec, a, b):
+    d, no_borrow = _resolve(a + _complement(b))
+    p = _limb_column(spec.p_limbs, a.dim() - 1, a.device, I64)
+    plus, _ = _resolve(d + p)
+    return torch.where(no_borrow > 0, d, plus)
+
+
+def _mont_mul64(spec: FieldSpec, a, b):
+    """Column-lazy Montgomery product on int64 limbs (same shapes)."""
+    L = spec.L
+    t = torch.zeros((2 * L,) + tuple(a.shape[1:]), dtype=I64, device=a.device)
+    for i in range(L):  # columns < L * 2^32 + carries: far below 2^63
+        t[i:i + L] += a[i] * b
+    p = _limb_column(spec.p_limbs, a.dim() - 1, a.device, I64)
+    for i in range(L):
+        m = ((t[i] & MASK) * spec.n0) & MASK
+        t[i:i + L] += m * p
+        # column i is now 0 mod 2^16; fold its carry upward
+        t[i + 1] += t[i] >> W
+    res, c = _carry(t[L:])
+    return _cond_sub_p(spec, res, top=c)
+
+
+# ---------------------------------------------------------------------------
+# Ring ops
+# ---------------------------------------------------------------------------
+
+def add(spec: FieldSpec, a, b):
+    a, b = _broadcast_pair(spec.L, a, b)
+    return _add64(spec, a.long(), b.long()).int()
+
+
+def sub(spec: FieldSpec, a, b):
+    a, b = _broadcast_pair(spec.L, a, b)
+    return _sub64(spec, a.long(), b.long()).int()
+
+
+def neg(spec: FieldSpec, a):
+    return sub(spec, torch.zeros_like(a), a)
+
+
+def is_zero(spec: FieldSpec, a):
+    return (a == 0).all(dim=0)
+
+
+def select(mask, a, b):
+    """where(mask, a, b) with mask over the batch dims."""
+    return torch.where(mask.unsqueeze(0), a, b)
+
+
+# ---------------------------------------------------------------------------
+# Montgomery multiplication: kernel K1 and its plain version
+# ---------------------------------------------------------------------------
+
+def mont_mul_ref(spec: FieldSpec, a, b):
+    """Plain version of K1: a * b * R^-1 mod p, computed in int64."""
+    a, b = _broadcast_pair(spec.L, a, b)
+    return _mont_mul64(spec, a.long(), b.long()).int()
+
+
+def mont_mul_cuda(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor):
+    """Launch K1 (csrc/mont_mul.cu) on same-shape contiguous CUDA tensors."""
+    _ext.require(a, "a", I32)
+    _ext.require(b, "b", I32, a.shape)
+    if a.shape[0] != spec.L:
+        raise ValueError(f"limb axis {a.shape[0]}, expected {spec.L}")
+    out = torch.empty_like(a)
+    n = a.numel() // spec.L
+    if n:
+        _ext.launch("mont_mul", a.device, _ext.ptr(a), _ext.ptr(b),
+                    _ext.ptr(out), n, _ext.consts_ptr(spec))
+    return out
+
+
+def mont_mul(spec: FieldSpec, a, b):
+    """(a * b * R^-1) mod p for canonical Montgomery-domain inputs < p."""
+    if not _ext.use_kernel(a, b):
+        return mont_mul_ref(spec, a, b)
+    a, b = _broadcast_pair(spec.L, a, b)
+    return mont_mul_cuda(spec, a.contiguous(), b.contiguous())
+
+
+def mont_sqr(spec: FieldSpec, a):
+    return mont_mul(spec, a, a)
+
+
+def to_mont(spec: FieldSpec, a):
+    r2 = _limb_column(spec.r2_limbs, a.dim() - 1, a.device)
+    return mont_mul(spec, a, r2)
+
+
+def from_mont(spec: FieldSpec, a):
+    one = _limb_column((1,) + (0,) * (spec.L - 1), a.dim() - 1, a.device)
+    return mont_mul(spec, a, one)
+
+
+# ---------------------------------------------------------------------------
+# Exponentiation / inversion (Montgomery domain)
+# ---------------------------------------------------------------------------
+
+def pow_const(spec: FieldSpec, a, e: int):
+    """a^e for a host exponent e >= 0 (Montgomery in and out).
+
+    LSB-first square-and-multiply; e is known on the host, so zero bits skip
+    their multiply instead of selecting it away."""
+    acc = one_mont(spec, tuple(a.shape[1:]), a.device)
+    base = a
+    for i in range(e.bit_length()):
+        if (e >> i) & 1:
+            acc = mont_mul(spec, acc, base)
+        if i + 1 < e.bit_length():
+            base = mont_sqr(spec, base)
+    return acc.contiguous()
+
+
+def inv(spec: FieldSpec, a):
+    """Fermat inverse a^(p-2); inv(0) = 0."""
+    return pow_const(spec, a, spec.p - 2)
+
+
+def _prefix_mul(spec: FieldSpec, x, dim: int):
+    """Inclusive prefix product along a batch dim (Hillis-Steele, log2 n
+    full-width products)."""
+    n = x.shape[dim]
+    d = 1
+    while d < n:
+        ones = one_mont(spec, tuple(x.shape[1:]), x.device).narrow(dim, 0, d)
+        shifted = torch.cat([ones, x.narrow(dim, 0, n - d)], dim=dim)
+        x = mont_mul(spec, x, shifted)
+        d *= 2
+    return x
+
+
+def batch_inv(spec: FieldSpec, a, axis: int = -1):
+    """Montgomery-trick batch inversion along a batch axis (limb axis is 0):
+    inv(a[i]) = prefix[i-1] * suffix[i+1] * inv(total).  Zeros map to zero."""
+    dim = axis if axis >= 0 else a.dim() + axis
+    if dim < 1:
+        raise ValueError("axis must be a batch axis (the limb axis is 0)")
+    n = a.shape[dim]
+    bshape = tuple(a.shape[1:])
+    zmask = is_zero(spec, a)
+    one_full = one_mont(spec, bshape, a.device)
+    safe = select(zmask, one_full, a)
+    prefix = _prefix_mul(spec, safe, dim)
+    suffix = _prefix_mul(spec, safe.flip(dim), dim).flip(dim)
+    total_inv = inv(spec, prefix.narrow(dim, n - 1, 1))
+    one1 = one_full.narrow(dim, 0, 1)
+    left = torch.cat([one1, prefix.narrow(dim, 0, n - 1)], dim=dim)
+    right = torch.cat([suffix.narrow(dim, 1, n - 1), one1], dim=dim)
+    out = mont_mul(spec, mont_mul(spec, left, right), total_inv)
+    return select(zmask, zeros(spec, bshape, a.device), out)
