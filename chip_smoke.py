@@ -5,15 +5,31 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, one output line each (or more), in order:
   1. device    the card (nvidia-smi name and power limit), torch, nvcc;
-  2. build     the four CUDA kernels from myzkp_tpu_torch/csrc/ with nvcc;
+  2. build     the CUDA kernels from myzkp_tpu_torch/csrc/ with nvcc, one
+               process per source, all started together;
   3. bitcheck  each kernel against its plain PyTorch version on the card,
-               exact equality of limbs (the tolerance is 0: modular integers);
-  4. slice     the main path: fixed-base setup of 2^20 points [m_i]G, then the
+               exact equality of limbs (the tolerance is 0: modular integers):
+               K1-K4 over F_q and the G1 group law, then K1 over F_r, K5 on
+               2^20 pairs and at every stage shape of the m = 2^12 path, K6
+               at every leaf shape of the 2^20 paths and at m = 16, 64, 128
+               with a ragged batch; segment_sum_mod on the card against the
+               CPU and host ints, 2^20 entries with heavy duplicates;
+  4. msm       the G1 slice: fixed-base setup of 2^20 points [m_i]G, then the
                2^20 Pippenger MSM against 2^20 scalars k_i, checked against
                the host's [sum k_i m_i mod r]G; kernel launch counts of that
                run; the MSM timed; msm_pippenger at n = 2^16 with c = 14,
-               checked the same way; each kernel timed beside its plain
-               version at the slice's shapes.
+               checked the same way; K1-K4 timed beside their plain versions;
+  5. ntt       a forward NTT of 2^20 seeded F_r elements checked at 3 points
+               against host evaluation, intt(ntt(a)) == a, its launches, and
+               its time;
+  6. shifted h the prover's quotient stage get_shifted_h on square_chain(m)
+               at m = 2^20 (four-step transforms over K6) and m = 2^12
+               (Stockham stages over K5), each checked on the host: ell(w^j)
+               equals the constraint evaluation u_j, and the Pinocchio
+               identity (ell + d_ell t)(r + d_r t) - (o + d_o t) = H t holds at
+               a random point; launch counts of each run; the calls timed;
+               K5 and K6 timed beside their plain versions.
+Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.  Any failure exits nonzero before it.
 Neither this script nor the port imports JAX.
@@ -34,6 +50,18 @@ import torch
 SEED = 42
 LOG_N = 20
 LOG_N_C14 = 16
+LOG_M_BIG, LOG_M_SMALL = 20, 12  # shifted h: four-step (K6) and Stockham (K5)
+
+# The card's peaks for a kernel's bound (NVIDIA H100 SXM at 700 W): device
+# memory 3.35 TB/s; 32-bit integer multiply-adds at 64 per SM per clock
+# (half the 128 float32 lanes behind the 67 TFLOP/s float32 peak), 132 SMs,
+# 1.98 GHz.  A 256-bit Montgomery product (CIOS over eight 32-bit words) is
+# 264 of them: 64 wide products a*b and 64 m*p at two each, plus 8 for m.
+HBM_BYTES_PER_S = 3.35e12
+IMAD_PER_S = 132 * 64 * 1.98e9
+IMAD_PER_MONT = 264
+LIMB_BYTES = 64  # one element at the tensor interface: 16 int32 limbs
+MSM_KERNELS = ("mont_mul", "padd", "pdbl", "bucket_scan_rows")
 
 
 def log(msg: str) -> None:
@@ -52,6 +80,15 @@ def cuda_time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, mont_products: float) -> dict:
+    """The least time the card could take: bytes at the memory rate against
+    Montgomery products at the integer multiply rate, whichever is longer."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = mont_products * IMAD_PER_MONT / IMAD_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def phase_device() -> None:
@@ -222,7 +259,7 @@ def phase_slice(dev, results: dict, a, b) -> None:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     got = to_host_single(res)
-    counts = dict(_ext.launches)
+    counts = {k: _ext.launches[k] for k in MSM_KERNELS}
     if got != exp:
         raise AssertionError("MSM 2^20: result differs from the host golden")
     if min(counts.values()) < 1:
@@ -236,18 +273,11 @@ def phase_slice(dev, results: dict, a, b) -> None:
         results[k]["launches"] = v
 
     # MSM timing: median of 5 reps after the warm-up above
-    ts = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        msm.msm(F, b3, pts, k_limbs)
-        torch.cuda.synchronize()
-        ts.append(time.perf_counter() - t0)
-    med = statistics.median(ts)
-    results["_msm"] = {"ms": med * 1e3, "reps_ms": [t * 1e3 for t in ts],
-                       "points_per_s": n / med, "fixed_base_s": fb_s}
-    log(f"# slice msm 2^{LOG_N}: median {med * 1e3:.2f} ms of "
-        f"{[round(t * 1e3, 2) for t in ts]} -> {n / med:,.0f} points/s")
+    med, ts = median_ms(lambda: msm.msm(F, b3, pts, k_limbs))
+    results["_msm"] = {"ms": med, "reps_ms": ts, "points_per_s": n / med * 1e3,
+                       "fixed_base_s": fb_s}
+    log(f"# slice msm 2^{LOG_N}: median {med:.2f} ms of "
+        f"{[round(t, 2) for t in ts]} -> {n / med * 1e3:,.0f} points/s")
 
     # msm_pippenger at 2^16 with c = 14 (the step-0 flush fault's shape)
     n2 = 1 << LOG_N_C14
@@ -273,30 +303,297 @@ def phase_slice(dev, results: dict, a, b) -> None:
     # a segment head every 32 steps: heads are a few percent of the digits
     tag = (torch.arange(K * lanes, device=dev, dtype=torch.int32) % 32 == 0).int() << 1
     tm = a[:, :W * slots].contiguous(), b[:, :W * slots].contiguous()
+    n_mm = W * slots
+    heads = int(((tag & 2) > 0).sum())
     cases = {
-        "mont_mul": (f"(16, {W * slots}) table to_mont",
+        "mont_mul": (f"(16, {n_mm}) table to_mont",
                      lambda: limb.mont_mul(spec, *tm),
-                     lambda: limb.mont_mul_ref(spec, *tm), 100, 3),
+                     lambda: limb.mont_mul_ref(spec, *tm), 100, 3,
+                     bound(3 * LIMB_BYTES * n_mm, n_mm)),
         "padd": (f"{tree_w} points, first fixed-base tree level",
                  lambda: ck.padd(spec, b3, x, y),
-                 lambda: ck.padd_ref(spec, b3, x, y), 5, 1),
+                 lambda: ck.padd_ref(spec, b3, x, y), 5, 1,
+                 bound(9 * LIMB_BYTES * tree_w + LIMB_BYTES, 14 * tree_w)),
         "pdbl": (f"{nwin} points, one per MSM window (bucket sum)",
                  lambda: ck.pdbl(spec, b3, wins),
-                 lambda: ck.pdbl_ref(spec, b3, wins), 100, 3),
+                 lambda: ck.pdbl_ref(spec, b3, wins), 100, 3,
+                 bound(6 * LIMB_BYTES * nwin + LIMB_BYTES, 9 * nwin)),
+        # rows and flush are 256-byte rows; an add for every step but a head
         "bucket_scan_rows": (f"K = {K}, N = {lanes} lanes",
                              lambda: ck.bucket_scan_rows(spec, rows, tag, b3, K),
                              lambda: ck.bucket_scan_rows_ref(spec, rows, tag, b3, K),
-                             5, 1),
+                             5, 1,
+                             bound(K * lanes * (2 * 256 + 4) + lanes * 3 * LIMB_BYTES
+                                   + LIMB_BYTES, 14 * (K * lanes - heads))),
     }
+    time_cases(cases, results)
+
+
+def time_cases(cases: dict, results: dict) -> None:
+    """Each kernel against its plain version (exact), then both timed with
+    CUDA events; the bound and the library time go beside them."""
     as_list = lambda r: [r] if torch.is_tensor(r) else list(r)
-    for name, (shape, kern, plain, reps, preps) in cases.items():
+    for name, (shape, kern, plain, reps, preps, bnd) in cases.items():
         err = check_equal(f"{name} [{shape}]", as_list(kern()), as_list(plain()))
         res = results[name]
         res["max_abs_err"] = max(res["max_abs_err"], err)
         ms_k, ms_p = cuda_time_ms(kern, reps), cuda_time_ms(plain, preps)
-        res.update(ms=ms_k, plain_ms=ms_p)
+        # no PyTorch call computes a 256-bit Montgomery product
+        res.update(ms=ms_k, plain_ms=ms_p, library_ms=None, **bnd)
         log(f"# time {name} [{shape}]: exact vs plain; kernel {ms_k:.4f} ms, "
-            f"plain {ms_p:.4f} ms")
+            f"plain {ms_p:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']})")
+
+
+def phase_bitcheck_fr(dev, results: dict) -> None:
+    from myzkp_tpu_torch.fields import limb, ntt_kernels as nk
+    from myzkp_tpu_torch.fields.spec import bn254_r_spec
+    from myzkp_tpu_torch.ops import ntt
+
+    rng = np.random.default_rng(SEED + 1)
+    spec = bn254_r_spec()
+    p = spec.p
+    edges = [0, 1, p - 1, (1 << 256) % p]
+    ea = limb.from_int(spec, [x for x in edges for _ in edges], dev)
+    eb = limb.from_int(spec, [y for _ in edges for y in edges], dev)
+
+    # K1 over F_r at 2^20 elements; the first 16 are the crossed edges
+    n = 1 << LOG_N
+    a, b = random_fe(rng, n, dev), random_fe(rng, n, dev)
+    a[:, :16], b[:, :16] = ea, eb
+    got = limb.mont_mul(spec, a, b)
+    err = check_equal("mont_mul (F_r)", [got], [limb.mont_mul_ref(spec, a, b)])
+    ai, bi, gi = (limb.to_int(spec, t[:, :64]) for t in (a, b, got))
+    rinv = pow(1 << 256, -1, p)
+    if any(int(g) != int(x) * int(y) * rinv % p for g, x, y in zip(gi, ai, bi)):
+        raise AssertionError("mont_mul (F_r): disagrees with the host on 64 elements")
+    results["mont_mul"]["max_abs_err"] = max(results["mont_mul"]["max_abs_err"], err)
+    log(f"# bitcheck mont_mul over F_r: 2^{LOG_N} elements + 16 edge pairs: exact")
+
+    # K5: 2^20 pairs as a (16, R = 2, Bk = 4, 2h = 512, B = 512) stage input;
+    # u and v of the first 16 pairs are the crossed edges
+    x = random_fe(rng, 2 * n, dev).reshape(16, 2, 4, 512, n >> 11)
+    x[:, 0, 0, 0, :16], x[:, 0, 0, 256, :16] = ea, eb
+    tw = random_fe(rng, 256, dev)
+    err = check_equal("butterfly", [nk.butterfly(spec, x, tw)],
+                      [nk.butterfly_ref(spec, x, tw)])
+
+    # K5 at every stage of the m = 2^12 path's transforms: the batched INTT
+    # (R = 3, 2^12 points), the batched coset NTT (R = 3, 2^13) and the coset
+    # INTT (R = 1, 2^13); each stage's input is the kernel's previous output
+    for R, c, inv in STOCKHAM_TRANSFORMS:
+        y = random_fe(rng, R * c, dev).reshape(16, R, 1, c, 1)
+        for s in range(c.bit_length() - 1):
+            tw = ntt._stage_twiddle_dev(spec, c, s, inv, dev)
+            got = nk.butterfly(spec, y, tw)
+            err = max(err, check_equal(f"butterfly {tuple(y.shape)}", [got],
+                                       [nk.butterfly_ref(spec, y, tw)]))
+            y = got
+    results["butterfly"] = {"max_abs_err": err}
+    log(f"# bitcheck butterfly: 2^{LOG_N} pairs (R = 2, Bk = 4, h = 256, "
+        f"B = {n >> 11}) + 16 edge pairs, and every stage of "
+        f"{len(STOCKHAM_TRANSFORMS)} transforms (R, n, inverse) "
+        f"{STOCKHAM_TRANSFORMS}: exact")
+
+    # K6 at every leaf shape of the main paths, then E = 2 with a ragged B
+    err = 0
+    for E, m, B, inv in sorted(set(leaf_shapes())):
+        xl = random_fe(rng, E * m * B, dev).reshape(16, E, m, B)
+        twl = ntt._leaf_twiddles(spec, m, inv, dev)
+        err = max(err, check_equal(f"ntt_leaf ({E}, {m}, {B}) inverse = {inv}",
+                                   [nk.ntt_leaf(spec, xl, twl)],
+                                   [nk.ntt_leaf_ref(spec, xl, twl)]))
+    for m in (16, 64, 128):
+        xl = random_fe(rng, 2 * m * 3000, dev).reshape(16, 2, m, 3000)
+        for inv in (False, True):
+            twl = ntt._leaf_twiddles(spec, m, inv, dev)
+            err = max(err, check_equal(f"ntt_leaf m = {m} inverse = {inv}",
+                                       [nk.ntt_leaf(spec, xl, twl)],
+                                       [nk.ntt_leaf_ref(spec, xl, twl)]))
+    results["ntt_leaf"] = {"max_abs_err": err}
+    log(f"# bitcheck ntt_leaf: the paths' leaves (E, m, B, inverse) "
+        f"{sorted(set(leaf_shapes()))}; m = 16, 64, 128, E = 2, B = 3000, "
+        f"forward and inverse: exact")
+
+    # segment_sum_mod at 2^20 entries on the card against the same call on
+    # the host's CPU and against Python ints: 2^12 segments, the odd ones
+    # empty but segment 1, which takes 2^14 entries of r - 1
+    nnz, nseg, heavy = n, 1 << 12, 1 << 14
+    vals = random_fe(rng, nnz, dev)
+    vals[:, :heavy] = limb.from_int(spec, [p - 1], dev)
+    segs = 2 * torch.from_numpy(rng.integers(0, nseg // 2, nnz)).to(dev)
+    segs[:heavy] = 1
+    got = limb.segment_sum_mod(spec, vals, segs, nseg)
+    cpu = limb.segment_sum_mod(spec, vals.cpu(), segs.cpu(), nseg)
+    if not torch.equal(got.cpu(), cpu):
+        raise AssertionError("segment_sum_mod: the card and the CPU disagree")
+    want = [0] * nseg
+    for v, s in zip(limb.to_int(spec, vals), segs.tolist()):
+        want[s] += int(v)
+    if [int(x) for x in limb.to_int(spec, got)] != [w % p for w in want]:
+        raise AssertionError("segment_sum_mod: disagrees with the host's sums")
+    log(f"# bitcheck segment_sum_mod: {nnz} entries into {nseg} segments "
+        f"({nseg // 2 - 1} empty, {heavy} x (r - 1) in one): card == CPU == host")
+
+
+# The transforms of the paths, as the port runs them (ops/ntt.py): Stockham
+# (R, n, inverse) of shifted h at m = 2^12, and the K6 leaves (E, m, B,
+# inverse) of the four-step recursion of shifted h at m = 2^20 and the NTT.
+STOCKHAM_TRANSFORMS = ((3, 1 << LOG_M_SMALL, True), (3, 2 << LOG_M_SMALL, False),
+                       (1, 2 << LOG_M_SMALL, True))
+
+
+def leaf_shapes() -> list:
+    from myzkp_tpu_torch.ops import ntt
+
+    out = []
+    for E, n, inv in ((3, 1 << LOG_M_BIG, True), (3, 2 << LOG_M_BIG, False),
+                      (1, 2 << LOG_M_BIG, True), (1, 1 << LOG_N, False)):
+        B, last = 1, n
+        for _, m1, m2 in ntt._fourstep_splits(n):
+            out.append((E, m1, m2 * B, inv))
+            B, last = B * m1, m2
+        out.append((E, last, B, inv))
+    return out
+
+
+def horner(coeffs, x: int, p: int) -> int:
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * x + c) % p
+    return acc
+
+
+def median_ms(fn, reps: int = 5) -> tuple:
+    """Median and all reps (ms) of fn on the host clock, each ended by a
+    synchronize; the caller has run fn once already."""
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts), ts
+
+
+def counted(fn):
+    """fn() run once with every launch count set to 0 first; returns its
+    result and the counts that moved."""
+    from myzkp_tpu_torch import _ext
+
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in _ext.launches.items() if v}
+
+
+def phase_ntt(dev, results: dict) -> None:
+    from myzkp_tpu_torch.fields.fp import Fp
+    from myzkp_tpu_torch.fields.spec import bn254_r_spec
+    from myzkp_tpu_torch.ops import ntt
+
+    spec = bn254_r_spec()
+    p, n = spec.p, 1 << LOG_N
+    rng = random.Random(SEED + 2)
+    coeffs = [rng.randrange(p) for _ in range(n)]
+    a = Fp.from_int(spec, coeffs, dev)
+    ev, counts = counted(lambda: ntt.ntt(a))
+    if counts.get("ntt_leaf", 0) < 1:
+        raise AssertionError(f"NTT 2^{LOG_N}: K6 never launched: {counts}")
+    w = ntt.nth_root_of_unity(p, n)
+    ks = rng.sample(range(n), 3)
+    got = Fp(spec, ev.mont[:, ks]).to_int()
+    if [int(g) for g in got] != [horner(coeffs, pow(w, k, p), p) for k in ks]:
+        raise AssertionError(f"NTT 2^{LOG_N}: a(w^k) differs from the host")
+    if not torch.equal(ntt.intt(ev).mont, a.mont):
+        raise AssertionError(f"NTT 2^{LOG_N}: intt(ntt(a)) != a")
+    med, ts = median_ms(lambda: ntt.ntt(a))
+    results["_ntt"] = {"ms": med, "reps_ms": ts, "launches": counts}
+    log(f"# ntt 2^{LOG_N}: a(w^k) == host at k = {ks}; intt(ntt(a)) == a; "
+        f"launches {json.dumps(counts)}; median {med:.3f} ms of "
+        f"{[round(t, 3) for t in ts]}")
+
+
+def phase_shifted_h(dev, log_m: int) -> dict:
+    from myzkp_tpu_torch.arith import sparse
+    from myzkp_tpu_torch.fields.fp import Fp
+    from myzkp_tpu_torch.fields.spec import bn254_r_spec
+    from myzkp_tpu_torch.ops import ntt
+    from myzkp_tpu_torch.snark import pinocchio
+
+    spec = bn254_r_spec()
+    p, m = spec.p, 1 << log_m
+    rng = random.Random(SEED + log_m)
+    t0 = time.perf_counter()
+    r1cs, asg = sparse.square_chain(spec, m, x0=rng.randrange(2, p), device=dev)
+    qap = sparse.SparseQAP(r1cs)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    deltas = [rng.randrange(p) for _ in range(3)]
+    t0 = time.perf_counter()
+    H, counts = counted(lambda: pinocchio.get_shifted_h(qap, asg, *deltas))
+    first_s = time.perf_counter() - t0
+
+    ell, r, o = (x.coef.to_int().tolist() for x in qap.combine(asg))
+    hc = H.coef.to_int().tolist()
+    if len(hc) != m + 1:
+        raise AssertionError(f"shifted h 2^{log_m}: {len(hc)} coefficients")
+    u = r1cs.left.matvec(asg)
+    w = ntt.nth_root_of_unity(p, m)
+    js = rng.sample(range(m), 2)
+    uj = [int(v) for v in Fp(spec, u.mont[:, js]).to_int()]
+    if uj != [horner(ell, pow(w, j, p), p) for j in js]:
+        raise AssertionError(f"shifted h 2^{log_m}: ell(w^j) != u_j")
+    s = rng.randrange(p)
+    t = (pow(s, m, p) - 1) % p
+    d_ell, d_r, d_o = deltas
+    lhs = ((horner(ell, s, p) + d_ell * t) * (horner(r, s, p) + d_r * t)
+           - (horner(o, s, p) + d_o * t))
+    if (lhs - horner(hc, s, p) * t) % p:
+        raise AssertionError(f"shifted h 2^{log_m}: the Pinocchio identity fails")
+    med, ts = median_ms(lambda: pinocchio.get_shifted_h(qap, asg, *deltas))
+    log(f"# shifted h m = 2^{log_m}: ell(w^j) == u_j at j = {js}; "
+        f"(ell + d_ell t)(r + d_r t) - (o + d_o t) == H t at a random s; "
+        f"circuit built in {build_s:.3f} s; first call {first_s:.3f} s")
+    log(f"# shifted h m = 2^{log_m} launches: {json.dumps(counts)}")
+    log(f"# shifted h m = 2^{log_m}: median {med:.3f} ms of "
+        f"{[round(t_, 3) for t_ in ts]}")
+    return {"ms": med, "reps_ms": ts, "first_s": first_s, "launches": counts}
+
+
+def time_ntt_kernels(dev, results: dict) -> None:
+    from myzkp_tpu_torch.fields import ntt_kernels as nk
+    from myzkp_tpu_torch.fields.spec import bn254_r_spec
+    from myzkp_tpu_torch.ops import ntt
+
+    spec = bn254_r_spec()
+    rng = np.random.default_rng(SEED + 3)
+    # K6 at the leaf shape of the batched 2^21 coset NTT (three of the nine
+    # launches of shifted h at 2^20); K5 at stage 0 of the batched 2^13 coset
+    # NTT of shifted h at 2^12
+    E, m, B = 3, 128, 1 << 14
+    xl = random_fe(rng, E * m * B, dev).reshape(16, E, m, B)
+    twl = ntt._leaf_twiddles(spec, m, False, dev)
+    R, c = 3, 2 << LOG_M_SMALL
+    xb = random_fe(rng, R * c, dev).reshape(16, R, 1, c, 1)
+    twb = ntt._stage_twiddle_dev(spec, c, 0, False, dev)
+    pairs = R * c // 2
+    cases = {
+        "ntt_leaf": (f"E = {E}, m = {m}, B = {B}: a leaf level of the batched "
+                     f"2^{LOG_M_BIG + 1}-point coset NTT",
+                     lambda: nk.ntt_leaf(spec, xl, twl),
+                     lambda: nk.ntt_leaf_ref(spec, xl, twl), 20, 1,
+                     bound(2 * LIMB_BYTES * E * m * B + (m - 1) * LIMB_BYTES,
+                           E * B * (m // 2) * (m.bit_length() - 1))),
+        "butterfly": (f"(16, {R}, 1, {c}, 1): stage 0 of the batched "
+                      f"2^{LOG_M_SMALL + 1}-point coset NTT",
+                      lambda: nk.butterfly(spec, xb, twb),
+                      lambda: nk.butterfly_ref(spec, xb, twb), 100, 3,
+                      bound(4 * LIMB_BYTES * pairs + LIMB_BYTES * (c // 2), pairs)),
+    }
+    time_cases(cases, results)
 
 
 SOURCES = {
@@ -308,6 +605,10 @@ SOURCES = {
              "myzkp_tpu/curves/curve_pallas.py:340"),
     "bucket_scan_rows": ("myzkp_tpu_torch/csrc/bucket_scan.cu",
                          "myzkp_tpu/curves/curve_pallas.py:425"),
+    "butterfly": ("myzkp_tpu_torch/csrc/ntt.cu",
+                  "myzkp_tpu/fields/limb_pallas.py:76"),
+    "ntt_leaf": ("myzkp_tpu_torch/csrc/ntt.cu",
+                 "myzkp_tpu/fields/limb_pallas.py:242"),
 }
 
 
@@ -318,13 +619,27 @@ def main() -> int:
     phase_build()
     results = {k: {} for k in SOURCES}
     a, b = phase_bitcheck(dev, results)
+    phase_bitcheck_fr(dev, results)
     phase_slice(dev, results, a, b)
+    phase_ntt(dev, results)
+    big = phase_shifted_h(dev, LOG_M_BIG)
+    small = phase_shifted_h(dev, LOG_M_SMALL)
+    for run, need in ((big, ("mont_mul", "ntt_leaf")), (small, ("mont_mul", "butterfly"))):
+        if min(run["launches"].get(k, 0) for k in need) < 1:
+            raise AssertionError(f"shifted h: a kernel of {need} never launched: "
+                                 f"{run['launches']}")
+    results["ntt_leaf"]["launches"] = big["launches"]["ntt_leaf"]
+    results["butterfly"]["launches"] = small["launches"]["butterfly"]
+    results["_shifted_h"] = {f"2^{LOG_M_BIG}": big, f"2^{LOG_M_SMALL}": small}
+    time_ntt_kernels(dev, results)
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k][0],
-                "replaces": SOURCES[k][1], "launches": results[k]["launches"],
-                "max_abs_err": results[k]["max_abs_err"], "ms": results[k]["ms"],
-                "plain_ms": results[k]["plain_ms"]}
+                "replaces": SOURCES[k][1], **{key: results[k][key] for key in keys}}
                for k in SOURCES]
     log(f"# msm {json.dumps(results['_msm'])}")
+    log(f"# ntt {json.dumps(results['_ntt'])}")
+    log(f"# shifted_h {json.dumps(results['_shifted_h'])}")
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

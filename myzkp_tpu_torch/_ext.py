@@ -1,13 +1,17 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-The sources in ``csrc/`` are compiled with nvcc for ``sm_90a`` into one shared
-library with a plain C interface under ``_build/`` (ignored by git) at first
-use, and loaded with ctypes.  The library's file name carries a digest of the
-sources and flags, so an edited source is never served from a stale build.
+The sources in ``csrc/`` are compiled with nvcc for ``sm_90a`` (one nvcc per
+source, in parallel) and linked into one shared library with a plain C
+interface under ``_build/`` (ignored by git) at first use, and loaded with
+ctypes.  The library's file name carries a digest of the sources and flags,
+so an edited source is never served from a stale build.
 
 Dispatch is one rule, keyed on the tensors' device: a CUDA tensor goes to the
 kernel and a CPU tensor goes to the kernel's plain PyTorch version.  There is
 no process-wide backend query and no fallback: a launch that fails raises.
+Constructors that take a ``device`` make their tensors on the card unless the
+caller names another device (``resolve_device``); without CUDA such a call
+raises rather than quietly running on the CPU.
 """
 
 from __future__ import annotations
@@ -28,9 +32,10 @@ from .fields.spec import FieldSpec
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("mont_mul", "padd", "pdbl", "bucket_scan_rows")
+KERNELS = ("mont_mul", "padd", "pdbl", "bucket_scan_rows", "butterfly",
+           "ntt_leaf")
 
 # Launches of each kernel since the last reset_launches().  A wrapper adds one
 # where it launches its kernel (launch() below) and nowhere else.
@@ -43,9 +48,21 @@ _SIGNATURES = {
     "padd": (_P,) * 11 + (_I64, _P, _P),
     "pdbl": (_P,) * 7 + (_I64, _P, _P),
     "bucket_scan_rows": (_P,) * 5 + (_I64, ctypes.c_int, _P, _P),
+    "butterfly": (_P,) * 3 + (_I64,) * 4 + (_P, _P),
+    "ntt_leaf": (_P,) * 3 + (_I64, ctypes.c_int, _I64, _P, _P),
 }
 
 _lib = None
+
+
+def default_device() -> torch.device:
+    """The device of a constructor called without one: the card."""
+    return torch.device("cuda")
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` if the caller named one, else ``default_device()``."""
+    return default_device() if device is None else torch.device(device)
 
 
 def reset_launches() -> None:
@@ -98,22 +115,44 @@ def _nvcc() -> str:
 
 
 def build() -> float:
-    """Compile csrc/*.cu into the shared library; returns the seconds taken.
+    """Compile the shared library; returns the seconds taken.
 
-    The compiler's output (register and spill counts from -Xptxas -v) is kept
-    beside the library as ``<library>.log``."""
+    One nvcc per csrc/*.cu source, all started together, each to an object
+    file; then one link.  The compilers' output (register and spill counts
+    from -Xptxas -v) is kept beside the library as ``<library>.log``."""
     out = library_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    sources = sorted(str(p) for p in CSRC.glob("*.cu"))
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [tmp.with_suffix(f".{src.stem}.o") for src in sources]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(sources, objs)]
+    try:
+        logs = [f"== {src.name}\n{proc.communicate()[0]}"
+                for src, proc in zip(sources, procs)]
+        failed = [src.name for src, proc in zip(sources, procs) if proc.returncode]
+        if not failed:
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            logs.append(f"== link\n{link.stdout}{link.stderr}")
+            if link.returncode:
+                failed.append("link")
+        seconds = time.perf_counter() - t0
+        out.with_suffix(".log").write_text("\n".join(logs))
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs)[-4000:])
+        os.replace(tmp, out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return seconds
 
 

@@ -11,6 +11,7 @@ import functools
 
 import torch
 
+from .. import _ext
 from ..fields import limb
 from ..fields.host import Fq, PyPoint, Q, R, curve_g1, g1_generator  # noqa: F401
 from ..fields.spec import FieldSpec
@@ -41,7 +42,9 @@ def g1_b3(batch_shape=(), device=None) -> torch.Tensor:
 
 
 def g1_points_to_device(points, device=None) -> wst.Point:
-    """Host PyPoints, (x, y) int pairs or None (infinity) -> point batch."""
+    """Host PyPoints, (x, y) int pairs or None (infinity) -> point batch, on
+    the card unless ``device`` names another device."""
+    device = _ext.resolve_device(device)
     F = g1_ops()
     spec = q_spec()
     xs, ys, infs = [], [], []

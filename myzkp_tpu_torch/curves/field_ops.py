@@ -1,8 +1,8 @@
 """Field-operation bundle for the curve formulas: ``FpOps`` over limb tensors.
 
 Counterpart of ``FpOps`` in ``myzkp_tpu/curves/field_ops.py``; elements are
-``(L, *batch)`` int32 limb tensors in Montgomery form.  Constructors take an
-explicit ``device``.
+``(L, *batch)`` int32 limb tensors in Montgomery form.  Constructors make
+their tensors on the card unless ``device`` names another device.
 """
 
 from __future__ import annotations

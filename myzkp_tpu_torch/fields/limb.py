@@ -12,6 +12,8 @@ in a column, so the Montgomery product needs no lo/hi split.
 ``mont_mul`` is kernel K1 (csrc/mont_mul.cu) for CUDA tensors and
 ``mont_mul_ref`` for CPU tensors (the rule of ``_ext.use_kernel``).  Add, sub
 and the rest were plain array code in the reference too and stay plain here.
+The constructors (``from_int``, ``const``, ``zeros``, ``one_mont``) make their
+tensors on the card unless the caller names a device (``_ext.resolve_device``).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ def from_int(spec: FieldSpec, x, device=None) -> torch.Tensor:
     buf = b"".join((int(v) % p).to_bytes(nb, "little") for v in flat.tolist())
     out = np.frombuffer(buf, dtype="<u2").reshape(flat.size, spec.L).T
     out = torch.from_numpy(out.astype(np.int32)).reshape((spec.L,) + xs.shape)
-    return out.to(device) if device is not None else out
+    return out.to(_ext.resolve_device(device))
 
 
 def to_int(spec: FieldSpec, a: torch.Tensor) -> np.ndarray:
@@ -54,8 +56,8 @@ def to_int(spec: FieldSpec, a: torch.Tensor) -> np.ndarray:
 
 
 def _limb_column(limbs, ndim: int, device, dtype=I32) -> torch.Tensor:
-    return torch.tensor(limbs, dtype=dtype, device=device).reshape(
-        (len(limbs),) + (1,) * ndim)
+    col = torch.tensor(limbs, dtype=dtype, device=_ext.resolve_device(device))
+    return col.reshape((len(limbs),) + (1,) * ndim)
 
 
 def const(spec: FieldSpec, x: int, batch_shape=(), device=None) -> torch.Tensor:
@@ -65,7 +67,8 @@ def const(spec: FieldSpec, x: int, batch_shape=(), device=None) -> torch.Tensor:
 
 
 def zeros(spec: FieldSpec, batch_shape=(), device=None) -> torch.Tensor:
-    return torch.zeros((spec.L,) + tuple(batch_shape), dtype=I32, device=device)
+    return torch.zeros((spec.L,) + tuple(batch_shape), dtype=I32,
+                       device=_ext.resolve_device(device))
 
 
 def one_mont(spec: FieldSpec, batch_shape=(), device=None) -> torch.Tensor:
@@ -298,3 +301,35 @@ def batch_inv(spec: FieldSpec, a, axis: int = -1):
     right = torch.cat([suffix.narrow(dim, 1, n - 1), one1], dim=dim)
     out = mont_mul(spec, mont_mul(spec, left, right), total_inv)
     return select(zmask, zeros(spec, bshape, a.device), out)
+
+
+# ---------------------------------------------------------------------------
+# Segment sums (sparse matrix products)
+# ---------------------------------------------------------------------------
+
+def segment_sum_mod(spec: FieldSpec, vals, seg_ids, num_segments: int):
+    """Field sum of the columns of ``vals`` (L, nnz) by segment: (L, nseg).
+
+    Whole 16-bit limbs are summed in int64 with ``index_add_`` (exact in any
+    order of the device's atomics; fewer than 2^24 entries keep every limb
+    sum below the 2^40 that ``_carry`` takes), carried to canonical limbs s plus a carry-out c, and reduced:
+    s + c * R = s * (R mod p) * R^-1 + c * R^2 * R^-1 (mod p), two Montgomery
+    products of operands that Montgomery reduction takes as they are
+    (s < R and c < 2^32 against constants < p).  Linear, so it serves
+    Montgomery- and standard-domain inputs alike."""
+    L = spec.L
+    dev = vals.device
+    if L < 2:
+        raise ValueError("segment_sum_mod needs at least two limbs for its carry")
+    if vals.shape[1] >= 1 << 24:
+        raise ValueError(f"{vals.shape[1]} entries: limb sums could pass 2^40")
+    sums = torch.zeros((L, num_segments), dtype=I64, device=dev)
+    sums.index_add_(1, seg_ids.long(), vals.long())
+    canon, carry = _carry(sums)
+    c = torch.zeros_like(canon)
+    c[0] = carry & MASK
+    c[1] = carry >> W
+    r_mod_p = _limb_column(spec.one_limbs, 1, dev)
+    r2 = _limb_column(spec.r2_limbs, 1, dev)
+    return add(spec, mont_mul(spec, canon.int(), r_mod_p),
+               mont_mul(spec, c.int(), r2))

@@ -2,10 +2,12 @@
 
 The JAX package holds field elements as ``(L, *batch)`` uint32 arrays of
 16-bit limbs; the port holds the same integers as int32 tensors.  These
-functions move limb arrays and point batches across, and read the two caches
-the JAX side writes: the fixed-base table (``curves/fixed_base.py``, keys
-``l0..l2``) and the bench's MSM point table (``bench.py``, keys ``x, y, z``).
-The port's own fixed-base cache is written in the same format.
+functions move limb arrays, point batches, ``Fp`` / ``Poly`` values and sparse
+circuits across, and read the two caches the JAX side writes: the fixed-base
+table (``curves/fixed_base.py``, keys ``l0..l2``) and the bench's MSM point
+table (``bench.py``, keys ``x, y, z``).  The port's own fixed-base cache is
+written in the same format.  Every loader makes its tensors on the card
+unless ``device`` names another device.
 """
 
 from __future__ import annotations
@@ -15,7 +17,12 @@ import os
 import numpy as np
 import torch
 
+from . import _ext
+from .arith.sparse import SparseMatrix, SparseR1CS
 from .curves.weierstrass import Point
+from .fields.fp import Fp
+from .fields.spec import FieldSpec
+from .ops.poly import Poly
 
 
 def limbs_from_numpy(a, device=None) -> torch.Tensor:
@@ -25,7 +32,7 @@ def limbs_from_numpy(a, device=None) -> torch.Tensor:
         raise TypeError(f"limb array of dtype {a.dtype}")
     if a.size and (a.min() < 0 or a.max() >= 1 << 16):
         raise ValueError("limb values outside [0, 2^16)")
-    return torch.from_numpy(a.astype(np.int32)).to(device)
+    return torch.from_numpy(a.astype(np.int32)).to(_ext.resolve_device(device))
 
 
 def limbs_to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -59,3 +66,36 @@ def load_bench_points(path, device=None) -> Point:
     """The bench's MSM point table .npz (keys x, y, z) -> point batch."""
     with np.load(path) as data:
         return point_from_numpy([data[k] for k in ("x", "y", "z")], device)
+
+
+def fp_from_numpy(spec: FieldSpec, mont, device=None) -> Fp:
+    """Montgomery limb array (the JAX ``Fp.mont``) -> Fp."""
+    return Fp(spec, limbs_from_numpy(mont, device))
+
+
+def fp_to_numpy(a: Fp) -> np.ndarray:
+    return limbs_to_numpy(a.mont)
+
+
+def poly_from_numpy(spec: FieldSpec, coef_mont, device=None) -> Poly:
+    return Poly(fp_from_numpy(spec, coef_mont, device))
+
+
+def poly_to_numpy(a: Poly) -> np.ndarray:
+    return fp_to_numpy(a.coef)
+
+
+def sparse_matrix_from_numpy(spec: FieldSpec, rows, cols, vals_mont, shape,
+                             device=None) -> SparseMatrix:
+    """A COO matrix from the JAX ``SparseMatrix``'s rows, cols and
+    ``vals.mont`` as numpy arrays."""
+    device = _ext.resolve_device(device)
+    idx = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int64)).to(device)
+    return SparseMatrix(idx(rows), idx(cols), fp_from_numpy(spec, vals_mont, device),
+                        tuple(shape))
+
+
+def sparse_r1cs_from_numpy(spec: FieldSpec, mats, device=None) -> SparseR1CS:
+    """mats: three (rows, cols, vals_mont, shape) tuples, for L, R and O."""
+    return SparseR1CS(*(sparse_matrix_from_numpy(spec, *m, device=device)
+                        for m in mats))

@@ -19,6 +19,8 @@ from myzkp_tpu_torch.curves import curve_kernels as ck
 from myzkp_tpu_torch.curves import msm as tmsm
 from myzkp_tpu_torch.curves import weierstrass as tw
 
+DEV = torch.device("cpu")  # the port's constructors default to the card
+
 Q = tbn.Q
 RMOD = (1 << 256) % Q
 
@@ -57,7 +59,7 @@ def pairs():
 
 
 def _both(np_pt):
-    return (tw.Point(*interop.point_from_numpy(np_pt)),
+    return (tw.Point(*interop.point_from_numpy(np_pt, DEV)),
             jw.Point(*(jnp.asarray(a) for a in np_pt)))
 
 
@@ -69,7 +71,7 @@ def _assert_same(t_pt, j_pt):
 def test_padd_matches_reference(pairs):
     hp, hq, p_np, q_np = pairs
     (tp, jp), (tq, jq) = _both(p_np), _both(q_np)
-    got = tw.padd(tbn.g1_ops(), tbn.g1_b3(), tp, tq)
+    got = tw.padd(tbn.g1_ops(), tbn.g1_b3((), DEV), tp, tq)
     _assert_same(got, jw.padd(jbn.g1_ops(), jbn.g1_b3(()), jp, jq))
     assert tbn.g1_points_to_host(got) == [a + b for a, b in zip(hp, hq)]
 
@@ -78,7 +80,7 @@ def test_padd_sel_matches_reference(pairs):
     _, _, p_np, q_np = pairs
     (tp, jp), (tq, jq) = _both(p_np), _both(q_np)
     h = np.arange(p_np[0].shape[1]) % 3 == 0
-    got = tw.padd_sel(tbn.g1_ops(), tbn.g1_b3(), tp, tq, torch.from_numpy(h))
+    got = tw.padd_sel(tbn.g1_ops(), tbn.g1_b3((), DEV), tp, tq, torch.from_numpy(h))
     want = jw.padd_sel(jbn.g1_ops(), jbn.g1_b3(()), jp, jq, jnp.asarray(h))
     _assert_same(got, want)
 
@@ -86,7 +88,7 @@ def test_padd_sel_matches_reference(pairs):
 def test_pdbl_matches_reference(pairs):
     hp, _, p_np, _ = pairs
     tp, jp = _both(p_np)
-    got = tw.pdbl(tbn.g1_ops(), tbn.g1_b3(), tp)
+    got = tw.pdbl(tbn.g1_ops(), tbn.g1_b3((), DEV), tp)
     _assert_same(got, jw.pdbl(jbn.g1_ops(), jbn.g1_b3(()), jp))
     assert tbn.g1_points_to_host(got) == [a + a for a in hp]
 
@@ -94,15 +96,15 @@ def test_pdbl_matches_reference(pairs):
 def test_points_to_device_match_reference(pairs):
     hp = pairs[0]
     ints = [None if p.inf else (int(p.x), int(p.y)) for p in hp]
-    _assert_same(tbn.g1_points_to_device(ints), jbn.g1_points_to_device(ints))
+    _assert_same(tbn.g1_points_to_device(ints, DEV), jbn.g1_points_to_device(ints))
 
 
 def test_kernel_wrappers_take_plain_versions_on_cpu(pairs):
     """The wrappers' plain path is the *_ref function, bit for bit, and it
     returns canonical int32 limbs."""
     _, _, p_np, q_np = pairs
-    spec, b3 = tbn.q_spec(), tbn.g1_b3()
-    tp, tq = interop.point_from_numpy(p_np), interop.point_from_numpy(q_np)
+    spec, b3 = tbn.q_spec(), tbn.g1_b3((), DEV)
+    tp, tq = interop.point_from_numpy(p_np, DEV), interop.point_from_numpy(q_np, DEV)
     for got, want in ((ck.padd(spec, b3, tp, tq), ck.padd_ref(spec, b3, tp, tq)),
                       (ck.pdbl(spec, b3, tp), ck.pdbl_ref(spec, b3, tp))):
         for g, w in zip(got, want):
@@ -115,9 +117,9 @@ def test_tree_sum_matches_host(pairs, n):
     hp, hq, p_np, q_np = pairs
     host = (hp + hq)[:n]
     pts = tw.Point(*(torch.cat([a, b], dim=1)[:, :n] for a, b in
-                     zip(interop.point_from_numpy(p_np),
-                         interop.point_from_numpy(q_np))))
-    got = tw.tree_sum(tbn.g1_ops(), tbn.g1_b3(), pts, axis=0)
+                     zip(interop.point_from_numpy(p_np, DEV),
+                         interop.point_from_numpy(q_np, DEV))))
+    got = tw.tree_sum(tbn.g1_ops(), tbn.g1_b3((), DEV), pts, axis=0)
     want = tbn.curve_g1.infinity()
     for p in host:
         want = want + p
@@ -133,11 +135,11 @@ def test_bucket_scan_rows_ref_matches_host(N):
     g1 = tbn.g1_generator()
     K = 2
     host_pts = [g1 * int(v) for v in rng.integers(1, 1 << 30, K * N)]
-    rows, C = tmsm._rows_of_point(tbn.g1_points_to_device(host_pts))
+    rows, C = tmsm._rows_of_point(tbn.g1_points_to_device(host_pts, DEV))
     tags = rng.integers(0, 4, K * N).astype(np.int32)
     tags[:7] = [0, 1, 2, 3, 2, 1, 0]  # all combinations early
     acc, flush = ck.bucket_scan_rows(tbn.q_spec(), rows, torch.from_numpy(tags),
-                                     tbn.g1_b3(), K)
+                                     tbn.g1_b3((), DEV), K)
     inf = tbn.curve_g1.infinity()
     acc_h, flush_h = [inf] * N, []
     for k in range(K):

@@ -21,6 +21,8 @@ from myzkp_tpu_torch import _ext, interop
 from myzkp_tpu_torch.fields import limb as tlimb
 from myzkp_tpu_torch.fields import spec as tspec
 
+DEV = torch.device("cpu")  # the port's constructors default to the card
+
 N = 24
 
 
@@ -53,7 +55,7 @@ def test_field_spec_matches_reference():
 @pytest.mark.parametrize("p", [BN254_Q, BN254_R], ids=["q", "r"])
 def test_from_int_to_int_match_reference(p):
     a_np, _, av, _ = _operands(p, 1)
-    t = tlimb.from_int(tspec.FieldSpec.make(p), av)
+    t = tlimb.from_int(tspec.FieldSpec.make(p), av, DEV)
     np.testing.assert_array_equal(interop.limbs_to_numpy(t), a_np)
     assert list(tlimb.to_int(tspec.FieldSpec.make(p), t)) == [v % p for v in av]
 
@@ -67,7 +69,7 @@ OPS = ["add", "sub", "neg", "mont_mul", "mont_mul_ref", "to_mont", "from_mont",
 def test_limb_op_matches_reference(p, op):
     jspec, tspec_ = FieldSpec.make(p), tspec.FieldSpec.make(p)
     a_np, b_np, av, bv = _operands(p, 2)
-    a, b = interop.limbs_from_numpy(a_np), interop.limbs_from_numpy(b_np)
+    a, b = interop.limbs_from_numpy(a_np, DEV), interop.limbs_from_numpy(b_np, DEV)
     ja, jb = jnp.asarray(a_np), jnp.asarray(b_np)
     if op in ("add", "sub"):
         got, want = getattr(tlimb, op)(tspec_, a, b), getattr(jlimb, op)(jspec, ja, jb)
@@ -89,7 +91,7 @@ def test_limb_op_matches_reference(p, op):
 def test_inv_and_batch_inv_match_reference(p):
     jspec, tspec_ = FieldSpec.make(p), tspec.FieldSpec.make(p)
     a_np, _, av, _ = _operands(p, 3)
-    a = tlimb.to_mont(tspec_, interop.limbs_from_numpy(a_np))
+    a = tlimb.to_mont(tspec_, interop.limbs_from_numpy(a_np, DEV))
     ja = jlimb.to_mont(jspec, jnp.asarray(a_np))
     _same(tlimb.inv(tspec_, a), jlimb.inv(jspec, ja))
     got = tlimb.batch_inv(tspec_, a, axis=1)
@@ -102,8 +104,8 @@ def test_broadcast_and_pow_const():
     spec = tspec.bn254_q_spec()
     rng = random.Random(4)
     vals = [[rng.randrange(spec.p) for _ in range(5)] for _ in range(3)]
-    a = tlimb.to_mont(spec, tlimb.from_int(spec, vals))  # (L, 3, 5)
-    c = tlimb.const(spec, spec.to_mont_int(7), (5,))  # (L, 5) broadcasts
+    a = tlimb.to_mont(spec, tlimb.from_int(spec, vals, DEV))  # (L, 3, 5)
+    c = tlimb.const(spec, spec.to_mont_int(7), (5,), DEV)  # (L, 5) broadcasts
     got = tlimb.to_int(spec, tlimb.from_mont(spec, tlimb.mont_mul(spec, a, c)))
     assert got.tolist() == [[v * 7 % spec.p for v in row] for row in vals]
     got = tlimb.to_int(spec, tlimb.from_mont(spec, tlimb.pow_const(spec, a, 5)))
@@ -137,7 +139,8 @@ def test_field_consts_match_spec():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port leaves jax out of sys.modules."""
+    """Importing every module of the port, those of the NTT and quotient
+    slice included, leaves jax and the JAX package out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import myzkp_tpu_torch as m\n"
@@ -146,9 +149,14 @@ def test_port_imports_no_jax():
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'myzkp_tpu' or k.startswith('myzkp_tpu.')]\n"
         "assert not bad, bad\n"
-        "print(len([k for k in sys.modules if k.startswith('myzkp_tpu_torch')]))\n")
+        "print(' '.join(k for k in sys.modules if k.startswith('myzkp_tpu_torch')))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 12
+    loaded = set(out.stdout.split())
+    slices = {"fields.limb", "curves.msm", "curves.fixed_base",  # the G1 MSM
+              "fields.fp", "fields.ntt_kernels", "ops.ntt", "ops.poly",
+              "arith.sparse", "snark.pinocchio", "interop"}  # the quotient stage
+    assert {f"myzkp_tpu_torch.{m}" for m in slices} <= loaded
+    assert len(loaded) >= 23

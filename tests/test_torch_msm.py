@@ -24,6 +24,8 @@ from myzkp_tpu_torch.curves import fixed_base as tfb
 from myzkp_tpu_torch.curves import msm as tmsm
 from myzkp_tpu_torch.curves import weierstrass as tw
 
+DEV = torch.device("cpu")  # the port's constructors default to the card
+
 R = tbn.R
 
 
@@ -37,7 +39,7 @@ def _affine_of_jax(pt) -> list:
     leaves = [np.asarray(a) for a in pt]
     if leaves[0].ndim == 1:
         leaves = [a[:, None] for a in leaves]
-    return tbn.g1_points_to_host(tw.Point(*interop.point_from_numpy(leaves)))
+    return tbn.g1_points_to_host(tw.Point(*interop.point_from_numpy(leaves, DEV)))
 
 
 def _affine(pt) -> list:
@@ -51,7 +53,7 @@ def known_multiples():
     """512 points [m_i]G from the port's fixed-base path, as numpy limbs."""
     rng = np.random.default_rng(512)
     ms = _rand_scalars(rng, 512, low=1)
-    pts = tfb.fixed_base_multi("g1", tmsm.scalars_from_int(tbn.r_spec(), ms))
+    pts = tfb.fixed_base_multi("g1", tmsm.scalars_from_int(tbn.r_spec(), ms, DEV))
     return ms, interop.point_to_numpy(pts)
 
 
@@ -60,7 +62,7 @@ def test_scalar_digits_match_reference(c):
     rng = np.random.default_rng(c)
     ks = [0, 1, R - 1] + _rand_scalars(rng, 29)
     s_np = np.asarray(jmsm.scalars_from_int(jbn.r_spec(), ks))
-    s = interop.limbs_from_numpy(s_np)
+    s = interop.limbs_from_numpy(s_np, DEV)
     got, want = tmsm.scalar_digits(s, c), jmsm.scalar_digits(jnp.asarray(s_np), c)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     mag, neg = tmsm.signed_digits(got, c)
@@ -79,7 +81,7 @@ def test_fixed_base_multi_matches_reference():
     rng = random.Random(31)
     ks = [0, 1, 2, R - 1] + [rng.randrange(R) for _ in range(4)]
     s_np = np.asarray(jmsm.scalars_from_int(jbn.r_spec(), ks))
-    got = _affine(tfb.fixed_base_multi("g1", interop.limbs_from_numpy(s_np)))
+    got = _affine(tfb.fixed_base_multi("g1", interop.limbs_from_numpy(s_np, DEV)))
     want = _affine_of_jax(jfb.fixed_base_multi("g1", jnp.asarray(s_np)))
     g = tbn.g1_generator()
     assert got == want == [g * k for k in ks]
@@ -92,15 +94,15 @@ def test_interop_reads_the_reference_caches(tmp_path):
     leaves = [np.asarray(a) for a in jfb._device_table("g1", tfb._TABLE_C)]
     path = tmp_path / "g1_c8.npz"
     np.savez(path, **{f"l{i}": a for i, a in enumerate(leaves)})
-    table = interop.load_fixed_base_table(path)
-    own = tfb._device_table("g1", torch.device("cpu"))
+    table = interop.load_fixed_base_table(path, DEV)
+    own = tfb._device_table("g1", DEV)
     for got, mine, want in zip(table, own, leaves):
         np.testing.assert_array_equal(interop.limbs_to_numpy(got), want)
         np.testing.assert_array_equal(interop.limbs_to_numpy(mine), want)
     pts = jfb.fixed_base_multi("g1", jmsm.scalars_from_int(jbn.r_spec(), [3, 5]))
     x, y, z = (np.asarray(a) for a in pts)
     np.savez(tmp_path / "pts.npz", x=x, y=y, z=z)
-    got = interop.load_bench_points(tmp_path / "pts.npz")
+    got = interop.load_bench_points(tmp_path / "pts.npz", DEV)
     for a, want in zip(got, (x, y, z)):
         np.testing.assert_array_equal(interop.limbs_to_numpy(a), want)
     with pytest.raises(ValueError):
@@ -115,9 +117,9 @@ def test_msm_pippenger_matches_reference(known_multiples, n, c, K):
     ks[0], ks[1], ks[2] = 0, 5, 5  # zero and duplicate scalars
     exp = tbn.g1_generator() * (sum(k * m for k, m in zip(ks, ms)) % R)
     s_np = np.asarray(jmsm.scalars_from_int(jbn.r_spec(), ks))
-    pts = tw.Point(*(a[:, :n] for a in interop.point_from_numpy(pts_np)))
-    got = tmsm.msm_pippenger(tbn.g1_ops(), tbn.g1_b3(), pts,
-                             interop.limbs_from_numpy(s_np), c=c, K=K)
+    pts = tw.Point(*(a[:, :n] for a in interop.point_from_numpy(pts_np, DEV)))
+    got = tmsm.msm_pippenger(tbn.g1_ops(), tbn.g1_b3((), DEV), pts,
+                             interop.limbs_from_numpy(s_np, DEV), c=c, K=K)
     jpts = jw.Point(*(jnp.asarray(a[:, :n]) for a in pts_np))
     want = jmsm.msm_pippenger(jbn.g1_ops(), jbn.g1_b3(()), jpts, jnp.asarray(s_np),
                               c=c, K=K)
@@ -138,9 +140,9 @@ def test_msm_pippenger_c14_head_dense_matches_host(known_multiples):
     head-dense stream under which a step-0 flush corrupted buckets in the
     reference (myzkp_tpu/curves/msm.py:321-328)."""
     s_np, pts_np, exp = _c14_case(known_multiples)
-    got = tmsm.msm_pippenger(tbn.g1_ops(), tbn.g1_b3(),
-                             tw.Point(*interop.point_from_numpy(pts_np)),
-                             interop.limbs_from_numpy(s_np), c=14)
+    got = tmsm.msm_pippenger(tbn.g1_ops(), tbn.g1_b3((), DEV),
+                             tw.Point(*interop.point_from_numpy(pts_np, DEV)),
+                             interop.limbs_from_numpy(s_np, DEV), c=14)
     assert _affine(got) == [exp]
 
 
@@ -149,9 +151,9 @@ def test_msm_pippenger_c14_matches_reference(known_multiples):
     """The c = 14 case against the JAX msm_pippenger as well; its CPU compile
     alone takes about 100 s, so this runs outside the fast suite."""
     s_np, pts_np, exp = _c14_case(known_multiples)
-    got = tmsm.msm_pippenger(tbn.g1_ops(), tbn.g1_b3(),
-                             tw.Point(*interop.point_from_numpy(pts_np)),
-                             interop.limbs_from_numpy(s_np), c=14)
+    got = tmsm.msm_pippenger(tbn.g1_ops(), tbn.g1_b3((), DEV),
+                             tw.Point(*interop.point_from_numpy(pts_np, DEV)),
+                             interop.limbs_from_numpy(s_np, DEV), c=14)
     want = jmsm.msm_pippenger(jbn.g1_ops(), jbn.g1_b3(()),
                               jw.Point(*(jnp.asarray(a) for a in pts_np)),
                               jnp.asarray(s_np), c=14)
@@ -163,10 +165,10 @@ def test_msm_small_n_takes_naive_path():
     scalars through msm_naive (double-and-add and a tree sum)."""
     g1 = tbn.g1_generator()
     ks = [0, 1, 1, 2, R - 1, 0, 7, 7]
-    pts = tbn.g1_points_to_device([g1 * (i + 1) for i in range(8)])
+    pts = tbn.g1_points_to_device([g1 * (i + 1) for i in range(8)], DEV)
     exp = g1 * (sum(k * (i + 1) for i, k in enumerate(ks)) % R)
-    got = tmsm.msm(tbn.g1_ops(), tbn.g1_b3(), pts,
-                   tmsm.scalars_from_int(tbn.r_spec(), ks))
+    got = tmsm.msm(tbn.g1_ops(), tbn.g1_b3((), DEV), pts,
+                   tmsm.scalars_from_int(tbn.r_spec(), ks, DEV))
     assert _affine(got) == [exp]
 
 
