@@ -6,14 +6,19 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, one output line each (or more), in order:
   1. device    the card (nvidia-smi name and power limit), torch, nvcc;
   2. build     the CUDA kernels from myzkp_tpu_torch/csrc/ with nvcc, one
-               process per source, all started together;
+               process per source, all started together, and the verifier's
+               host pairing library (myzkp_tpu_torch/native/) with g++;
   3. bitcheck  each kernel against its plain PyTorch version on the card,
                exact equality of limbs (the tolerance is 0: modular integers):
-               K1-K4 over F_q and the G1 group law, then K1 over F_r, K5 on
-               2^20 pairs and at every stage shape of the m = 2^12 path, K6
-               at every leaf shape of the 2^20 paths and at m = 16, 64, 128
-               with a ragged batch; segment_sum_mod on the card against the
-               CPU and host ints, 2^20 entries with heavy duplicates;
+               K1-K4 over F_q and the G1 group law; K7 (with and without its
+               select mask) and K8 over F_q2 at the G2 scan step's 32,768
+               lanes (P+P, P+(-P), infinity on either side, z != 1, and lanes
+               whose every c0 and c1 is 0, 1, q - 1 or R mod q) and K7 at a
+               G2 fixed-base tree level; then K1 over F_r, K5 on 2^20 pairs
+               and at every stage shape of the m = 2^12 path, K6 at every
+               leaf shape of the 2^20 paths and at m = 16, 64, 128 with a
+               ragged batch; segment_sum_mod on the card against the CPU and
+               host ints, 2^20 entries with heavy duplicates;
   4. msm       the G1 slice: fixed-base setup of 2^20 points [m_i]G, then the
                2^20 Pippenger MSM against 2^20 scalars k_i, checked against
                the host's [sum k_i m_i mod r]G; kernel launch counts of that
@@ -28,7 +33,18 @@ Phases, one output line each (or more), in order:
                equals the constraint evaluation u_j, and the Pinocchio
                identity (ell + d_ell t)(r + d_r t) - (o + d_o t) = H t holds at
                a random point; launch counts of each run; the calls timed;
-               K5 and K6 timed beside their plain versions.
+               K5 and K6 timed beside their plain versions;
+  7. g2 msm    fixed-base setup of 2^20 G2 points [m_i]G2, then the 2^20 G2
+               Pippenger MSM (K7 scan steps) against 2^20 scalars with a zero
+               and duplicates, checked against the host's
+               [sum k_i m_i mod r]G2; launch counts; the MSM timed;
+  8. pinocchio setup, prove and verify on square_chain(2^20): the proof is
+               accepted and the proof of a wrong witness (one x_k changed) is
+               rejected; launch counts of setup and of prove; setup seconds,
+               prove median of 3, verify seconds (host); then setup and prove
+               at m = 2^4 on the card and on the CPU plain versions with the
+               same seeds, keys and proofs equal point for point; K7 and K8
+               timed beside their plain versions at the scan step's width.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.  Any failure exits nonzero before it.
@@ -51,6 +67,8 @@ SEED = 42
 LOG_N = 20
 LOG_N_C14 = 16
 LOG_M_BIG, LOG_M_SMALL = 20, 12  # shifted h: four-step (K6) and Stockham (K5)
+LOG_M_PIN = 20  # Pinocchio setup / prove / verify on square_chain(2^20)
+LOG_M_CMP = 4  # the whole path on the card and on the CPU plain versions
 
 # The card's peaks for a kernel's bound (NVIDIA H100 SXM at 700 W): device
 # memory 3.35 TB/s; 32-bit integer multiply-adds at 64 per SM per clock
@@ -107,12 +125,17 @@ def phase_device() -> None:
 
 
 def phase_build() -> None:
-    from myzkp_tpu_torch import _ext
+    from myzkp_tpu_torch import _ext, native
 
     seconds = _ext.build()
     _ext.library()
     log(f"# build: {len(list(_ext.CSRC.glob('*.cu')))} sources -> "
         f"{_ext.library_path().name} in {seconds:.2f} s")
+    t0 = time.perf_counter()
+    native.build()
+    native.library()
+    log(f"# build: the verifier's host pairing -> {native.library_path().name} "
+        f"in {time.perf_counter() - t0:.2f} s (g++)")
     for line in _ext.library_path().with_suffix(".log").read_text().splitlines():
         if any(k in line for k in ("entry function", "registers", "spill")):
             log(f"#   ptxas: {line.strip()}")
@@ -596,6 +619,237 @@ def time_ntt_kernels(dev, results: dict) -> None:
     time_cases(cases, results)
 
 
+# The G2 MSM's scan step: G * n / K lanes at n = 2^20 (c = 16, G = 2, K = 64)
+SCAN_LANES = 1 << 15
+
+
+def fq2_rescale(F, pt, lam):
+    """Projective rescaling (x, y, z) -> (lam x, lam y, lam z) over F_q2."""
+    return tuple(F.mul(c, lam) for c in pt)
+
+
+def phase_bitcheck_g2(dev, results: dict) -> None:
+    from myzkp_tpu_torch.curves import bn254, curve_kernels as ck, fixed_base
+    from myzkp_tpu_torch.curves import weierstrass as wst
+    from myzkp_tpu_torch.fields import limb
+
+    rng = np.random.default_rng(SEED + 4)
+    spec = bn254.q_spec()
+    p = spec.p
+    F, b3 = bn254.g2_ops(), bn254.g2_b3((), dev)
+    g = bn254.g2_generator()
+    hrng = random.Random(SEED + 4)
+    host = [g * hrng.randrange(1, bn254.R) for _ in range(63)]
+    host.append(bn254.curve_g2.infinity())
+    base = bn254.g2_points_to_device(host, dev)
+    m = SCAN_LANES
+    ia = torch.from_numpy(rng.integers(0, 64, m)).to(dev)
+    ib = torch.from_numpy(rng.integers(0, 64, m)).to(dev)
+    kinds = torch.from_numpy(rng.integers(0, 8, m)).to(dev)
+    ib = torch.where(kinds == 0, ia, ib)  # P + P
+    ib = torch.where(kinds == 1, torch.full_like(ib, 63), ib)  # P + O
+    ia = torch.where(kinds == 2, torch.full_like(ia, 63), ia)  # O + Q
+    ia = torch.where(kinds == 3, torch.full_like(ia, 63), ia)  # O + O
+    ib = torch.where(kinds == 3, torch.full_like(ib, 63), ib)
+
+    def rescaled(idx):  # z != 1: a random F_q2 factor per lane
+        lam = (random_fe(rng, m, dev), random_fe(rng, m, dev))
+        lam[0][0] |= 1  # nonzero
+        return fq2_rescale(F, tuple((c[0][:, idx], c[1][:, idx]) for c in base), lam)
+
+    P, Q = rescaled(ia), rescaled(ib)
+    negate = kinds == 4  # P + (-P)
+    Q = tuple(F.select(negate, pc, qc) for pc, qc in zip((P[0], F.neg(P[1]), P[2]), Q))
+    # the first m / 8 lanes: every coordinate component, c0 and c1 of x, y,
+    # z of P and Q, drawn from 0, 1, q - 1 and R mod q (not points)
+    edges = [0, 1, p - 1, (1 << 256) % p]
+    E = m // 8
+    P, Q = ([[c.clone() for c in coord] for coord in pt] for pt in (P, Q))
+    for coord in (*P, *Q):
+        for c in coord:
+            c[:, :E] = limb.from_int(spec, [edges[i] for i in rng.integers(0, 4, E)], dev)
+    P, Q = (tuple(tuple(coord) for coord in pt) for pt in (P, Q))
+    h = torch.from_numpy(rng.integers(0, 2, m).astype(bool)).to(dev)
+    L = lambda pt: list(wst.leaves(pt))
+    err = check_equal("padd2", L(ck.padd2(spec, b3, P, Q)), L(ck.padd2_ref(spec, b3, P, Q)))
+    err = max(err, check_equal("padd2(h)", L(ck.padd2(spec, b3, P, Q, h)),
+                               L(ck.padd2_ref(spec, b3, P, Q, h))))
+    sums = ck.padd2(spec, b3, P, Q)
+    got = bn254.g2_points_to_host(wst.point_map(lambda c: c[:, E:E + 64], wst.Point(*sums)))
+    ha, hb, kk = (t[E:E + 64].tolist() for t in (ia, ib, kinds))
+    want = [host[x] + (-host[x] if k == 4 else host[y]) for x, y, k in zip(ha, hb, kk)]
+    if got != want:
+        raise AssertionError("padd2: disagrees with the host group law")
+    # one tree level of the G2 fixed base: (W / 2) * chunk lanes
+    tree_w = (-(-256 // 8) // 2) * fixed_base._CHUNK
+    reps = tree_w // m
+    wide = lambda pt: tuple(tuple(c.repeat(1, reps) for c in coord) for coord in pt)
+    Pw, Qw = wide(P), wide(Q)
+    err = max(err, check_equal(f"padd2 [{tree_w} lanes]", L(ck.padd2(spec, b3, Pw, Qw)),
+                               L(ck.padd2_ref(spec, b3, Pw, Qw))))
+    del Pw, Qw
+    results["padd2"] = {"max_abs_err": err}
+    log(f"# bitcheck padd2: {m} lanes (P+P, P+(-P), P+O, O+Q, O+O, z != 1; "
+        f"{E} lanes of 0, 1, q-1, R mod q in every c0 and c1), with and without h, "
+        f"and {tree_w} lanes (a fixed-base tree level): exact; 64 sums match the host")
+    err = check_equal("pdbl2", L(ck.pdbl2(spec, b3, P)), L(ck.pdbl2_ref(spec, b3, P)))
+    dbl = bn254.g2_points_to_host(
+        wst.point_map(lambda c: c[:, E:E + 64], wst.Point(*ck.pdbl2(spec, b3, P))))
+    if dbl != [host[x] + host[x] for x in ha]:
+        raise AssertionError("pdbl2: disagrees with the host group law")
+    results["pdbl2"] = {"max_abs_err": err}
+    log(f"# bitcheck pdbl2: {m} lanes incl. O and the edge lanes: exact; "
+        f"64 match the host")
+
+
+def phase_g2_msm(dev, results: dict) -> None:
+    from myzkp_tpu_torch.curves import bn254, fixed_base, msm
+    from myzkp_tpu_torch.curves import weierstrass as wst
+
+    n = 1 << LOG_N
+    rng = random.Random(SEED + 5)
+    ms = [rng.randrange(1, bn254.R) for _ in range(n)]
+    ks = [rng.randrange(0, bn254.R) for _ in range(n)]
+    ks[0], ks[1], ks[2], ks[3] = 0, 5, 5, bn254.R - 1  # zero and duplicates
+    rspec = bn254.r_spec()
+    m_limbs = msm.scalars_from_int(rspec, ms, dev)
+    k_limbs = msm.scalars_from_int(rspec, ks, dev)
+    F, b3 = bn254.g2_ops(), bn254.g2_b3((), dev)
+    exp = bn254.g2_generator() * (sum(k * m for k, m in zip(ks, ms)) % bn254.R)
+    table = ("loaded from its .npz cache" if fixed_base.table_path("g2").exists()
+             else "built on the host first")
+    t0 = time.perf_counter()
+    pts, fb_counts = counted(lambda: fixed_base.fixed_base_multi("g2", m_limbs))
+    fb_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res, counts = counted(lambda: msm.msm(F, b3, pts, k_limbs))
+    first_s = time.perf_counter() - t0
+    got = bn254.g2_points_to_host(wst.point_map(lambda c: c[:, None], res))[0]
+    if got != exp:
+        raise AssertionError("G2 MSM 2^20: result differs from the host golden")
+    if min(counts.get(k, 0) for k in ("padd2", "pdbl2")) < 1:
+        raise AssertionError(f"G2 MSM: K7 or K8 never launched: {counts}")
+    med, ts = median_ms(lambda: msm.msm(F, b3, pts, k_limbs))
+    results["_g2_msm"] = {"ms": med, "reps_ms": ts, "points_per_s": n / med * 1e3,
+                          "first_s": first_s, "fixed_base_s": fb_s,
+                          "launches": counts, "fixed_base_launches": fb_counts}
+    log(f"# g2 fixed-base 2^{LOG_N}: {fb_s:.3f} s (table {table}); launches "
+        f"{json.dumps(fb_counts)}")
+    log(f"# g2 msm 2^{LOG_N} (c = {msm.default_window(n)}): == host "
+        f"[sum k_i m_i mod r]G2; first run {first_s:.3f} s; launches "
+        f"{json.dumps(counts)}; median {med:.2f} ms of {[round(t, 2) for t in ts]}")
+
+
+def _square_chain_case(spec, m: int, dev):
+    from myzkp_tpu_torch.arith import sparse
+
+    r1cs, asg = sparse.square_chain(spec, m, device=dev)
+    return sparse.SparseQAP(r1cs), asg
+
+
+def _wrong_witness(asg, k: int):
+    """The assignment with x_k changed: it no longer satisfies the circuit."""
+    from myzkp_tpu_torch.fields.fp import Fp
+
+    mont = asg.mont.clone()
+    mont[:, k + 1] = Fp.from_int(asg.spec, 12345, asg.device).mont
+    return Fp(asg.spec, mont)
+
+
+def phase_pinocchio(dev, results: dict) -> None:
+    from myzkp_tpu_torch.curves import bn254
+    from myzkp_tpu_torch.snark import pinocchio as pin
+
+    spec = bn254.r_spec()
+    m = 1 << LOG_M_PIN
+    t0 = time.perf_counter()
+    qap, asg = _square_chain_case(spec, m, dev)
+    bad_asg = _wrong_witness(asg, m // 2)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (pk, vk), setup_counts = counted(lambda: pin.setup(qap, random.Random(SEED)))
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof, prove_counts = counted(lambda: pin.prove(asg, pk, qap, random.Random(SEED + 1)))
+    first_s = time.perf_counter() - t0
+    need = ("mont_mul", "padd", "pdbl", "bucket_scan_rows", "ntt_leaf", "padd2", "pdbl2")
+    if min(prove_counts.get(k, 0) for k in need) < 1:
+        raise AssertionError(f"prove 2^{LOG_M_PIN}: a kernel of {need} never launched: "
+                             f"{prove_counts}")
+    t0 = time.perf_counter()
+    ok = pin.verify(proof, vk)
+    verify_s = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError(f"Pinocchio 2^{LOG_M_PIN}: verify rejected the proof")
+    bad = pin.prove(bad_asg, pk, qap, random.Random(SEED + 1))
+    if pin.verify(bad, vk):
+        raise AssertionError(f"Pinocchio 2^{LOG_M_PIN}: verify accepted a wrong witness")
+    med, ts = median_ms(lambda: pin.prove(asg, pk, qap, random.Random(SEED + 1)), reps=3)
+    results["_pinocchio"] = {"setup_s": setup_s, "prove_ms": med, "prove_reps_ms": ts,
+                             "prove_first_s": first_s, "verify_s": verify_s,
+                             "circuit_s": build_s, "setup_launches": setup_counts,
+                             "prove_launches": prove_counts}
+    for k in ("padd2", "pdbl2"):
+        results[k]["launches"] = prove_counts[k]
+    log(f"# pinocchio m = 2^{LOG_M_PIN}: circuit {build_s:.3f} s; setup {setup_s:.3f} s; "
+        f"prove first {first_s:.3f} s, median {med:.2f} ms of {[round(t, 2) for t in ts]}; "
+        f"verify {verify_s:.3f} s (host): accepted; a wrong witness (one x_k "
+        f"changed): rejected")
+    log(f"# pinocchio setup launches: {json.dumps(setup_counts)}")
+    log(f"# pinocchio prove launches: {json.dumps(prove_counts)}")
+
+    # the whole path on the card against the plain versions on the CPU
+    cpu = torch.device("cpu")
+    ms = 1 << LOG_M_CMP
+    proofs = []
+    for d in (dev, cpu):
+        t0 = time.perf_counter()
+        q, a = _square_chain_case(spec, ms, d)
+        pk_, vk_ = pin.setup(q, random.Random(SEED + 2))
+        pr = pin.prove(a, pk_, q, random.Random(SEED + 3))
+        if not pin.verify(pr, vk_):
+            raise AssertionError(f"Pinocchio 2^{LOG_M_CMP} on {d}: verify rejected")
+        proofs.append((pr, vk_, time.perf_counter() - t0))
+    (card, card_vk, card_s), (plain, plain_vk, plain_s) = proofs
+    if card != plain or card_vk != plain_vk:
+        raise AssertionError(f"Pinocchio 2^{LOG_M_CMP}: the card's key or proof differs "
+                             f"from the CPU plain versions'")
+    log(f"# pinocchio m = 2^{LOG_M_CMP}: setup + prove on the card ({card_s:.2f} s) "
+        f"and on the CPU plain versions ({plain_s:.2f} s), same seeds: verification "
+        f"keys and proofs equal point for point; both accepted")
+
+
+def time_g2_kernels(dev, results: dict) -> None:
+    from myzkp_tpu_torch.curves import bn254, curve_kernels as ck
+    from myzkp_tpu_torch.curves import weierstrass as wst
+
+    rng = np.random.default_rng(SEED + 6)
+    spec = bn254.q_spec()
+    b3 = bn254.g2_b3((), dev)
+    m = SCAN_LANES
+    coords = lambda: tuple((random_fe(rng, m, dev), random_fe(rng, m, dev))
+                           for _ in range(3))
+    P, Q = coords(), coords()
+    # a segment head every 32 steps: heads are a few percent of the digits
+    h = torch.arange(m, device=dev) % 32 == 0
+    heads = int(h.sum())
+    L = wst.leaves
+    cases = {
+        # an add reads 12 coordinates and writes 6; 14 F_q2 products of 3
+        # Montgomery products each, none on the lanes where h is set
+        "padd2": (f"{m} lanes with h set on 1 in 32: one G2 bucket-scan step",
+                  lambda: L(ck.padd2(spec, b3, P, Q, h)),
+                  lambda: L(ck.padd2_ref(spec, b3, P, Q, h)), 20, 1,
+                  bound(18 * LIMB_BYTES * m + m + 2 * LIMB_BYTES, 42 * (m - heads))),
+        # a double: 7 F_q2 products (3 each) and 2 squares (2 each)
+        "pdbl2": (f"{m} lanes", lambda: L(ck.pdbl2(spec, b3, P)),
+                  lambda: L(ck.pdbl2_ref(spec, b3, P)), 20, 1,
+                  bound(12 * LIMB_BYTES * m + 2 * LIMB_BYTES, 25 * m)),
+    }
+    time_cases(cases, results)
+
+
 SOURCES = {
     "mont_mul": ("myzkp_tpu_torch/csrc/mont_mul.cu",
                  "myzkp_tpu/fields/limb_pallas.py:286"),
@@ -609,6 +863,10 @@ SOURCES = {
                   "myzkp_tpu/fields/limb_pallas.py:76"),
     "ntt_leaf": ("myzkp_tpu_torch/csrc/ntt.cu",
                  "myzkp_tpu/fields/limb_pallas.py:242"),
+    "padd2": ("myzkp_tpu_torch/csrc/curve2.cu",
+              "myzkp_tpu/curves/curve_pallas.py:534"),
+    "pdbl2": ("myzkp_tpu_torch/csrc/curve2.cu",
+              "myzkp_tpu/curves/curve_pallas.py:550"),
 }
 
 
@@ -619,6 +877,7 @@ def main() -> int:
     phase_build()
     results = {k: {} for k in SOURCES}
     a, b = phase_bitcheck(dev, results)
+    phase_bitcheck_g2(dev, results)
     phase_bitcheck_fr(dev, results)
     phase_slice(dev, results, a, b)
     phase_ntt(dev, results)
@@ -632,6 +891,9 @@ def main() -> int:
     results["butterfly"]["launches"] = small["launches"]["butterfly"]
     results["_shifted_h"] = {f"2^{LOG_M_BIG}": big, f"2^{LOG_M_SMALL}": small}
     time_ntt_kernels(dev, results)
+    phase_g2_msm(dev, results)
+    phase_pinocchio(dev, results)
+    time_g2_kernels(dev, results)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k][0],
@@ -640,6 +902,8 @@ def main() -> int:
     log(f"# msm {json.dumps(results['_msm'])}")
     log(f"# ntt {json.dumps(results['_ntt'])}")
     log(f"# shifted_h {json.dumps(results['_shifted_h'])}")
+    log(f"# g2_msm {json.dumps(results['_g2_msm'])}")
+    log(f"# pinocchio {json.dumps(results['_pinocchio'])}")
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

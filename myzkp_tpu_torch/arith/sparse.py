@@ -131,6 +131,27 @@ class SparseQAP:
     def h_poly(self, assignment: Fp) -> Poly:
         return Poly(self.quotient(self.combine_batched(assignment))[:self.m + 1])
 
+    def _lagrange_at(self, s: int) -> Fp:
+        """lam_j(s) = w^j (s^m - 1) / (m (s - w^j)) over the root-of-unity
+        domain, (m,); w^j comes from the device geometric series."""
+        spec, m = self.spec, self.m
+        p, dev = spec.p, self.r1cs.left.rows.device
+        wj = _ntt.geometric_series(spec, _ntt.nth_root_of_unity(p, m), m, dev)
+        denom = (Fp.from_int(spec, s, dev) - wj).batch_inv(axis=-1)
+        scale = (pow(s, m, p) - 1) * pow(m, -1, p) % p
+        return wj * denom * Fp.from_int(spec, scale, dev)
+
+    def eval_all_at(self, s: int):
+        """(ell_i(s), r_i(s), o_i(s)) as (d,) batches and t(s) as a scalar Fp:
+        ell_i(s) = sum_j L[j, i] lam_j(s), one weighted column accumulation
+        per matrix, O(nnz)."""
+        lam = self._lagrange_at(s)
+        ell, r, o = (mat.col_accumulate(lam) for mat in
+                     (self.r1cs.left, self.r1cs.right, self.r1cs.out))
+        spec = self.spec
+        t_s = Fp.from_int(spec, (pow(s, self.m, spec.p) - 1) % spec.p, lam.device)
+        return ell, r, o, t_s
+
 
 def _t_coset_inv(spec: FieldSpec, m: int, g: int, device) -> Fp:
     """1 / t on the coset g <w_2m>, (2m,): t(g w^j) = g^m (-1)^j - 1, two

@@ -25,7 +25,7 @@
 // curve_pallas.py:374-382).  Rows are read and written as 16-byte vectors.
 #include <cuda_runtime.h>
 
-#include "g1.cuh"
+#include "group.cuh"
 
 using myzkp::Fe;
 using myzkp::FieldConsts;
@@ -88,7 +88,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 12; j < kRowLanes / 4; ++j) out[j] = make_int4(0, 0, 0, 0);
 
-    acc = (t & 2) ? q : myzkp::g1_padd(acc, q, b3v, c);
+    acc = (t & 2) ? q : myzkp::padd(acc, q, b3v, c);
   }
   myzkp::store_planes(acc_out, n_lanes, l, acc.x);
   myzkp::store_planes(acc_out + 16 * n_lanes, n_lanes, l, acc.y);

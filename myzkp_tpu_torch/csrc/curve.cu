@@ -9,12 +9,12 @@
 // the limit on occupancy.  A complete add is 12 Montgomery products and 17
 // adds/subs (~1,600 32x32->64-bit multiply-adds) against 6 point reads and 3
 // point writes of 192 bytes each.  Design: one thread per point, the whole
-// formula in registers (g1.cuh) and only the three output coordinates
+// formula in registers (group.cuh) and only the three output coordinates
 // written; b3 is read once per thread from a (16,) tensor instead of the full
 // tile the TPU broadcast it to (curve_pallas.py:146-151).
 #include <cuda_runtime.h>
 
-#include "g1.cuh"
+#include "group.cuh"
 
 using myzkp::Fe;
 using myzkp::FieldConsts;
@@ -53,7 +53,7 @@ __global__ void __launch_bounds__(128)
   }
   Pt p = load_point(x1, y1, z1, n, i);
   Fe b3v = myzkp::load_planes(b3, 1, 0);
-  store_point(x3, y3, z3, n, i, myzkp::g1_padd(p, q, b3v, c));
+  store_point(x3, y3, z3, n, i, myzkp::padd(p, q, b3v, c));
 }
 
 __global__ void __launch_bounds__(128)
@@ -65,7 +65,7 @@ __global__ void __launch_bounds__(128)
   if (i >= n) return;
   Pt p = load_point(x, y, z, n, i);
   Fe b3v = myzkp::load_planes(b3, 1, 0);
-  store_point(x3, y3, z3, n, i, myzkp::g1_pdbl(p, b3v, c));
+  store_point(x3, y3, z3, n, i, myzkp::pdbl(p, b3v, c));
 }
 
 constexpr int kThreads = 128;

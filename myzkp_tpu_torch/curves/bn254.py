@@ -1,8 +1,9 @@
-"""BN254 G1 on the device: field specs, curve constant and the host <-> device
-point conversions.
+"""BN254 on the device: field specs, curve constants, the host <-> device
+point conversions for G1 and G2, and the verifier's pairing check.
 
-Counterpart of the G1 half of ``myzkp_tpu/curves/bn254.py:179-286``.  The host
-side (generator, affine group law) is ``fields/host.py``.
+Counterpart of ``myzkp_tpu/curves/bn254.py:123-154, 179-304``.  The host side
+(generators, affine group law, F_q2) is ``fields/host.py``; the pairing runs
+on the host in the port's copy of the C++ engine (``native/``).
 """
 
 from __future__ import annotations
@@ -11,12 +12,13 @@ import functools
 
 import torch
 
-from .. import _ext
+from .. import _ext, native
 from ..fields import limb
-from ..fields.host import Fq, PyPoint, Q, R, curve_g1, g1_generator  # noqa: F401
+from ..fields.host import (  # noqa: F401
+    B2, Fq, Fq2, PyPoint, Q, R, curve_g1, curve_g2, g1_generator, g2_generator)
 from ..fields.spec import FieldSpec
 from . import weierstrass as wst
-from .field_ops import FpOps
+from .field_ops import FpOps, Fq2Ops
 
 B1 = 3  # G1: y^2 = x^3 + 3
 
@@ -36,17 +38,40 @@ def g1_ops() -> FpOps:
     return FpOps(q_spec())
 
 
+@functools.lru_cache(maxsize=1)
+def g2_ops() -> Fq2Ops:
+    return Fq2Ops(q_spec())
+
+
 def g1_b3(batch_shape=(), device=None) -> torch.Tensor:
     """3 * b = 9 in Montgomery form, (L, *batch_shape)."""
     return g1_ops().const(3 * B1, batch_shape, device)
+
+
+def g2_b3(batch_shape=(), device=None) -> tuple:
+    """3 * B2 (B2 = 3 / (9 + u)) in Montgomery form, a (c0, c1) pair."""
+    b3 = tuple(3 * c.v % Q for c in B2.c)
+    return g2_ops().const(b3, batch_shape, device)
+
+
+def _mont(ints, device) -> torch.Tensor:
+    spec = q_spec()
+    return limb.to_mont(spec, limb.from_int(spec, ints, device))
+
+
+def _with_infinity(F, inf: list, x, y, device) -> wst.Point:
+    """Affine (x, y) batches -> projective points, (0, 1, 0) where inf."""
+    m = torch.tensor(inf, dtype=torch.bool, device=device)
+    n = len(inf)
+    one, zero = F.one((n,), device), F.zeros((n,), device)
+    return wst.Point(F.select(m, zero, x), F.select(m, one, y),
+                     F.select(m, zero, one))
 
 
 def g1_points_to_device(points, device=None) -> wst.Point:
     """Host PyPoints, (x, y) int pairs or None (infinity) -> point batch, on
     the card unless ``device`` names another device."""
     device = _ext.resolve_device(device)
-    F = g1_ops()
-    spec = q_spec()
     xs, ys, infs = [], [], []
     for p in points:
         if isinstance(p, PyPoint):
@@ -59,23 +84,60 @@ def g1_points_to_device(points, device=None) -> wst.Point:
         xs.append(x % Q)
         ys.append(y % Q)
         infs.append(inf)
-    x = limb.to_mont(spec, limb.from_int(spec, xs, device))
-    y = limb.to_mont(spec, limb.from_int(spec, ys, device))
-    m = torch.tensor(infs, dtype=torch.bool, device=device)
-    n = len(points)
-    one, zero = F.one((n,), device), F.zeros((n,), device)
-    return wst.Point(F.select(m, zero, x), F.select(m, one, y),
-                     F.select(m, zero, one))
+    return _with_infinity(g1_ops(), infs, _mont(xs, device), _mont(ys, device),
+                          device)
+
+
+def g2_points_to_device(points, device=None) -> wst.Point:
+    """Host G2 PyPoints, ((x0, x1), (y0, y1)) int pairs or None (infinity)
+    -> point batch with (c0, c1) coordinates; infinity is (0, (1, 0), 0)."""
+    device = _ext.resolve_device(device)
+    cols = ([], [], [], [])  # x0, x1, y0, y1
+    infs = []
+    for p in points:
+        if p is None or (isinstance(p, PyPoint) and p.inf):
+            vals, inf = (0, 0, 1, 0), True
+        elif isinstance(p, PyPoint):
+            vals, inf = (p.x.c[0].v, p.x.c[1].v, p.y.c[0].v, p.y.c[1].v), False
+        else:
+            (x0, x1), (y0, y1) = p
+            vals, inf = (x0, x1, y0, y1), False
+        for col, v in zip(cols, vals):
+            col.append(v % Q)
+        infs.append(inf)
+    x0, x1, y0, y1 = (_mont(col, device) for col in cols)
+    return _with_infinity(g2_ops(), infs, (x0, x1), (y0, y1), device)
+
+
+def _ints(a: torch.Tensor):
+    spec = q_spec()
+    return limb.to_int(spec, limb.from_mont(spec, a))
 
 
 def g1_points_to_host(pt: wst.Point, axis: int = 0) -> list:
     """(n,) device point batch -> list of host PyPoints."""
-    F = g1_ops()
-    spec = q_spec()
-    x, y, inf = wst.to_affine(F, pt, axis=axis)
-    xi = limb.to_int(spec, limb.from_mont(spec, x))
-    yi = limb.to_int(spec, limb.from_mont(spec, y))
+    x, y, inf = wst.to_affine(g1_ops(), pt, axis=axis)
+    xi, yi = _ints(x), _ints(y)
     infn = inf.cpu().numpy()
     return [curve_g1.infinity() if infn[k]
             else curve_g1.point(Fq(int(xi[k])), Fq(int(yi[k])))
             for k in range(infn.shape[0])]
+
+
+def g2_points_to_host(pt: wst.Point, axis: int = 0) -> list:
+    """(n,) device G2 point batch -> list of host PyPoints."""
+    x, y, inf = wst.to_affine(g2_ops(), pt, axis=axis)
+    x0, x1, y0, y1 = (_ints(c) for c in (*x, *y))
+    infn = inf.cpu().numpy()
+    return [curve_g2.infinity() if infn[k]
+            else curve_g2.point(Fq2([int(x0[k]), int(x1[k])]),
+                                Fq2([int(y0[k]), int(y1[k])]))
+            for k in range(infn.shape[0])]
+
+
+def pairing_product_is_one(pairs) -> bool:
+    """prod_i e(P_i, Q_i) == 1 for host (G1, G2) point pairs: one
+    multi-pairing with a shared final exponentiation, on the host (the C++
+    engine of ``native/``).  A verifier equality e(A, B) == e(C, D) is
+    e(A, B) * e(-C, D) == 1."""
+    return native.multi_pairing_coeffs(pairs) == [1] + [0] * 11

@@ -1,8 +1,10 @@
-"""Field-operation bundle for the curve formulas: ``FpOps`` over limb tensors.
+"""Field-operation bundles for the curve formulas: ``FpOps`` over limb
+tensors and ``Fq2Ops`` over pairs of them.
 
-Counterpart of ``FpOps`` in ``myzkp_tpu/curves/field_ops.py``; elements are
-``(L, *batch)`` int32 limb tensors in Montgomery form.  Constructors make
-their tensors on the card unless ``device`` names another device.
+Counterpart of ``myzkp_tpu/curves/field_ops.py``.  An Fp element is an
+``(L, *batch)`` int32 limb tensor in Montgomery form; an Fq2 = F_q[u]/(u^2 + 1)
+element is a ``(c0, c1)`` pair of such tensors.  Constructors make their
+tensors on the card unless ``device`` names another device.
 """
 
 from __future__ import annotations
@@ -55,3 +57,66 @@ class FpOps:
 
     def batch_shape(self, a):
         return tuple(a.shape[1:])
+
+
+class Fq2Ops:
+    """F_q[u]/(u^2 + 1) ops on (c0, c1) pairs of limb tensors.
+
+    The non-residue is -1, so (a0 + a1 u)(b0 + b1 u) = (a0 b0 - a1 b1) +
+    ((a0 + a1)(b0 + b1) - a0 b0 - a1 b1) u: Karatsuba, 3 base products."""
+
+    def __init__(self, spec: FieldSpec):
+        self.spec = spec
+        self.base = FpOps(spec)
+
+    def add(self, a, b):
+        return (self.base.add(a[0], b[0]), self.base.add(a[1], b[1]))
+
+    def sub(self, a, b):
+        return (self.base.sub(a[0], b[0]), self.base.sub(a[1], b[1]))
+
+    def mul(self, a, b):
+        f = self.base
+        t0 = f.mul(a[0], b[0])
+        t1 = f.mul(a[1], b[1])
+        t2 = f.mul(f.add(a[0], a[1]), f.add(b[0], b[1]))
+        return (f.sub(t0, t1), f.sub(t2, f.add(t0, t1)))
+
+    def sqr(self, a):
+        # (a0 + a1 u)^2 = (a0 + a1)(a0 - a1) + 2 a0 a1 u
+        f = self.base
+        t = f.mul(a[0], a[1])
+        return (f.mul(f.add(a[0], a[1]), f.sub(a[0], a[1])), f.add(t, t))
+
+    def neg(self, a):
+        return (self.base.neg(a[0]), self.base.neg(a[1]))
+
+    def zeros(self, batch_shape=(), device=None):
+        return (self.base.zeros(batch_shape, device),
+                self.base.zeros(batch_shape, device))
+
+    def one(self, batch_shape=(), device=None):
+        return (self.base.one(batch_shape, device),
+                self.base.zeros(batch_shape, device))
+
+    def const(self, x, batch_shape=(), device=None):
+        """x: an int (embedded F_q) or a (c0, c1) int pair."""
+        c0, c1 = x if isinstance(x, tuple) else (x, 0)
+        return (self.base.const(c0, batch_shape, device),
+                self.base.const(c1, batch_shape, device))
+
+    def select(self, mask, a, b):
+        s = self.base.select
+        return (s(mask, a[0], b[0]), s(mask, a[1], b[1]))
+
+    def is_zero(self, a):
+        return self.base.is_zero(a[0]) & self.base.is_zero(a[1])
+
+    def batch_inv(self, a, axis=-1):
+        """(a0 - a1 u) / (a0^2 + a1^2), one base batch inversion of the norms."""
+        f = self.base
+        ninv = f.batch_inv(f.add(f.sqr(a[0]), f.sqr(a[1])), axis=axis)
+        return (f.mul(a[0], ninv), f.neg(f.mul(a[1], ninv)))
+
+    def batch_shape(self, a):
+        return tuple(a[0].shape[1:])

@@ -1,14 +1,17 @@
-"""Multi-scalar multiplication: signed-digit Pippenger over G1.
+"""Multi-scalar multiplication: signed-digit Pippenger over G1 and G2.
 
 Counterpart of ``myzkp_tpu/curves/msm.py``.  Per group of windows: one stable
 sort of the window digits, one row gather of the projective point table in
-step-major order, the bucket scan (kernel K4), then the merge of the lanes'
-partial sums (K2) and, over all windows at once, the hierarchical weighted
-bucket sum (K2, K3) and the Horner combine.
+step-major order, the bucket scan, then the merge of the lanes' partial sums
+and, over all windows at once, the hierarchical weighted bucket sum and the
+Horner combine.
 
-The port always takes the row-major scan path of the reference (its
-``_rows_scan``), since K4 accepts any lane count.  Scalars enter as
-standard-domain ``(L, n)`` int32 limb tensors; everything runs on their device.
+G1 takes the reference's row-major scan path (its ``_rows_scan``): the whole
+K-step scan is kernel K4, which accepts any lane count.  G2 takes the
+reference's scan formulation (its ``_bucket_accumulate``; here
+``_scan_steps``): K steps of a select-masked complete add (K7) over the
+gathered points, since K4 holds 3-leaf G1 rows only.  Scalars enter as standard-domain ``(L, n)`` int32 limb
+tensors; everything runs on their device.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from .. import _ext
 from ..fields import limb
 from ..fields.spec import FieldSpec
 from . import curve_kernels, weierstrass as wst
-from .weierstrass import Point
+from .field_ops import Fq2Ops
+from .weierstrass import Point, point_map
 
 
 # ---------------------------------------------------------------------------
@@ -74,16 +78,6 @@ def signed_digits(digits, c: int):
 
 
 # ---------------------------------------------------------------------------
-# Naive batched MSM (golden model for small n)
-# ---------------------------------------------------------------------------
-
-def msm_naive(F, b3, points: Point, s_limbs) -> Point:
-    """sum_i [s_i] P_i via batched double-and-add and a tree sum."""
-    per_point = wst.scalar_mul_bits(F, b3, points, scalar_bits(s_limbs))
-    return wst.tree_sum(F, b3, per_point, axis=0)
-
-
-# ---------------------------------------------------------------------------
 # Window choice
 # ---------------------------------------------------------------------------
 
@@ -119,10 +113,15 @@ def default_window(n: int) -> int:
 # Row-major point tables
 # ---------------------------------------------------------------------------
 
+# Limbs of one coordinate tensor: BN254's F_q takes 16.
+_LEAF_LIMBS = 16
+
+
 def _rows_of_point(pt: Point, lanes: int | None = None):
-    """(L, N) coordinates -> (N, lanes) int32 rows, x | y | z limbs side by
-    side and zero-padded to a multiple of 64.  Returns (rows, C)."""
-    rows = torch.cat(tuple(pt), dim=0).T
+    """(L, N) coordinate tensors -> (N, lanes) int32 rows: all coordinate
+    limbs side by side (x | y | z for G1, C = 48; x0 | x1 | y0 | y1 | z0 | z1
+    for G2, C = 96), zero-padded to a multiple of 64.  Returns (rows, C)."""
+    rows = torch.cat(wst.leaves(pt), dim=0).T
     C = rows.shape[1]
     lanes = lanes or -(-C // 64) * 64
     return torch.nn.functional.pad(rows, (0, lanes - C)).contiguous(), C
@@ -131,21 +130,42 @@ def _rows_of_point(pt: Point, lanes: int | None = None):
 def _point_of_rows(rows, C: int, shape) -> Point:
     """Inverse of _rows_of_point: (N, lanes) -> Point of (L, *shape)."""
     planes = rows[:, :C].T.reshape((C,) + tuple(shape))
-    return Point(*planes.split(C // 3, dim=0))
+    return wst.from_leaves(planes.split(_LEAF_LIMBS, dim=0))
 
 
 # ---------------------------------------------------------------------------
 # Bucket accumulation
 # ---------------------------------------------------------------------------
 
-def _bucket_accumulate_rows(F, b3, rows, vsort, dsort, num_buckets: int,
-                            K: int) -> Point:
-    """Bucket sums of G windows: step-major row gather + bucket scan (K4).
+def _scan_steps(F, b3, g_rows, C: int, neg, head):
+    """K steps of the select-masked complete add (K7 for G2) over the
+    gathered step-major rows: the reference's scan formulation
+    (myzkp_tpu/curves/msm.py:215-280), with K4's contract
+    (csrc/bucket_scan.cu).  neg, head: (K, lanes).  At step k each lane first
+    hands its accumulator to the flush stream (a partial sum whose segment
+    ended inside the lane, or a dummy), then restarts it at the step's point
+    where a digit segment starts or adds the point to it."""
+    K, lanes = head.shape
+    q = _point_of_rows(g_rows, C, (K, lanes))
+    q = Point(q.x, F.select(neg > 0, F.neg(q.y), q.y), q.z)
+    q = point_map(lambda a: a.transpose(0, 1).contiguous(), q)  # (K, L, lanes)
+    acc = wst.infinity(F, (lanes,), g_rows.device)
+    flush_rows = torch.zeros_like(g_rows)
+    for k in range(K):
+        flush_rows[k * lanes:(k + 1) * lanes, :C] = torch.cat(wst.leaves(acc)).T
+        acc = wst.padd_sel(F, b3, acc, point_map(lambda a: a[k], q), head[k])
+    return acc, flush_rows
 
-    dsort / vsort: (G, n_pad) sorted digits and packed (index << 1 | negate)
-    values.  Returns a (G, num_buckets) point batch (bucket 0 unused)."""
-    spec = F.spec
-    L = spec.L
+
+def _bucket_accumulate(F, b3, rows, C: int, vsort, dsort, num_buckets: int,
+                       K: int) -> Point:
+    """Bucket sums of G windows: step-major row gather, the K-step bucket
+    scan over G * n / K lanes, and the merge of the lanes' partial sums.
+
+    G1's scan is kernel K4 (the reference's rows path); G2's is _scan_steps,
+    since K4 holds 3-leaf rows only.  dsort / vsort: (G, n_pad) sorted digits
+    and packed (index << 1 | negate) values; C: the rows' used width.
+    Returns a (G, num_buckets) point batch (bucket 0 unused)."""
     G, n_pad = dsort.shape
     B = n_pad // K
     slots = num_buckets + 1  # +1 per-window dummy slot, dropped at the end
@@ -161,11 +181,14 @@ def _bucket_accumulate_rows(F, b3, rows, vsort, dsort, num_buckets: int,
 
     v2 = vsort.reshape(G, B, K)
     g_rows = rows.index_select(0, sm(v2 >> 1).reshape(-1))
-    tag = (sm(v2 & 1) | (sm(head.int()) << 1)).reshape(-1).contiguous()
-    acc_planes, flush_rows = curve_kernels.bucket_scan_rows(
-        spec, g_rows, tag, b3, K)
-    acc = Point(*(acc_planes[i * L:(i + 1) * L].reshape(L, G, B)
-                  for i in range(3)))
+    if isinstance(F, Fq2Ops):
+        acc, flush_rows = _scan_steps(F, b3, g_rows, C, sm(v2 & 1), sm(head))
+    else:
+        tag = (sm(v2 & 1) | (sm(head.int()) << 1)).reshape(-1).contiguous()
+        acc_planes, flush_rows = curve_kernels.bucket_scan_rows(
+            F.spec, g_rows, tag, b3, K)
+        acc = wst.from_leaves(acc_planes.split(_LEAF_LIMBS))
+    acc = point_map(lambda a: a.reshape(a.shape[0], G, B), acc)
     # No flush at step 0: nothing has ended inside the lane yet.  A flush
     # there would scatter the fresh infinity accumulator of a lane whose first
     # digit continues the previous lane's segment onto that segment's real
@@ -182,14 +205,14 @@ def _seg_scan_hs(F, b3, pts: Point, head) -> Point:
 
     pts: leaves (L, G, B); head: (G, B) segment-head flags.  log2(B) levels,
     each one full-width K2 launch."""
-    B = pts.x.shape[-1]
+    B = wst.leaves(pts)[0].shape[-1]
     lane = torch.arange(B, device=head.device)
     inf = wst.infinity(F, tuple(head.shape), head.device)
     x, flags = pts, head
     d = 1
     while d < B:
         valid = lane >= d
-        xs = Point(*(torch.roll(a, d, dims=-1) for a in x))
+        xs = point_map(lambda a: torch.roll(a, d, dims=-1), x)
         xs = wst.pselect(F, valid, xs, inf)
         fs = torch.roll(flags, d, dims=-1) & valid
         added = wst.padd(F, b3, xs, x)
@@ -233,10 +256,10 @@ def _merge_lane_partials(F, b3, acc: Point, d2, flush_rows, tgt_flat,
     cur = _point_of_rows(bk_rows[tgt], C, (G, B))
     merged = wst.padd(F, b3, cur, seg_total)
     merged_rows, _ = _rows_of_point(
-        Point(*(a.reshape(a.shape[0], -1) for a in merged)), lanes)
+        point_map(lambda a: a.reshape(a.shape[0], -1), merged), lanes)
     bk_rows[tgt] = merged_rows
     buckets = _point_of_rows(bk_rows, C, (G, slots))
-    return Point(*(a[..., :num_buckets] for a in buckets))
+    return point_map(lambda a: a[..., :num_buckets], buckets)
 
 
 # Below this window size the bit-decomposition base case takes over.
@@ -249,13 +272,12 @@ def _weighted_bucket_sum(F, b3, buckets: Point, c: int) -> Point:
     Hierarchical split b = hi * 2^k + lo (k = c // 2): row sums and column
     sums by tree sums, two half-width weighted sums, k doublings.  Bucket 0
     is weighted by zero on every path."""
-    L = buckets.x.shape[0]
-    Gw = buckets.x.shape[1]
-    device = buckets.x.device
+    L, Gw = wst.leaves(buckets)[0].shape[:2]
+    device = wst.leaves(buckets)[0].device
     if c > _WSUM_BASE_C:
         k = c // 2
         hi_n, lo_n = 1 << (c - k), 1 << k
-        grid = Point(*(a.reshape(L, Gw, hi_n, lo_n) for a in buckets))
+        grid = point_map(lambda a: a.reshape(L, Gw, hi_n, lo_n), buckets)
         rows = wst.tree_sum(F, b3, grid, axis=2)  # (G, hi_n): sum over lo
         cols = wst.tree_sum(F, b3, grid, axis=1)  # (G, lo_n): sum over hi
         s_hi = _weighted_bucket_sum(F, b3, rows, c - k)
@@ -266,14 +288,14 @@ def _weighted_bucket_sum(F, b3, buckets: Point, c: int) -> Point:
     num = 1 << c
     idx = torch.arange(num, device=device)
     bitmask = ((idx[None, :] >> torch.arange(c, device=device)[:, None]) & 1) == 1
-    stacked = Point(*(a[:, :, None, :].expand(L, Gw, c, num) for a in buckets))
+    stacked = point_map(lambda a: a[:, :, None, :].expand(L, Gw, c, num), buckets)
     inf_wide = wst.infinity(F, (Gw, c, num), device)
     sel = wst.pselect(F, bitmask, stacked, inf_wide)
     totals = wst.tree_sum(F, b3, sel, axis=2)  # (G, c)
     acc = wst.infinity(F, (Gw,), device)
     for j in reversed(range(c)):  # high bit first
         acc = wst.padd(F, b3, wst.pdbl(F, b3, acc),
-                       Point(*(a[..., j] for a in totals)))
+                       point_map(lambda a: a[..., j], totals))
     return acc
 
 
@@ -315,8 +337,8 @@ def msm_pippenger(F, b3, points: Point, s_limbs, c: int | None = None,
     n_pad = -(-n // K) * K
     if n_pad != n:
         pad = n_pad - n
-        points = Point(*(torch.cat([a, a[:, :1].expand(-1, pad)], dim=1)
-                         for a in points))
+        points = point_map(lambda a: torch.cat([a, a[:, :1].expand(-1, pad)], dim=1),
+                           points)
         s_limbs = torch.nn.functional.pad(s_limbs, (0, pad))
 
     rows, C = _rows_of_point(points)
@@ -331,14 +353,14 @@ def msm_pippenger(F, b3, points: Point, s_limbs, c: int | None = None,
     d_sorted, order = torch.sort(digits, dim=1, stable=True)
     v_sorted = vals.gather(1, order)
 
-    groups = [_bucket_accumulate_rows(F, b3, rows, v_sorted[g:g + G],
-                                      d_sorted[g:g + G], num_buckets, K)
+    groups = [_bucket_accumulate(F, b3, rows, C, v_sorted[g:g + G],
+                                 d_sorted[g:g + G], num_buckets, K)
               for g in range(0, W_pad, G)]
-    buckets = Point(*(torch.cat(cs, dim=1) for cs in zip(*groups)))
+    buckets = point_map(lambda *cs: torch.cat(cs, dim=1), *groups)
     # magnitudes span [0, half]: the power-of-two weighted sum covers
     # [1, half - 1] and the top bucket adds half * B_half
-    main = Point(*(a[..., :half] for a in buckets))
-    top = Point(*(a[..., half] for a in buckets))
+    main = point_map(lambda a: a[..., :half], buckets)
+    top = point_map(lambda a: a[..., half], buckets)
     s_w = _weighted_bucket_sum(F, b3, main, c - 1)
     for _ in range(c - 1):
         top = wst.pdbl(F, b3, top)
@@ -348,7 +370,7 @@ def msm_pippenger(F, b3, points: Point, s_limbs, c: int | None = None,
     for w in reversed(range(W_pad)):
         for _ in range(c):
             res = wst.pdbl(F, b3, res)
-        res = wst.padd(F, b3, res, Point(*(a[:, w] for a in s_w)))
+        res = wst.padd(F, b3, res, point_map(lambda a: a[:, w], s_w))
     return res
 
 
@@ -356,12 +378,38 @@ def msm_pippenger(F, b3, points: Point, s_limbs, c: int | None = None,
 _PIPPENGER_MIN_N = 128
 
 
+def msm_many(F, b3, jobs) -> list:
+    """[sum_i [s_i] P_i for (P, s) in jobs] over one group: P an (n,) point
+    batch, s its (L, n) standard-domain scalars.
+
+    The jobs below _PIPPENGER_MIN_N points share one batched double-and-add
+    ladder (256 steps, each one add, one select and one double over all of
+    their points), then a tree sum each; the others run msm_pippenger each.
+    The Pinocchio prover sends a group's MSMs and its delta shifts (jobs of
+    one point) here together."""
+    out = [None] * len(jobs)
+    small = [k for k, (_, s) in enumerate(jobs) if s.shape[1] < _PIPPENGER_MIN_N]
+    if small:
+        pts = point_map(lambda *cs: torch.cat(cs, dim=1), *(jobs[k][0] for k in small))
+        bits = scalar_bits(torch.cat([jobs[k][1] for k in small], dim=1))
+        each = wst.scalar_mul_bits(F, b3, pts, bits)
+        off = 0
+        for k in small:
+            n = jobs[k][1].shape[1]
+            out[k] = wst.tree_sum(F, b3, point_map(lambda a: a[:, off:off + n], each))
+            off += n
+    for k, (pts, s) in enumerate(jobs):
+        if out[k] is None:
+            out[k] = msm_pippenger(F, b3, pts, s)
+    return out
+
+
 def msm(F, b3, points: Point, s_limbs, **kw) -> Point:
-    """sum_i [s_i] P_i: the naive ladder below _PIPPENGER_MIN_N points unless
-    Pippenger's c or K is given, else msm_pippenger."""
-    if not kw and s_limbs.shape[1] < _PIPPENGER_MIN_N:
-        return msm_naive(F, b3, points, s_limbs)
-    return msm_pippenger(F, b3, points, s_limbs, **kw)
+    """sum_i [s_i] P_i: the double-and-add ladder below _PIPPENGER_MIN_N
+    points unless Pippenger's c or K is given, else msm_pippenger."""
+    if kw:
+        return msm_pippenger(F, b3, points, s_limbs, **kw)
+    return msm_many(F, b3, [(points, s_limbs)])[0]
 
 
 def scalars_from_int(spec: FieldSpec, values, device=None) -> torch.Tensor:

@@ -2,31 +2,63 @@
 with the complete formulas of Renes-Costello-Batina 2016 (a = 0).
 
 Counterpart of ``myzkp_tpu/curves/weierstrass.py``.  A point batch is
-``Point(x, y, z)``, each coordinate an ``(L, *batch)`` Montgomery limb tensor;
-infinity is (0, 1, 0).  The group law itself is in the kernels of
-``curve_kernels`` (K2, K3) and their plain versions; this layer accepts any
-strided input and hands the kernels contiguous tensors.
+``Point(x, y, z)``; each coordinate is an element of the ops bundle ``F``: an
+``(L, *batch)`` Montgomery limb tensor for G1 (``FpOps``) or a ``(c0, c1)``
+pair of them for G2 (``Fq2Ops``).  Infinity is (0, 1, 0).  The group law
+itself is in the kernels of ``curve_kernels`` (K2, K3 for G1; K7, K8 for G2)
+and their plain versions; this layer accepts any strided input and hands the
+kernels contiguous tensors.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
 from . import curve_kernels
+from .field_ops import Fq2Ops
 
 
 class Point(NamedTuple):
     """Homogeneous projective point batch."""
 
-    x: torch.Tensor
-    y: torch.Tensor
-    z: torch.Tensor
+    x: Any
+    y: Any
+    z: Any
 
 
-def _contig(p) -> tuple:
-    return tuple(c.contiguous() for c in p)
+def leaves(p: Point) -> tuple:
+    """The coordinate tensors: (x, y, z) for G1, (x0, x1, y0, y1, z0, z1)
+    for G2."""
+    return tuple(t for e in p for t in (e if isinstance(e, tuple) else (e,)))
+
+
+def from_leaves(ts) -> Point:
+    """Inverse of ``leaves``: 3 tensors make a G1 point, 6 a G2 point."""
+    ts = tuple(ts)
+    if len(ts) == 3:
+        return Point(*ts)
+    if len(ts) == 6:
+        return Point(ts[0:2], ts[2:4], ts[4:6])
+    raise ValueError(f"a point has 3 or 6 coordinate tensors, not {len(ts)}")
+
+
+def point_map(f, *pts: Point) -> Point:
+    """Point of f applied to the corresponding coordinate tensors of pts."""
+    return from_leaves(f(*ts) for ts in zip(*map(leaves, pts)))
+
+
+def _contig(p: Point) -> Point:
+    return point_map(torch.Tensor.contiguous, p)
+
+
+def _kernels(F):
+    """(add, double) kernel wrappers for F's group: K7/K8 over F_q2, else
+    K2/K3."""
+    if isinstance(F, Fq2Ops):
+        return curve_kernels.padd2, curve_kernels.pdbl2
+    return curve_kernels.padd, curve_kernels.pdbl
 
 
 def infinity(F, batch_shape=(), device=None) -> Point:
@@ -35,19 +67,19 @@ def infinity(F, batch_shape=(), device=None) -> Point:
 
 
 def padd(F, b3, p: Point, q: Point) -> Point:
-    """Complete addition P + Q (RCB16 Algorithm 7), kernel K2."""
-    return Point(*curve_kernels.padd(F.spec, b3, _contig(p), _contig(q)))
+    """Complete addition P + Q (RCB16 Algorithm 7), kernel K2 or K7."""
+    return Point(*_kernels(F)[0](F.spec, b3, _contig(p), _contig(q)))
 
 
 def padd_sel(F, b3, p: Point, q: Point, keep_q) -> Point:
-    """select(keep_q, Q, P + Q) in one K2 launch."""
-    return Point(*curve_kernels.padd(F.spec, b3, _contig(p), _contig(q),
-                                     h=keep_q.contiguous()))
+    """select(keep_q, Q, P + Q) in one K2 or K7 launch."""
+    return Point(*_kernels(F)[0](F.spec, b3, _contig(p), _contig(q),
+                                 h=keep_q.contiguous()))
 
 
 def pdbl(F, b3, p: Point) -> Point:
-    """Complete doubling 2P (RCB16 Algorithm 9), kernel K3."""
-    return Point(*curve_kernels.pdbl(F.spec, b3, _contig(p)))
+    """Complete doubling 2P (RCB16 Algorithm 9), kernel K3 or K8."""
+    return Point(*_kernels(F)[1](F.spec, b3, _contig(p)))
 
 
 def pneg(F, p: Point) -> Point:
@@ -68,7 +100,7 @@ def to_affine(F, p: Point, axis: int = -1):
 
 def scalar_mul_bits(F, b3, p: Point, bits) -> Point:
     """[e]P with e given as an LSB-first (nbits, *batch) bit tensor."""
-    acc = infinity(F, F.batch_shape(p.x), p.x.device)
+    acc = infinity(F, F.batch_shape(p.x), leaves(p)[0].device)
     base = p
     for i in range(bits.shape[0]):
         acc = pselect(F, bits[i] > 0, padd(F, b3, acc, base), acc)
@@ -79,19 +111,20 @@ def scalar_mul_bits(F, b3, p: Point, bits) -> Point:
 
 def tree_sum(F, b3, p: Point, axis: int = 0) -> Point:
     """EC sum of a point batch along a batch axis by halving: each level adds
-    the top half onto the bottom half in one K2 launch, 2n adds in all.
+    the top half onto the bottom half in one kernel launch, 2n adds in all.
     Sizes that are not a power of two are padded with infinity."""
     dim = axis + 1  # limb axis leads
-    n = p.x.shape[dim]
+    x0 = leaves(p)[0]
+    n = x0.shape[dim]
     n2 = 1 << max(0, (n - 1).bit_length())
     if n2 != n:
-        pad_shape = list(p.x.shape[1:])
+        pad_shape = list(x0.shape[1:])
         pad_shape[axis] = n2 - n
-        inf = infinity(F, tuple(pad_shape), p.x.device)
-        p = Point(*(torch.cat([a, i], dim=dim) for a, i in zip(p, inf)))
+        inf = infinity(F, tuple(pad_shape), x0.device)
+        p = point_map(lambda a, i: torch.cat([a, i], dim=dim), p, inf)
     m = n2
     while m > 1:
         m //= 2
-        p = padd(F, b3, Point(*(a.narrow(dim, 0, m) for a in p)),
-                 Point(*(a.narrow(dim, m, m) for a in p)))
-    return Point(*(a.select(dim, 0) for a in p))
+        p = padd(F, b3, point_map(lambda a: a.narrow(dim, 0, m), p),
+                 point_map(lambda a: a.narrow(dim, m, m), p))
+    return point_map(lambda a: a.select(dim, 0), p)

@@ -1,7 +1,7 @@
 """Fp: a batch of prime-field elements in Montgomery form.
 
-Counterpart of ``myzkp_tpu/fields/fp.py`` with what the prover's quotient
-stage uses: ``mont`` is an int32 ``(L, *batch)`` limb tensor in Montgomery
+Counterpart of ``myzkp_tpu/fields/fp.py`` with what the Pinocchio setup and
+prover use: ``mont`` is an int32 ``(L, *batch)`` limb tensor in Montgomery
 form, operators broadcast over the batch dims, and every result is
 canonical, so it equals the reference limb for limb.
 """
@@ -54,6 +54,12 @@ class Fp:
 
     def __mul__(self, other: "Fp") -> "Fp":
         return Fp(self.spec, limb.mont_mul(self.spec, self.mont, other.mont))
+
+    def batch_inv(self, axis: int = -1) -> "Fp":
+        """Inverses along batch axis ``axis`` by one Montgomery-trick batch
+        inversion; zeros map to zero."""
+        ax = axis + 1 if axis >= 0 else axis
+        return Fp(self.spec, limb.batch_inv(self.spec, self.mont, axis=ax))
 
     def pad_to(self, n: int) -> "Fp":
         """Zero-pad the last batch axis to length n (no-op when it is longer)."""

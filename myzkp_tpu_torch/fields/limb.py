@@ -18,6 +18,8 @@ tensors on the card unless the caller names a device (``_ext.resolve_device``).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -92,9 +94,26 @@ def _broadcast_pair(L: int, a: torch.Tensor, b: torch.Tensor):
 # int64 carry machinery (plain versions)
 # ---------------------------------------------------------------------------
 
+# The plain versions' constant columns, made once per shape and device: at
+# the small batches of the tests, making them anew was a tenth of a product.
+
+@functools.lru_cache(maxsize=None)
+def _shifts(L: int, ndim: int, device) -> torch.Tensor:
+    return torch.arange(L, device=device).reshape((L,) + (1,) * ndim)
+
+
+@functools.lru_cache(maxsize=None)
+def _p64(spec: FieldSpec, ndim: int, device) -> torch.Tensor:
+    return _limb_column(spec.p_limbs, ndim, device, I64)
+
+
+@functools.lru_cache(maxsize=None)
+def _neg_p64(spec: FieldSpec, ndim: int, device) -> torch.Tensor:
+    return _complement(_p64(spec, ndim, device))
+
+
 def _limb_shifts(t: torch.Tensor) -> torch.Tensor:
-    return torch.arange(t.shape[0], device=t.device).reshape(
-        (t.shape[0],) + (1,) * (t.dim() - 1))
+    return _shifts(t.shape[0], t.dim() - 1, t.device)
 
 
 def _resolve(s: torch.Tensor):
@@ -136,8 +155,7 @@ def _complement(b: torch.Tensor) -> torch.Tensor:
 
 def _cond_sub_p(spec: FieldSpec, a: torch.Tensor, top=None) -> torch.Tensor:
     """a - p where a >= p or top > 0, else a (canonical limbs, a < 2p)."""
-    p = _limb_column(spec.p_limbs, a.dim() - 1, a.device, I64)
-    d, no_borrow = _resolve(a + _complement(p))
+    d, no_borrow = _resolve(a + _neg_p64(spec, a.dim() - 1, a.device))
     need = no_borrow > 0
     if top is not None:
         need = need | (top > 0)
@@ -151,8 +169,7 @@ def _add64(spec: FieldSpec, a, b):
 
 def _sub64(spec: FieldSpec, a, b):
     d, no_borrow = _resolve(a + _complement(b))
-    p = _limb_column(spec.p_limbs, a.dim() - 1, a.device, I64)
-    plus, _ = _resolve(d + p)
+    plus, _ = _resolve(d + _p64(spec, a.dim() - 1, a.device))
     return torch.where(no_borrow > 0, d, plus)
 
 
@@ -161,11 +178,13 @@ def _mont_mul64(spec: FieldSpec, a, b):
     L = spec.L
     t = torch.zeros((2 * L,) + tuple(a.shape[1:]), dtype=I64, device=a.device)
     for i in range(L):  # columns < L * 2^32 + carries: far below 2^63
-        t[i:i + L] += a[i] * b
-    p = _limb_column(spec.p_limbs, a.dim() - 1, a.device, I64)
+        t[i:i + L].addcmul_(a[i], b)
+    p = _p64(spec, a.dim() - 1, a.device)
     for i in range(L):
-        m = ((t[i] & MASK) * spec.n0) & MASK
-        t[i:i + L] += m * p
+        # column i < 2^38 (2L products below 2^32, plus carries), so
+        # t[i] * n0 < 2^54 needs no masking first
+        m = (t[i] * spec.n0) & MASK
+        t[i:i + L].addcmul_(m, p)
         # column i is now 0 mod 2^16; fold its carry upward
         t[i + 1] += t[i] >> W
     res, c = _carry(t[L:])

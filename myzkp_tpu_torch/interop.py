@@ -1,17 +1,21 @@
-"""State shared with the JAX package, as numpy arrays and .npz files.
+"""State shared with the JAX package, as numpy arrays and .npz / JSON files.
 
 The JAX package holds field elements as ``(L, *batch)`` uint32 arrays of
 16-bit limbs; the port holds the same integers as int32 tensors.  These
-functions move limb arrays, point batches, ``Fp`` / ``Poly`` values and sparse
-circuits across, and read the two caches the JAX side writes: the fixed-base
-table (``curves/fixed_base.py``, keys ``l0..l2``) and the bench's MSM point
-table (``bench.py``, keys ``x, y, z``).  The port's own fixed-base cache is
-written in the same format.  Every loader makes its tensors on the card
+functions move limb arrays, G1 and G2 point batches (3 or 6 coordinate
+arrays, in the order of ``weierstrass.leaves``), ``Fp`` / ``Poly`` values and
+sparse circuits across, and read what the JAX side writes: the fixed-base
+tables (``curves/fixed_base.py``, keys ``l0..l2`` or ``l0..l5``), the bench's
+MSM point table (``bench.py``, keys ``x, y, z``) and the Pinocchio proving and
+verification keys (``utils/serialize.py``).  The port's own fixed-base cache
+is written in the same format.  Every loader makes its tensors on the card
 unless ``device`` names another device.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
 
 import numpy as np
@@ -19,7 +23,8 @@ import torch
 
 from . import _ext
 from .arith.sparse import SparseMatrix, SparseR1CS
-from .curves.weierstrass import Point
+from .curves.weierstrass import Point, from_leaves, leaves
+from .fields.host import Fq, Fq2, curve_g1, curve_g2
 from .fields.fp import Fp
 from .fields.spec import FieldSpec
 from .ops.poly import Poly
@@ -40,26 +45,30 @@ def limbs_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.uint32)
 
 
-def point_from_numpy(leaves, device=None) -> Point:
-    return Point(*(limbs_from_numpy(a, device) for a in leaves))
+def point_from_numpy(arrays, device=None) -> Point:
+    """3 coordinate limb arrays (G1) or 6 (G2: x0, x1, y0, y1, z0, z1) ->
+    point batch."""
+    return from_leaves(limbs_from_numpy(a, device) for a in arrays)
 
 
 def point_to_numpy(pt) -> tuple:
-    return tuple(limbs_to_numpy(c) for c in pt)
+    return tuple(limbs_to_numpy(c) for c in leaves(pt))
 
 
 def save_fixed_base_table(path, pt: Point) -> None:
-    """Write a table in the fixed-base cache format (keys l0, l1, l2), through
-    a temporary file so that a reader never sees half a table."""
+    """Write a table in the fixed-base cache format (keys l0, l1, ...),
+    through a temporary file so that a reader never sees half a table."""
     tmp = f"{path}.tmp{os.getpid()}.npz"  # np.savez appends .npz itself
     np.savez(tmp, **{f"l{i}": a for i, a in enumerate(point_to_numpy(pt))})
     os.replace(tmp, path)
 
 
 def load_fixed_base_table(path, device=None) -> Point:
-    """A G1 fixed-base table .npz (keys l0, l1, l2) -> point batch."""
+    """A fixed-base table .npz (keys l0..l2 for G1, l0..l5 for G2) -> point
+    batch."""
     with np.load(path) as data:
-        return point_from_numpy([data[f"l{i}"] for i in range(3)], device)
+        return point_from_numpy([data[f"l{i}"] for i in range(len(data.files))],
+                                device)
 
 
 def load_bench_points(path, device=None) -> Point:
@@ -99,3 +108,41 @@ def sparse_r1cs_from_numpy(spec: FieldSpec, mats, device=None) -> SparseR1CS:
     """mats: three (rows, cols, vals_mont, shape) tuples, for L, R and O."""
     return SparseR1CS(*(sparse_matrix_from_numpy(spec, *m, device=device)
                         for m in mats))
+
+
+def load_pinocchio_pk(path, device=None):
+    """A proving key saved by the JAX package's
+    ``utils/serialize.save_pinocchio_pk`` (keys ``pt:<field>:n`` and
+    ``pt:<field>:<i>``, 3 or 6 coordinate arrays per point batch) ->
+    ``snark.pinocchio.PinocchioProofKey``."""
+    from .snark.pinocchio import PinocchioProofKey  # pinocchio imports this module
+
+    out = {}
+    with np.load(path) as data:
+        for f in dataclasses.fields(PinocchioProofKey):
+            n = int(data[f"pt:{f.name}:n"])
+            out[f.name] = point_from_numpy(
+                [data[f"pt:{f.name}:{i}"] for i in range(n)], device)
+    return PinocchioProofKey(**out)
+
+
+def _host_point(v):
+    """One JSON entry of ``serialize.save_pinocchio_vk``: [group, coords]."""
+    grp, coords = v
+    curve = curve_g2 if grp == "g2" else curve_g1
+    if coords is None:
+        return curve.infinity()
+    x, y = coords
+    if grp == "g2":
+        return curve.point(Fq2([int(c) for c in x]), Fq2([int(c) for c in y]))
+    return curve.point(Fq(int(x)), Fq(int(y)))
+
+
+def load_pinocchio_vk(path):
+    """A verification key saved by ``serialize.save_pinocchio_vk`` (JSON of
+    host points) -> ``snark.pinocchio.PinocchioVerificationKey``."""
+    from .snark.pinocchio import PinocchioVerificationKey  # as load_pinocchio_pk
+
+    with open(path) as fh:
+        data = json.load(fh)
+    return PinocchioVerificationKey(**{k: _host_point(v) for k, v in data.items()})

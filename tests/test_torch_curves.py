@@ -20,6 +20,9 @@ from myzkp_tpu_torch.curves import msm as tmsm
 from myzkp_tpu_torch.curves import weierstrass as tw
 
 DEV = torch.device("cpu")  # the port's constructors default to the card
+# one intra-op thread: the test processes (pytest-xdist) already share
+# the cores, and spinning pool threads slow small int64 batches badly
+torch.set_num_threads(1)
 
 Q = tbn.Q
 RMOD = (1 << 256) % Q

@@ -22,6 +22,9 @@ from myzkp_tpu_torch.fields import limb as tlimb
 from myzkp_tpu_torch.fields import spec as tspec
 
 DEV = torch.device("cpu")  # the port's constructors default to the card
+# one intra-op thread: the test processes (pytest-xdist) already share
+# the cores, and spinning pool threads slow small int64 batches badly
+torch.set_num_threads(1)
 
 N = 24
 

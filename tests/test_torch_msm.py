@@ -25,6 +25,9 @@ from myzkp_tpu_torch.curves import msm as tmsm
 from myzkp_tpu_torch.curves import weierstrass as tw
 
 DEV = torch.device("cpu")  # the port's constructors default to the card
+# one intra-op thread: the test processes (pytest-xdist) already share
+# the cores, and spinning pool threads slow small int64 batches badly
+torch.set_num_threads(1)
 
 R = tbn.R
 
@@ -162,7 +165,7 @@ def test_msm_pippenger_c14_matches_reference(known_multiples):
 
 def test_msm_small_n_takes_naive_path():
     """msm() below the Pippenger threshold: zero, tiny, r-1 and duplicate
-    scalars through msm_naive (double-and-add and a tree sum)."""
+    scalars through msm_many's double-and-add ladder and a tree sum."""
     g1 = tbn.g1_generator()
     ks = [0, 1, 1, 2, R - 1, 0, 7, 7]
     pts = tbn.g1_points_to_device([g1 * (i + 1) for i in range(8)], DEV)

@@ -27,6 +27,9 @@ from myzkp_tpu_torch.fields.fp import Fp
 from myzkp_tpu_torch.ops import ntt as tntt
 
 DEV = torch.device("cpu")
+# one intra-op thread: the test processes (pytest-xdist) already share
+# the cores, and spinning pool threads slow small int64 batches badly
+torch.set_num_threads(1)
 P32 = 3221225473
 
 

@@ -29,6 +29,9 @@ from myzkp_tpu_torch.ops.poly import Poly
 from myzkp_tpu_torch.snark import pinocchio as tpin
 
 DEV = torch.device("cpu")
+# one intra-op thread: the test processes (pytest-xdist) already share
+# the cores, and spinning pool threads slow small int64 batches badly
+torch.set_num_threads(1)
 JSPEC, TSPEC = FieldSpec.make(BN254_R), tspec.FieldSpec.make(BN254_R)
 P = BN254_R
 
