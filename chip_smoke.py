@@ -44,7 +44,23 @@ Phases, one output line each (or more), in order:
                prove median of 3, verify seconds (host); then setup and prove
                at m = 2^4 on the card and on the CPU plain versions with the
                same seeds, keys and proofs equal point for point; K7 and K8
-               timed beside their plain versions at the scan step's width.
+               timed beside their plain versions at the scan step's width;
+  9. mixed add the entry points weierstrass.padd_mixed / padd_mixed_sel, counted:
+               K9 over G1 at 2^15 lanes (the mask set on about 1 lane in 32)
+               and at 4,194,304 points, K10 over G2 at the scan step's 32,768
+               lanes; inputs with P = O, P = lam (qx, qy, 1) with lam != 1 (a
+               doubling through the mixed formula), P = -Q (the sum is O), and
+               lanes whose every c0 and c1 is 0, 1, q - 1 or R mod q; each
+               kernel held against its plain version, against the complete add
+               (K2, K7) of P and (qx, qy, one) and against the host group law
+               on a sample of lanes, then timed beside its plain version;
+ 10. groth16   setup, prove and verify on square_chain(2^20) with 2 public
+               inputs: the proof is accepted, and rejected under a wrong public
+               input; the proof of a wrong witness is rejected; launch counts
+               of setup and of prove; setup seconds, prove median of 3, verify
+               seconds; then setup and prove at m = 2^4 on the card and on the
+               CPU plain versions with the same seeds, keys and proofs equal
+               point for point.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.  Any failure exits nonzero before it.
@@ -69,6 +85,8 @@ LOG_N_C14 = 16
 LOG_M_BIG, LOG_M_SMALL = 20, 12  # shifted h: four-step (K6) and Stockham (K5)
 LOG_M_PIN = 20  # Pinocchio setup / prove / verify on square_chain(2^20)
 LOG_M_CMP = 4  # the whole path on the card and on the CPU plain versions
+LOG_M_G16, NPUB_G16 = 20, 2  # Groth16 on square_chain(2^20), 2 public inputs
+MIX_WIDE = 1 << 22  # K9 at a fixed-base tree level's width (K2's timed shape)
 
 # The card's peaks for a kernel's bound (NVIDIA H100 SXM at 700 W): device
 # memory 3.35 TB/s; 32-bit integer multiply-adds at 64 per SM per clock
@@ -850,6 +868,232 @@ def time_g2_kernels(dev, results: dict) -> None:
     time_cases(cases, results)
 
 
+def mixed_add_inputs(group: str, m: int, dev, seed: int):
+    """P (projective) and Q = (qx, qy) (affine) over m lanes, for K9 (G1) or
+    K10 (G2).  Q is one of 64 host points (never O: the affine form cannot
+    express it); P a rescaling by a random lam of one of them or of O.  Lane
+    kinds: P = O, P = Q (a doubling through the mixed formula, lam != 1), P =
+    -Q (the sum is O), generic; the first m / 8 lanes hold 0, 1, q - 1 or
+    R mod q in every coordinate component (not points).  Returns (F, b3, P,
+    qx, qy, E, want) with want(lane) the host sum of a lane at or after E."""
+    from myzkp_tpu_torch.curves import bn254
+    from myzkp_tpu_torch.curves import weierstrass as wst
+    from myzkp_tpu_torch.fields import limb
+
+    g2 = group == "g2"
+    rng = np.random.default_rng(seed)
+    hrng = random.Random(seed)
+    spec = bn254.q_spec()
+    F, b3 = ((bn254.g2_ops(), bn254.g2_b3((), dev)) if g2
+             else (bn254.g1_ops(), bn254.g1_b3((), dev)))
+    gen = bn254.g2_generator() if g2 else bn254.g1_generator()
+    curve = bn254.curve_g2 if g2 else bn254.curve_g1
+    to_device = bn254.g2_points_to_device if g2 else bn254.g1_points_to_device
+    host = [gen * hrng.randrange(1, bn254.R) for _ in range(64)]
+    base = to_device(host + [curve.infinity()], dev)  # z = one: affine
+    ia, ib, kinds = (rng.integers(0, n, m) for n in (64, 64, 8))
+    ia = np.where((kinds == 0) | (kinds == 2), ib, ia)  # P = Q, P = -Q
+    ia = np.where(kinds == 1, 64, ia)  # P = O
+    ta, tb = (torch.from_numpy(i).to(dev) for i in (ia, ib))
+    lam = ((random_fe(rng, m, dev), random_fe(rng, m, dev)) if g2
+           else random_fe(rng, m, dev))
+    (lam[0] if g2 else lam)[0] |= 1  # nonzero
+    P = [F.mul(c, lam) for c in wst.point_map(lambda c: c[:, ta], base)]
+    P[1] = F.select(torch.from_numpy(kinds == 2).to(dev), F.neg(P[1]), P[1])
+    qx, qy = (wst.point_map(lambda c: c[:, tb], base)[k] for k in (0, 1))
+    E = m // 8
+    edges = [0, 1, spec.p - 1, (1 << 256) % spec.p]
+    coords = [[t.clone() for t in (e if g2 else (e,))] for e in (*P, qx, qy)]
+    for comps in coords:
+        for t in comps:
+            t[:, :E] = limb.from_int(spec, [edges[i] for i in rng.integers(0, 4, E)], dev)
+    elems = [tuple(c) if g2 else c[0] for c in coords]
+
+    def want(k):
+        pk = curve.infinity() if ia[k] == 64 else host[ia[k]]
+        return (-pk if kinds[k] == 2 else pk) + host[ib[k]]
+
+    return F, b3, wst.Point(*elems[:3]), elems[3], elems[4], E, want
+
+
+def phase_mixed_add(dev, results: dict) -> None:
+    from myzkp_tpu_torch.curves import bn254, curve_kernels as ck
+    from myzkp_tpu_torch.curves import weierstrass as wst
+
+    spec = bn254.q_spec()
+    m = SCAN_LANES
+    inputs = {g: mixed_add_inputs(g, m, dev, SEED + 7 + k) for k, g in enumerate(("g1", "g2"))}
+    # a segment head every 32 steps, as in a bucket scan
+    h = torch.arange(m, device=dev) % 32 == 0
+    F1, b31, P1, qx1, qy1, E1, want1 = inputs["g1"]
+    reps = MIX_WIDE // m
+    wide = lambda e: e.repeat(1, reps)
+    Pw = wst.point_map(wide, P1)
+    qxw, qyw = wide(qx1), wide(qy1)
+    F2, b32, P2, qx2, qy2, E2, want2 = inputs["g2"]
+
+    def main_path():
+        return {"g1_sel": wst.padd_mixed_sel(F1, b31, P1, qx1, qy1, h),
+                "g1": wst.padd_mixed(F1, b31, P1, qx1, qy1),
+                "g1_wide": wst.padd_mixed(F1, b31, Pw, qxw, qyw),
+                "g2_sel": wst.padd_mixed_sel(F2, b32, P2, qx2, qy2, h),
+                "g2": wst.padd_mixed(F2, b32, P2, qx2, qy2)}
+
+    out, counts = counted(main_path)
+    if min(counts.get(k, 0) for k in ("padd_mixed", "padd_mixed2")) < 1:
+        raise AssertionError(f"mixed add: K9 or K10 never launched: {counts}")
+    L = wst.leaves
+    plain = {"g1_sel": ck.padd_mixed_ref(spec, b31, P1, qx1, qy1, h),
+             "g1": ck.padd_mixed_ref(spec, b31, P1, qx1, qy1),
+             "g1_wide": ck.padd_mixed_ref(spec, b31, Pw, qxw, qyw),
+             "g2_sel": ck.padd_mixed2_ref(spec, b32, P2, qx2, qy2, h),
+             "g2": ck.padd_mixed2_ref(spec, b32, P2, qx2, qy2)}
+    err = {"padd_mixed": 0, "padd_mixed2": 0}
+    for k, got in out.items():
+        name = "padd_mixed2" if k.startswith("g2") else "padd_mixed"
+        err[name] = max(err[name], check_equal(f"{name} [{k}]", L(got), L(wst.Point(*plain[k]))))
+    del Pw, qxw, qyw, plain
+    # the complete add of P and (qx, qy, one), with and without the mask
+    for k, F, b3, P, qx, qy in (("g1", F1, b31, P1, qx1, qy1), ("g2", F2, b32, P2, qx2, qy2)):
+        Q = wst.from_affine(F, qx, qy)
+        full = wst.padd(F, b3, P, Q), wst.padd_sel(F, b3, P, Q, h)
+        for got, w in zip((out[k], out[f"{k}_sel"]), full):
+            if not all(torch.equal(a, b) for a, b in zip(L(got), L(w))):
+                raise AssertionError(f"mixed add {k}: differs from the complete add of "
+                                     f"(qx, qy, one)")
+    # the host group law on 64 lanes past the edge lanes; P = -Q gives O
+    for k, to_host, E, want in (("g1", bn254.g1_points_to_host, E1, want1),
+                                ("g2", bn254.g2_points_to_host, E2, want2)):
+        got = to_host(wst.point_map(lambda c: c[:, E:E + 64], out[k]))
+        if got != [want(j) for j in range(E, E + 64)]:
+            raise AssertionError(f"mixed add {k}: disagrees with the host group law")
+    for k in ("padd_mixed", "padd_mixed2"):
+        results[k] = {"max_abs_err": err[k], "launches": counts[k]}
+    log(f"# mixed add: K9 at {m} lanes (with and without h) and {MIX_WIDE} points, "
+        f"K10 at {m} lanes (with and without h), through weierstrass.padd_mixed(_sel); "
+        f"P = O, P = lam Q, P = -Q, and {E1} / {E2} lanes of 0, 1, q-1, R mod q in every "
+        f"c0 and c1: exact vs plain and vs the complete add K2 / K7 of (qx, qy, one); "
+        f"64 lanes per group match the host; launches {json.dumps(counts)}")
+
+    # timing: K9 at K2's shape, K10 at K7's, and K9 with the mask at probe
+    # 12's width (tools/scratch_prof4.py:84); a mixed add reads 5 coordinates
+    # and writes 3 (G2: 10 and 6); 13 products (G2: 39), none where h is set
+    rng = np.random.default_rng(SEED + 9)
+    fe = lambda n: random_fe(rng, n, dev)
+    Pt = tuple(fe(MIX_WIDE) for _ in range(3))
+    qxt, qyt = fe(MIX_WIDE), fe(MIX_WIDE)
+    P2t = tuple((fe(m), fe(m)) for _ in range(3))
+    q2t = tuple((fe(m), fe(m)) for _ in range(2))
+    heads = int(h.sum())
+    probe = {"padd_mixed": {"max_abs_err": 0}}
+    time_cases({"padd_mixed": (
+        f"{m} lanes with h set on 1 in 32: probe 12's width",
+        lambda: ck.padd_mixed(spec, b31, P1, qx1, qy1, h),
+        lambda: ck.padd_mixed_ref(spec, b31, P1, qx1, qy1, h), 100, 3,
+        bound(8 * LIMB_BYTES * m + m + LIMB_BYTES, 13 * (m - heads)))}, probe)
+    time_cases({
+        "padd_mixed": (f"{MIX_WIDE} points: a fixed-base tree level's width",
+                       lambda: ck.padd_mixed(spec, b31, Pt, qxt, qyt),
+                       lambda: ck.padd_mixed_ref(spec, b31, Pt, qxt, qyt), 5, 1,
+                       bound(8 * LIMB_BYTES * MIX_WIDE + LIMB_BYTES, 13 * MIX_WIDE)),
+        "padd_mixed2": (f"{m} lanes with h set on 1 in 32: one G2 bucket-scan step",
+                        lambda: L(wst.Point(*ck.padd_mixed2(spec, b32, P2t, *q2t, h))),
+                        lambda: L(wst.Point(*ck.padd_mixed2_ref(spec, b32, P2t, *q2t, h))),
+                        20, 1,
+                        bound(16 * LIMB_BYTES * m + m + 2 * LIMB_BYTES, 39 * (m - heads))),
+    }, results)
+    # K2 on the same inputs as K9's timed call, with (qx, qy, one) for Q
+    Qt = (qxt, qyt, F1.one((MIX_WIDE,), dev).contiguous())
+    k2_ms = cuda_time_ms(lambda: ck.padd(spec, b31, Pt, Qt), 5)
+    log(f"# time padd [{MIX_WIDE} points, the same P and Q = (qx, qy, one) as "
+        f"padd_mixed's]: kernel {k2_ms:.4f} ms")
+    results["_mixed_add"] = {"probe12": probe["padd_mixed"], "launches": counts,
+                             "padd_same_inputs_ms": k2_ms}
+
+
+def _key_points(pk, vk) -> dict:
+    """A Groth16 key on the host: every point batch (the proving key's and
+    g1_k_pub) as a list of affine points, every other field as it is."""
+    from myzkp_tpu_torch.curves import bn254
+
+    out = {}
+    for name, key in (("pk", pk), ("vk", vk)):
+        for f, v in vars(key).items():
+            if isinstance(v, tuple):  # a device point batch
+                v = (bn254.g2_points_to_host if f.startswith("g2")
+                     else bn254.g1_points_to_host)(v)
+            out[f"{name}.{f}"] = v
+    return out
+
+
+def phase_groth16(dev, results: dict) -> None:
+    from myzkp_tpu_torch.curves import bn254
+    from myzkp_tpu_torch.snark import groth16 as g16
+
+    spec = bn254.r_spec()
+    m, npub = 1 << LOG_M_G16, NPUB_G16
+    t0 = time.perf_counter()
+    qap, asg = _square_chain_case(spec, m, dev)
+    bad_asg = _wrong_witness(asg, m // 2)
+    public = [int(v) for v in asg[:npub].to_int()]
+    wrong_public = public[:-1] + [(public[-1] + 1) % bn254.R]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (pk, vk), setup_counts = counted(lambda: g16.setup(qap, npub, random.Random(SEED)))
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof, prove_counts = counted(lambda: g16.prove(asg, pk, qap, random.Random(SEED + 1)))
+    first_s = time.perf_counter() - t0
+    need = ("mont_mul", "padd", "pdbl", "bucket_scan_rows", "ntt_leaf", "padd2", "pdbl2")
+    if min(prove_counts.get(k, 0) for k in need) < 1:
+        raise AssertionError(f"groth16 prove 2^{LOG_M_G16}: a kernel of {need} never "
+                             f"launched: {prove_counts}")
+    t0 = time.perf_counter()
+    ok = g16.verify(proof, vk, public)
+    verify_s = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError(f"Groth16 2^{LOG_M_G16}: verify rejected the proof")
+    if g16.verify(proof, vk, wrong_public):
+        raise AssertionError(f"Groth16 2^{LOG_M_G16}: verify accepted a wrong public input")
+    bad = g16.prove(bad_asg, pk, qap, random.Random(SEED + 1))
+    if g16.verify(bad, vk, public):
+        raise AssertionError(f"Groth16 2^{LOG_M_G16}: verify accepted a wrong witness")
+    med, ts = median_ms(lambda: g16.prove(asg, pk, qap, random.Random(SEED + 1)), reps=3)
+    results["_groth16"] = {"setup_s": setup_s, "prove_ms": med, "prove_reps_ms": ts,
+                           "prove_first_s": first_s, "verify_s": verify_s,
+                           "circuit_s": build_s, "setup_launches": setup_counts,
+                           "prove_launches": prove_counts}
+    log(f"# groth16 m = 2^{LOG_M_G16}, {npub} public inputs: circuit {build_s:.3f} s; "
+        f"setup {setup_s:.3f} s; prove first {first_s:.3f} s, median {med:.2f} ms of "
+        f"{[round(t, 2) for t in ts]}; verify {verify_s:.3f} s (host pairing): accepted; "
+        f"a wrong public input: rejected; a wrong witness (one x_k changed): rejected")
+    log(f"# groth16 setup launches: {json.dumps(setup_counts)}")
+    log(f"# groth16 prove launches: {json.dumps(prove_counts)}")
+    del pk, vk, qap, asg, bad_asg
+
+    # the whole path on the card against the plain versions on the CPU
+    cpu = torch.device("cpu")
+    ms = 1 << LOG_M_CMP
+    runs = []
+    for d in (dev, cpu):
+        t0 = time.perf_counter()
+        q, a = _square_chain_case(spec, ms, d)
+        pk_, vk_ = g16.setup(q, npub, random.Random(SEED + 2))
+        pr = g16.prove(a, pk_, q, random.Random(SEED + 3))
+        pub = [int(v) for v in a[:npub].to_int()]
+        if not g16.verify(pr, vk_, pub):
+            raise AssertionError(f"Groth16 2^{LOG_M_CMP} on {d}: verify rejected")
+        runs.append((pr, _key_points(pk_, vk_), time.perf_counter() - t0))
+    (card, card_keys, card_s), (plain, plain_keys, plain_s) = runs
+    if card != plain or card_keys != plain_keys:
+        raise AssertionError(f"Groth16 2^{LOG_M_CMP}: the card's keys or proof differ "
+                             f"from the CPU plain versions'")
+    log(f"# groth16 m = 2^{LOG_M_CMP}: setup + prove on the card ({card_s:.2f} s) and "
+        f"on the CPU plain versions ({plain_s:.2f} s), same seeds: proving and "
+        f"verifying keys and proofs equal point for point; both accepted")
+
+
 SOURCES = {
     "mont_mul": ("myzkp_tpu_torch/csrc/mont_mul.cu",
                  "myzkp_tpu/fields/limb_pallas.py:286"),
@@ -867,6 +1111,10 @@ SOURCES = {
               "myzkp_tpu/curves/curve_pallas.py:534"),
     "pdbl2": ("myzkp_tpu_torch/csrc/curve2.cu",
               "myzkp_tpu/curves/curve_pallas.py:550"),
+    "padd_mixed": ("myzkp_tpu_torch/csrc/curve.cu",
+                   "myzkp_tpu/curves/curve_pallas.py:239"),
+    "padd_mixed2": ("myzkp_tpu_torch/csrc/curve2.cu",
+                    "myzkp_tpu/curves/curve_pallas.py:289"),
 }
 
 
@@ -894,6 +1142,8 @@ def main() -> int:
     phase_g2_msm(dev, results)
     phase_pinocchio(dev, results)
     time_g2_kernels(dev, results)
+    phase_mixed_add(dev, results)
+    phase_groth16(dev, results)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k][0],
@@ -904,6 +1154,8 @@ def main() -> int:
     log(f"# shifted_h {json.dumps(results['_shifted_h'])}")
     log(f"# g2_msm {json.dumps(results['_g2_msm'])}")
     log(f"# pinocchio {json.dumps(results['_pinocchio'])}")
+    log(f"# mixed_add {json.dumps(results['_mixed_add'])}")
+    log(f"# groth16 {json.dumps(results['_groth16'])}")
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

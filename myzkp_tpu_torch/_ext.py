@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("mont_mul", "padd", "pdbl", "bucket_scan_rows", "butterfly",
-           "ntt_leaf", "padd2", "pdbl2")
+           "ntt_leaf", "padd2", "pdbl2", "padd_mixed", "padd_mixed2")
 
 # Launches of each kernel since the last reset_launches().  A wrapper adds one
 # where it launches its kernel (launch() below) and nowhere else.
@@ -52,6 +52,8 @@ _SIGNATURES = {
     "ntt_leaf": (_P,) * 3 + (_I64, ctypes.c_int, _I64, _P, _P),
     "padd2": (_P,) * 21 + (_I64, _P, _P),
     "pdbl2": (_P,) * 14 + (_I64, _P, _P),
+    "padd_mixed": (_P,) * 10 + (_I64, _P, _P),
+    "padd_mixed2": (_P,) * 19 + (_I64, _P, _P),
 }
 
 _lib = None

@@ -1,9 +1,10 @@
 // BN254 group law for one point per thread, G1 over F_q and G2 over F_q2: the
 // complete projective formulas of Renes-Costello-Batina 2016 for a = 0, step
 // for step as myzkp_tpu/curves/weierstrass.py writes them (padd :49-83,
-// Algorithm 7; pdbl :147-173, Algorithm 9), as templates over the element
-// type, so that one formula text serves both groups as in the reference.
-// Shared by curve.cu (K2, K3), curve2.cu (K7, K8) and bucket_scan.cu (K4).
+// Algorithm 7; padd_mixed :113-132, Algorithm 8; pdbl :147-173, Algorithm 9),
+// as templates over the element type, so that one formula text serves both
+// groups as in the reference.  Shared by curve.cu (K2, K3, K9), curve2.cu (K7,
+// K8, K10) and bucket_scan.cu (K4).
 #pragma once
 
 #include "fq2.cuh"
@@ -62,6 +63,34 @@ __device__ __forceinline__ Point<E> padd(const Point<E>& p, const Point<E>& q,
   x3 = add(t0, t0, c);
   t0 = add(x3, t0, c);
   t2 = mul(b3, t2, c);
+  E z3 = add(t1, t2, c);
+  t1 = sub(t1, t2, c);
+  y3 = mul(b3, y3, c);
+  x3 = mul(t4, y3, c);
+  x3 = sub(mul(t3, t1, c), x3, c);
+  y3 = mul(y3, t0, c);
+  y3 = add(mul(t1, z3, c), y3, c);
+  t0 = mul(t0, t3, c);
+  z3 = add(mul(z3, t4, c), t0, c);
+  return Point<E>{x3, y3, z3};
+}
+
+// P + (qx, qy, 1): padd with Z2 = 1, so t2 = Z1 for free and the two pair
+// products through Z2 become Z1 qy + Y1 and Z1 qx + X1; 13 products.  Q must
+// not be infinity (the affine form cannot express it); P may be.
+template <class E>
+__device__ __forceinline__ Point<E> padd_mixed(const Point<E>& p, const E& qx,
+                                               const E& qy, const E& b3,
+                                               const FieldConsts& c) {
+  E t0 = mul(p.x, qx, c);
+  E t1 = mul(p.y, qy, c);
+  E t3 = mul(add(p.x, p.y, c), add(qx, qy, c), c);
+  t3 = sub(t3, add(t0, t1, c), c);
+  E t4 = add(mul(p.z, qy, c), p.y, c);
+  E y3 = add(mul(p.z, qx, c), p.x, c);
+  E x3 = add(t0, t0, c);
+  t0 = add(x3, t0, c);
+  E t2 = mul(b3, p.z, c);
   E z3 = add(t1, t2, c);
   t1 = sub(t1, t2, c);
   y3 = mul(b3, y3, c);

@@ -1,16 +1,20 @@
 """Curve kernels, each beside its plain PyTorch version: G1 K2 (complete
-add, optional select), K3 (complete double) and K4 (the MSM bucket scan);
-G2 K7 (complete add over F_q2, optional select) and K8 (complete double).
+add, optional select), K3 (complete double), K4 (the MSM bucket scan) and K9
+(mixed add, optional select); G2 K7 (complete add over F_q2, optional
+select), K8 (complete double) and K10 (mixed add, optional select).
 
 Counterparts of ``padd_fused`` / ``padd_sel_fused``, ``pdbl_fused``,
-``bucket_scan_rows``, ``padd2_fused`` / ``padd2_sel_fused`` and
-``pdbl2_fused`` in ``myzkp_tpu/curves/curve_pallas.py``.  The wrappers
-(``padd``, ``pdbl``, ``bucket_scan_rows``, ``padd2``, ``pdbl2``) launch the
-CUDA kernel for CUDA tensors and run the plain version (``*_ref``, int64
-inside) for CPU tensors.  One formula text (``_padd64``, ``_pdbl64``) serves
-both groups through an ops triple, and replays ``weierstrass.py``'s formulas
-step for step, so the kernels agree with it limb for limb.  A G2 coordinate is
-a ``(c0, c1)`` pair of limb tensors; its b3 is the pair 3 * B2.
+``bucket_scan_rows``, ``padd_mixed_fused`` / ``padd_mixed_sel_fused``,
+``padd2_fused`` / ``padd2_sel_fused``, ``pdbl2_fused`` and
+``padd_mixed2_fused`` / ``padd_mixed2_sel_fused`` in
+``myzkp_tpu/curves/curve_pallas.py``.  The wrappers (``padd``, ``pdbl``,
+``bucket_scan_rows``, ``padd_mixed``, ``padd2``, ``pdbl2``, ``padd_mixed2``)
+launch the CUDA kernel for CUDA tensors and run the plain version (``*_ref``,
+int64 inside) for CPU tensors.  One formula text each (``_padd64``,
+``_padd_mixed64``, ``_pdbl64``) serves both groups through an ops triple, and
+replays ``weierstrass.py``'s formulas step for step, so the kernels agree with
+it limb for limb.  A G2 coordinate is a ``(c0, c1)`` pair of limb tensors; its
+b3 is the pair 3 * B2.
 """
 
 from __future__ import annotations
@@ -59,58 +63,80 @@ def _b3_like(b3: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return b3.long().reshape((-1,) + (1,) * (a.dim() - 1)).expand_as(a)
 
 
+# Operands up to this many int64 elements share one plain call in _each;
+# wider ones (the card's bitchecks at millions of lanes) take one call each,
+# which keeps the int64 temporaries of the plain product at one operand's size.
+_EACH_MAX = 1 << 21
+
+
+def _each(f, *pairs):
+    """f over independent operand pairs, in one call with the pairs stacked
+    on a new last axis where they are small: at small batches a plain call
+    costs about the same whatever its width, so the formulas below take their
+    independent products and sums together."""
+    if pairs[0][0].numel() > _EACH_MAX:
+        return tuple(f(a, b) for a, b in pairs)
+    return f(torch.stack([a for a, _ in pairs], -1),
+             torch.stack([b for _, b in pairs], -1)).unbind(-1)
+
+
 def _padd64(ops, b3, p, q):
     """Complete addition, a = 0 (RCB16 Algorithm 7), with ops = (add, sub,
-    mul) of _ops64 or _ops64_fq2."""
+    mul) of _ops64 or _ops64_fq2: weierstrass.py's formula (padd :60-83),
+    each round of independent products or sums in one call."""
     add, sub, mul = ops
     X1, Y1, Z1 = p
     X2, Y2, Z2 = q
-    t0 = mul(X1, X2)
-    t1 = mul(Y1, Y2)
-    t2 = mul(Z1, Z2)
-    t3 = mul(add(X1, Y1), add(X2, Y2))
-    t3 = sub(t3, add(t0, t1))
-    t4 = mul(add(Y1, Z1), add(Y2, Z2))
-    t4 = sub(t4, add(t1, t2))
-    X3 = mul(add(X1, Z1), add(X2, Z2))
-    Y3 = sub(X3, add(t0, t2))
-    X3 = add(t0, t0)
-    t0 = add(X3, t0)
-    t2 = mul(b3, t2)
-    Z3 = add(t1, t2)
-    t1 = sub(t1, t2)
+    sxy1, sxy2, syz1, syz2, sxz1, sxz2 = _each(
+        add, (X1, Y1), (X2, Y2), (Y1, Z1), (Y2, Z2), (X1, Z1), (X2, Z2))
+    t0, t1, t2, t3, t4, X3 = _each(
+        mul, (X1, X2), (Y1, Y2), (Z1, Z2), (sxy1, sxy2), (syz1, syz2), (sxz1, sxz2))
+    u01, u12, u02, X3d = _each(add, (t0, t1), (t1, t2), (t0, t2), (t0, t0))
+    t3, t4, Y3 = _each(sub, (t3, u01), (t4, u12), (X3, u02))
+    t0 = add(X3d, t0)
+    t2, Y3 = _each(mul, (b3, t2), (b3, Y3))
+    Z3, t1 = add(t1, t2), sub(t1, t2)
+    a, b, c, d, e, f = _each(
+        mul, (t4, Y3), (t3, t1), (Y3, t0), (t1, Z3), (t0, t3), (Z3, t4))
+    Y3, Z3 = _each(add, (d, c), (f, e))
+    return sub(b, a), Y3, Z3
+
+
+def _padd_mixed64(ops, b3, p, qx, qy):
+    """Mixed addition P + (qx, qy, 1), a = 0 (RCB16 Algorithm 8), with ops as
+    _padd64: weierstrass.py's formula (padd_mixed :113-132), t2 = Z1 for
+    free, 13 products.  Q must not be infinity."""
+    add, sub, mul = ops
+    X1, Y1, Z1 = p
+    sxy1, sq = _each(add, (X1, Y1), (qx, qy))
+    t0, t1, t3, zqy, zqx, t2 = _each(
+        mul, (X1, qx), (Y1, qy), (sxy1, sq), (Z1, qy), (Z1, qx), (b3, Z1))
+    u01, t4, Y3, X3d, Z3 = _each(
+        add, (t0, t1), (zqy, Y1), (zqx, X1), (t0, t0), (t1, t2))
+    t3, t1 = _each(sub, (t3, u01), (t1, t2))
+    t0 = add(X3d, t0)
     Y3 = mul(b3, Y3)
-    X3 = mul(t4, Y3)
-    X3 = sub(mul(t3, t1), X3)
-    Y3 = mul(Y3, t0)
-    Y3 = add(mul(t1, Z3), Y3)
-    t0 = mul(t0, t3)
-    Z3 = add(mul(Z3, t4), t0)
-    return X3, Y3, Z3
+    a, b, c, d, e, f = _each(
+        mul, (t4, Y3), (t3, t1), (Y3, t0), (t1, Z3), (t0, t3), (Z3, t4))
+    Y3, Z3 = _each(add, (d, c), (f, e))
+    return sub(b, a), Y3, Z3
 
 
 def _pdbl64(ops, b3, p):
-    """Complete doubling, a = 0 (RCB16 Algorithm 9), with ops as _padd64."""
+    """Complete doubling, a = 0 (RCB16 Algorithm 9), with ops as _padd64:
+    weierstrass.py's formula (pdbl :154-173), each round of independent
+    products or sums in one call."""
     add, sub, mul = ops
     X, Y, Z = p
-    t0 = mul(Y, Y)
+    t0, t1, t2, xy = _each(mul, (Y, Y), (Y, Z), (Z, Z), (X, Y))
     Z3 = add(t0, t0)
     Z3 = add(Z3, Z3)
     Z3 = add(Z3, Z3)
-    t1 = mul(Y, Z)
-    t2 = mul(Z, Z)
     t2 = mul(b3, t2)
-    X3 = mul(t2, Z3)
-    Y3 = add(t0, t2)
-    Z3 = mul(t1, Z3)
-    t1 = add(t2, t2)
-    t2 = add(t1, t2)
-    t0 = sub(t0, t2)
-    Y3 = mul(t0, Y3)
-    Y3 = add(X3, Y3)
-    t1 = mul(X, Y)
-    X3 = mul(t0, t1)
-    X3 = add(X3, X3)
+    Y3, t2d = _each(add, (t0, t2), (t2, t2))
+    t0 = sub(t0, add(t2d, t2))
+    X3, Z3, Y3, X3b = _each(mul, (t2, Z3), (t1, Z3), (t0, Y3), (t0, xy))
+    Y3, X3 = _each(add, (X3, Y3), (X3b, X3b))
     return X3, Y3, Z3
 
 
@@ -128,6 +154,18 @@ def pdbl_ref(spec: FieldSpec, b3, p):
     """Plain version of K3: 2P."""
     p64 = tuple(c.long() for c in p)
     return tuple(c.int() for c in _pdbl64(_ops64(spec), _b3_like(b3, p64[0]), p64))
+
+
+def padd_mixed_ref(spec: FieldSpec, b3, p, qx, qy, h=None):
+    """Plain version of K9: P + (qx, qy, 1), or (qx, qy, 1) where ``h`` is
+    set."""
+    p64 = tuple(c.long() for c in p)
+    q64 = (qx.long(), qy.long())
+    r = _padd_mixed64(_ops64(spec), _b3_like(b3, p64[0]), p64, *q64)
+    if h is not None:
+        one = limb.one_mont(spec, tuple(qx.shape[1:]), qx.device).long()
+        r = tuple(limb.select(h, qi, ri) for qi, ri in zip((*q64, one), r))
+    return tuple(c.int() for c in r)
 
 
 def _stack2(pt) -> tuple:
@@ -157,6 +195,18 @@ def pdbl2_ref(spec: FieldSpec, b3, p):
     """Plain version of K8: 2P over F_q2."""
     p64 = _stack2(p)
     return _unstack2(_pdbl64(_ops64_fq2(spec), _b3_like2(b3, p64[0]), p64))
+
+
+def padd_mixed2_ref(spec: FieldSpec, b3, p, qx, qy, h=None):
+    """Plain version of K10: P + (qx, qy, 1) over F_q2, or (qx, qy, 1) where
+    ``h`` is set; the one is (R mod q, 0)."""
+    p64, q64 = _stack2(p), _stack2((qx, qy))
+    r = _padd_mixed64(_ops64_fq2(spec), _b3_like2(b3, p64[0]), p64, *q64)
+    if h is not None:
+        one = limb.one_mont(spec, tuple(qx[0].shape[1:]), qx[0].device)
+        one = torch.stack([one, torch.zeros_like(one)], 1).long()
+        r = tuple(limb.select(h, qe, re) for qe, re in zip((*q64, one), r))
+    return _unstack2(r)
 
 
 def bucket_scan_rows_ref(spec: FieldSpec, rows, tag, b3, K: int):
@@ -193,10 +243,11 @@ def _require_b3(spec: FieldSpec, b3) -> None:
 
 
 def _launch_group_law(kernel: str, spec: FieldSpec, b3s, pts, h=None) -> tuple:
-    """Check the inputs of K2, K3, K7 or K8 and launch it.  pts: one tuple of
-    flat coordinate tensors per input point (3 for G1, 6 for G2; two points
-    for an add, which also passes the optional mask h); b3s: b3's tensors
-    (one for G1, c0 and c1 for G2).  Returns the flat output coordinates."""
+    """Check the inputs of K2, K3, K7, K8, K9 or K10 and launch it.  pts: one
+    tuple of flat coordinate tensors per input point (3 for G1, 6 for G2, and
+    2 or 4 for a mixed add's affine Q; two points for an add, which also
+    passes the optional mask h); b3s: b3's tensors (one for G1, c0 and c1 for
+    G2).  Returns the flat output coordinates, as many as the first point's."""
     shape = tuple(pts[0][0].shape)
     for name, pt in zip("pq", pts):
         for i, c in enumerate(pt):
@@ -231,6 +282,16 @@ def pdbl(spec: FieldSpec, b3, p):
     return _launch_group_law("pdbl", spec, (b3,), (tuple(p),))
 
 
+def padd_mixed(spec: FieldSpec, b3, p, qx, qy, h=None):
+    """K9: mixed add P + (qx, qy, 1); with ``h``, (qx, qy, 1) where h is set
+    and the sum elsewhere.  Coordinates (L, *batch) int32; b3 (L,); h
+    (*batch,) bool.  Q must not be infinity."""
+    extra = () if h is None else (h,)
+    if not _ext.use_kernel(*p, qx, qy, b3, *extra):
+        return padd_mixed_ref(spec, b3, p, qx, qy, h)
+    return _launch_group_law("padd_mixed", spec, (b3,), (tuple(p), (qx, qy)), h)
+
+
 def _leaves2(pt) -> tuple:
     """((x0, x1), (y0, y1), (z0, z1)) -> the six coordinate tensors."""
     return tuple(c for e in pt for c in e)
@@ -258,6 +319,17 @@ def pdbl2(spec: FieldSpec, b3, p):
     if not _ext.use_kernel(*pl, *b3):
         return pdbl2_ref(spec, b3, p)
     return _pairs(_launch_group_law("pdbl2", spec, b3, (pl,)))
+
+
+def padd_mixed2(spec: FieldSpec, b3, p, qx, qy, h=None):
+    """K10: mixed add P + (qx, qy, 1) over F_q2; with ``h``, (qx, qy, 1)
+    where h is set and the sum elsewhere.  Coordinates as padd2; qx, qy
+    (c0, c1) pairs.  Q must not be infinity."""
+    pl, ql = _leaves2(p), (*qx, *qy)
+    extra = () if h is None else (h,)
+    if not _ext.use_kernel(*pl, *ql, *b3, *extra):
+        return padd_mixed2_ref(spec, b3, p, qx, qy, h)
+    return _pairs(_launch_group_law("padd_mixed2", spec, b3, (pl, ql), h))
 
 
 def bucket_scan_rows(spec: FieldSpec, rows, tag, b3, K: int):

@@ -51,6 +51,9 @@ class FpOps:
     def is_zero(self, a):
         return limb.is_zero(self.spec, a)
 
+    def eq(self, a, b):
+        return limb.eq(self.spec, a, b)
+
     def batch_inv(self, a, axis=-1):
         """Batch inversion along batch axis ``axis`` (limb axis excluded)."""
         return limb.batch_inv(self.spec, a, axis=axis + 1 if axis >= 0 else axis)
@@ -111,6 +114,9 @@ class Fq2Ops:
 
     def is_zero(self, a):
         return self.base.is_zero(a[0]) & self.base.is_zero(a[1])
+
+    def eq(self, a, b):
+        return self.base.eq(a[0], b[0]) & self.base.eq(a[1], b[1])
 
     def batch_inv(self, a, axis=-1):
         """(a0 - a1 u) / (a0^2 + a1^2), one base batch inversion of the norms."""

@@ -5,9 +5,9 @@ Counterpart of ``myzkp_tpu/curves/weierstrass.py``.  A point batch is
 ``Point(x, y, z)``; each coordinate is an element of the ops bundle ``F``: an
 ``(L, *batch)`` Montgomery limb tensor for G1 (``FpOps``) or a ``(c0, c1)``
 pair of them for G2 (``Fq2Ops``).  Infinity is (0, 1, 0).  The group law
-itself is in the kernels of ``curve_kernels`` (K2, K3 for G1; K7, K8 for G2)
-and their plain versions; this layer accepts any strided input and hands the
-kernels contiguous tensors.
+itself is in the kernels of ``curve_kernels`` (K2, K3, K9 for G1; K7, K8, K10
+for G2) and their plain versions; this layer accepts any strided input and
+hands the kernels contiguous tensors.
 """
 
 from __future__ import annotations
@@ -53,17 +53,32 @@ def _contig(p: Point) -> Point:
     return point_map(torch.Tensor.contiguous, p)
 
 
+def _contig_elem(e):
+    """A field element (a tensor, or a (c0, c1) pair) with contiguous tensors."""
+    return tuple(t.contiguous() for t in e) if isinstance(e, tuple) else e.contiguous()
+
+
 def _kernels(F):
-    """(add, double) kernel wrappers for F's group: K7/K8 over F_q2, else
-    K2/K3."""
+    """(add, double, mixed add) kernel wrappers for F's group: K7/K8/K10 over
+    F_q2, else K2/K3/K9."""
     if isinstance(F, Fq2Ops):
-        return curve_kernels.padd2, curve_kernels.pdbl2
-    return curve_kernels.padd, curve_kernels.pdbl
+        return curve_kernels.padd2, curve_kernels.pdbl2, curve_kernels.padd_mixed2
+    return curve_kernels.padd, curve_kernels.pdbl, curve_kernels.padd_mixed
 
 
 def infinity(F, batch_shape=(), device=None) -> Point:
     return Point(F.zeros(batch_shape, device), F.one(batch_shape, device),
                  F.zeros(batch_shape, device))
+
+
+def from_affine(F, x, y) -> Point:
+    """(x, y, 1) on the device of x."""
+    dev = (x[0] if isinstance(x, tuple) else x).device
+    return Point(x, y, F.one(F.batch_shape(x), dev))
+
+
+def is_infinity(F, p: Point):
+    return F.is_zero(p.z)
 
 
 def padd(F, b3, p: Point, q: Point) -> Point:
@@ -75,6 +90,19 @@ def padd_sel(F, b3, p: Point, q: Point, keep_q) -> Point:
     """select(keep_q, Q, P + Q) in one K2 or K7 launch."""
     return Point(*_kernels(F)[0](F.spec, b3, _contig(p), _contig(q),
                                  h=keep_q.contiguous()))
+
+
+def padd_mixed(F, b3, p: Point, qx, qy) -> Point:
+    """Complete mixed addition P + (qx, qy, 1) (RCB16 Algorithm 8), kernel K9
+    or K10.  Q must not be infinity (the affine form cannot express it)."""
+    return Point(*_kernels(F)[2](F.spec, b3, _contig(p), _contig_elem(qx),
+                                 _contig_elem(qy)))
+
+
+def padd_mixed_sel(F, b3, p: Point, qx, qy, keep_q) -> Point:
+    """select(keep_q, (qx, qy, 1), P + Q) in one K9 or K10 launch."""
+    return Point(*_kernels(F)[2](F.spec, b3, _contig(p), _contig_elem(qx),
+                                 _contig_elem(qy), h=keep_q.contiguous()))
 
 
 def pdbl(F, b3, p: Point) -> Point:
@@ -89,6 +117,14 @@ def pneg(F, p: Point) -> Point:
 def pselect(F, mask, p: Point, q: Point) -> Point:
     return Point(F.select(mask, p.x, q.x), F.select(mask, p.y, q.y),
                  F.select(mask, p.z, q.z))
+
+
+def peq(F, b3, p: Point, q: Point):
+    """Projective equality: X1 Z2 == X2 Z1 and Y1 Z2 == Y2 Z1 (both inf ok)."""
+    inf_p, inf_q = is_infinity(F, p), is_infinity(F, q)
+    ex = F.eq(F.mul(p.x, q.z), F.mul(q.x, p.z))
+    ey = F.eq(F.mul(p.y, q.z), F.mul(q.y, p.z))
+    return (inf_p & inf_q) | (ex & ey & ~(inf_p ^ inf_q))
 
 
 def to_affine(F, p: Point, axis: int = -1):

@@ -213,6 +213,11 @@ def is_zero(spec: FieldSpec, a):
     return (a == 0).all(dim=0)
 
 
+def eq(spec: FieldSpec, a, b):
+    """Equality of canonical elements: equal limbs."""
+    return (a == b).all(dim=0)
+
+
 def select(mask, a, b):
     """where(mask, a, b) with mask over the batch dims."""
     return torch.where(mask.unsqueeze(0), a, b)

@@ -6,10 +6,12 @@ functions move limb arrays, G1 and G2 point batches (3 or 6 coordinate
 arrays, in the order of ``weierstrass.leaves``), ``Fp`` / ``Poly`` values and
 sparse circuits across, and read what the JAX side writes: the fixed-base
 tables (``curves/fixed_base.py``, keys ``l0..l2`` or ``l0..l5``), the bench's
-MSM point table (``bench.py``, keys ``x, y, z``) and the Pinocchio proving and
-verification keys (``utils/serialize.py``).  The port's own fixed-base cache
-is written in the same format.  Every loader makes its tensors on the card
-unless ``device`` names another device.
+MSM point table (``bench.py``, keys ``x, y, z``), any proving key written
+by ``utils/serialize.save_point_batches`` (``load_key``: Pinocchio's,
+Groth16's) and the Pinocchio verification key, and a Groth16 verifying key
+from host ints and its ``g1_k_pub`` arrays.  The
+port's own fixed-base cache is written in the same format.  Every loader makes
+its tensors on the card unless ``device`` names another device.
 """
 
 from __future__ import annotations
@@ -110,20 +112,23 @@ def sparse_r1cs_from_numpy(spec: FieldSpec, mats, device=None) -> SparseR1CS:
                         for m in mats))
 
 
-def load_pinocchio_pk(path, device=None):
-    """A proving key saved by the JAX package's
-    ``utils/serialize.save_pinocchio_pk`` (keys ``pt:<field>:n`` and
-    ``pt:<field>:<i>``, 3 or 6 coordinate arrays per point batch) ->
-    ``snark.pinocchio.PinocchioProofKey``."""
-    from .snark.pinocchio import PinocchioProofKey  # pinocchio imports this module
-
+def load_key(path, cls, device=None):
+    """A key dataclass ``cls`` (``snark.pinocchio.PinocchioProofKey``,
+    ``snark.groth16.Groth16ProvingKey``) from what the JAX package's
+    ``utils/serialize.save_point_batches`` writes (``save_pinocchio_pk``
+    included): each point field from keys ``pt:<field>:n`` and
+    ``pt:<field>:<i>`` (3 or 6 coordinate arrays per point batch), each other
+    field an int from ``arr:<field>``."""
     out = {}
     with np.load(path) as data:
-        for f in dataclasses.fields(PinocchioProofKey):
-            n = int(data[f"pt:{f.name}:n"])
-            out[f.name] = point_from_numpy(
-                [data[f"pt:{f.name}:{i}"] for i in range(n)], device)
-    return PinocchioProofKey(**out)
+        for f in dataclasses.fields(cls):
+            if f"pt:{f.name}:n" in data.files:
+                n = int(data[f"pt:{f.name}:n"])
+                out[f.name] = point_from_numpy(
+                    [data[f"pt:{f.name}:{i}"] for i in range(n)], device)
+            else:
+                out[f.name] = int(data[f"arr:{f.name}"])
+    return cls(**out)
 
 
 def _host_point(v):
@@ -141,8 +146,20 @@ def _host_point(v):
 def load_pinocchio_vk(path):
     """A verification key saved by ``serialize.save_pinocchio_vk`` (JSON of
     host points) -> ``snark.pinocchio.PinocchioVerificationKey``."""
-    from .snark.pinocchio import PinocchioVerificationKey  # as load_pinocchio_pk
+    from .snark.pinocchio import PinocchioVerificationKey  # pinocchio imports this module
 
     with open(path) as fh:
         data = json.load(fh)
     return PinocchioVerificationKey(**{k: _host_point(v) for k, v in data.items()})
+
+
+def groth16_vk_from_host(points: dict, g1_k_pub, device=None):
+    """A Groth16 verifying key from host ints: ``points`` maps g1_alpha,
+    g2_beta, g2_gamma and g2_delta to entries in ``save_pinocchio_vk``'s JSON
+    form ([group, coords]); ``g1_k_pub`` is the 3 coordinate limb arrays of
+    the (num_public,) batch -> ``snark.groth16.Groth16VerifyingKey``."""
+    from .snark.groth16 import Groth16VerifyingKey  # groth16 imports this module
+
+    k_pub = point_from_numpy(g1_k_pub, device)
+    return Groth16VerifyingKey(**{k: _host_point(v) for k, v in points.items()},
+                               g1_k_pub=k_pub, num_public=k_pub.x.shape[1])

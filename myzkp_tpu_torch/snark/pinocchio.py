@@ -75,6 +75,17 @@ def _std(x: Fp) -> torch.Tensor:
     return limb.from_mont(x.spec, x.mont)
 
 
+def _cat(*fps: Fp) -> Fp:
+    """Fp batches joined along their last batch axis."""
+    return Fp(fps[0].spec, torch.cat([f.mont for f in fps], dim=-1))
+
+
+def _g_multi(which: str, scalars_std) -> wst.Point:
+    """[x_i]G for the generator of ``which`` ("g1" or "g2"), one fixed-base
+    batch; scalars_std: (L, n) standard-domain limbs."""
+    return fixed_base.fixed_base_multi(which, scalars_std)
+
+
 def _split(pt: wst.Point, sizes) -> list:
     """A point batch cut along its batch axis into consecutive pieces."""
     outs, off = [], 0
@@ -82,6 +93,11 @@ def _split(pt: wst.Point, sizes) -> list:
         outs.append(wst.point_map(lambda a, o=off, s=s: a.narrow(1, o, s), pt))
         off += s
     return outs
+
+
+def _single(pt: wst.Point) -> wst.Point:
+    """(1,) batch -> unbatched point."""
+    return wst.point_map(lambda a: a[:, 0], pt)
 
 
 def setup(qap: SparseQAP, rng=None) -> tuple[PinocchioProofKey, PinocchioVerificationKey]:
@@ -108,7 +124,7 @@ def setup(qap: SparseQAP, rng=None) -> tuple[PinocchioProofKey, PinocchioVerific
     checksum = (ell_rho + r_rho + o_rho) * mk(beta)
     s_pows = _ntt.geometric_series(spec, s, m + 1, dev)
 
-    g1_scalars = torch.cat([x.mont for x in (
+    g1_scalars = _cat(
         ell_rho,                       # g1_ell_i             (d)
         o_rho,                         # g1_o_i               (d)
         ell_rho * mk(a_ell),           # g1_alpha_ell_i       (d)
@@ -126,8 +142,8 @@ def setup(qap: SparseQAP, rng=None) -> tuple[PinocchioProofKey, PinocchioVerific
             a_r,                               # vk g1_alpha_r
             beta * eta % R,                    # vk g1_beta_eta
         ]),
-    )], dim=-1)
-    g2_scalars = torch.cat([x.mont for x in (
+    )
+    g2_scalars = _cat(
         r_rho,                         # g2_r_i               (d)
         r_rho * mk(a_r),               # g2_alpha_r_i         (d)
         mk([
@@ -139,10 +155,10 @@ def setup(qap: SparseQAP, rng=None) -> tuple[PinocchioProofKey, PinocchioVerific
             rho_o * t_s % R,                   # vk g2_t_s  (= t(s) * g2_o)
             eta,                               # vk g2_eta
         ]),
-    )], dim=-1)
+    )
 
-    g1_all = fixed_base.fixed_base_multi("g1", limb.from_mont(spec, g1_scalars))
-    g2_all = fixed_base.fixed_base_multi("g2", limb.from_mont(spec, g2_scalars))
+    g1_all = _g_multi("g1", _std(g1_scalars))
+    g2_all = _g_multi("g2", _std(g2_scalars))
     (g1_ell_i, g1_o_i, g1_a_ell_i, g1_a_o_i, g1_check, g1_sj, g1_singles
      ) = _split(g1_all, [d, d, d, d, d, m + 1, 9])
     g2_r_i, g2_a_r_i, g2_singles = _split(g2_all, [d, d, 7])

@@ -2,14 +2,15 @@
 """Device-time profile of one call of a path of the port on one GPU.
 
 Run from the repository root:
-    python3 profile_paths.py [--path msm|ntt|shifted_h|prove] [--log-n 20]
+    python3 profile_paths.py [--path msm|ntt|shifted_h|prove|groth16] [--log-n 20]
 
 Paths: ``msm``, one BN254 G1 MSM of 2^log_n points (made with
 fixed_base_multi from seeded scalars); ``ntt``, one forward NTT of 2^log_n
 seeded F_r elements; ``shifted_h``, the prover's quotient stage
 get_shifted_h on square_chain(2^log_n); ``prove``, one Pinocchio prove on
 square_chain(2^log_n) with a key from a seeded setup (the setup is not
-profiled).  Builds the kernels, runs the call
+profiled); ``groth16``, one Groth16 prove the same way, with 2 public
+inputs.  Builds the kernels, runs the call
 twice to warm up and a third time under torch.profiler.  Prints the card
 (nvidia-smi name and power limit), the wall time of the profiled call (host
 clock, synchronized), the device busy time (the sum of the durations of every
@@ -60,10 +61,14 @@ def _path(name: str, n: int, seed: int, dev):
         a = Fp(spec, field_elems())
         return lambda: ntt.ntt(a), f"ntt n = {n}"
     from myzkp_tpu_torch.arith import sparse
-    from myzkp_tpu_torch.snark import pinocchio
+    from myzkp_tpu_torch.snark import groth16, pinocchio
 
     r1cs, asg = sparse.square_chain(spec, n, device=dev)
     qap = sparse.SparseQAP(r1cs)
+    if name == "groth16":
+        pk, _ = groth16.setup(qap, 2, random.Random(seed))
+        return (lambda: groth16.prove(asg, pk, qap, random.Random(seed + 1)),
+                f"groth16 prove m = {n}")
     if name == "prove":
         pk, _ = pinocchio.setup(qap, random.Random(seed))
         return (lambda: pinocchio.prove(asg, pk, qap, random.Random(seed + 1)),
@@ -75,7 +80,8 @@ def _path(name: str, n: int, seed: int, dev):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("msm", "ntt", "shifted_h", "prove"), default="msm")
+    ap.add_argument("--path", choices=("msm", "ntt", "shifted_h", "prove", "groth16"),
+                    default="msm")
     ap.add_argument("--log-n", type=int, default=20)
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()

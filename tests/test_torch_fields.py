@@ -142,8 +142,9 @@ def test_field_consts_match_spec():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, those of the NTT and quotient
-    slice included, leaves jax and the JAX package out of sys.modules."""
+    """Importing every module of the port, those of the NTT, quotient and
+    Groth16 slices included, leaves jax and the JAX package out of
+    sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import myzkp_tpu_torch as m\n"
@@ -160,6 +161,7 @@ def test_port_imports_no_jax():
     loaded = set(out.stdout.split())
     slices = {"fields.limb", "curves.msm", "curves.fixed_base",  # the G1 MSM
               "fields.fp", "fields.ntt_kernels", "ops.ntt", "ops.poly",
-              "arith.sparse", "snark.pinocchio", "interop"}  # the quotient stage
+              "arith.sparse", "snark.pinocchio", "interop",  # the quotient stage
+              "snark.groth16"}  # Groth16 on the sparse QAP
     assert {f"myzkp_tpu_torch.{m}" for m in slices} <= loaded
-    assert len(loaded) >= 23
+    assert len(loaded) >= 24

@@ -134,7 +134,7 @@ m, seed, keys = int(sys.argv[1]), int(sys.argv[2]), Path(sys.argv[3])
 cpu = torch.device("cpu")
 r1cs, asg = sparse.square_chain(bn254.r_spec(), m, device=cpu)
 qap = sparse.SparseQAP(r1cs)
-pk = interop.load_pinocchio_pk(keys / "pk.npz", cpu)
+pk = interop.load_key(keys / "pk.npz", pin.PinocchioProofKey, cpu)
 vk = interop.load_pinocchio_vk(keys / "vk.json")
 good = pin.prove(asg, pk, qap, rng=random.Random(seed + 1))
 own_pk, own_vk = pin.setup(qap, rng=random.Random(seed))
@@ -213,7 +213,7 @@ def test_setup_matches_reference(reference, port_circuit):
 
 def test_interop_loads_the_reference_keys(reference):
     _, _, jpk, jvk, keys = reference
-    pk = interop.load_pinocchio_pk(keys / "pk.npz", DEV)
+    pk = interop.load_key(keys / "pk.npz", tpin.PinocchioProofKey, DEV)
     for f in PK_FIELDS:
         got = [interop.limbs_to_numpy(a) for a in tw.leaves(getattr(pk, f))]
         want = _jax_leaves(getattr(jpk, f))
