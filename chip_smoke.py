@@ -10,12 +10,16 @@ Phases, one output line each (or more), in order:
                host pairing library (myzkp_tpu_torch/native/) with g++;
   3. bitcheck  each kernel against its plain PyTorch version on the card,
                exact equality of limbs (the tolerance is 0: modular integers):
-               K1-K4 over F_q and the G1 group law; K7 (with and without its
-               select mask) and K8 over F_q2 at the G2 scan step's 32,768
-               lanes (P+P, P+(-P), infinity on either side, z != 1, and lanes
-               whose every c0 and c1 is 0, 1, q - 1 or R mod q) and K7 at a
-               G2 fixed-base tree level; then K1 over F_r, K5 on 2^20 pairs
-               and at every stage shape of the m = 2^12 path, K6 at every
+               K1-K3 over F_q and the G1 group law; K4 and its G2 instance
+               (acc and the bucket table written in place: all four tags,
+               flush targets with -1 and at step 0, rows of 0, 1, q - 1, R
+               mod q in every coordinate component, 3000 lanes, K = 4); K7
+               (with and without its select mask) and K8 over F_q2 at the
+               MSM's 32,768 lanes (P+P, P+(-P), infinity on either side,
+               z != 1, and lanes whose every c0 and c1 is 0, 1, q - 1 or R mod
+               q) and K7 at a G2 fixed-base tree level; then K1 over F_r, K5
+               on 2^20 pairs and at every stage shape of the m = 2^12 path,
+               K6 at every
                leaf shape of the 2^20 paths and at m = 16, 64, 128 with a
                ragged batch; segment_sum_mod on the card against the CPU and
                host ints, 2^20 entries with heavy duplicates;
@@ -23,7 +27,12 @@ Phases, one output line each (or more), in order:
                2^20 Pippenger MSM against 2^20 scalars k_i, checked against
                the host's [sum k_i m_i mod r]G; kernel launch counts of that
                run; the MSM timed; msm_pippenger at n = 2^16 with c = 14,
-               checked the same way; K1-K4 timed beside their plain versions;
+               checked the same way; K1-K3 timed beside their plain versions;
+               K4 at the MSM's shape (one window group's sorted digits, K = 64,
+               32,768 lanes; real flush targets checked unique) exact against
+               its plain version, acc and bucket table, and timed beside it,
+               and probe 13: the same 64 steps as 64 launches of K2 with the
+               mask;
   5. ntt       a forward NTT of 2^20 seeded F_r elements checked at 3 points
                against host evaluation, intt(ntt(a)) == a, its launches, and
                its time;
@@ -35,19 +44,21 @@ Phases, one output line each (or more), in order:
                a random point; launch counts of each run; the calls timed;
                K5 and K6 timed beside their plain versions;
   7. g2 msm    fixed-base setup of 2^20 G2 points [m_i]G2, then the 2^20 G2
-               Pippenger MSM (K7 scan steps) against 2^20 scalars with a zero
-               and duplicates, checked against the host's
-               [sum k_i m_i mod r]G2; launch counts; the MSM timed;
+               Pippenger MSM (one launch of K4's G2 instance per window
+               group) against 2^20 scalars with a zero and duplicates,
+               checked against the host's [sum k_i m_i mod r]G2; launch
+               counts; the MSM timed; the G2 scan at the MSM's shape and
+               probe 13 (64 launches of K7 with the mask), as for G1;
   8. pinocchio setup, prove and verify on square_chain(2^20): the proof is
                accepted and the proof of a wrong witness (one x_k changed) is
                rejected; launch counts of setup and of prove; setup seconds,
                prove median of 3, verify seconds (host); then setup and prove
                at m = 2^4 on the card and on the CPU plain versions with the
                same seeds, keys and proofs equal point for point; K7 and K8
-               timed beside their plain versions at the scan step's width;
+               timed beside their plain versions at the MSM's 32,768 lanes;
   9. mixed add the entry points weierstrass.padd_mixed / padd_mixed_sel, counted:
                K9 over G1 at 2^15 lanes (the mask set on about 1 lane in 32)
-               and at 4,194,304 points, K10 over G2 at the scan step's 32,768
+               and at 4,194,304 points, K10 over G2 at the MSM's 32,768
                lanes; inputs with P = O, P = lam (qx, qy, 1) with lam != 1 (a
                doubling through the mixed formula), P = -Q (the sum is O), and
                lanes whose every c0 and c1 is 0, 1, q - 1 or R mod q; each
@@ -250,18 +261,141 @@ def phase_bitcheck(dev, results: dict):
     results["pdbl"] = {"max_abs_err": err}
     log("# bitcheck pdbl: 2^16 points incl. O: exact; 256 match the host")
 
-    # K4 at N = 3000 lanes (ragged), K = 4, all four tags
-    N, K = 3000, 4
-    rows, _ = msm._rows_of_point(tuple(c[:, :K * N] for c in P))
-    tag = torch.from_numpy(rng.integers(0, 4, K * N).astype(np.int32)).to(dev)
-    tag[:8] = torch.tensor([0, 1, 2, 3, 3, 2, 1, 0], dtype=torch.int32)
-    acc, flush = ck.bucket_scan_rows(spec, rows, tag, b3, K)
-    acc_r, flush_r = ck.bucket_scan_rows_ref(spec, rows, tag, b3, K)
-    err = check_equal("bucket_scan_rows", [acc, flush], [acc_r, flush_r])
+    # K4 at N = 3000 lanes (ragged), K = 4
+    rows, _ = msm._rows_of_point(tuple(c[:, :4 * 3000] for c in P))
+    err = bitcheck_scan(spec, F, b3, rows, 4, rng, dev)
     results["bucket_scan_rows"] = {"max_abs_err": err}
-    log(f"# bitcheck bucket_scan_rows: N = {N} lanes, K = {K}, tags 0-3: "
-        f"acc and flush exact")
+    log(f"# bitcheck bucket_scan_rows: {SCAN_CASE}: acc and bucket table exact")
     return a, b
+
+
+SCAN_CASE = ("N = 3000 lanes, K = 4, tags 0-3, flush targets on 3 steps in 10 "
+             "(step 0 included) and -1 elsewhere, 375 rows of 0, 1, q - 1, R mod q "
+             "in every coordinate component at random steps and lanes")
+
+
+def scan_table(F, S: int, width: int, dev):
+    """An S-row bucket table of infinity rows, as the MSM makes it."""
+    from myzkp_tpu_torch.curves import msm
+    from myzkp_tpu_torch.curves import weierstrass as wst
+
+    return msm._rows_of_point(wst.infinity(F, (S,), dev), width)[0]
+
+
+def bitcheck_scan(spec, F, b3, rows, K: int, rng, dev) -> int:
+    """K4 (G1) or its G2 instance against the plain version on rows of
+    points: all four tags (the first eight pinned), unique random flush
+    targets on about 3 steps in 10, step 0 included, -1 elsewhere; N / 8
+    rows at seeded random positions hold 0, 1, q - 1 or R mod q in every
+    coordinate component, some of them added (no segment head) to a live
+    accumulator at a step after 0.  acc and the whole bucket table must
+    agree exactly."""
+    from myzkp_tpu_torch.curves import curve_kernels as ck
+    from myzkp_tpu_torch.fields import limb
+
+    total, W = rows.shape
+    N = total // K
+    rows = rows.clone()
+    E = N // 8
+    at = np.sort(rng.choice(total, E, replace=False))  # rows are step-major
+    at_dev = torch.from_numpy(at).to(dev)
+    edges = [0, 1, spec.p - 1, (1 << 256) % spec.p]
+    for j in range(W // 64 * 3):  # coordinate components: 3 for G1, 6 for G2
+        vals = [edges[i] for i in rng.integers(0, 4, E)]
+        rows[at_dev, 16 * j:16 * j + 16] = limb.from_int(spec, vals, dev).T
+    tag = torch.from_numpy(rng.integers(0, 4, total).astype(np.int32)).to(dev)
+    tag[:8] = torch.tensor([0, 1, 2, 3, 3, 2, 1, 0], dtype=torch.int32)
+    if not ((at >= N) & (tag.cpu().numpy()[at] & 2 == 0)).any():
+        raise AssertionError("bucket scan bitcheck: no edge row added after step 0")
+    S = total + 64
+    tgt = np.where(rng.random(total) < 0.3, rng.permutation(S)[:total], -1)
+    tgt = torch.from_numpy(tgt.astype(np.int32)).to(dev)
+    if not (tgt[:N] >= 0).any():
+        raise AssertionError("bucket scan bitcheck: no flush at step 0")
+    g2 = isinstance(b3, tuple)
+    scan = ck.bucket_scan_rows2 if g2 else ck.bucket_scan_rows
+    t_k, t_p = scan_table(F, S, W, dev), scan_table(F, S, W, dev)
+    acc = scan(spec, rows, tag, tgt, b3, t_k, K)
+    acc_p = ck.bucket_scan_rows_ref(spec, rows, tag, tgt, b3, t_p, K)
+    torch.cuda.synchronize()
+    return check_equal("bucket_scan_rows2" if g2 else "bucket_scan_rows", [acc, t_k], [acc_p, t_p])
+
+
+def time_scan(F, b3, pts, dev, results: dict) -> None:
+    """The bucket scan at the 2^20 MSM's shape, one window group (c = 16,
+    G = 2, K = 64, 32,768 lanes) of seeded scalars' sorted digits, with the
+    path's own gather, tags and targets: the real targets checked unique,
+    the kernel held to its plain version (acc and the whole bucket table
+    exact; repeated launches rewrite the same rows), both timed; then probe
+    13 (tools/exp_kernel_ledger.py:80): the same K steps as K launches of
+    the select-masked complete add (K2 for G1, K7 for G2)
+    over plane-major inputs laid out beforehand, its result equal to the
+    scan's acc, timed the same way."""
+    from myzkp_tpu_torch.curves import curve_kernels as ck, msm
+    from myzkp_tpu_torch.curves import weierstrass as wst
+
+    g2 = isinstance(b3, tuple)
+    name = "bucket_scan_rows2" if g2 else "bucket_scan_rows"
+    spec = F.spec
+    n = wst.leaves(pts)[0].shape[1]
+    rng = np.random.default_rng(SEED + 10)
+    c = msm.default_window(n)
+    num_buckets = (1 << (c - 1)) + 1
+    G = msm._group_size(n, -(-256 // c), num_buckets + 1)
+    K = int(min(n, max(8, msm._next_pow2(G * n // (1 << 15)))))
+    N = G * n // K
+    digits, dneg = msm.signed_digits(msm.scalar_digits(random_fe(rng, n, dev), c), c)
+    d_sorted, order = torch.sort(digits[:G], dim=1, stable=True)
+    vals = (torch.arange(n, dtype=torch.int32, device=dev)[None] << 1) | dneg[:G].int()
+    idx, tag, tgt = msm._scan_inputs(vals.gather(1, order), d_sorted, num_buckets, K)
+    table_rows, _ = msm._rows_of_point(pts)
+    rows = table_rows.index_select(0, idx)
+    del table_rows
+    real = tgt[tgt >= 0]
+    msm._check_unique_targets(real, num_buckets, num_buckets + 1)  # raises
+    if (tgt[:N] >= 0).any():
+        raise AssertionError(f"{name}: a flush target at step 0")
+    S, W = G * (num_buckets + 1), rows.shape[1]
+    scan = ck.bucket_scan_rows2 if g2 else ck.bucket_scan_rows
+    t_k, t_p = scan_table(F, S, W, dev), scan_table(F, S, W, dev)
+    kern = lambda: [scan(spec, rows, tag, tgt, b3, t_k, K), t_k]
+    plain = lambda: [ck.bucket_scan_rows_ref(spec, rows, tag, tgt, b3, t_p, K), t_p]
+    heads, flushes = int(((tag & 2) > 0).sum()), int(real.numel())
+    C = 48 * (2 if g2 else 1)
+    adds = 42 if g2 else 14  # Montgomery products of a complete add
+    # the used limbs of every row, its tag and target; the real flushes; acc
+    bnd = bound(K * N * (4 * C + 8) + flushes * 4 * C + N * 4 * C + LIMB_BYTES * (C // 48),
+                adds * (K * N - heads))
+    shape = f"K = {K}, N = {N} lanes, {heads} heads, {flushes} real flushes"
+    time_cases({name: (shape, kern, plain, 5, 1, bnd)}, results)
+    acc = kern()[0]
+
+    # probe 13: K launches of K2 / K7 with the mask, acc <- Q on a head
+    q_rows = rows.reshape(K, N, W)
+    steps = []
+    for k in range(K):
+        q = msm._point_of_rows(q_rows[k], C, (N,))
+        neg = (tag[k * N:(k + 1) * N] & 1) > 0
+        q = wst.point_map(torch.Tensor.contiguous,
+                          wst.Point(q.x, F.select(neg, F.neg(q.y), q.y), q.z))
+        steps.append((q, (tag[k * N:(k + 1) * N] & 2) > 0))
+    add = ck.padd2 if g2 else ck.padd
+
+    def loop():
+        p = wst.point_map(torch.Tensor.contiguous, wst.infinity(F, (N,), dev))
+        for q, h in steps:
+            p = add(spec, b3, p, q, h)
+        return p
+
+    check_equal(f"probe 13 [{name}]", list(wst.leaves(loop())),
+                list(wst.leaves(wst.from_leaves(acc.split(16)))))
+    loop_ms = cuda_time_ms(loop, 3)
+    results.setdefault("_probe13", {})[name] = {
+        "scan_ms": results[name]["ms"], "loop_ms": loop_ms, "K": K, "lanes": N,
+        "heads": heads, "real_flushes": flushes}
+    log(f"# probe 13 [{shape}]: {K} launches of {'K7' if g2 else 'K2'} with the "
+        f"mask {loop_ms:.4f} ms against the scan's {results[name]['ms']:.4f} ms; "
+        f"the loop's acc == the scan's")
 
 
 def phase_slice(dev, results: dict, a, b) -> None:
@@ -332,20 +466,13 @@ def phase_slice(dev, results: dict, a, b) -> None:
     # each kernel beside its plain version at the slice's own shapes
     spec = bn254.q_spec()
     W, slots = -(-256 // 8), 1 << 8
-    G = msm._group_size(n, -(-256 // c), (1 << (c - 1)) + 2)
-    K = int(min(n, max(8, msm._next_pow2(G * n // (1 << 15)))))
-    lanes = G * n // K
     tree_w = (W // 2) * fixed_base._CHUNK  # first tree level of one chunk
     x = tuple(cc.repeat(1, -(-tree_w // n))[:, :tree_w].contiguous() for cc in pts)
     y = tuple(torch.roll(cc, 1, dims=1) for cc in x)
     nwin = -(-256 // c)  # MSM windows: the bucket sum's and Horner's width
     wins = tuple(cc[:, :nwin].contiguous() for cc in x)
-    rows, _ = msm._rows_of_point(tuple(cc.repeat(1, G) for cc in pts))  # G * n
-    # a segment head every 32 steps: heads are a few percent of the digits
-    tag = (torch.arange(K * lanes, device=dev, dtype=torch.int32) % 32 == 0).int() << 1
     tm = a[:, :W * slots].contiguous(), b[:, :W * slots].contiguous()
     n_mm = W * slots
-    heads = int(((tag & 2) > 0).sum())
     cases = {
         "mont_mul": (f"(16, {n_mm}) table to_mont",
                      lambda: limb.mont_mul(spec, *tm),
@@ -359,15 +486,10 @@ def phase_slice(dev, results: dict, a, b) -> None:
                  lambda: ck.pdbl(spec, b3, wins),
                  lambda: ck.pdbl_ref(spec, b3, wins), 100, 3,
                  bound(6 * LIMB_BYTES * nwin + LIMB_BYTES, 9 * nwin)),
-        # rows and flush are 256-byte rows; an add for every step but a head
-        "bucket_scan_rows": (f"K = {K}, N = {lanes} lanes",
-                             lambda: ck.bucket_scan_rows(spec, rows, tag, b3, K),
-                             lambda: ck.bucket_scan_rows_ref(spec, rows, tag, b3, K),
-                             5, 1,
-                             bound(K * lanes * (2 * 256 + 4) + lanes * 3 * LIMB_BYTES
-                                   + LIMB_BYTES, 14 * (K * lanes - heads))),
     }
     time_cases(cases, results)
+    del x, y
+    time_scan(F, b3, pts, dev, results)
 
 
 def time_cases(cases: dict, results: dict) -> None:
@@ -637,7 +759,8 @@ def time_ntt_kernels(dev, results: dict) -> None:
     time_cases(cases, results)
 
 
-# The G2 MSM's scan step: G * n / K lanes at n = 2^20 (c = 16, G = 2, K = 64)
+# The 2^20 MSM's lanes, G * n / K (c = 16, G = 2, K = 64): the width of the
+# bucket scan and of the lane merge's adds
 SCAN_LANES = 1 << 15
 
 
@@ -647,7 +770,7 @@ def fq2_rescale(F, pt, lam):
 
 
 def phase_bitcheck_g2(dev, results: dict) -> None:
-    from myzkp_tpu_torch.curves import bn254, curve_kernels as ck, fixed_base
+    from myzkp_tpu_torch.curves import bn254, curve_kernels as ck, fixed_base, msm
     from myzkp_tpu_torch.curves import weierstrass as wst
     from myzkp_tpu_torch.fields import limb
 
@@ -718,6 +841,11 @@ def phase_bitcheck_g2(dev, results: dict) -> None:
     results["pdbl2"] = {"max_abs_err": err}
     log(f"# bitcheck pdbl2: {m} lanes incl. O and the edge lanes: exact; "
         f"64 match the host")
+    # K4's G2 instance at N = 3000 lanes (ragged), K = 4
+    rows, _ = msm._rows_of_point(wst.point_map(lambda c: c[:, :4 * 3000], wst.Point(*P)))
+    err = bitcheck_scan(spec, F, b3, rows, 4, rng, dev)
+    results["bucket_scan_rows2"] = {"max_abs_err": err}
+    log(f"# bitcheck bucket_scan_rows2: {SCAN_CASE}: acc and bucket table exact")
 
 
 def phase_g2_msm(dev, results: dict) -> None:
@@ -745,8 +873,8 @@ def phase_g2_msm(dev, results: dict) -> None:
     got = bn254.g2_points_to_host(wst.point_map(lambda c: c[:, None], res))[0]
     if got != exp:
         raise AssertionError("G2 MSM 2^20: result differs from the host golden")
-    if min(counts.get(k, 0) for k in ("padd2", "pdbl2")) < 1:
-        raise AssertionError(f"G2 MSM: K7 or K8 never launched: {counts}")
+    if min(counts.get(k, 0) for k in ("padd2", "pdbl2", "bucket_scan_rows2")) < 1:
+        raise AssertionError(f"G2 MSM: K7, K8 or the G2 scan never launched: {counts}")
     med, ts = median_ms(lambda: msm.msm(F, b3, pts, k_limbs))
     results["_g2_msm"] = {"ms": med, "reps_ms": ts, "points_per_s": n / med * 1e3,
                           "first_s": first_s, "fixed_base_s": fb_s,
@@ -756,6 +884,7 @@ def phase_g2_msm(dev, results: dict) -> None:
     log(f"# g2 msm 2^{LOG_N} (c = {msm.default_window(n)}): == host "
         f"[sum k_i m_i mod r]G2; first run {first_s:.3f} s; launches "
         f"{json.dumps(counts)}; median {med:.2f} ms of {[round(t, 2) for t in ts]}")
+    time_scan(F, b3, pts, dev, results)
 
 
 def _square_chain_case(spec, m: int, dev):
@@ -791,7 +920,8 @@ def phase_pinocchio(dev, results: dict) -> None:
     t0 = time.perf_counter()
     proof, prove_counts = counted(lambda: pin.prove(asg, pk, qap, random.Random(SEED + 1)))
     first_s = time.perf_counter() - t0
-    need = ("mont_mul", "padd", "pdbl", "bucket_scan_rows", "ntt_leaf", "padd2", "pdbl2")
+    need = ("mont_mul", "padd", "pdbl", "bucket_scan_rows", "ntt_leaf", "padd2", "pdbl2",
+            "bucket_scan_rows2")
     if min(prove_counts.get(k, 0) for k in need) < 1:
         raise AssertionError(f"prove 2^{LOG_M_PIN}: a kernel of {need} never launched: "
                              f"{prove_counts}")
@@ -808,7 +938,7 @@ def phase_pinocchio(dev, results: dict) -> None:
                              "prove_first_s": first_s, "verify_s": verify_s,
                              "circuit_s": build_s, "setup_launches": setup_counts,
                              "prove_launches": prove_counts}
-    for k in ("padd2", "pdbl2"):
+    for k in ("padd2", "pdbl2", "bucket_scan_rows2"):
         results[k]["launches"] = prove_counts[k]
     log(f"# pinocchio m = 2^{LOG_M_PIN}: circuit {build_s:.3f} s; setup {setup_s:.3f} s; "
         f"prove first {first_s:.3f} s, median {med:.2f} ms of {[round(t, 2) for t in ts]}; "
@@ -856,7 +986,7 @@ def time_g2_kernels(dev, results: dict) -> None:
     cases = {
         # an add reads 12 coordinates and writes 6; 14 F_q2 products of 3
         # Montgomery products each, none on the lanes where h is set
-        "padd2": (f"{m} lanes with h set on 1 in 32: one G2 bucket-scan step",
+        "padd2": (f"{m} lanes with h set on 1 in 32: one step of probe 13's loop",
                   lambda: L(ck.padd2(spec, b3, P, Q, h)),
                   lambda: L(ck.padd2_ref(spec, b3, P, Q, h)), 20, 1,
                   bound(18 * LIMB_BYTES * m + m + 2 * LIMB_BYTES, 42 * (m - heads))),
@@ -996,7 +1126,7 @@ def phase_mixed_add(dev, results: dict) -> None:
                        lambda: ck.padd_mixed(spec, b31, Pt, qxt, qyt),
                        lambda: ck.padd_mixed_ref(spec, b31, Pt, qxt, qyt), 5, 1,
                        bound(8 * LIMB_BYTES * MIX_WIDE + LIMB_BYTES, 13 * MIX_WIDE)),
-        "padd_mixed2": (f"{m} lanes with h set on 1 in 32: one G2 bucket-scan step",
+        "padd_mixed2": (f"{m} lanes with h set on 1 in 32",
                         lambda: L(wst.Point(*ck.padd_mixed2(spec, b32, P2t, *q2t, h))),
                         lambda: L(wst.Point(*ck.padd_mixed2_ref(spec, b32, P2t, *q2t, h))),
                         20, 1,
@@ -1045,7 +1175,8 @@ def phase_groth16(dev, results: dict) -> None:
     t0 = time.perf_counter()
     proof, prove_counts = counted(lambda: g16.prove(asg, pk, qap, random.Random(SEED + 1)))
     first_s = time.perf_counter() - t0
-    need = ("mont_mul", "padd", "pdbl", "bucket_scan_rows", "ntt_leaf", "padd2", "pdbl2")
+    need = ("mont_mul", "padd", "pdbl", "bucket_scan_rows", "ntt_leaf", "padd2", "pdbl2",
+            "bucket_scan_rows2")
     if min(prove_counts.get(k, 0) for k in need) < 1:
         raise AssertionError(f"groth16 prove 2^{LOG_M_G16}: a kernel of {need} never "
                              f"launched: {prove_counts}")
@@ -1115,6 +1246,9 @@ SOURCES = {
                    "myzkp_tpu/curves/curve_pallas.py:239"),
     "padd_mixed2": ("myzkp_tpu_torch/csrc/curve2.cu",
                     "myzkp_tpu/curves/curve_pallas.py:289"),
+    # the reference's G2 scan: K steps of padd2_sel_fused (msm.py:215-280)
+    "bucket_scan_rows2": ("myzkp_tpu_torch/csrc/bucket_scan.cu",
+                          "myzkp_tpu/curves/curve_pallas.py:542"),
 }
 
 
@@ -1156,6 +1290,7 @@ def main() -> int:
     log(f"# pinocchio {json.dumps(results['_pinocchio'])}")
     log(f"# mixed_add {json.dumps(results['_mixed_add'])}")
     log(f"# groth16 {json.dumps(results['_groth16'])}")
+    log(f"# probe13 {json.dumps(results['_probe13'])}")
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

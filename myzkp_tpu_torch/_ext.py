@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("mont_mul", "padd", "pdbl", "bucket_scan_rows", "butterfly",
-           "ntt_leaf", "padd2", "pdbl2", "padd_mixed", "padd_mixed2")
+           "ntt_leaf", "padd2", "pdbl2", "padd_mixed", "padd_mixed2",
+           "bucket_scan_rows2")
 
 # Launches of each kernel since the last reset_launches().  A wrapper adds one
 # where it launches its kernel (launch() below) and nowhere else.
@@ -47,13 +48,14 @@ _SIGNATURES = {
     "mont_mul": (_P, _P, _P, _I64, _P, _P),
     "padd": (_P,) * 11 + (_I64, _P, _P),
     "pdbl": (_P,) * 7 + (_I64, _P, _P),
-    "bucket_scan_rows": (_P,) * 5 + (_I64, ctypes.c_int, _P, _P),
+    "bucket_scan_rows": (_P,) * 6 + (_I64, ctypes.c_int, _P, _P),
     "butterfly": (_P,) * 3 + (_I64,) * 4 + (_P, _P),
     "ntt_leaf": (_P,) * 3 + (_I64, ctypes.c_int, _I64, _P, _P),
     "padd2": (_P,) * 21 + (_I64, _P, _P),
     "pdbl2": (_P,) * 14 + (_I64, _P, _P),
     "padd_mixed": (_P,) * 10 + (_I64, _P, _P),
     "padd_mixed2": (_P,) * 19 + (_I64, _P, _P),
+    "bucket_scan_rows2": (_P,) * 7 + (_I64, ctypes.c_int, _P, _P),
 }
 
 _lib = None

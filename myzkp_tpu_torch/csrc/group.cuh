@@ -4,7 +4,7 @@
 // Algorithm 7; padd_mixed :113-132, Algorithm 8; pdbl :147-173, Algorithm 9),
 // as templates over the element type, so that one formula text serves both
 // groups as in the reference.  Shared by curve.cu (K2, K3, K9), curve2.cu (K7,
-// K8, K10) and bucket_scan.cu (K4).
+// K8, K10) and bucket_scan.cu (K4 and its G2 instance).
 #pragma once
 
 #include "fq2.cuh"
@@ -36,6 +36,12 @@ __device__ __forceinline__ Fe2 mul(const Fe2& a, const Fe2& b, const FieldConsts
 __device__ __forceinline__ Fe2 sqr(const Fe2& a, const FieldConsts& c) {
   return fe2_sqr(a, c);
 }
+__device__ __forceinline__ Fe neg(const Fe& a, const FieldConsts& c) {
+  return fe_neg(a, c);
+}
+__device__ __forceinline__ Fe2 neg(const Fe2& a, const FieldConsts& c) {
+  return Fe2{fe_neg(a.c0, c), fe_neg(a.c1, c)};
+}
 
 template <class E>
 struct Point {
@@ -48,17 +54,28 @@ __device__ __forceinline__ Pt pt_infinity(const FieldConsts& c) {
   return Pt{fe_zero(), fe_one(c), fe_zero()};
 }
 
+// padd reads Q's coordinates through x_of / y_of / z_of, and only in its
+// first six products: Q may be a Point in registers, or a point that a caller
+// keeps elsewhere and loads where the formula needs it (bucket_scan.cu reads
+// Q from shared memory, which keeps the G2 instance's registers down).
 template <class E>
-__device__ __forceinline__ Point<E> padd(const Point<E>& p, const Point<E>& q,
+__device__ __forceinline__ const E& x_of(const Point<E>& q) { return q.x; }
+template <class E>
+__device__ __forceinline__ const E& y_of(const Point<E>& q) { return q.y; }
+template <class E>
+__device__ __forceinline__ const E& z_of(const Point<E>& q) { return q.z; }
+
+template <class E, class Q>
+__device__ __forceinline__ Point<E> padd(const Point<E>& p, const Q& q,
                                          const E& b3, const FieldConsts& c) {
-  E t0 = mul(p.x, q.x, c);
-  E t1 = mul(p.y, q.y, c);
-  E t2 = mul(p.z, q.z, c);
-  E t3 = mul(add(p.x, p.y, c), add(q.x, q.y, c), c);
+  E t0 = mul(p.x, x_of(q), c);
+  E t1 = mul(p.y, y_of(q), c);
+  E t2 = mul(p.z, z_of(q), c);
+  E t3 = mul(add(p.x, p.y, c), add(x_of(q), y_of(q), c), c);
   t3 = sub(t3, add(t0, t1, c), c);
-  E t4 = mul(add(p.y, p.z, c), add(q.y, q.z, c), c);
+  E t4 = mul(add(p.y, p.z, c), add(y_of(q), z_of(q), c), c);
   t4 = sub(t4, add(t1, t2, c), c);
-  E x3 = mul(add(p.x, p.z, c), add(q.x, q.z, c), c);
+  E x3 = mul(add(p.x, p.z, c), add(x_of(q), z_of(q), c), c);
   E y3 = sub(x3, add(t0, t2, c), c);
   x3 = add(t0, t0, c);
   t0 = add(x3, t0, c);

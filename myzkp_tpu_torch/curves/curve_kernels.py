@@ -1,14 +1,17 @@
 """Curve kernels, each beside its plain PyTorch version: G1 K2 (complete
 add, optional select), K3 (complete double), K4 (the MSM bucket scan) and K9
 (mixed add, optional select); G2 K7 (complete add over F_q2, optional
-select), K8 (complete double) and K10 (mixed add, optional select).
+select), K8 (complete double), K10 (mixed add, optional select) and K4's G2
+instance (the bucket scan over F_q2).
 
 Counterparts of ``padd_fused`` / ``padd_sel_fused``, ``pdbl_fused``,
 ``bucket_scan_rows``, ``padd_mixed_fused`` / ``padd_mixed_sel_fused``,
 ``padd2_fused`` / ``padd2_sel_fused``, ``pdbl2_fused`` and
 ``padd_mixed2_fused`` / ``padd_mixed2_sel_fused`` in
-``myzkp_tpu/curves/curve_pallas.py``.  The wrappers (``padd``, ``pdbl``,
-``bucket_scan_rows``, ``padd_mixed``, ``padd2``, ``pdbl2``, ``padd_mixed2``)
+``myzkp_tpu/curves/curve_pallas.py``; the G2 scan replaces the reference's
+``lax.scan`` of ``padd2_sel_fused`` (``myzkp_tpu/curves/msm.py:215``).  The
+wrappers (``padd``, ``pdbl``, ``bucket_scan_rows``, ``padd_mixed``,
+``padd2``, ``pdbl2``, ``padd_mixed2``, ``bucket_scan_rows2``)
 launch the CUDA kernel for CUDA tensors and run the plain version (``*_ref``,
 int64 inside) for CPU tensors.  One formula text each (``_padd64``,
 ``_padd_mixed64``, ``_pdbl64``) serves both groups through an ops triple, and
@@ -26,9 +29,6 @@ from ..fields import limb
 from ..fields.spec import FieldSpec
 
 I32 = torch.int32
-
-ROW_LANES = 64  # int32 per G1 point row: x | y | z limbs, padded to 64
-
 
 # ---------------------------------------------------------------------------
 # Plain versions (int64)
@@ -209,38 +209,43 @@ def padd_mixed2_ref(spec: FieldSpec, b3, p, qx, qy, h=None):
     return _unstack2(r)
 
 
-def bucket_scan_rows_ref(spec: FieldSpec, rows, tag, b3, K: int):
-    """Plain version of K4 (contract in csrc/bucket_scan.cu)."""
+def bucket_scan_rows_ref(spec: FieldSpec, rows, tag, tgt, b3, buckets, K: int):
+    """Plain version of K4 (G1, b3 one (L,) tensor) and of its G2 instance
+    (b3 a (c0, c1) pair): contract in csrc/bucket_scan.cu.  Writes the real
+    flushes into ``buckets`` in place and returns acc (C, N)."""
+    e = 2 if isinstance(b3, tuple) else 1  # base-field components a coordinate
     L = spec.L
-    C = 3 * L
-    total, lanes = rows.shape
-    N = total // K
-    r = rows.reshape(K, N, lanes).long()
-    t = tag.reshape(K, N)
-    zero = torch.zeros((L, N), dtype=torch.int64, device=rows.device)
-    one = limb.one_mont(spec, (N,), rows.device).long()
+    C = 3 * e * L
+    N = rows.shape[0] // K
+    r = rows.reshape(K, N, -1)
+    t, g = tag.reshape(K, N), tgt.reshape(K, N)
+    ops = _ops64_fq2(spec) if e == 2 else _ops64(spec)
+    # coordinates as (L, e, N) int64, component j of a G2 coordinate at [:, j]
+    zero = torch.zeros((L, e, N), dtype=torch.int64, device=rows.device)
+    one = zero.clone()
+    one[:, 0] = limb.one_mont(spec, (N,), rows.device)
     acc = (zero, one, zero)
-    b3e = _b3_like(b3, zero)
-    ops = _ops64(spec)
-    flush = torch.zeros_like(rows)
+    b3e = (torch.stack(b3, 1) if e == 2 else b3[:, None]).long()[..., None].expand_as(zero)
+
+    def planes(pt):  # (L, e, N) coordinates -> (C, N), rows' limb order
+        return torch.cat([a.transpose(0, 1).reshape(e * L, N) for a in pt])
+
     for k in range(K):
-        qx, qy, qz = (r[k, :, i * L:(i + 1) * L].T for i in range(3))
-        qy = torch.where(((t[k] & 1) > 0).unsqueeze(0),
-                         limb._sub64(spec, torch.zeros_like(qy), qy), qy)
-        flush[k * N:(k + 1) * N, :C] = torch.cat(acc).T.int()
-        s = _padd64(ops, b3e, acc, (qx, qy, qz))
-        head = ((t[k] & 2) > 0).unsqueeze(0)
-        acc = tuple(torch.where(head, qi, si) for qi, si in zip((qx, qy, qz), s))
-    return torch.cat(acc).int(), flush
+        q = [r[k, :, i * e * L:(i + 1) * e * L].reshape(N, e, L).permute(2, 1, 0).long()
+             for i in range(3)]
+        q[1] = torch.where((t[k] & 1) > 0, limb._sub64(spec, torch.zeros_like(q[1]), q[1]),
+                           q[1])
+        real = g[k] >= 0
+        buckets[g[k][real], :C] = planes(acc)[:, real].T.int()
+        s = _padd64(ops, b3e, acc, q)
+        head = (t[k] & 2) > 0
+        acc = tuple(torch.where(head, qi, si) for qi, si in zip(q, s))
+    return planes(acc).int()
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
-
-def _require_b3(spec: FieldSpec, b3) -> None:
-    _ext.require(b3, "b3", I32, (spec.L,))
-
 
 def _launch_group_law(kernel: str, spec: FieldSpec, b3s, pts, h=None) -> tuple:
     """Check the inputs of K2, K3, K7, K8, K9 or K10 and launch it.  pts: one
@@ -332,26 +337,46 @@ def padd_mixed2(spec: FieldSpec, b3, p, qx, qy, h=None):
     return _pairs(_launch_group_law("padd_mixed2", spec, b3, (pl, ql), h))
 
 
-def bucket_scan_rows(spec: FieldSpec, rows, tag, b3, K: int):
-    """K4: segmented bucket scan over step-major point rows.
-
-    rows (K * N, 64) int32, tag (K * N,) int32, b3 (L,).  Returns
-    (acc (3L, N), flush (K * N, 64)); any N >= 1 is accepted."""
-    if not _ext.use_kernel(rows, tag, b3):
-        return bucket_scan_rows_ref(spec, rows, tag, b3, K)
+def _scan(kernel: str, spec: FieldSpec, rows, tag, tgt, b3s, buckets, K: int):
+    """Check the inputs of K4 or its G2 instance and launch it; b3s: b3's
+    tensors (one for G1, c0 and c1 for G2).  Returns acc."""
     total = rows.shape[0]
     if K < 1 or total % K:
         raise ValueError(f"{total} rows do not split into K = {K} steps")
-    _ext.require(rows, "rows", I32, (total, ROW_LANES))
+    C = 3 * len(b3s) * spec.L
+    W = -(-C // 64) * 64
+    _ext.require(rows, "rows", I32, (total, W))
     _ext.require(tag, "tag", I32, (total,))
-    _require_b3(spec, b3)
-    if rows.data_ptr() % 16:
-        raise ValueError("rows must be 16-byte aligned")
+    _ext.require(tgt, "tgt", I32, (total,))
+    _ext.require(buckets, "buckets", I32, (buckets.shape[0], W))
+    for i, b in enumerate(b3s):
+        _ext.require(b, f"b3[{i}]", I32, (spec.L,))
+    if rows.data_ptr() % 16 or buckets.data_ptr() % 16:
+        raise ValueError("rows and buckets must be 16-byte aligned")
     N = total // K
-    acc = torch.empty((3 * spec.L, N), dtype=I32, device=rows.device)
-    flush = torch.empty_like(rows)
+    acc = torch.empty((C, N), dtype=I32, device=rows.device)
     if N:
         P = _ext.ptr
-        _ext.launch("bucket_scan_rows", rows.device, P(rows), P(tag), P(b3),
-                    P(acc), P(flush), N, K, _ext.consts_ptr(spec))
-    return acc, flush
+        _ext.launch(kernel, rows.device, P(rows), P(tag), P(tgt), *map(P, b3s),
+                    P(acc), P(buckets), N, K, _ext.consts_ptr(spec))
+    return acc
+
+
+def bucket_scan_rows(spec: FieldSpec, rows, tag, tgt, b3, buckets, K: int):
+    """K4: the G1 segmented bucket scan over step-major point rows, flushes
+    written into the bucket table in place (contract in csrc/bucket_scan.cu).
+
+    rows (K * N, 64) int32, tag and tgt (K * N,) int32, b3 (L,), buckets
+    (S, 64) int32.  Returns acc (48, N); any N >= 1 is accepted."""
+    if not _ext.use_kernel(rows, tag, tgt, b3, buckets):
+        return bucket_scan_rows_ref(spec, rows, tag, tgt, b3, buckets, K)
+    return _scan("bucket_scan_rows", spec, rows, tag, tgt, (b3,), buckets, K)
+
+
+def bucket_scan_rows2(spec: FieldSpec, rows, tag, tgt, b3, buckets, K: int):
+    """K4's G2 instance: rows (K * N, 128) int32, b3 a (c0, c1) pair of (L,),
+    buckets (S, 128) int32, the rest as bucket_scan_rows.  Returns acc
+    (96, N)."""
+    if not _ext.use_kernel(rows, tag, tgt, *b3, buckets):
+        return bucket_scan_rows_ref(spec, rows, tag, tgt, b3, buckets, K)
+    return _scan("bucket_scan_rows2", spec, rows, tag, tgt, tuple(b3), buckets, K)

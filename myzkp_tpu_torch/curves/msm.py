@@ -6,12 +6,13 @@ step-major order, the bucket scan, then the merge of the lanes' partial sums
 and, over all windows at once, the hierarchical weighted bucket sum and the
 Horner combine.
 
-G1 takes the reference's row-major scan path (its ``_rows_scan``): the whole
-K-step scan is kernel K4, which accepts any lane count.  G2 takes the
-reference's scan formulation (its ``_bucket_accumulate``; here
-``_scan_steps``): K steps of a select-masked complete add (K7) over the
-gathered points, since K4 holds 3-leaf G1 rows only.  Scalars enter as standard-domain ``(L, n)`` int32 limb
-tensors; everything runs on their device.
+Both groups take the reference's row-major scan path (its ``_rows_scan``):
+the whole K-step scan of a window group is one launch of K4 (G1) or of its G2
+instance, which write each segment's flush straight into the bucket table and
+accept any lane count.  The reference ran G2 through a ``lax.scan`` of the
+select-masked complete add instead, as its TPU kernel held 3-leaf G1 rows only.
+Scalars enter as standard-domain ``(L, n)`` int32 limb tensors; everything
+runs on their device.
 """
 
 from __future__ import annotations
@@ -137,67 +138,58 @@ def _point_of_rows(rows, C: int, shape) -> Point:
 # Bucket accumulation
 # ---------------------------------------------------------------------------
 
-def _scan_steps(F, b3, g_rows, C: int, neg, head):
-    """K steps of the select-masked complete add (K7 for G2) over the
-    gathered step-major rows: the reference's scan formulation
-    (myzkp_tpu/curves/msm.py:215-280), with K4's contract
-    (csrc/bucket_scan.cu).  neg, head: (K, lanes).  At step k each lane first
-    hands its accumulator to the flush stream (a partial sum whose segment
-    ended inside the lane, or a dummy), then restarts it at the step's point
-    where a digit segment starts or adds the point to it."""
-    K, lanes = head.shape
-    q = _point_of_rows(g_rows, C, (K, lanes))
-    q = Point(q.x, F.select(neg > 0, F.neg(q.y), q.y), q.z)
-    q = point_map(lambda a: a.transpose(0, 1).contiguous(), q)  # (K, L, lanes)
-    acc = wst.infinity(F, (lanes,), g_rows.device)
-    flush_rows = torch.zeros_like(g_rows)
-    for k in range(K):
-        flush_rows[k * lanes:(k + 1) * lanes, :C] = torch.cat(wst.leaves(acc)).T
-        acc = wst.padd_sel(F, b3, acc, point_map(lambda a: a[k], q), head[k])
-    return acc, flush_rows
-
-
-def _bucket_accumulate(F, b3, rows, C: int, vsort, dsort, num_buckets: int,
-                       K: int) -> Point:
-    """Bucket sums of G windows: step-major row gather, the K-step bucket
-    scan over G * n / K lanes, and the merge of the lanes' partial sums.
-
-    G1's scan is kernel K4 (the reference's rows path); G2's is _scan_steps,
-    since K4 holds 3-leaf rows only.  dsort / vsort: (G, n_pad) sorted digits
-    and packed (index << 1 | negate) values; C: the rows' used width.
-    Returns a (G, num_buckets) point batch (bucket 0 unused)."""
+def _scan_inputs(vsort, dsort, num_buckets: int, K: int):
+    """The bucket scan's step-major inputs for G windows of n_pad sorted
+    digits each: the point-row indices to gather, the tags (bit 0 negate,
+    bit 1 segment head) and the flush targets, rows of a (G * (num_buckets +
+    1))-row bucket table or -1.  dsort / vsort: (G, n_pad) sorted digits and
+    packed (index << 1 | negate) values; lane l of a window holds its digits
+    l * K .. l * K + K - 1."""
     G, n_pad = dsort.shape
     B = n_pad // K
-    slots = num_buckets + 1  # +1 per-window dummy slot, dropped at the end
-    w_off = (torch.arange(G, device=dsort.device) * slots)[:, None]
-
     d2 = dsort.reshape(G, B, K)
     prev = torch.cat([d2[..., :1], d2[..., :-1]], dim=-1)
     head = torch.cat([torch.ones_like(d2[..., :1], dtype=torch.bool),
                       d2[..., 1:] != d2[..., :-1]], dim=-1)
-
-    def sm(x):  # (G, B, K) -> (K, G*B) step-major
-        return x.permute(2, 0, 1).reshape(K, G * B)
-
-    v2 = vsort.reshape(G, B, K)
-    g_rows = rows.index_select(0, sm(v2 >> 1).reshape(-1))
-    if isinstance(F, Fq2Ops):
-        acc, flush_rows = _scan_steps(F, b3, g_rows, C, sm(v2 & 1), sm(head))
-    else:
-        tag = (sm(v2 & 1) | (sm(head.int()) << 1)).reshape(-1).contiguous()
-        acc_planes, flush_rows = curve_kernels.bucket_scan_rows(
-            F.spec, g_rows, tag, b3, K)
-        acc = wst.from_leaves(acc_planes.split(_LEAF_LIMBS))
-    acc = point_map(lambda a: a.reshape(a.shape[0], G, B), acc)
-    # No flush at step 0: nothing has ended inside the lane yet.  A flush
-    # there would scatter the fresh infinity accumulator of a lane whose first
-    # digit continues the previous lane's segment onto that segment's real
-    # target (the reference's c = 14 fault, myzkp_tpu/curves/msm.py:321-328).
+    # A flush hands the segment that ended inside the lane to its bucket.
+    # None at step 0: nothing has ended inside the lane yet.  A flush there
+    # would write the fresh infinity accumulator of a lane whose first digit
+    # continues the previous lane's segment onto that segment's real target
+    # (the reference's c = 14 fault, myzkp_tpu/curves/msm.py:321-328).
     flush = head & (prev > 0)
     flush[..., 0] = False
-    tgt = torch.where(flush, prev, num_buckets) + w_off[:, :, None]
-    return _merge_lane_partials(F, b3, acc, d2, flush_rows,
-                                sm(tgt).reshape(-1), num_buckets, slots, w_off)
+    w_off = torch.arange(G, device=dsort.device)[:, None, None] * (num_buckets + 1)
+    tgt = torch.where(flush, prev + w_off, -1)
+
+    def sm(x):  # (G, B, K) -> (K * G * B,) step-major
+        return x.permute(2, 0, 1).reshape(-1)
+
+    v2 = vsort.reshape(G, B, K)
+    tag = sm(v2 & 1) | (sm(head.int()) << 1)
+    return sm(v2 >> 1), tag.contiguous(), sm(tgt).int().contiguous()
+
+
+def _bucket_accumulate(F, b3, rows, vsort, dsort, num_buckets: int, K: int) -> Point:
+    """Bucket sums of G windows: step-major row gather, one bucket-scan launch
+    over G * n / K lanes (K4 for G1, its G2 instance for G2) that writes the
+    segment flushes into the bucket table, and the merge of the lanes' end
+    partials.  dsort / vsort: (G, n_pad) sorted digits and packed (index << 1
+    | negate) values.  Returns a (G, num_buckets) point batch (bucket 0
+    unused)."""
+    G, n_pad = dsort.shape
+    B = n_pad // K
+    slots = num_buckets + 1  # +1 per-window dummy slot for the merge, dropped at the end
+    idx, tag, tgt = _scan_inputs(vsort, dsort, num_buckets, K)
+    g_rows = rows.index_select(0, idx)
+    bk_rows, _ = _rows_of_point(wst.infinity(F, (G * slots,), rows.device), rows.shape[1])
+    if not _ext.use_kernel(tgt):
+        _check_unique_targets(tgt[tgt >= 0], num_buckets, slots)
+    scan = (curve_kernels.bucket_scan_rows2 if isinstance(F, Fq2Ops)
+            else curve_kernels.bucket_scan_rows)
+    acc = wst.from_leaves(scan(F.spec, g_rows, tag, tgt, b3, bk_rows, K).split(_LEAF_LIMBS))
+    acc = point_map(lambda a: a.reshape(a.shape[0], G, B), acc)
+    return _merge_lane_partials(F, b3, acc, dsort.reshape(G, B, K), bk_rows,
+                                num_buckets, slots)
 
 
 def _seg_scan_hs(F, b3, pts: Point, head) -> Point:
@@ -228,23 +220,20 @@ def _check_unique_targets(tgt, num_buckets: int, slots: int) -> None:
         raise RuntimeError("two flushes target one bucket")
 
 
-def _merge_lane_partials(F, b3, acc: Point, d2, flush_rows, tgt_flat,
-                         num_buckets: int, slots: int, w_off) -> Point:
-    """Scatter the mid-lane flushes into the bucket table, merge the lanes'
-    end partials (segmented sum across lanes in sorted order) and land the
-    segment totals in their buckets.
+def _merge_lane_partials(F, b3, acc: Point, d2, bk_rows, num_buckets: int,
+                         slots: int) -> Point:
+    """Merge the lanes' end partials (segmented sum across lanes in sorted
+    order) and add the segment totals to their buckets in bk_rows, the
+    (G * slots, lanes) table the scan filled with the mid-lane flushes.
 
-    Scatters go through a per-window dummy slot that is sliced off at the
-    end: real targets are unique (checked on the plain path), and the dummies
-    collide harmlessly however index_put_ orders duplicates."""
-    G, B, K = d2.shape
+    The scatter goes through a per-window dummy slot that is sliced off at
+    the end: real targets are unique (checked on the plain path), and the
+    dummies collide harmlessly however index_put_ orders duplicates."""
+    G, B, _ = d2.shape
     device = d2.device
-    lanes = flush_rows.shape[1]
-    if not _ext.use_kernel(tgt_flat):
-        _check_unique_targets(tgt_flat, num_buckets, slots)
-    bk_rows, C = _rows_of_point(wst.infinity(F, (G * slots,), device), lanes)
-    bk_rows[tgt_flat] = flush_rows
-
+    lanes = bk_rows.shape[1]
+    C = _LEAF_LIMBS * len(wst.leaves(acc))
+    w_off = (torch.arange(G, device=device) * slots)[:, None]
     d_end = d2[..., -1]  # (G, B)
     ones = torch.ones((G, 1), dtype=torch.bool, device=device)
     seg_head = torch.cat([ones, d_end[:, 1:] != d_end[:, :-1]], dim=-1)
@@ -341,7 +330,7 @@ def msm_pippenger(F, b3, points: Point, s_limbs, c: int | None = None,
                            points)
         s_limbs = torch.nn.functional.pad(s_limbs, (0, pad))
 
-    rows, C = _rows_of_point(points)
+    rows, _ = _rows_of_point(points)
     digits, dneg = signed_digits(scalar_digits(s_limbs, c), c)  # (W, n_pad)
     W_pad = -(-W // G) * G
     if W_pad != W:
@@ -353,7 +342,7 @@ def msm_pippenger(F, b3, points: Point, s_limbs, c: int | None = None,
     d_sorted, order = torch.sort(digits, dim=1, stable=True)
     v_sorted = vals.gather(1, order)
 
-    groups = [_bucket_accumulate(F, b3, rows, C, v_sorted[g:g + G],
+    groups = [_bucket_accumulate(F, b3, rows, v_sorted[g:g + G],
                                  d_sorted[g:g + G], num_buckets, K)
               for g in range(0, W_pad, G)]
     buckets = point_map(lambda *cs: torch.cat(cs, dim=1), *groups)

@@ -129,31 +129,52 @@ def test_tree_sum_matches_host(pairs, n):
     assert tbn.g1_points_to_host(tw.Point(*(a[:, None] for a in got))) == [want]
 
 
-@pytest.mark.parametrize("N", [1000, 2048])
-def test_bucket_scan_rows_ref_matches_host(N):
-    """Plain version of K4 vs a host-simulated segmented scan (the contract of
-    curve_pallas.bucket_scan_rows, tests/test_pallas.py:271), as affine
-    points; N = 1000 is a ragged lane count the TPU kernel did not take."""
+@pytest.mark.parametrize("group,N", [pytest.param("g1", 1000, id="1000"),
+                                     pytest.param("g1", 2048, id="2048"),
+                                     pytest.param("g2", 300, id="g2-300")])
+def test_bucket_scan_rows_ref_matches_host(group, N):
+    """Plain version of the bucket scan (K4 for G1, its G2 instance for G2)
+    vs a host-simulated segmented scan, as affine points: each lane's
+    accumulator, the bucket rows at the real targets (the accumulator before
+    the step, step 0 included), and every other row left as it was: -1 writes
+    nothing.  N = 1000 and 300 are ragged lane counts the TPU kernel did not
+    take (curve_pallas.bucket_scan_rows, tests/test_pallas.py:271)."""
     rng = np.random.default_rng(23)
-    g1 = tbn.g1_generator()
+    g2 = group == "g2"
+    F, b3 = (tbn.g2_ops(), tbn.g2_b3((), DEV)) if g2 else (tbn.g1_ops(), tbn.g1_b3((), DEV))
+    to_device = tbn.g2_points_to_device if g2 else tbn.g1_points_to_device
+    to_host = tbn.g2_points_to_host if g2 else tbn.g1_points_to_host
     K = 2
-    host_pts = [g1 * int(v) for v in rng.integers(1, 1 << 30, K * N)]
-    rows, C = tmsm._rows_of_point(tbn.g1_points_to_device(host_pts, DEV))
+    if g2:  # a walk of host additions: far cheaper than G2 scalar products
+        step = tbn.g2_generator() * 12345
+        host_pts = [tbn.g2_generator()]
+        while len(host_pts) < K * N:
+            host_pts.append(host_pts[-1] + step)
+    else:
+        host_pts = [tbn.g1_generator() * int(v) for v in rng.integers(1, 1 << 30, K * N)]
+    rows, C = tmsm._rows_of_point(to_device(host_pts, DEV))
     tags = rng.integers(0, 4, K * N).astype(np.int32)
     tags[:7] = [0, 1, 2, 3, 2, 1, 0]  # all combinations early
-    acc, flush = ck.bucket_scan_rows(tbn.q_spec(), rows, torch.from_numpy(tags),
-                                     tbn.g1_b3((), DEV), K)
-    inf = tbn.curve_g1.infinity()
-    acc_h, flush_h = [inf] * N, []
+    S = K * N + 17  # bucket rows, some never targeted
+    tgt = np.where(rng.random(K * N) < 0.3, rng.permutation(S)[:K * N], -1).astype(np.int32)
+    table, _ = tmsm._rows_of_point(tw.infinity(F, (S,), DEV), rows.shape[1])
+    before = table.clone()
+    scan = ck.bucket_scan_rows2 if g2 else ck.bucket_scan_rows
+    acc = scan(tbn.q_spec(), rows, torch.from_numpy(tags), torch.from_numpy(tgt), b3,
+               table, K)
+    inf = (tbn.curve_g2 if g2 else tbn.curve_g1).infinity()
+    acc_h, flushed = [inf] * N, {}
     for k in range(K):
         for lane in range(N):
-            t = int(tags[k * N + lane])
-            flush_h.append(acc_h[lane])
-            q = host_pts[k * N + lane]
-            if t & 1:
-                q = -q
-            acc_h[lane] = q if t & 2 else acc_h[lane] + q
-    L = tbn.q_spec().L
-    assert tbn.g1_points_to_host(tw.Point(acc[:L], acc[L:2 * L], acc[2 * L:])) == acc_h
-    assert tbn.g1_points_to_host(tmsm._point_of_rows(flush, C, (K * N,))) == flush_h
-    assert not flush[:, C:].any()  # the unused row lanes are written as zeros
+            r = k * N + lane
+            if tgt[r] >= 0:
+                flushed[int(tgt[r])] = acc_h[lane]
+            q = -host_pts[r] if tags[r] & 1 else host_pts[r]
+            acc_h[lane] = q if tags[r] & 2 else acc_h[lane] + q
+    assert to_host(tw.from_leaves(acc.split(tbn.q_spec().L))) == acc_h
+    real = sorted(flushed)
+    assert (tgt[:N] >= 0).any()  # step 0 flushes too
+    assert to_host(tmsm._point_of_rows(table[real], C, (len(real),))) == [flushed[t] for t in real]
+    untouched = [i for i in range(S) if i not in flushed]
+    assert untouched and torch.equal(table[untouched], before[untouched])
+    assert not table[:, C:].any()  # the unused row lanes stay zero
