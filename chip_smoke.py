@@ -22,7 +22,17 @@ Phases, one output line each (or more), in order:
                K6 at every
                leaf shape of the 2^20 paths and at m = 16, 64, 128 with a
                ragged batch; segment_sum_mod on the card against the CPU and
-               host ints, 2^20 entries with heavy duplicates;
+               host ints, 2^20 entries with heavy duplicates; K2 and K7 (one
+               G2 point on a lane pair) at 32,768 lanes, K2 at 2^17 + 5
+               too, and at tail lengths that are not multiples of a block,
+               a warp's 16 pairs or 2, with the mask on 1 lane in 32 and
+               without, edge values, infinity, Q = P and Q = -P; the lane-merge
+               levels of both groups (padd_seg_level, padd2_seg_level) at
+               every level of the scan at the lane merge's (2, 16384) shape
+               and at a ragged (3, 1000), under four head patterns (all,
+               lane 0 only, 3 in 10 with lane 0 clear, 97 in 100), with edge
+               values and infinity in the inputs, out and flags exact; and
+               msm._seg_scan_hs on the card, exact, one launch a level;
   4. msm       the G1 slice: fixed-base setup of 2^20 points [m_i]G, then the
                2^20 Pippenger MSM against 2^20 scalars k_i, checked against
                the host's [sum k_i m_i mod r]G; kernel launch counts of that
@@ -32,7 +42,9 @@ Phases, one output line each (or more), in order:
                32,768 lanes; real flush targets checked unique) exact against
                its plain version, acc and bucket table, and timed beside it,
                and probe 13: the same 64 steps as 64 launches of K2 with the
-               mask;
+               mask; the lane merge's first level on the scan's acc and the
+               real segment heads, exact and timed with cold inputs, and with
+               lane 0 the only head (every lane adds);
   5. ntt       a forward NTT of 2^20 seeded F_r elements checked at 3 points
                against host evaluation, intt(ntt(a)) == a, its launches, and
                its time;
@@ -55,7 +67,8 @@ Phases, one output line each (or more), in order:
                prove median of 3, verify seconds (host); then setup and prove
                at m = 2^4 on the card and on the CPU plain versions with the
                same seeds, keys and proofs equal point for point; K7 and K8
-               timed beside their plain versions at the MSM's 32,768 lanes;
+               timed beside their plain versions at the MSM's 32,768 lanes,
+               and K2 at the same shape;
   9. mixed add the entry points weierstrass.padd_mixed / padd_mixed_sel, counted:
                K9 over G1 at 2^15 lanes (the mask set on about 1 lane in 32)
                and at 4,194,304 points, K10 over G2 at the MSM's 32,768
@@ -72,6 +85,8 @@ Phases, one output line each (or more), in order:
                seconds; then setup and prove at m = 2^4 on the card and on the
                CPU plain versions with the same seeds, keys and proofs equal
                point for point.
+The build phase prints ptxas's registers and spills of every kernel and the
+static SASS instruction counts (cuobjdump -sass) of the curve kernels.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.  Any failure exits nonzero before it.
@@ -80,6 +95,7 @@ Neither this script nor the port imports JAX.
 
 from __future__ import annotations
 
+import itertools
 import json
 import random
 import statistics
@@ -108,7 +124,7 @@ HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 132 * 64 * 1.98e9
 IMAD_PER_MONT = 264
 LIMB_BYTES = 64  # one element at the tensor interface: 16 int32 limbs
-MSM_KERNELS = ("mont_mul", "padd", "pdbl", "bucket_scan_rows")
+MSM_KERNELS = ("mont_mul", "padd", "pdbl", "bucket_scan_rows", "padd_seg_level")
 
 
 def log(msg: str) -> None:
@@ -116,7 +132,9 @@ def log(msg: str) -> None:
 
 
 def cuda_time_ms(fn, reps: int) -> float:
-    """Mean device time of fn over reps launches (after one warm-up)."""
+    """Mean time of fn over reps calls (after one warm-up), CUDA events
+    around the calls: the device's time where it is the longer, else the
+    host's time to make the calls."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -127,6 +145,33 @@ def cuda_time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_time_ms(fn, reps: int) -> float:
+    """Mean device time of fn's launches: reps calls captured in one CUDA
+    graph (after one warm-up call), the graph replayed once to warm up and
+    then timed with CUDA events.  The host's cost of a call is left out, so
+    a launch shorter than the host takes to make it reads its own time."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            fn()
+    torch.cuda.synchronize()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
 
 
 def bound(nbytes: float, mont_products: float) -> dict:
@@ -168,6 +213,48 @@ def phase_build() -> None:
     for line in _ext.library_path().with_suffix(".log").read_text().splitlines():
         if any(k in line for k in ("entry function", "registers", "spill")):
             log(f"#   ptxas: {line.strip()}")
+    for kernel, counts in sass_counts(_ext.library_path()).items():
+        log(f"#   sass {kernel}: {json.dumps(counts)}")
+
+
+# SASS opcode classes counted per kernel: the 32-bit multiply-adds and adds of
+# the Montgomery products and the carry chains, local memory (spills),
+# shuffles, global memory, branches and calls.
+SASS_CLASSES = ("IMAD", "IADD3", "LOP3", "SEL", "ISETP", "LDL", "STL", "SHFL", "LDG",
+                "STG", "BRA", "CALL")
+
+
+def sass_counts(lib) -> dict:
+    """Static instruction counts of each curve kernel in the built library,
+    from cuobjdump -sass: the total and each class of SASS_CLASSES (an opcode
+    counts in the class it starts with: IMAD.WIDE.U32 is an IMAD)."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = next((k for k in SASS_KERNELS if k in m.group(1)), None)
+            if name:
+                out[name] = dict.fromkeys(("total",) + SASS_CLASSES, 0)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if name and m:
+            op = m.group(1)
+            out[name]["total"] += 1
+            cls = next((c for c in SASS_CLASSES if op.startswith(c)), None)
+            if cls:
+                out[name][cls] += 1
+    return out
+
+
+SASS_KERNELS = ("padd_seg_level_kernel", "padd2_seg_level_kernel", "padd_mixed_kernel",
+                "padd_mixed2_kernel", "padd2_kernel", "pdbl2_kernel", "padd_kernel",
+                "pdbl_kernel")
 
 
 def random_fe(rng: np.random.Generator, n: int, dev) -> torch.Tensor:
@@ -389,6 +476,7 @@ def time_scan(F, b3, pts, dev, results: dict) -> None:
 
     check_equal(f"probe 13 [{name}]", list(wst.leaves(loop())),
                 list(wst.leaves(wst.from_leaves(acc.split(16)))))
+    time_level(F, b3, acc, d_sorted, K, results)
     loop_ms = cuda_time_ms(loop, 3)
     results.setdefault("_probe13", {})[name] = {
         "scan_ms": results[name]["ms"], "loop_ms": loop_ms, "K": K, "lanes": N,
@@ -396,6 +484,68 @@ def time_scan(F, b3, pts, dev, results: dict) -> None:
     log(f"# probe 13 [{shape}]: {K} launches of {'K7' if g2 else 'K2'} with the "
         f"mask {loop_ms:.4f} ms against the scan's {results[name]['ms']:.4f} ms; "
         f"the loop's acc == the scan's")
+
+
+def time_level(F, b3, acc, d_sorted, K: int, results: dict) -> None:
+    """The lane merge's first level (d = 1) on its own inputs in the 2^20
+    MSM: the scan's acc as (G, B) lanes and the segment heads of the lanes'
+    last digits, as msm._merge_lane_partials makes them; held to its plain
+    version and timed.  Then the same lanes with lane 0 the only head, where
+    every other lane adds (the level's most work at this shape)."""
+    from myzkp_tpu_torch.curves import curve_kernels as ck
+    from myzkp_tpu_torch.curves import weierstrass as wst
+
+    g2 = isinstance(b3, tuple)
+    name = "padd2_seg_level" if g2 else "padd_seg_level"
+    level = ck.padd2_seg_level if g2 else ck.padd_seg_level
+    ref = ck.padd2_seg_level_ref if g2 else ck.padd_seg_level_ref
+    spec = F.spec
+    G, n = d_sorted.shape
+    B = n // K
+    x = tuple(wst.point_map(lambda a: a.reshape(16, G, B).contiguous(),
+                            wst.from_leaves(acc.split(16))))
+    d_end = d_sorted.reshape(G, B, K)[..., -1]
+    ones = torch.ones((G, 1), dtype=torch.bool, device=d_end.device)
+    heads = torch.cat([ones, d_end[:, 1:] != d_end[:, :-1]], dim=-1)
+    C = 48 * (2 if g2 else 1)
+    adds_per = G2_ADD_PRODUCTS if g2 else 14
+    L = lambda r: list(wst.leaves(wst.Point(*r[0]))) + [r[1]]
+    nbytes = 2 * (4 * C * G * B + G * B) + LIMB_BYTES * (C // 48)
+    copies = [x] + [tuple(wst.point_map(torch.clone, wst.Point(*x)))
+                    for _ in range(2 * L2_BYTES // nbytes + 1)]
+    for kind, h in (("path", heads), ("lane0", torch.zeros_like(heads))):
+        h = h.clone()
+        h[:, 0] = True
+        adds = int((~h).sum())
+        kern, kept = cold_calls(lambda xc: L(level(spec, b3, xc, h, 1)), copies)
+        case = {name: (f"({G}, {B}) lanes, d = 1, heads {kind}: {adds} adds; "
+                       f"inputs cold ({len(copies)} copies)",
+                       kern, lambda: L(ref(spec, b3, x, h, 1)), 50, 1,
+                       bound(nbytes, adds_per * adds))}
+        if kind == "path":
+            time_cases(case, results)
+        else:
+            res = {name: {"max_abs_err": 0}}
+            time_cases(case, res)
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                               res[name]["max_abs_err"])
+            results.setdefault("_levels_all_adds", {})[name] = res[name]
+        kept.clear()
+
+
+def cold_calls(fn, inputs: list):
+    """(call, kept): call() runs fn on inputs[0], inputs[1], ... in turn and
+    keeps every result in kept.  With enough copies of the same inputs that
+    the bytes between two uses of one copy pass the L2, each call reads its
+    inputs from memory and writes memory that no call has touched, as the
+    bytes bound assumes; a graph replay of one input set would find it in
+    L2.  Clear kept after the timing."""
+    turn, kept = itertools.cycle(inputs), []
+
+    def call():
+        kept.append(fn(next(turn)))
+        return kept[-1]
+    return call, kept
 
 
 def phase_slice(dev, results: dict, a, b) -> None:
@@ -493,14 +643,16 @@ def phase_slice(dev, results: dict, a, b) -> None:
 
 
 def time_cases(cases: dict, results: dict) -> None:
-    """Each kernel against its plain version (exact), then both timed with
-    CUDA events; the bound and the library time go beside them."""
+    """Each kernel against its plain version (exact), then both timed: the
+    kernel by graph replay (graph_time_ms), the plain version with CUDA
+    events around its calls; the bound and the library time go beside
+    them."""
     as_list = lambda r: [r] if torch.is_tensor(r) else list(r)
     for name, (shape, kern, plain, reps, preps, bnd) in cases.items():
         err = check_equal(f"{name} [{shape}]", as_list(kern()), as_list(plain()))
         res = results[name]
         res["max_abs_err"] = max(res["max_abs_err"], err)
-        ms_k, ms_p = cuda_time_ms(kern, reps), cuda_time_ms(plain, preps)
+        ms_k, ms_p = graph_time_ms(kern, reps), cuda_time_ms(plain, preps)
         # no PyTorch call computes a 256-bit Montgomery product
         res.update(ms=ms_k, plain_ms=ms_p, library_ms=None, **bnd)
         log(f"# time {name} [{shape}]: exact vs plain; kernel {ms_k:.4f} ms, "
@@ -747,7 +899,7 @@ def time_ntt_kernels(dev, results: dict) -> None:
         "ntt_leaf": (f"E = {E}, m = {m}, B = {B}: a leaf level of the batched "
                      f"2^{LOG_M_BIG + 1}-point coset NTT",
                      lambda: nk.ntt_leaf(spec, xl, twl),
-                     lambda: nk.ntt_leaf_ref(spec, xl, twl), 20, 1,
+                     lambda: nk.ntt_leaf_ref(spec, xl, twl), 5, 1,
                      bound(2 * LIMB_BYTES * E * m * B + (m - 1) * LIMB_BYTES,
                            E * B * (m // 2) * (m.bit_length() - 1))),
         "butterfly": (f"(16, {R}, 1, {c}, 1): stage 0 of the batched "
@@ -762,6 +914,14 @@ def time_ntt_kernels(dev, results: dict) -> None:
 # The 2^20 MSM's lanes, G * n / K (c = 16, G = 2, K = 64): the width of the
 # bucket scan and of the lane merge's adds
 SCAN_LANES = 1 << 15
+# Montgomery products of a G2 complete add: the function needs 14 F_q2
+# products of 3 (Karatsuba, csrc/fq2.cuh), which the bounds count; K7's lane
+# pair does 4 an F_q2 product (csrc/pair.cuh), its chosen extra work
+G2_ADD_PRODUCTS = 42
+PAIR_G2_ADD_PRODUCTS = 56
+# The H100's L2 cache: a kernel timed against the memory rate reads inputs
+# that are not in it (cold_calls)
+L2_BYTES = 50 * 2**20
 
 
 def fq2_rescale(F, pt, lam):
@@ -848,6 +1008,127 @@ def phase_bitcheck_g2(dev, results: dict) -> None:
     log(f"# bitcheck bucket_scan_rows2: {SCAN_CASE}: acc and bucket table exact")
 
 
+# Tail lengths for the add kernels: not multiples of a block (64 or 128
+# threads), of a warp's 16 lane pairs, or of 2.
+TAILS = (1, 17, 63, 65, 4097, SCAN_LANES - 5)
+# A width of K2 above 2^17 points, where wider launches than the lane merge's
+# run (the fixed-base setup's tree levels)
+K2_WIDE = (1 << 17) + 5
+
+
+def level_inputs(group: str, rows: int, B: int, rng, dev):
+    """(F, b3, x) over a (rows, B) batch: random canonical coordinates, every
+    component of 1 lane in 8 drawn from 0, 1, q - 1 and R mod q, and 1 lane
+    in 16 infinity (0, 1, 0).  The formulas do not need points on the curve
+    to be held bit for bit to their plain versions."""
+    from myzkp_tpu_torch.curves import bn254
+    from myzkp_tpu_torch.fields import limb
+
+    g2 = group == "g2"
+    spec = bn254.q_spec()
+    F, b3 = ((bn254.g2_ops(), bn254.g2_b3((), dev)) if g2
+             else (bn254.g1_ops(), bn254.g1_b3((), dev)))
+    n = rows * B
+    E, I = -(-n // 8), -(-n // 16)
+    edges = [0, 1, spec.p - 1, (1 << 256) % spec.p]
+    at = torch.from_numpy(rng.choice(n, E, replace=False)).to(dev)
+    inf_at = torch.from_numpy(rng.choice(n, I, replace=False)).to(dev)
+    one = limb.one_mont(spec, (I,), dev)
+    comps = []
+    for k in range(6 if g2 else 3):
+        c = random_fe(rng, n, dev)
+        c[:, at] = limb.from_int(spec, [edges[i] for i in rng.integers(0, 4, E)], dev)
+        c[:, inf_at] = one if k == (2 if g2 else 1) else torch.zeros_like(one)
+        comps.append(c.reshape(16, rows, B))
+    x = tuple(zip(comps[0::2], comps[1::2])) if g2 else tuple(comps)
+    return F, b3, x
+
+
+def level_heads(kind: str, rows: int, B: int, rng, dev) -> torch.Tensor:
+    """Segment heads: every lane, lane 0 only, 3 lanes in 10 with lane 0
+    clear (lanes below d then add infinity), or 97 in 100 with lane 0 set."""
+    lane = np.arange(B)[None, :].repeat(rows, 0)
+    h = {"all": np.ones((rows, B), bool), "lane0": lane == 0,
+         "random": (rng.random((rows, B)) < 0.3) & (lane > 0),
+         "dense": (rng.random((rows, B)) < 0.97) | (lane == 0)}[kind]
+    return torch.from_numpy(h).to(dev)
+
+
+def phase_bitcheck_levels(dev, results: dict) -> None:
+    """K2 and K7 with the mask on 1 lane in 32 and at tail lengths; the
+    lane-merge levels of both groups against their plain versions, every
+    level of the scan at the lane merge's (2, 16384) shape under four head
+    patterns, and at a ragged (3, 1000); then msm._seg_scan_hs on the card
+    against the plain levels."""
+    from myzkp_tpu_torch.curves import bn254, curve_kernels as ck, msm
+    from myzkp_tpu_torch.curves import weierstrass as wst
+
+    rng = np.random.default_rng(SEED + 11)
+    spec = bn254.q_spec()
+    L = lambda pt: list(wst.leaves(wst.Point(*pt)))
+    errs = {k: 0 for k in ("padd", "padd2", "padd_seg_level", "padd2_seg_level")}
+    for group, add, ref in (("g1", ck.padd, ck.padd_ref), ("g2", ck.padd2, ck.padd2_ref)):
+        name = "padd2" if group == "g2" else "padd"
+        for n in (SCAN_LANES,) + (K2_WIDE,) * (group == "g1") + TAILS:
+            F, b3, P = level_inputs(group, 1, n, rng, dev)
+            _, _, Q = level_inputs(group, 1, n, rng, dev)
+            flat = lambda pt: tuple(wst.point_map(lambda c: c.reshape(16, n),
+                                                  wst.Point(*pt)))
+            P, Q = flat(P), flat(Q)
+            lane = torch.arange(n, device=dev)
+            same, opp = lane % 7 == 3, lane % 7 == 4  # Q = P, Q = -P
+            Q = (F.select(same | opp, P[0], Q[0]),
+                 F.select(opp, F.neg(P[1]), F.select(same, P[1], Q[1])),
+                 F.select(same | opp, P[2], Q[2]))
+            h = lane % 32 == 5
+            for hh in (None, h):
+                errs[name] = max(errs[name], check_equal(
+                    f"{name} [{n} lanes, h {'1 in 32' if hh is not None else 'none'}]",
+                    L(add(spec, b3, P, Q, hh)), L(ref(spec, b3, P, Q, hh))))
+    log(f"# bitcheck padd, padd2: {SCAN_LANES} lanes, padd at {K2_WIDE} too, and tails "
+        f"{TAILS}, with h on 1 lane in 32 and without; 1 lane in 8 of 0, 1, q - 1, "
+        f"R mod q in every component, 1 in 16 infinity on either side, Q = P on 1 "
+        f"lane in 7 and Q = -P on another: exact")
+
+    for group in ("g1", "g2"):
+        name = "padd2_seg_level" if group == "g2" else "padd_seg_level"
+        level = ck.padd2_seg_level if group == "g2" else ck.padd_seg_level
+        ref = ck.padd2_seg_level_ref if group == "g2" else ck.padd_seg_level_ref
+        for rows, B in ((2, SCAN_LANES // 2), (3, 1000)):
+            F, b3, x0 = level_inputs(group, rows, B, rng, dev)
+            for kind in ("all", "lane0", "random", "dense"):
+                x, flags = x0, level_heads(kind, rows, B, rng, dev)
+                d = 1
+                while d < B:
+                    got, gf = level(spec, b3, x, flags, d)
+                    want, wf = ref(spec, b3, x, flags, d)
+                    errs[name] = max(errs[name], check_equal(
+                        f"{name} [({rows}, {B}), heads {kind}, d = {d}]",
+                        L(got) + [gf], L(want) + [wf]))
+                    x, flags, d = got, gf, 2 * d
+        # the whole scan through msm._seg_scan_hs: one launch a level
+        F, b3, x = level_inputs(group, 2, SCAN_LANES // 2, rng, dev)
+        heads = level_heads("random", 2, SCAN_LANES // 2, rng, dev)
+        got, counts = counted(lambda: msm._seg_scan_hs(F, b3, wst.Point(*x), heads))
+        xr, fr, d = x, heads, 1
+        while d < SCAN_LANES // 2:
+            xr, fr = ref(spec, b3, xr, fr, d)
+            d *= 2
+        errs[name] = max(errs[name], check_equal(f"{name} [_seg_scan_hs]",
+                                                 L(got), L(xr)))
+        levels = (SCAN_LANES // 2 - 1).bit_length()
+        if counts != {name: levels}:
+            raise AssertionError(f"_seg_scan_hs ({group}): launches {counts}, expected "
+                                 f"{levels} of {name} and nothing else")
+        log(f"# bitcheck {name}: every level d = 1 .. {SCAN_LANES // 4} at (2, "
+            f"{SCAN_LANES // 2}) and d = 1 .. 512 at (3, 1000), heads all / lane 0 only "
+            f"/ 3 in 10 with lane 0 clear / 97 in 100; 1 lane in 8 of edge values, 1 in "
+            f"16 infinity: out and flags exact; _seg_scan_hs at (2, {SCAN_LANES // 2}): "
+            f"exact, {levels} launches of {name} and nothing else")
+    for k, e in errs.items():
+        results[k]["max_abs_err"] = max(results[k].get("max_abs_err", 0), e)
+
+
 def phase_g2_msm(dev, results: dict) -> None:
     from myzkp_tpu_torch.curves import bn254, fixed_base, msm
     from myzkp_tpu_torch.curves import weierstrass as wst
@@ -873,8 +1154,9 @@ def phase_g2_msm(dev, results: dict) -> None:
     got = bn254.g2_points_to_host(wst.point_map(lambda c: c[:, None], res))[0]
     if got != exp:
         raise AssertionError("G2 MSM 2^20: result differs from the host golden")
-    if min(counts.get(k, 0) for k in ("padd2", "pdbl2", "bucket_scan_rows2")) < 1:
-        raise AssertionError(f"G2 MSM: K7, K8 or the G2 scan never launched: {counts}")
+    need = ("padd2", "pdbl2", "bucket_scan_rows2", "padd2_seg_level")
+    if min(counts.get(k, 0) for k in need) < 1:
+        raise AssertionError(f"G2 MSM: a kernel of {need} never launched: {counts}")
     med, ts = median_ms(lambda: msm.msm(F, b3, pts, k_limbs))
     results["_g2_msm"] = {"ms": med, "reps_ms": ts, "points_per_s": n / med * 1e3,
                           "first_s": first_s, "fixed_base_s": fb_s,
@@ -921,7 +1203,7 @@ def phase_pinocchio(dev, results: dict) -> None:
     proof, prove_counts = counted(lambda: pin.prove(asg, pk, qap, random.Random(SEED + 1)))
     first_s = time.perf_counter() - t0
     need = ("mont_mul", "padd", "pdbl", "bucket_scan_rows", "ntt_leaf", "padd2", "pdbl2",
-            "bucket_scan_rows2")
+            "bucket_scan_rows2", "padd_seg_level", "padd2_seg_level")
     if min(prove_counts.get(k, 0) for k in need) < 1:
         raise AssertionError(f"prove 2^{LOG_M_PIN}: a kernel of {need} never launched: "
                              f"{prove_counts}")
@@ -938,7 +1220,7 @@ def phase_pinocchio(dev, results: dict) -> None:
                              "prove_first_s": first_s, "verify_s": verify_s,
                              "circuit_s": build_s, "setup_launches": setup_counts,
                              "prove_launches": prove_counts}
-    for k in ("padd2", "pdbl2", "bucket_scan_rows2"):
+    for k in ("padd2", "pdbl2", "bucket_scan_rows2", "padd2_seg_level"):
         results[k]["launches"] = prove_counts[k]
     log(f"# pinocchio m = 2^{LOG_M_PIN}: circuit {build_s:.3f} s; setup {setup_s:.3f} s; "
         f"prove first {first_s:.3f} s, median {med:.2f} ms of {[round(t, 2) for t in ts]}; "
@@ -984,18 +1266,36 @@ def time_g2_kernels(dev, results: dict) -> None:
     heads = int(h.sum())
     L = wst.leaves
     cases = {
-        # an add reads 12 coordinates and writes 6; 14 F_q2 products of 3
-        # Montgomery products each, none on the lanes where h is set
+        # an add reads 12 coordinates and writes 6 and needs 42 Montgomery
+        # products, none on the lanes where h is set
         "padd2": (f"{m} lanes with h set on 1 in 32: one step of probe 13's loop",
                   lambda: L(ck.padd2(spec, b3, P, Q, h)),
                   lambda: L(ck.padd2_ref(spec, b3, P, Q, h)), 20, 1,
-                  bound(18 * LIMB_BYTES * m + m + 2 * LIMB_BYTES, 42 * (m - heads))),
+                  bound(18 * LIMB_BYTES * m + m + 2 * LIMB_BYTES, G2_ADD_PRODUCTS * (m - heads))),
         # a double: 7 F_q2 products (3 each) and 2 squares (2 each)
         "pdbl2": (f"{m} lanes", lambda: L(ck.pdbl2(spec, b3, P)),
                   lambda: L(ck.pdbl2_ref(spec, b3, P)), 20, 1,
                   bound(12 * LIMB_BYTES * m + 2 * LIMB_BYTES, 25 * m)),
     }
     time_cases(cases, results)
+    design = bound(0, PAIR_G2_ADD_PRODUCTS * (m - heads))["bound_ms"]
+    log(f"# padd2: the lane pair does {PAIR_G2_ADD_PRODUCTS} Montgomery products an add "
+        f"where the function needs {G2_ADD_PRODUCTS}; at the integer multiply rate its "
+        f"own products take {design:.4f} ms (bound {results['padd2']['bound_ms']:.4f})")
+    # K2 at the same shape: 32,768 lanes is also the width of the first tree
+    # level of the weighted bucket sum (G * 256 * 64)
+    P1 = tuple(random_fe(rng, m, dev) for _ in range(3))
+    Q1 = tuple(random_fe(rng, m, dev) for _ in range(3))
+    b31 = bn254.g1_b3((), dev)
+    lanes = {"padd": {"max_abs_err": 0}}
+    time_cases({"padd": (f"{m} lanes with h set on 1 in 32",
+                         lambda: ck.padd(spec, b31, P1, Q1, h),
+                         lambda: ck.padd_ref(spec, b31, P1, Q1, h), 50, 1,
+                         bound(9 * LIMB_BYTES * m + m + LIMB_BYTES, 14 * (m - heads)))},
+               lanes)
+    results["_padd_lanes"] = lanes["padd"]
+    results["padd"]["max_abs_err"] = max(results["padd"]["max_abs_err"],
+                                         lanes["padd"]["max_abs_err"])
 
 
 def mixed_add_inputs(group: str, m: int, dev, seed: int):
@@ -1134,7 +1434,7 @@ def phase_mixed_add(dev, results: dict) -> None:
     }, results)
     # K2 on the same inputs as K9's timed call, with (qx, qy, one) for Q
     Qt = (qxt, qyt, F1.one((MIX_WIDE,), dev).contiguous())
-    k2_ms = cuda_time_ms(lambda: ck.padd(spec, b31, Pt, Qt), 5)
+    k2_ms = graph_time_ms(lambda: ck.padd(spec, b31, Pt, Qt), 5)
     log(f"# time padd [{MIX_WIDE} points, the same P and Q = (qx, qy, one) as "
         f"padd_mixed's]: kernel {k2_ms:.4f} ms")
     results["_mixed_add"] = {"probe12": probe["padd_mixed"], "launches": counts,
@@ -1176,7 +1476,7 @@ def phase_groth16(dev, results: dict) -> None:
     proof, prove_counts = counted(lambda: g16.prove(asg, pk, qap, random.Random(SEED + 1)))
     first_s = time.perf_counter() - t0
     need = ("mont_mul", "padd", "pdbl", "bucket_scan_rows", "ntt_leaf", "padd2", "pdbl2",
-            "bucket_scan_rows2")
+            "bucket_scan_rows2", "padd_seg_level", "padd2_seg_level")
     if min(prove_counts.get(k, 0) for k in need) < 1:
         raise AssertionError(f"groth16 prove 2^{LOG_M_G16}: a kernel of {need} never "
                              f"launched: {prove_counts}")
@@ -1249,6 +1549,11 @@ SOURCES = {
     # the reference's G2 scan: K steps of padd2_sel_fused (msm.py:215-280)
     "bucket_scan_rows2": ("myzkp_tpu_torch/csrc/bucket_scan.cu",
                           "myzkp_tpu/curves/curve_pallas.py:542"),
+    # one level of the reference's _seg_scan_hs (msm.py:335-357) over K2 / K7
+    "padd_seg_level": ("myzkp_tpu_torch/csrc/curve.cu",
+                       "myzkp_tpu/curves/curve_pallas.py:322"),
+    "padd2_seg_level": ("myzkp_tpu_torch/csrc/curve2.cu",
+                        "myzkp_tpu/curves/curve_pallas.py:534"),
 }
 
 
@@ -1260,6 +1565,7 @@ def main() -> int:
     results = {k: {} for k in SOURCES}
     a, b = phase_bitcheck(dev, results)
     phase_bitcheck_g2(dev, results)
+    phase_bitcheck_levels(dev, results)
     phase_bitcheck_fr(dev, results)
     phase_slice(dev, results, a, b)
     phase_ntt(dev, results)
@@ -1291,6 +1597,8 @@ def main() -> int:
     log(f"# mixed_add {json.dumps(results['_mixed_add'])}")
     log(f"# groth16 {json.dumps(results['_groth16'])}")
     log(f"# probe13 {json.dumps(results['_probe13'])}")
+    log(f"# padd_lanes {json.dumps(results['_padd_lanes'])}")
+    log(f"# levels_all_adds {json.dumps(results['_levels_all_adds'])}")
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

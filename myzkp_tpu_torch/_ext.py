@@ -4,7 +4,10 @@ The sources in ``csrc/`` are compiled with nvcc for ``sm_90a`` (one nvcc per
 source, in parallel) and linked into one shared library with a plain C
 interface under ``_build/`` (ignored by git) at first use, and loaded with
 ctypes.  The library's file name carries a digest of the sources and flags,
-so an edited source is never served from a stale build.
+so an edited source is never served from a stale build.  A design constant
+that a source leaves to the preprocessor (``#ifndef``) can be set for a build
+with ``use_defines`` without editing the source; each set of definitions is a
+library of its own.
 
 Dispatch is one rule, keyed on the tensors' device: a CUDA tensor goes to the
 kernel and a CPU tensor goes to the kernel's plain PyTorch version.  There is
@@ -36,7 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 KERNELS = ("mont_mul", "padd", "pdbl", "bucket_scan_rows", "butterfly",
            "ntt_leaf", "padd2", "pdbl2", "padd_mixed", "padd_mixed2",
-           "bucket_scan_rows2")
+           "bucket_scan_rows2", "padd_seg_level", "padd2_seg_level")
 
 # Launches of each kernel since the last reset_launches().  A wrapper adds one
 # where it launches its kernel (launch() below) and nowhere else.
@@ -56,9 +59,13 @@ _SIGNATURES = {
     "padd_mixed": (_P,) * 10 + (_I64, _P, _P),
     "padd_mixed2": (_P,) * 19 + (_I64, _P, _P),
     "bucket_scan_rows2": (_P,) * 7 + (_I64, ctypes.c_int, _P, _P),
+    "padd_seg_level": (_P,) * 9 + (_I64,) * 3 + (_P, _P),
+    "padd2_seg_level": (_P,) * 16 + (_I64,) * 3 + (_P, _P),
 }
 
 _lib = None
+# -D definitions of the library that launches use (use_defines)
+_defines: tuple[str, ...] = ()
 
 
 def default_device() -> torch.device:
@@ -101,16 +108,30 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
         raise ValueError(f"{name}: tensor is not contiguous")
 
 
-def _source_digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def use_defines(defines=()) -> None:
+    """Make the library built with ``-D`` of each of ``defines`` (``"NAME=value"``
+    strings) the one that launches use, built at its first use; ``()`` is the
+    sources as they stand."""
+    global _lib, _defines
+    _defines, _lib = tuple(defines), None
+
+
+def _flags(defines) -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _source_digest(defines) -> str:
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for f in sorted(CSRC.iterdir()):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libmyzkp_kernels_{_source_digest()}.so"
+def library_path(defines=None) -> Path:
+    """The library of ``defines`` (by default those of ``use_defines``)."""
+    d = _defines if defines is None else tuple(defines)
+    return BUILD_DIR / f"libmyzkp_kernels_{_source_digest(d)}.so"
 
 
 def _nvcc() -> str:
@@ -120,20 +141,22 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build() -> float:
-    """Compile the shared library; returns the seconds taken.
+def build(defines=None) -> float:
+    """Compile the shared library of ``defines`` (by default those of
+    ``use_defines``); returns the seconds taken.
 
     One nvcc per csrc/*.cu source, all started together, each to an object
     file; then one link.  The compilers' output (register and spill counts
     from -Xptxas -v) is kept beside the library as ``<library>.log``."""
-    out = library_path()
+    defines = _defines if defines is None else tuple(defines)
+    out = library_path(defines)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
     sources = sorted(CSRC.glob("*.cu"))
     objs = [tmp.with_suffix(f".{src.stem}.o") for src in sources]
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+    procs = [subprocess.Popen([nvcc, *_flags(defines), "-c", "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True)
              for src, obj in zip(sources, objs)]

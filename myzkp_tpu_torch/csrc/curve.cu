@@ -1,22 +1,30 @@
 // K2: G1 complete add, with an optional select mask (Q where h is set, else
 // P + Q).  K3: G1 complete double.  K9: G1 mixed add P + (qx, qy, 1), with an
-// optional select mask ((qx, qy, 1) where h is set).
+// optional select mask ((qx, qy, 1) where h is set).  The G1 lane-merge
+// level: one level of the lane merge's segmented Hillis-Steele scan
+// (msm._seg_scan_hs) in one launch, on K2's one-thread body.
 //
 // Replace curve_pallas.padd_fused / padd_sel_fused (kernel
 // _make_padd_kernel, myzkp_tpu/curves/curve_pallas.py:183, :322, :330),
 // curve_pallas.pdbl_fused (_make_pdbl_kernel :307, :340) and
 // curve_pallas.padd_mixed_fused / padd_mixed_sel_fused (kernel
-// _make_padd_mixed_kernel :214, :239, :247).
+// _make_padd_mixed_kernel :214, :239, :247); the level replaces the rolls,
+// selects and padd launch of one level of myzkp_tpu/curves/msm.py:335-357.
 //
-// Bound on the H100: integer multiply throughput, with register pressure as
-// the limit on occupancy.  A complete add is 12 Montgomery products and 17
-// adds/subs (~1,600 32x32->64-bit multiply-adds) against 6 point reads and 3
-// point writes of 192 bytes each.  Design: one thread per point, the whole
-// formula in registers (group.cuh) and only the three output coordinates
-// written; b3 is read once per thread from a (16,) tensor instead of the full
-// tile the TPU broadcast it to (curve_pallas.py:146-151).  The mixed add
-// reads 5 coordinates instead of 6 and does 13 products instead of 14; where
-// its mask is set it writes (qx, qy, R mod q) without reading P.
+// Bound on the H100: integer multiply throughput.  A complete add is 14
+// Montgomery products (~3,700 32x32->64-bit multiply-adds) and 17 adds/subs
+// against 6 point reads and 3 point writes of 192 bytes each.  b3 is read
+// once per thread from a (16,) tensor instead of the full tile the TPU
+// broadcast it to (curve_pallas.py:146-151).
+//
+// K2 runs one thread a point at every width, computes every lane and applies
+// the mask at the store: no divergent early exit.  Its cost is the code: the
+// 14 products fully unrolled are about 9,000 SASS instructions, which ran at
+// 1.7x K9's time for 1.1x its instructions, so its body unrolls 4 of each
+// product's 8 rows (kUnroll, field.cuh's fe_mul_u).  K3 and K9 run one thread
+// a point with the whole formula in registers; the mixed add reads 5
+// coordinates instead of 6 and does 13 products; where its mask is set it
+// writes (qx, qy, R mod q) without reading P.
 #include <cuda_runtime.h>
 
 #include "group.cuh"
@@ -26,6 +34,15 @@ using myzkp::FieldConsts;
 using myzkp::Pt;
 
 namespace {
+
+// Rows of the Montgomery product unrolled in the code of K2 and of the G1
+// level (field.cuh's fe_mul_u): fully unrolled, K2's 14 products are about
+// 9,000 SASS instructions and ran 1.5x slower at 4M points.  A build may set
+// it with -DMYZKP_K2_UNROLL=U (unroll_sweep.py).
+#ifndef MYZKP_K2_UNROLL
+#define MYZKP_K2_UNROLL 4
+#endif
+constexpr int kUnroll = MYZKP_K2_UNROLL;
 
 __device__ __forceinline__ Pt load_point(const int32_t* x, const int32_t* y,
                                          const int32_t* z, int64_t n,
@@ -51,14 +68,40 @@ __global__ void __launch_bounds__(128)
                 int32_t* __restrict__ z3, int64_t n, FieldConsts c) {
   int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Pt q = load_point(x2, y2, z2, n, i);
-  if (h != nullptr && h[i]) {
-    store_point(x3, y3, z3, n, i, q);
+  const Pt q = load_point(x2, y2, z2, n, i);
+  const Pt p = load_point(x1, y1, z1, n, i);
+  const Pt r = myzkp::padd_u<kUnroll>(p, q, myzkp::load_planes(b3, 1, 0), c);
+  store_point(x3, y3, z3, n, i, myzkp::pt_select(h != nullptr && h[i], q, r));
+}
+
+// One level of the segmented Hillis-Steele scan over rows of B lanes (the
+// batch is (rows, B), point i at lane i % B), at distance d:
+//   out[i]    = flags[i] ? x[i] : (lane >= d ? x[i - d] : O) + x[i]
+//   oflags[i] = flags[i] | (lane >= d & flags[i - d])
+// x and out are different buffers: a level reads lane i - d as it was.
+__global__ void __launch_bounds__(128)
+    padd_seg_level_kernel(const int32_t* __restrict__ x,
+                          const int32_t* __restrict__ y,
+                          const int32_t* __restrict__ z,
+                          const bool* __restrict__ flags,
+                          const int32_t* __restrict__ b3,
+                          int32_t* __restrict__ ox, int32_t* __restrict__ oy,
+                          int32_t* __restrict__ oz, bool* __restrict__ oflags,
+                          int64_t n, int64_t B, int64_t d, FieldConsts c) {
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const bool valid = i % B >= d;
+  const bool f = flags[i];
+  oflags[i] = f || (valid && flags[i - d]);
+  Pt q = load_point(x, y, z, n, i);
+  if (f) {
+    store_point(ox, oy, oz, n, i, q);
     return;
   }
-  Pt p = load_point(x1, y1, z1, n, i);
-  Fe b3v = myzkp::load_planes(b3, 1, 0);
-  store_point(x3, y3, z3, n, i, myzkp::padd(p, q, b3v, c));
+  Pt p = myzkp::pt_select(valid, load_point(x, y, z, n, valid ? i - d : i),
+                          myzkp::pt_infinity(c));
+  store_point(ox, oy, oz, n, i,
+              myzkp::padd_u<kUnroll>(p, q, myzkp::load_planes(b3, 1, 0), c));
 }
 
 __global__ void __launch_bounds__(128)
@@ -137,5 +180,19 @@ extern "C" int myzkp_padd_mixed(const int32_t* x1, const int32_t* y1,
   padd_mixed_kernel<<<blocks_for(n), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       x1, y1, z1, qx, qy, h, b3, x3, y3, z3, n, *consts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, out: (16, n) planes of a (rows, B) batch, n = rows * B; flags, oflags:
+// (rows, B) bool; 1 <= d < B.  x and out, flags and oflags must not overlap.
+extern "C" int myzkp_padd_seg_level(const int32_t* x, const int32_t* y,
+                                    const int32_t* z, const bool* flags,
+                                    const int32_t* b3, int32_t* ox,
+                                    int32_t* oy, int32_t* oz, bool* oflags,
+                                    int64_t n, int64_t B, int64_t d,
+                                    const FieldConsts* consts, void* stream) {
+  padd_seg_level_kernel<<<blocks_for(n), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      x, y, z, flags, b3, ox, oy, oz, oflags, n, B, d, *consts);
   return static_cast<int>(cudaGetLastError());
 }

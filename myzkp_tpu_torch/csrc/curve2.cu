@@ -1,32 +1,51 @@
 // K7: G2 complete add over F_q2, with an optional select mask (Q where h is
 // set, else P + Q).  K8: G2 complete double.  K10: G2 mixed add
 // P + (qx, qy, 1), with an optional select mask ((qx, qy, 1) where h is set).
+// The G2 lane-merge level: one level of the lane merge's segmented
+// Hillis-Steele scan (msm._seg_scan_hs) in one launch, on K7's body.
 //
 // Replace curve_pallas.padd2_fused / padd2_sel_fused (kernel
 // _make_padd2_kernel, myzkp_tpu/curves/curve_pallas.py:484, :534, :542),
 // curve_pallas.pdbl2_fused (_make_pdbl2_kernel :515, :550) and
 // curve_pallas.padd_mixed2_sel_fused / padd_mixed2_fused (kernel
-// _make_padd_mixed2_kernel :257, :289, :300).
+// _make_padd_mixed2_kernel :257, :289, :300); the level replaces the rolls,
+// selects and padd2 launch of one level of myzkp_tpu/curves/msm.py:335-357.
 //
-// Bound on the H100: integer multiply throughput, with register pressure as
-// the limit on occupancy.  A complete add is 14 F_q2 products (12 of the
-// formula, 2 by b3), 42 Montgomery products with Karatsuba, and about 40 F_q
-// adds/subs, against 12 point coordinate reads and 6 writes of 64 bytes each
-// per F_q component.  A G2 point is twice a G1 point's state, so the whole
-// formula in registers (group.cuh, one thread per point) may spill; 64 threads
-// a block keep the per-block register demand small.  Only the six output
-// planes are written, and they are write-only; b3 (the pair 3 * B2, not 9) is
-// read once per thread from two (16,) tensors.  The mixed add holds P and an
+// Bound on the H100: integer multiply throughput, with register pressure and
+// latency as the limits at the lane merge's 32,768 lanes.  A complete add is
+// 14 F_q2 products (12 of the formula, 2 by b3) and about 40 F_q adds/subs,
+// against 12 point coordinate reads and 6 writes of 64 bytes each per F_q
+// component.
+//
+// K7 and the level run one point on a lane pair (pair.cuh): each lane
+// holds one component of every coordinate, so a thread carries a G1 point's
+// state instead of a G2 point's (one thread per point took 255 registers and
+// spilled 256 bytes), there are twice the warps, and an F_q2 product is two
+// F_q products deep (four in all, 56 a complete add, against Karatsuba's 42
+// three deep).  The 28 products a lane unroll 2 of their 8 rows in the code
+// (pair.cuh's kPair2Unroll): fully unrolled they were about 18,000 SASS
+// instructions and ran 25% slower.  Lanes past the end of the batch and
+// lanes that the mask or a flag keeps compute on clamped inputs and store
+// nothing or the kept point, since every lane of a warp must reach every
+// shuffle.  A level skips the add only where a whole warp's points are
+// flagged (a warp-uniform branch).
+//
+// K8 and K10 run one thread per point with the whole formula in registers
+// (group.cuh), 64 threads a block; they may spill.  Only the output planes
+// are written, and they are write-only; b3 (the pair 3 * B2, not 9) is read
+// once per thread from two (16,) tensors.  The mixed add holds P and an
 // affine Q, 10 F_q elements against the complete add's 12, and does 13 F_q2
 // products (39 Montgomery products); where its mask is set it writes
 // (qx, qy, (R mod q, 0)) without reading P.
 #include <cuda_runtime.h>
 
-#include "group.cuh"
+#include "pair.cuh"
 
 using myzkp::Fe2;
+using myzkp::Fe2p;
 using myzkp::FieldConsts;
 using myzkp::Pt2;
+using Pt2p = myzkp::Point<Fe2p>;
 
 namespace {
 
@@ -63,24 +82,79 @@ __device__ __forceinline__ void store_point2(const Out6& o, int64_t n,
   myzkp::store_planes(o.v[5], n, i, p.z.c1);
 }
 
-constexpr int kThreads = 64;
+// This lane's component (pair_half) of each coordinate of point i.
+__device__ __forceinline__ Pt2p load_point2p(const In6& a, int half, int64_t n,
+                                             int64_t i) {
+  return Pt2p{{myzkp::load_planes(half ? a.v[1] : a.v[0], n, i)},
+              {myzkp::load_planes(half ? a.v[3] : a.v[2], n, i)},
+              {myzkp::load_planes(half ? a.v[5] : a.v[4], n, i)}};
+}
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void store_point2p(const Out6& o, int half,
+                                              int64_t n, int64_t i,
+                                              const Pt2p& p) {
+  myzkp::store_planes(half ? o.v[1] : o.v[0], n, i, p.x.v);
+  myzkp::store_planes(half ? o.v[3] : o.v[2], n, i, p.y.v);
+  myzkp::store_planes(half ? o.v[5] : o.v[4], n, i, p.z.v);
+}
+
+// One point on a lane pair: 64 points a block of 128 threads, 16 a warp.
+constexpr int kPairThreads = 128;
+constexpr int kPairPoints = kPairThreads / 2;
+
+__global__ void __launch_bounds__(kPairThreads)
     padd2_kernel(In6 p, In6 q, const bool* __restrict__ h,
                  const int32_t* __restrict__ b3c0,
                  const int32_t* __restrict__ b3c1, Out6 o, int64_t n,
                  FieldConsts c) {
-  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Pt2 qv = load_point2(q, n, i);
-  if (h != nullptr && h[i]) {
-    store_point2(o, n, i, qv);
+  const int half = myzkp::pair_half();
+  const int64_t i = myzkp::pair_index();
+  const int64_t ic = i < n ? i : n - 1;  // every lane reaches the shuffles
+  const Pt2p qv = load_point2p(q, half, n, ic);
+  const Pt2p pv = load_point2p(p, half, n, ic);
+  const Fe2p b3{myzkp::load_planes(half ? b3c1 : b3c0, 1, 0)};
+  const Pt2p r = myzkp::padd(pv, qv, b3, c);
+  if (i < n) {
+    const bool keep_q = h != nullptr && h[i];
+    store_point2p(o, half, n, i, myzkp::pt_select(keep_q, qv, r));
+  }
+}
+
+// One level of the segmented Hillis-Steele scan over rows of B lanes (the
+// batch is (rows, B), point i at lane i % B), at distance d:
+//   out[i]    = flags[i] ? x[i] : (lane >= d ? x[i - d] : O) + x[i]
+//   oflags[i] = flags[i] | (lane >= d & flags[i - d])
+// x and out are different buffers: a level reads lane i - d as it was.
+__global__ void __launch_bounds__(kPairThreads)
+    padd2_seg_level_kernel(In6 x, const bool* __restrict__ flags,
+                           const int32_t* __restrict__ b3c0,
+                           const int32_t* __restrict__ b3c1, Out6 o,
+                           bool* __restrict__ oflags, int64_t n, int64_t B,
+                           int64_t d, FieldConsts c) {
+  const int half = myzkp::pair_half();
+  const int64_t i = myzkp::pair_index();
+  const bool live = i < n;
+  const int64_t ic = live ? i : n - 1;
+  const bool valid = ic % B >= d;
+  const bool f = flags[ic];
+  if (live && half == 0) oflags[i] = f || (valid && flags[ic - d]);
+  const Pt2p qv = load_point2p(x, half, n, ic);
+  if (__all_sync(0xffffffffu, f || !live)) {  // the whole warp keeps x
+    if (live) store_point2p(o, half, n, i, qv);
     return;
   }
-  Pt2 pv = load_point2(p, n, i);
-  Fe2 b3 = load_fe2(b3c0, b3c1, 1, 0);
-  store_point2(o, n, i, myzkp::padd(pv, qv, b3, c));
+  const Pt2p pv = myzkp::pt_select(valid, load_point2p(x, half, n, valid ? ic - d : ic),
+                                   myzkp::pt2p_infinity(c));
+  const Fe2p b3{myzkp::load_planes(half ? b3c1 : b3c0, 1, 0)};
+  const Pt2p r = myzkp::padd(pv, qv, b3, c);
+  if (live) store_point2p(o, half, n, i, myzkp::pt_select(f, qv, r));
 }
+
+unsigned pair_blocks_for(int64_t n) {
+  return static_cast<unsigned>((n + kPairPoints - 1) / kPairPoints);
+}
+
+constexpr int kThreads = 64;
 
 __global__ void __launch_bounds__(kThreads)
     pdbl2_kernel(In6 p, const int32_t* __restrict__ b3c0,
@@ -132,7 +206,7 @@ extern "C" int myzkp_padd2(const int32_t* p0, const int32_t* p1,
   In6 p{{p0, p1, p2, p3, p4, p5}};
   In6 q{{q0, q1, q2, q3, q4, q5}};
   Out6 o{{o0, o1, o2, o3, o4, o5}};
-  padd2_kernel<<<blocks_for(n), kThreads, 0,
+  padd2_kernel<<<pair_blocks_for(n), kPairThreads, 0,
                  static_cast<cudaStream_t>(stream)>>>(p, q, h, b3c0, b3c1, o,
                                                       n, *consts);
   return static_cast<int>(cudaGetLastError());
@@ -172,5 +246,23 @@ extern "C" int myzkp_padd_mixed2(const int32_t* p0, const int32_t* p1,
                        static_cast<cudaStream_t>(stream)>>>(p, q, h, b3c0,
                                                             b3c1, o, n,
                                                             *consts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, out: six (16, n) planes each (x0, x1, y0, y1, z0, z1) of a (rows, B)
+// batch, n = rows * B; flags, oflags: (rows, B) bool; 1 <= d < B.  x and out,
+// flags and oflags must not overlap.
+extern "C" int myzkp_padd2_seg_level(
+    const int32_t* x0, const int32_t* x1, const int32_t* x2,
+    const int32_t* x3, const int32_t* x4, const int32_t* x5,
+    const bool* flags, const int32_t* b3c0, const int32_t* b3c1, int32_t* o0,
+    int32_t* o1, int32_t* o2, int32_t* o3, int32_t* o4, int32_t* o5,
+    bool* oflags, int64_t n, int64_t B, int64_t d, const FieldConsts* consts,
+    void* stream) {
+  In6 x{{x0, x1, x2, x3, x4, x5}};
+  Out6 o{{o0, o1, o2, o3, o4, o5}};
+  padd2_seg_level_kernel<<<pair_blocks_for(n), kPairThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      x, flags, b3c0, b3c1, o, oflags, n, B, d, *consts);
   return static_cast<int>(cudaGetLastError());
 }

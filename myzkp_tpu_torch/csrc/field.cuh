@@ -134,46 +134,79 @@ __device__ __forceinline__ Fe fe_neg(const Fe& a, const FieldConsts& c) {
   return fe_sub(fe_zero(), a, c);
 }
 
+// One row of CIOS: t += a * bi, then one reduction step (t += m p, shift a
+// word).  t has kWords + 2 words.
+__device__ __forceinline__ void mont_row(uint32_t (&t)[kWords + 2], const Fe& a,
+                                         uint32_t bi, const FieldConsts& c) {
+  uint64_t carry = 0;
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    uint64_t s = static_cast<uint64_t>(t[j]) +
+                 static_cast<uint64_t>(a.w[j]) * bi + carry;
+    t[j] = static_cast<uint32_t>(s);
+    carry = s >> 32;
+  }
+  uint64_t s = static_cast<uint64_t>(t[kWords]) + carry;
+  t[kWords] = static_cast<uint32_t>(s);
+  t[kWords + 1] = static_cast<uint32_t>(s >> 32);
+
+  uint32_t m = t[0] * c.n0;
+  s = static_cast<uint64_t>(t[0]) + static_cast<uint64_t>(m) * c.p[0];
+  carry = s >> 32;
+#pragma unroll
+  for (int j = 1; j < kWords; ++j) {
+    s = static_cast<uint64_t>(t[j]) + static_cast<uint64_t>(m) * c.p[j] +
+        carry;
+    t[j - 1] = static_cast<uint32_t>(s);
+    carry = s >> 32;
+  }
+  s = static_cast<uint64_t>(t[kWords]) + carry;
+  t[kWords - 1] = static_cast<uint32_t>(s);
+  t[kWords] = t[kWords + 1] + static_cast<uint32_t>(s >> 32);
+}
+
 // Montgomery product a * b * 2^-256 mod p, coarsely integrated operand
 // scanning (CIOS) over 32-bit words with 64-bit accumulators.  Inputs < p
 // give t < 2p before the final conditional subtract.
-__device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b,
-                                     const FieldConsts& c) {
+//
+// U rows of the eight are unrolled in the code: U = kWords is straight-line
+// code (about 600 SASS instructions a product); a smaller U runs a loop of
+// kWords / U trips over b's words, rotated U a trip so that every index stays
+// static (registers, no local memory).  A kernel that inlines many products
+// may run faster at a smaller U, in less code for the same arithmetic: K2's
+// 14 products (about 9,000 SASS instructions at U = 8) ran 1.5x faster at
+// U = 4, likely limited by instruction fetch (not measured: no ncu).
+template <int U>
+__device__ __forceinline__ Fe fe_mul_u(const Fe& a, const Fe& b,
+                                       const FieldConsts& c) {
+  static_assert(U >= 1 && kWords % U == 0, "U must divide the word count");
   uint32_t t[kWords + 2];
 #pragma unroll
   for (int k = 0; k < kWords + 2; ++k) t[k] = 0;
+  if constexpr (U == kWords) {
 #pragma unroll
-  for (int i = 0; i < kWords; ++i) {
-    uint64_t carry = 0;
+    for (int i = 0; i < kWords; ++i) mont_row(t, a, b.w[i], c);
+  } else {
+    Fe bw = b;
+#pragma unroll 1
+    for (int i = 0; i < kWords; i += U) {
 #pragma unroll
-    for (int j = 0; j < kWords; ++j) {
-      uint64_t s = static_cast<uint64_t>(t[j]) +
-                   static_cast<uint64_t>(a.w[j]) * b.w[i] + carry;
-      t[j] = static_cast<uint32_t>(s);
-      carry = s >> 32;
+      for (int u = 0; u < U; ++u) mont_row(t, a, bw.w[u], c);
+      Fe r;
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) r.w[k] = bw.w[(k + U) % kWords];
+      bw = r;
     }
-    uint64_t s = static_cast<uint64_t>(t[kWords]) + carry;
-    t[kWords] = static_cast<uint32_t>(s);
-    t[kWords + 1] = static_cast<uint32_t>(s >> 32);
-
-    uint32_t m = t[0] * c.n0;
-    s = static_cast<uint64_t>(t[0]) + static_cast<uint64_t>(m) * c.p[0];
-    carry = s >> 32;
-#pragma unroll
-    for (int j = 1; j < kWords; ++j) {
-      s = static_cast<uint64_t>(t[j]) + static_cast<uint64_t>(m) * c.p[j] +
-          carry;
-      t[j - 1] = static_cast<uint32_t>(s);
-      carry = s >> 32;
-    }
-    s = static_cast<uint64_t>(t[kWords]) + carry;
-    t[kWords - 1] = static_cast<uint32_t>(s);
-    t[kWords] = t[kWords + 1] + static_cast<uint32_t>(s >> 32);
   }
   Fe r;
 #pragma unroll
   for (int k = 0; k < kWords; ++k) r.w[k] = t[k];
   return fe_cond_sub_p(r, t[kWords], c);
+}
+
+__device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b,
+                                     const FieldConsts& c) {
+  return fe_mul_u<kWords>(a, b, c);
 }
 
 __device__ __forceinline__ Fe fe_sqr(const Fe& a, const FieldConsts& c) {

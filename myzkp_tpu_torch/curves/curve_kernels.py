@@ -2,14 +2,18 @@
 add, optional select), K3 (complete double), K4 (the MSM bucket scan) and K9
 (mixed add, optional select); G2 K7 (complete add over F_q2, optional
 select), K8 (complete double), K10 (mixed add, optional select) and K4's G2
-instance (the bucket scan over F_q2).
+instance (the bucket scan over F_q2); in both groups one level of the lane
+merge's segmented scan (``padd_seg_level``, ``padd2_seg_level``) on the
+complete add's body.
 
 Counterparts of ``padd_fused`` / ``padd_sel_fused``, ``pdbl_fused``,
 ``bucket_scan_rows``, ``padd_mixed_fused`` / ``padd_mixed_sel_fused``,
 ``padd2_fused`` / ``padd2_sel_fused``, ``pdbl2_fused`` and
 ``padd_mixed2_fused`` / ``padd_mixed2_sel_fused`` in
 ``myzkp_tpu/curves/curve_pallas.py``; the G2 scan replaces the reference's
-``lax.scan`` of ``padd2_sel_fused`` (``myzkp_tpu/curves/msm.py:215``).  The
+``lax.scan`` of ``padd2_sel_fused`` (``myzkp_tpu/curves/msm.py:215``), and
+the levels the rolls, selects and add of one level of its ``_seg_scan_hs``
+(``myzkp_tpu/curves/msm.py:335-357``).  The
 wrappers (``padd``, ``pdbl``, ``bucket_scan_rows``, ``padd_mixed``,
 ``padd2``, ``pdbl2``, ``padd_mixed2``, ``bucket_scan_rows2``)
 launch the CUDA kernel for CUDA tensors and run the plain version (``*_ref``,
@@ -209,6 +213,37 @@ def padd_mixed2_ref(spec: FieldSpec, b3, p, qx, qy, h=None):
     return _unstack2(r)
 
 
+def _seg_shift(flags, d: int):
+    """(valid, flags of lane - d): valid = lane >= d along the last axis."""
+    valid = torch.arange(flags.shape[-1], device=flags.device) >= d
+    return valid, torch.roll(flags, d, dims=-1) & valid
+
+
+def padd_seg_level_ref(spec: FieldSpec, b3, x, flags, d: int):
+    """Plain version of the G1 lane-merge level: the reference's rolls and
+    selects around padd_ref.  x: (x, y, z) of (L, *rows, B) int32; flags
+    (*rows, B) bool.  Returns (out, flags') with out = x where flags is set,
+    else (x at lane - d, or O below lane d) + x, and flags' = flags | (the
+    flag at lane - d where lane >= d)."""
+    valid, shifted = _seg_shift(flags, d)
+    one = limb.one_mont(spec, tuple(flags.shape), flags.device)
+    inf = (torch.zeros_like(one), one, torch.zeros_like(one))
+    xs = tuple(torch.where(valid, torch.roll(a, d, dims=-1), o) for a, o in zip(x, inf))
+    return padd_ref(spec, b3, xs, x, flags), flags | shifted
+
+
+def padd2_seg_level_ref(spec: FieldSpec, b3, x, flags, d: int):
+    """Plain version of the G2 lane-merge level, as padd_seg_level_ref over
+    padd2_ref; coordinates are (c0, c1) pairs."""
+    valid, shifted = _seg_shift(flags, d)
+    one = limb.one_mont(spec, tuple(flags.shape), flags.device)
+    zero = torch.zeros_like(one)
+    inf = ((zero, zero), (one, zero), (zero, zero))
+    xs = tuple(tuple(torch.where(valid, torch.roll(a, d, dims=-1), o) for a, o in zip(e, oe))
+               for e, oe in zip(x, inf))
+    return padd2_ref(spec, b3, xs, x, flags), flags | shifted
+
+
 def bucket_scan_rows_ref(spec: FieldSpec, rows, tag, tgt, b3, buckets, K: int):
     """Plain version of K4 (G1, b3 one (L,) tensor) and of its G2 instance
     (b3 a (c0, c1) pair): contract in csrc/bucket_scan.cu.  Writes the real
@@ -335,6 +370,49 @@ def padd_mixed2(spec: FieldSpec, b3, p, qx, qy, h=None):
     if not _ext.use_kernel(*pl, *ql, *b3, *extra):
         return padd_mixed2_ref(spec, b3, p, qx, qy, h)
     return _pairs(_launch_group_law("padd_mixed2", spec, b3, (pl, ql), h))
+
+
+def _launch_seg_level(kernel: str, spec: FieldSpec, b3s, x, flags, d: int):
+    """Check the inputs of a lane-merge level and launch it; x: the flat
+    coordinate tensors (3 for G1, 6 for G2), each (L, *rows, B).  Returns
+    (the flat output coordinates, flags')."""
+    shape = tuple(x[0].shape)
+    if len(shape) < 2 or d < 1:
+        raise ValueError(f"a level takes (L, *rows, B) coordinates and d >= 1, not "
+                         f"{shape} and d = {d}")
+    for i, c in enumerate(x):
+        _ext.require(c, f"x[{i}]", I32, shape)
+    for i, c in enumerate(b3s):
+        _ext.require(c, f"b3[{i}]", I32, (spec.L,))
+    _ext.require(flags, "flags", torch.bool, shape[1:])
+    out = tuple(torch.empty_like(c) for c in x)
+    oflags = torch.empty_like(flags)
+    if flags.numel():
+        P = _ext.ptr
+        _ext.launch(kernel, flags.device, *map(P, x), P(flags), *map(P, b3s), *map(P, out),
+                    P(oflags), flags.numel(), shape[-1], d, _ext.consts_ptr(spec))
+    return out, oflags
+
+
+def padd_seg_level(spec: FieldSpec, b3, x, flags, d: int):
+    """One level of the G1 lane merge's segmented Hillis-Steele scan in one
+    launch, on K2's body: out = x where flags is set, else (x at lane - d, or
+    O below lane d) + x along the last axis; flags' = flags | (the flag at
+    lane - d where lane >= d).  x: (x, y, z) of (L, *rows, B) int32; b3 (L,);
+    flags (*rows, B) bool; d >= 1.  Returns (out, flags'), new tensors."""
+    if not _ext.use_kernel(*x, flags, b3):
+        return padd_seg_level_ref(spec, b3, x, flags, d)
+    return _launch_seg_level("padd_seg_level", spec, (b3,), tuple(x), flags, d)
+
+
+def padd2_seg_level(spec: FieldSpec, b3, x, flags, d: int):
+    """padd_seg_level over G2, on K7's body: coordinates are (c0, c1) pairs of
+    (L, *rows, B) int32 tensors, b3 a pair of (L,)."""
+    xl = _leaves2(x)
+    if not _ext.use_kernel(*xl, flags, *b3):
+        return padd2_seg_level_ref(spec, b3, x, flags, d)
+    out, oflags = _launch_seg_level("padd2_seg_level", spec, tuple(b3), xl, flags, d)
+    return _pairs(out), oflags
 
 
 def _scan(kernel: str, spec: FieldSpec, rows, tag, tgt, b3s, buckets, K: int):

@@ -196,22 +196,17 @@ def _seg_scan_hs(F, b3, pts: Point, head) -> Point:
     """Segmented inclusive prefix sum across the lane axis (Hillis-Steele).
 
     pts: leaves (L, G, B); head: (G, B) segment-head flags.  log2(B) levels,
-    each one full-width K2 launch."""
-    B = wst.leaves(pts)[0].shape[-1]
-    lane = torch.arange(B, device=head.device)
-    inf = wst.infinity(F, tuple(head.shape), head.device)
-    x, flags = pts, head
+    each one launch of the level kernel (G1 or G2), which reads lane i - d,
+    adds where the flag is clear and carries the flags."""
+    level = (curve_kernels.padd2_seg_level if isinstance(F, Fq2Ops)
+             else curve_kernels.padd_seg_level)
+    B = head.shape[-1]
+    x, flags = tuple(point_map(torch.Tensor.contiguous, pts)), head.contiguous()
     d = 1
     while d < B:
-        valid = lane >= d
-        xs = point_map(lambda a: torch.roll(a, d, dims=-1), x)
-        xs = wst.pselect(F, valid, xs, inf)
-        fs = torch.roll(flags, d, dims=-1) & valid
-        added = wst.padd(F, b3, xs, x)
-        x = wst.pselect(F, flags, x, added)
-        flags = flags | fs
+        x, flags = level(F.spec, b3, x, flags, d)
         d *= 2
-    return x
+    return Point(*x)
 
 
 def _check_unique_targets(tgt, num_buckets: int, slots: int) -> None:
@@ -309,7 +304,6 @@ def msm_pippenger(F, b3, points: Point, s_limbs, c: int | None = None,
     groups of G (sized by _group_size) through one stable sort, one row
     gather and one K-step bucket scan each (G * n / K lanes)."""
     n = s_limbs.shape[1]
-    device = s_limbs.device
     if c is None:
         c = default_window(n)
     if not 2 <= c <= 31:
@@ -331,32 +325,48 @@ def msm_pippenger(F, b3, points: Point, s_limbs, c: int | None = None,
         s_limbs = torch.nn.functional.pad(s_limbs, (0, pad))
 
     rows, _ = _rows_of_point(points)
-    digits, dneg = signed_digits(scalar_digits(s_limbs, c), c)  # (W, n_pad)
-    W_pad = -(-W // G) * G
-    if W_pad != W:
-        # zero-digit filler windows at the MSB end: their sums are infinity
-        digits = torch.nn.functional.pad(digits, (0, 0, 0, W_pad - W))
-        dneg = torch.nn.functional.pad(dneg, (0, 0, 0, W_pad - W))
-    iota = torch.arange(n_pad, dtype=torch.int32, device=device)
-    vals = (iota[None] << 1) | dneg.int()
-    d_sorted, order = torch.sort(digits, dim=1, stable=True)
-    v_sorted = vals.gather(1, order)
-
+    d_sorted, v_sorted = _sorted_digits(s_limbs, c, -(-W // G) * G)
     groups = [_bucket_accumulate(F, b3, rows, v_sorted[g:g + G],
                                  d_sorted[g:g + G], num_buckets, K)
-              for g in range(0, W_pad, G)]
+              for g in range(0, d_sorted.shape[0], G)]
     buckets = point_map(lambda *cs: torch.cat(cs, dim=1), *groups)
-    # magnitudes span [0, half]: the power-of-two weighted sum covers
-    # [1, half - 1] and the top bucket adds half * B_half
+    return _horner(F, b3, _window_sums(F, b3, buckets, c), c)
+
+
+def _sorted_digits(s_limbs, c: int, W_pad: int):
+    """Each window's signed-digit magnitudes sorted (stably) with their
+    packed (index << 1 | negate) values: two (W_pad, n) int32 tensors; the
+    windows past the scalars' W are zero-digit fillers at the MSB end, whose
+    sums are infinity."""
+    n = s_limbs.shape[1]
+    digits, dneg = signed_digits(scalar_digits(s_limbs, c), c)  # (W, n)
+    W = digits.shape[0]
+    if W_pad != W:
+        digits = torch.nn.functional.pad(digits, (0, 0, 0, W_pad - W))
+        dneg = torch.nn.functional.pad(dneg, (0, 0, 0, W_pad - W))
+    iota = torch.arange(n, dtype=torch.int32, device=s_limbs.device)
+    vals = (iota[None] << 1) | dneg.int()
+    d_sorted, order = torch.sort(digits, dim=1, stable=True)
+    return d_sorted, vals.gather(1, order)
+
+
+def _window_sums(F, b3, buckets: Point, c: int) -> Point:
+    """S_w = sum_b b * B_b per window from a (W_pad, 2^(c-1) + 1) bucket
+    batch.  Magnitudes span [0, half]: the power-of-two weighted sum covers
+    [1, half - 1] and the top bucket adds half * B_half."""
+    half = 1 << (c - 1)
     main = point_map(lambda a: a[..., :half], buckets)
     top = point_map(lambda a: a[..., half], buckets)
     s_w = _weighted_bucket_sum(F, b3, main, c - 1)
     for _ in range(c - 1):
         top = wst.pdbl(F, b3, top)
-    s_w = wst.padd(F, b3, s_w, top)  # (W_pad,)
-    # Horner, most significant window first: res = sum_w 2^(cw) S_w
-    res = wst.infinity(F, (), device)
-    for w in reversed(range(W_pad)):
+    return wst.padd(F, b3, s_w, top)  # (W_pad,)
+
+
+def _horner(F, b3, s_w: Point, c: int) -> Point:
+    """sum_w 2^(cw) S_w, most significant window first."""
+    res = wst.infinity(F, (), wst.leaves(s_w)[0].device)
+    for w in reversed(range(wst.leaves(s_w)[0].shape[1])):
         for _ in range(c):
             res = wst.pdbl(F, b3, res)
         res = wst.padd(F, b3, res, point_map(lambda a: a[:, w], s_w))

@@ -19,12 +19,24 @@ the idle share 1 - busy / wall, the device memory allocated before and at
 the peak of the call, the kernel launch counts, and the device time by
 kernel name.  The profiler's own overhead is inside the wall time, so the
 idle share is an upper bound.
+
+The prover's stages run inside ``torch.profiler.record_function`` ranges
+named ``stage:<name>`` (set here by wrapping the functions in STAGES for the
+profiled call only): the quotient stage, the digits' sort, the row gather
+with the scan's inputs, the bucket scan, the lane merge, the window sums
+(bucket sums), Horner and the double-and-add ladders.  Each device event is
+put in the innermost stage whose range holds the host call that launched it
+(its CUDA runtime call, matched by correlation id), and each stage's host
+time is its ranges' time less the stages nested in them; the table gives per
+stage the host ms, device busy ms and idle share 1 - busy / host.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import importlib
 import json
 import random
 import subprocess
@@ -78,6 +90,85 @@ def _path(name: str, n: int, seed: int, dev):
             f"shifted_h m = {n}")
 
 
+# (stage, module, attribute): the function whose calls make up the stage; an
+# attribute "Class.method" wraps the method on the class.
+STAGES = (
+    ("quotient", "myzkp_tpu_torch.snark.pinocchio", "get_shifted_h"),
+    ("quotient", "myzkp_tpu_torch.arith.sparse", "SparseQAP.combine_batched"),
+    ("quotient", "myzkp_tpu_torch.arith.sparse", "SparseQAP.quotient"),
+    ("sort", "myzkp_tpu_torch.curves.msm", "_sorted_digits"),
+    ("gather", "myzkp_tpu_torch.curves.msm", "_bucket_accumulate"),
+    ("scan", "myzkp_tpu_torch.curves.curve_kernels", "bucket_scan_rows"),
+    ("scan", "myzkp_tpu_torch.curves.curve_kernels", "bucket_scan_rows2"),
+    ("lane merge", "myzkp_tpu_torch.curves.msm", "_merge_lane_partials"),
+    ("bucket sum", "myzkp_tpu_torch.curves.msm", "_window_sums"),
+    ("horner", "myzkp_tpu_torch.curves.msm", "_horner"),
+    ("ladder", "myzkp_tpu_torch.curves.weierstrass", "scalar_mul_bits"),
+)
+
+
+@contextlib.contextmanager
+def stage_ranges():
+    """Wrap each function of STAGES in a record_function range while the
+    block runs; callers reach them through their module or class, so the
+    wrappers are seen."""
+    saved = []
+    for stage, module, attr in STAGES:
+        owner = importlib.import_module(module)
+        *path, name = attr.split(".")
+        for p in path:
+            owner = getattr(owner, p)
+        fn = owner.__dict__[name]
+
+        def wrapped(*a, _fn=fn, _label=f"stage:{stage}", **k):
+            with torch.profiler.record_function(_label):
+                return _fn(*a, **k)
+
+        saved.append((owner, name, fn))
+        setattr(owner, name, wrapped)
+    try:
+        yield
+    finally:
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
+
+
+def stage_split(events, wall_ms: float) -> dict:
+    """{stage: [host ms, device busy ms, device events]} over the profiled
+    call, with "(none)" for what lies outside every stage.  events:
+    prof.events(); the ranges nest (one host thread)."""
+    from torch.autograd import DeviceType
+
+    ranges = sorted(((e.time_range.start, e.time_range.end, e.name[len("stage:"):])
+                     for e in events
+                     if e.device_type == DeviceType.CPU and e.name.startswith("stage:")),
+                    key=lambda r: (r[0], -r[1]))
+    out = collections.defaultdict(lambda: [0.0, 0.0, 0])
+    open_ = []  # the ranges holding the current one, outermost first
+    for s0, e0, name in ranges:
+        while open_ and open_[-1][1] <= s0:
+            open_.pop()
+        out[name][0] += (e0 - s0) / 1e3
+        if open_:
+            out[open_[-1][2]][0] -= (e0 - s0) / 1e3
+        open_.append((s0, e0, name))
+    out["(none)"][0] = wall_ms - sum(v[0] for v in out.values())
+    launched = {e.id: e.time_range.start for e in events
+                if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
+
+    def innermost(t):
+        held = [r for r in ranges if r[0] <= t <= r[1]]
+        return max(held, key=lambda r: (r[0], -r[1]))[2] if held else "(none)"
+
+    for e in events:
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("stage:"):
+            t = launched.get(e.id)
+            stage = innermost(t) if t is not None else "(unmatched)"
+            out[stage][1] += e.self_device_time_total / 1e3
+            out[stage][2] += 1
+    return dict(out)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("msm", "ntt", "shifted_h", "prove", "groth16"),
@@ -105,19 +196,21 @@ def main() -> None:
     base_mib = torch.cuda.memory_allocated(dev) / 2**20
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with stage_ranges(), torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = collections.defaultdict(lambda: [0, 0.0])
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # the ranges' own device-timeline spans are not device work
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("stage:"):
             by_name[e.name][0] += 1
             by_name[e.name][1] += e.self_device_time_total / 1e3
     busy_ms = sum(ms for _, ms in by_name.values())
+    events = sum(calls for calls, _ in by_name.values())
     print(f"# {what}: wall {wall_ms} ms under the profiler; device busy "
-          f"{busy_ms} ms; idle share {1 - busy_ms / wall_ms}")
+          f"{busy_ms} ms in {events} device events; idle share {1 - busy_ms / wall_ms}")
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
     print(f"# device memory: {base_mib} MiB held before the call, peak "
           f"{peak_mib} MiB during it")
@@ -125,6 +218,12 @@ def main() -> None:
     print(f"# {'device ms':>12} {'share':>7} {'calls':>6}  kernel")
     for name, (calls, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
         print(f"# {ms:12.4f} {ms / busy_ms:7.2%} {calls:6d}  {name[:100]}")
+    split = stage_split(prof.events(), wall_ms)
+    print(f"# {'host ms':>12} {'busy ms':>12} {'idle':>7} {'events':>7}  stage")
+    for name, (host, busy, n) in sorted(split.items(), key=lambda kv: -kv[1][0]):
+        idle = f"{1 - busy / host:7.3f}" if host > 0 else f"{'-':>7}"
+        print(f"# {host:12.4f} {busy:12.4f} {idle} {n:7d}  {name}")
+    print(f"# stages {json.dumps(split)}")
 
 
 if __name__ == "__main__":
