@@ -32,12 +32,21 @@ Phases, one output line each (or more), in order:
                and at a ragged (3, 1000), under four head patterns (all,
                lane 0 only, 3 in 10 with lane 0 clear, 97 in 100), with edge
                values and infinity in the inputs, out and flags exact; and
-               msm._seg_scan_hs on the card, exact, one launch a level;
+               msm._seg_scan_hs on the card, exact, one launch a level; the
+               chains of doublings K3 and K8 at 1 point, 16 points and a wide
+               batch with a tail (2^16 + 3 for K3, 32,768 + 5 for K8), n = 1,
+               16 and 255 with and without the steps output, exact against
+               the plain version's 255 steps, with infinity, y = 0 (P = -P)
+               and edge-value lanes, and 2^n P equal to the host's;
   4. msm       the G1 slice: fixed-base setup of 2^20 points [m_i]G, then the
                2^20 Pippenger MSM against 2^20 scalars k_i, checked against
                the host's [sum k_i m_i mod r]G; kernel launch counts of that
                run; the MSM timed; msm_pippenger at n = 2^16 with c = 14,
-               checked the same way; K1-K3 timed beside their plain versions;
+               checked the same way; K1 and K2 timed beside their plain
+               versions; K3 and K8 timed at the prover's shapes (1 point,
+               n = 16: a Horner window; 1 point, n = 255 with every step: a
+               ladder's bases) and at their earlier shapes (16 points and
+               32,768 lanes, n = 1), per double and beside their bounds;
                K4 at the MSM's shape (one window group's sorted digits, K = 64,
                32,768 lanes; real flush targets checked unique) exact against
                its plain version, acc and bucket table, and timed beside it,
@@ -66,9 +75,10 @@ Phases, one output line each (or more), in order:
                rejected; launch counts of setup and of prove; setup seconds,
                prove median of 3, verify seconds (host); then setup and prove
                at m = 2^4 on the card and on the CPU plain versions with the
-               same seeds, keys and proofs equal point for point; K7 and K8
-               timed beside their plain versions at the MSM's 32,768 lanes,
-               and K2 at the same shape;
+               same seeds, keys and proofs equal point for point; K3's and
+               K8's prove launches on a line of their own; K7 timed beside
+               its plain version at the MSM's 32,768 lanes, and K2 at the
+               same shape;
   9. mixed add the entry points weierstrass.padd_mixed / padd_mixed_sel, counted:
                K9 over G1 at 2^15 lanes (the mask set on about 1 lane in 32)
                and at 4,194,304 points, K10 over G2 at the MSM's 32,768
@@ -81,8 +91,9 @@ Phases, one output line each (or more), in order:
  10. groth16   setup, prove and verify on square_chain(2^20) with 2 public
                inputs: the proof is accepted, and rejected under a wrong public
                input; the proof of a wrong witness is rejected; launch counts
-               of setup and of prove; setup seconds, prove median of 3, verify
-               seconds; then setup and prove at m = 2^4 on the card and on the
+               of setup and of prove (K3's and K8's on a line of their own);
+               setup seconds, prove median of 3, verify seconds; then setup
+               and prove at m = 2^4 on the card and on the
                CPU plain versions with the same seeds, keys and proofs equal
                point for point.
 The build phase prints ptxas's registers and spills of every kernel and the
@@ -619,8 +630,6 @@ def phase_slice(dev, results: dict, a, b) -> None:
     tree_w = (W // 2) * fixed_base._CHUNK  # first tree level of one chunk
     x = tuple(cc.repeat(1, -(-tree_w // n))[:, :tree_w].contiguous() for cc in pts)
     y = tuple(torch.roll(cc, 1, dims=1) for cc in x)
-    nwin = -(-256 // c)  # MSM windows: the bucket sum's and Horner's width
-    wins = tuple(cc[:, :nwin].contiguous() for cc in x)
     tm = a[:, :W * slots].contiguous(), b[:, :W * slots].contiguous()
     n_mm = W * slots
     cases = {
@@ -632,10 +641,6 @@ def phase_slice(dev, results: dict, a, b) -> None:
                  lambda: ck.padd(spec, b3, x, y),
                  lambda: ck.padd_ref(spec, b3, x, y), 5, 1,
                  bound(9 * LIMB_BYTES * tree_w + LIMB_BYTES, 14 * tree_w)),
-        "pdbl": (f"{nwin} points, one per MSM window (bucket sum)",
-                 lambda: ck.pdbl(spec, b3, wins),
-                 lambda: ck.pdbl_ref(spec, b3, wins), 100, 3,
-                 bound(6 * LIMB_BYTES * nwin + LIMB_BYTES, 9 * nwin)),
     }
     time_cases(cases, results)
     del x, y
@@ -1129,6 +1134,165 @@ def phase_bitcheck_levels(dev, results: dict) -> None:
         results[k]["max_abs_err"] = max(results[k].get("max_abs_err", 0), e)
 
 
+# The chains of doublings (K3, K8): the widths of their bitchecks (one point:
+# Horner and the ladders' bases; a window batch: the window sums' top
+# buckets; a wide batch with a tail) and their step counts (one double, a
+# Horner window of c = 16, a ladder's 255 bases)
+CHAIN_WIDTHS = {"g1": (1, 16, (1 << 16) + 3), "g2": (1, 16, SCAN_LANES + 5)}
+CHAIN_STEPS = (1, 16, 255)
+
+
+def chain_inputs(group: str, n: int, rng, dev):
+    """(F, b3, P, host) over n lanes for K3 (G1) or K8 (G2), by lane % 16:
+    10 infinity (0, lam y, 0), 11 y = 0 (where P = -P; not a point), 12 and
+    13 every coordinate component 0, 1, q - 1 or R mod q; every other lane a
+    projective rescaling by a random lam of one of 64 host points, which
+    host(lanes) returns."""
+    from myzkp_tpu_torch.curves import bn254
+    from myzkp_tpu_torch.curves import weierstrass as wst
+    from myzkp_tpu_torch.fields import limb
+
+    g2 = group == "g2"
+    spec = bn254.q_spec()
+    F, b3 = ((bn254.g2_ops(), bn254.g2_b3((), dev)) if g2
+             else (bn254.g1_ops(), bn254.g1_b3((), dev)))
+    gen = bn254.g2_generator() if g2 else bn254.g1_generator()
+    to_device = bn254.g2_points_to_device if g2 else bn254.g1_points_to_device
+    hrng = random.Random(SEED + 12 + g2)
+    host = [gen * hrng.randrange(1, bn254.R) for _ in range(64)]
+    idx = rng.integers(0, 64, n)
+    lam = ((random_fe(rng, n, dev), random_fe(rng, n, dev)) if g2
+           else random_fe(rng, n, dev))
+    (lam[0] if g2 else lam)[0] |= 1  # nonzero
+    P = wst.Point(*(F.mul(c, lam) for c in wst.point_map(
+        lambda c: c[:, torch.from_numpy(idx).to(dev)], to_device(host, dev))))
+    kind = torch.arange(n, device=dev) % 16
+    edge = (kind == 12) | (kind == 13)
+    edges = [0, 1, spec.p - 1, (1 << 256) % spec.p]
+    comps = 2 if g2 else 1
+    leaves = [c.clone() for c in wst.leaves(P)]
+    for j, c in enumerate(leaves):
+        c[:, kind == (11 if j // comps == 1 else 10)] = 0
+        k = int(edge.sum())
+        if k:
+            c[:, edge] = limb.from_int(spec, [edges[i] for i in rng.integers(0, 4, k)], dev)
+    return F, b3, wst.from_leaves(leaves), lambda lanes: [host[idx[i]] for i in lanes]
+
+
+def phase_bitcheck_chains(dev, results: dict) -> None:
+    """K3 and K8 chains against their plain versions and the host group law:
+    at each width of CHAIN_WIDTHS, the plain version's 255 steps once, then
+    the kernel at n = 1, 16 and 255, with and without the steps output, each
+    exact against the plain version's step n (or steps 1 .. n); on up to 16
+    point lanes of each width, 2^n P equal to the host's."""
+    from myzkp_tpu_torch.curves import bn254, curve_kernels as ck
+    from myzkp_tpu_torch.curves import weierstrass as wst
+
+    rng = np.random.default_rng(SEED + 12)
+    spec = bn254.q_spec()
+    nmax = max(CHAIN_STEPS)
+    for group in ("g1", "g2"):
+        g2 = group == "g2"
+        name = "pdbl2" if g2 else "pdbl"
+        wrap, ref = (ck.pdbl2, ck.pdbl2_ref) if g2 else (ck.pdbl, ck.pdbl_ref)
+        to_host = bn254.g2_points_to_host if g2 else bn254.g1_points_to_host
+        err = results[name]["max_abs_err"]
+        for width in CHAIN_WIDTHS[group]:
+            F, b3, P, host = chain_inputs(group, width, rng, dev)
+            want = wst.leaves(wst.Point(*ref(spec, b3, P, nmax, steps=True)))
+            pts = [i for i in range(width) if i % 16 not in (10, 11, 12, 13)][:16]
+            lanes = torch.tensor(pts, device=dev)
+            for n in CHAIN_STEPS:
+                got = wst.leaves(wst.Point(*wrap(spec, b3, P, n)))
+                err = max(err, check_equal(f"{name} [{width} points, n = {n}]", got,
+                                           [w[n - 1] for w in want]))
+                got = wst.leaves(wst.Point(*wrap(spec, b3, P, n, steps=True)))
+                err = max(err, check_equal(f"{name} [{width} points, n = {n}, steps]",
+                                           got, [w[:n] for w in want]))
+                k = 1 << n
+                last = wst.point_map(lambda c: c[n - 1][:, lanes], wst.from_leaves(got))
+                if to_host(last) != [p * (k % bn254.R) for p in host(pts)]:
+                    raise AssertionError(f"{name} [{width} points, n = {n}]: 2^n P "
+                                         f"disagrees with the host group law")
+            del want, got
+        results[name]["max_abs_err"] = err
+        log(f"# bitcheck {name} chains: widths {CHAIN_WIDTHS[group]}, n = {CHAIN_STEPS}, "
+            f"with and without the steps output, exact against the plain version's "
+            f"{nmax} steps; by lane % 16 infinity, y = 0 (P = -P), two lanes of 0, 1, "
+            f"q - 1, R mod q in every component; 2^n P == host on up to 16 point "
+            f"lanes a width")
+
+
+def chain_call(fn, spec, b3, p, n: int, steps: bool = False):
+    """n doublings of p by fn, K3's or K8's wrapper or plain version: one call
+    where fn takes n; else (a tree from before the chain kernels, whose
+    kernels smoke_graph_timed.py times through this) n calls, every step
+    kept when steps is set."""
+    import inspect
+
+    if "n" in inspect.signature(fn).parameters:
+        return fn(spec, b3, p, n, steps=steps)
+    out = []
+    for _ in range(n):
+        p = fn(spec, b3, p)
+        out.append(p)
+    return out if steps else p
+
+
+def flat(x) -> list:
+    """The tensors of nested tuples and lists, in order."""
+    return [x] if torch.is_tensor(x) else [t for e in x for t in flat(e)]
+
+
+# (group, points, n, steps, reps, what): the chains timed, at the prover's
+# shapes and at the shape each kernel was timed at before the chains
+CHAIN_SHAPES = (
+    ("g1", 16, 1, False, 100, "16 points, n = 1: the window sums' top buckets, one double"),
+    ("g1", 1, 16, False, 20, "1 point, n = 16: a Horner window"),
+    ("g1", 1, 255, True, 4, "1 point, n = 255, every step: a ladder's bases"),
+    ("g2", SCAN_LANES, 1, False, 20, f"{SCAN_LANES} lanes, n = 1"),
+    ("g2", 1, 16, False, 20, "1 point, n = 16: a Horner window"),
+    ("g2", 1, 255, True, 4, "1 point, n = 255, every step: a ladder's bases"),
+)
+
+
+def time_chains(dev, results: dict | None) -> dict:
+    """K3 and K8 at CHAIN_SHAPES against their plain versions (exact), each
+    timed by time_cases, with the bound of its inputs: 9 (G1) or 25 (G2)
+    Montgomery products a double a point against reading P and writing 2^n P
+    (or every step).  The Horner window's times go to results (the kernels
+    line); every shape's to the returned dict, printed as '# chains'."""
+    from myzkp_tpu_torch.curves import bn254, curve_kernels as ck
+
+    rng = np.random.default_rng(SEED + 13)
+    spec = bn254.q_spec()
+    out = {}
+    for group, pts, n, steps, reps, what in CHAIN_SHAPES:
+        g2 = group == "g2"
+        name = "pdbl2" if g2 else "pdbl"
+        wrap, ref = (ck.pdbl2, ck.pdbl2_ref) if g2 else (ck.pdbl, ck.pdbl_ref)
+        b3 = bn254.g2_b3((), dev) if g2 else bn254.g1_b3((), dev)
+        fe = lambda: random_fe(rng, pts, dev)
+        P = tuple((fe(), fe()) for _ in range(3)) if g2 else tuple(fe() for _ in range(3))
+        comps = 2 if g2 else 1
+        nbytes = comps * LIMB_BYTES * (3 + 3 * (n if steps else 1)) * pts + comps * LIMB_BYTES
+        bnd = bound(nbytes, (25 if g2 else 9) * n * pts)
+        res = {name: {"max_abs_err": 0}}
+        time_cases({name: (what, lambda: flat(chain_call(wrap, spec, b3, P, n, steps)),
+                           lambda: flat(chain_call(ref, spec, b3, P, n, steps)), reps, 1,
+                           bnd)}, res)
+        r = dict(res[name], points=pts, n=n, steps=steps, per_double_ms=res[name]["ms"] / n)
+        out[f"{name} {pts} x {n}{' steps' if steps else ''}"] = r
+        log(f"# chain {name} [{what}]: {r['per_double_ms']:.5f} ms a double")
+        if results is not None:
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], r["max_abs_err"])
+            if (pts, n) == (1, 16):
+                results[name].update({k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                        "bound_by", "library_ms")})
+    log(f"# chains {json.dumps(out)}")
+    return out
+
+
 def phase_g2_msm(dev, results: dict) -> None:
     from myzkp_tpu_torch.curves import bn254, fixed_base, msm
     from myzkp_tpu_torch.curves import weierstrass as wst
@@ -1228,6 +1392,8 @@ def phase_pinocchio(dev, results: dict) -> None:
         f"changed): rejected")
     log(f"# pinocchio setup launches: {json.dumps(setup_counts)}")
     log(f"# pinocchio prove launches: {json.dumps(prove_counts)}")
+    log(f"# pinocchio prove: K3 {prove_counts['pdbl']} launches, K8 "
+        f"{prove_counts['pdbl2']}")
 
     # the whole path on the card against the plain versions on the CPU
     cpu = torch.device("cpu")
@@ -1272,10 +1438,6 @@ def time_g2_kernels(dev, results: dict) -> None:
                   lambda: L(ck.padd2(spec, b3, P, Q, h)),
                   lambda: L(ck.padd2_ref(spec, b3, P, Q, h)), 20, 1,
                   bound(18 * LIMB_BYTES * m + m + 2 * LIMB_BYTES, G2_ADD_PRODUCTS * (m - heads))),
-        # a double: 7 F_q2 products (3 each) and 2 squares (2 each)
-        "pdbl2": (f"{m} lanes", lambda: L(ck.pdbl2(spec, b3, P)),
-                  lambda: L(ck.pdbl2_ref(spec, b3, P)), 20, 1,
-                  bound(12 * LIMB_BYTES * m + 2 * LIMB_BYTES, 25 * m)),
     }
     time_cases(cases, results)
     design = bound(0, PAIR_G2_ADD_PRODUCTS * (m - heads))["bound_ms"]
@@ -1501,6 +1663,8 @@ def phase_groth16(dev, results: dict) -> None:
         f"a wrong public input: rejected; a wrong witness (one x_k changed): rejected")
     log(f"# groth16 setup launches: {json.dumps(setup_counts)}")
     log(f"# groth16 prove launches: {json.dumps(prove_counts)}")
+    log(f"# groth16 prove: K3 {prove_counts['pdbl']} launches, K8 "
+        f"{prove_counts['pdbl2']}")
     del pk, vk, qap, asg, bad_asg
 
     # the whole path on the card against the plain versions on the CPU
@@ -1566,8 +1730,10 @@ def main() -> int:
     a, b = phase_bitcheck(dev, results)
     phase_bitcheck_g2(dev, results)
     phase_bitcheck_levels(dev, results)
+    phase_bitcheck_chains(dev, results)
     phase_bitcheck_fr(dev, results)
     phase_slice(dev, results, a, b)
+    results["_chains"] = time_chains(dev, results)
     phase_ntt(dev, results)
     big = phase_shifted_h(dev, LOG_M_BIG)
     small = phase_shifted_h(dev, LOG_M_SMALL)

@@ -50,12 +50,12 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     "mont_mul": (_P, _P, _P, _I64, _P, _P),
     "padd": (_P,) * 11 + (_I64, _P, _P),
-    "pdbl": (_P,) * 7 + (_I64, _P, _P),
+    "pdbl": (_P,) * 10 + (_I64, ctypes.c_int, _P, _P),
     "bucket_scan_rows": (_P,) * 6 + (_I64, ctypes.c_int, _P, _P),
     "butterfly": (_P,) * 3 + (_I64,) * 4 + (_P, _P),
     "ntt_leaf": (_P,) * 3 + (_I64, ctypes.c_int, _I64, _P, _P),
     "padd2": (_P,) * 21 + (_I64, _P, _P),
-    "pdbl2": (_P,) * 14 + (_I64, _P, _P),
+    "pdbl2": (_P,) * 20 + (_I64, ctypes.c_int, _P, _P),
     "padd_mixed": (_P,) * 10 + (_I64, _P, _P),
     "padd_mixed2": (_P,) * 19 + (_I64, _P, _P),
     "bucket_scan_rows2": (_P,) * 7 + (_I64, ctypes.c_int, _P, _P),

@@ -1,5 +1,6 @@
 // K7: G2 complete add over F_q2, with an optional select mask (Q where h is
-// set, else P + Q).  K8: G2 complete double.  K10: G2 mixed add
+// set, else P + Q).  K8: a chain of n >= 1 G2 complete doublings, 2^n P, in
+// one launch, with the optional output of every step.  K10: G2 mixed add
 // P + (qx, qy, 1), with an optional select mask ((qx, qy, 1) where h is set).
 // The G2 lane-merge level: one level of the lane merge's segmented
 // Hillis-Steele scan (msm._seg_scan_hs) in one launch, on K7's body.
@@ -30,8 +31,18 @@
 // shuffle.  A level skips the add only where a whole warp's points are
 // flagged (a warp-uniform branch).
 //
-// K8 and K10 run one thread per point with the whole formula in registers
-// (group.cuh), 64 threads a block; they may spill.  Only the output planes
+// K8 runs on the lane pair too, for the widths the prover gives it: 1 to 16
+// points (Horner's and the window sums' chains of c doublings, the G2
+// ladder's 255 bases), one warp, where a one-thread double was a chain of 25
+// dependent products in 194 registers.  On the pair a double is 16 products
+// a lane deep (7 F_q2 products of 2, 2 squares of 1), and one launch runs
+// the whole chain: the point stays in registers, the step loop is rolled (its
+// body fetched once) and each product unrolls MYZKP_K8_UNROLL rows.  Its
+// bound at those widths is latency, not the multiply rate; its outputs are
+// write-only.
+//
+// K10 runs one thread per point with the whole formula in registers
+// (group.cuh), 64 threads a block; it may spill.  Only the output planes
 // are written, and they are write-only; b3 (the pair 3 * B2, not 9) is read
 // once per thread from two (16,) tensors.  The mixed add holds P and an
 // affine Q, 10 F_q elements against the complete add's 12, and does 13 F_q2
@@ -83,16 +94,18 @@ __device__ __forceinline__ void store_point2(const Out6& o, int64_t n,
 }
 
 // This lane's component (pair_half) of each coordinate of point i.
-__device__ __forceinline__ Pt2p load_point2p(const In6& a, int half, int64_t n,
-                                             int64_t i) {
-  return Pt2p{{myzkp::load_planes(half ? a.v[1] : a.v[0], n, i)},
-              {myzkp::load_planes(half ? a.v[3] : a.v[2], n, i)},
-              {myzkp::load_planes(half ? a.v[5] : a.v[4], n, i)}};
+template <class E = Fe2p>
+__device__ __forceinline__ myzkp::Point<E> load_point2p(const In6& a, int half,
+                                                        int64_t n, int64_t i) {
+  return myzkp::Point<E>{{myzkp::load_planes(half ? a.v[1] : a.v[0], n, i)},
+                         {myzkp::load_planes(half ? a.v[3] : a.v[2], n, i)},
+                         {myzkp::load_planes(half ? a.v[5] : a.v[4], n, i)}};
 }
 
+template <class E>
 __device__ __forceinline__ void store_point2p(const Out6& o, int half,
                                               int64_t n, int64_t i,
-                                              const Pt2p& p) {
+                                              const myzkp::Point<E>& p) {
   myzkp::store_planes(half ? o.v[1] : o.v[0], n, i, p.x.v);
   myzkp::store_planes(half ? o.v[3] : o.v[2], n, i, p.y.v);
   myzkp::store_planes(half ? o.v[5] : o.v[4], n, i, p.z.v);
@@ -154,18 +167,53 @@ unsigned pair_blocks_for(int64_t n) {
   return static_cast<unsigned>((n + kPairPoints - 1) / kPairPoints);
 }
 
-constexpr int kThreads = 64;
+// Rows of the Montgomery product unrolled in K8's step loop.  The prover runs
+// K8 on 1 to 16 points (one warp), where a double's latency is the whole
+// cost: on an H100 80GB HBM3 at 700 W a double took 15.1 us at U = 4, 15.7
+// at U = 2, 18.6 at U = 1 and 31 at U = 8 (11,408 SASS instructions against
+// 8,120; unroll_sweep.py, PERF.md).  A build may set it with
+// -DMYZKP_K8_UNROLL=U.
+#ifndef MYZKP_K8_UNROLL
+#define MYZKP_K8_UNROLL 4
+#endif
+using Fe2pK8 = myzkp::Fe2pU<MYZKP_K8_UNROLL>;
 
-__global__ void __launch_bounds__(kThreads)
-    pdbl2_kernel(In6 p, const int32_t* __restrict__ b3c0,
-                 const int32_t* __restrict__ b3c1, Out6 o, int64_t n,
-                 FieldConsts c) {
-  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Pt2 pv = load_point2(p, n, i);
-  Fe2 b3 = load_fe2(b3c0, b3c1, 1, 0);
-  store_point2(o, n, i, myzkp::pdbl(pv, b3, c));
+// The planes of step k of a steps output: (steps, 16, n) planes a coordinate.
+__device__ __forceinline__ Out6 step_of(const Out6& s, int64_t offset) {
+  Out6 r;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) r.v[j] = s.v[j] + offset;
+  return r;
 }
+
+// steps doublings of each point on a lane pair: the point stays in registers
+// and the step loop is not unrolled.  out (if o.v[0] is not null) gets
+// 2^steps P; the steps output (if s.v[0] is not null) gets step k,
+// 2^(k+1) P, at offset k * 16 n.  A warp whose points all lie past the end
+// leaves at once (a warp-uniform exit); the other lanes past the end compute
+// on the last point and store nothing.
+__global__ void __launch_bounds__(kPairThreads)
+    pdbl2_kernel(In6 p, const int32_t* __restrict__ b3c0,
+                 const int32_t* __restrict__ b3c1, Out6 o, Out6 s, int64_t n,
+                 int steps, FieldConsts c) {
+  const int64_t first = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                         (threadIdx.x & ~31u)) / 2;
+  if (first >= n) return;
+  const int half = myzkp::pair_half();
+  const int64_t i = myzkp::pair_index();
+  const bool live = i < n;
+  myzkp::Point<Fe2pK8> v = load_point2p<Fe2pK8>(p, half, n, live ? i : n - 1);
+  const Fe2pK8 b3{myzkp::load_planes(half ? b3c1 : b3c0, 1, 0)};
+  const int64_t block = myzkp::kLimbs * n;
+#pragma unroll 1
+  for (int k = 0; k < steps; ++k) {
+    v = myzkp::pdbl(v, b3, c);
+    if (live && s.v[0] != nullptr) store_point2p(step_of(s, k * block), half, n, i, v);
+  }
+  if (live && o.v[0] != nullptr) store_point2p(o, half, n, i, v);
+}
+
+constexpr int kThreads = 64;
 
 __global__ void __launch_bounds__(kThreads)
     padd_mixed2_kernel(In6 p, In4 q, const bool* __restrict__ h,
@@ -212,18 +260,25 @@ extern "C" int myzkp_padd2(const int32_t* p0, const int32_t* p1,
   return static_cast<int>(cudaGetLastError());
 }
 
+// steps >= 1 doublings: out <- 2^steps P; the steps output, six
+// (steps, 16, n) planes, <- 2P, 4P, ..., 2^steps P.  Either may be null (all
+// six of its pointers).
 extern "C" int myzkp_pdbl2(const int32_t* p0, const int32_t* p1,
                            const int32_t* p2, const int32_t* p3,
                            const int32_t* p4, const int32_t* p5,
                            const int32_t* b3c0, const int32_t* b3c1,
                            int32_t* o0, int32_t* o1, int32_t* o2, int32_t* o3,
-                           int32_t* o4, int32_t* o5, int64_t n,
-                           const FieldConsts* consts, void* stream) {
+                           int32_t* o4, int32_t* o5, int32_t* s0, int32_t* s1,
+                           int32_t* s2, int32_t* s3, int32_t* s4, int32_t* s5,
+                           int64_t n, int steps, const FieldConsts* consts,
+                           void* stream) {
+  if (steps < 1) return static_cast<int>(cudaErrorInvalidValue);
   In6 p{{p0, p1, p2, p3, p4, p5}};
   Out6 o{{o0, o1, o2, o3, o4, o5}};
-  pdbl2_kernel<<<blocks_for(n), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(p, b3c0, b3c1, o, n,
-                                                      *consts);
+  Out6 s{{s0, s1, s2, s3, s4, s5}};
+  pdbl2_kernel<<<pair_blocks_for(n), kPairThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(p, b3c0, b3c1, o, s, n,
+                                                      steps, *consts);
   return static_cast<int>(cudaGetLastError());
 }
 

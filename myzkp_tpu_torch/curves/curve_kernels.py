@@ -1,10 +1,10 @@
 """Curve kernels, each beside its plain PyTorch version: G1 K2 (complete
-add, optional select), K3 (complete double), K4 (the MSM bucket scan) and K9
-(mixed add, optional select); G2 K7 (complete add over F_q2, optional
-select), K8 (complete double), K10 (mixed add, optional select) and K4's G2
-instance (the bucket scan over F_q2); in both groups one level of the lane
-merge's segmented scan (``padd_seg_level``, ``padd2_seg_level``) on the
-complete add's body.
+add, optional select), K3 (a chain of complete doublings), K4 (the MSM bucket
+scan) and K9 (mixed add, optional select); G2 K7 (complete add over F_q2,
+optional select), K8 (a chain of complete doublings), K10 (mixed add,
+optional select) and K4's G2 instance (the bucket scan over F_q2); in both
+groups one level of the lane merge's segmented scan (``padd_seg_level``,
+``padd2_seg_level``) on the complete add's body.
 
 Counterparts of ``padd_fused`` / ``padd_sel_fused``, ``pdbl_fused``,
 ``bucket_scan_rows``, ``padd_mixed_fused`` / ``padd_mixed_sel_fused``,
@@ -154,10 +154,40 @@ def padd_ref(spec: FieldSpec, b3, p, q, h=None):
     return tuple(c.int() for c in r)
 
 
-def pdbl_ref(spec: FieldSpec, b3, p):
-    """Plain version of K3: 2P."""
+def _check_chain(n: int) -> None:
+    if n < 1:
+        raise ValueError(f"a chain of doublings takes n >= 1 steps, not {n}")
+
+
+def _chain64(ops, b3, p64, n: int, steps: bool, fin):
+    """n doublings of p64 with _pdbl64; fin turns an int64 point into the
+    output's form.  Returns fin(2^n P), or with steps the coordinates of
+    fin(2P), ..., fin(2^n P) stacked on a new leading axis."""
+    _check_chain(n)
+    out = []
+    for _ in range(n):
+        p64 = _pdbl64(ops, b3, p64)
+        if steps:
+            out.append(fin(p64))
+    if not steps:
+        return fin(p64)
+    return _stack_steps(out)
+
+
+def _stack_steps(pts):
+    """Points with the same nesting of coordinate tensors -> one point whose
+    tensors stack theirs on a new leading axis."""
+    if torch.is_tensor(pts[0]):
+        return torch.stack(pts)
+    return tuple(_stack_steps(cs) for cs in zip(*pts))
+
+
+def pdbl_ref(spec: FieldSpec, b3, p, n: int = 1, steps: bool = False):
+    """Plain version of K3: 2^n P, n >= 1; with ``steps``, the n points 2P,
+    4P, ..., 2^n P, each coordinate (n, L, *batch) with step i at [i]."""
     p64 = tuple(c.long() for c in p)
-    return tuple(c.int() for c in _pdbl64(_ops64(spec), _b3_like(b3, p64[0]), p64))
+    return _chain64(_ops64(spec), _b3_like(b3, p64[0]), p64, n, steps,
+                    lambda q: tuple(c.int() for c in q))
 
 
 def padd_mixed_ref(spec: FieldSpec, b3, p, qx, qy, h=None):
@@ -195,10 +225,11 @@ def padd2_ref(spec: FieldSpec, b3, p, q, h=None):
     return _unstack2(r)
 
 
-def pdbl2_ref(spec: FieldSpec, b3, p):
-    """Plain version of K8: 2P over F_q2."""
+def pdbl2_ref(spec: FieldSpec, b3, p, n: int = 1, steps: bool = False):
+    """Plain version of K8: 2^n P over F_q2, n >= 1; with ``steps`` the n
+    points as pdbl_ref gives them, coordinates (c0, c1) pairs."""
     p64 = _stack2(p)
-    return _unstack2(_pdbl64(_ops64_fq2(spec), _b3_like2(b3, p64[0]), p64))
+    return _chain64(_ops64_fq2(spec), _b3_like2(b3, p64[0]), p64, n, steps, _unstack2)
 
 
 def padd_mixed2_ref(spec: FieldSpec, b3, p, qx, qy, h=None):
@@ -282,12 +313,11 @@ def bucket_scan_rows_ref(spec: FieldSpec, rows, tag, tgt, b3, buckets, K: int):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _launch_group_law(kernel: str, spec: FieldSpec, b3s, pts, h=None) -> tuple:
-    """Check the inputs of K2, K3, K7, K8, K9 or K10 and launch it.  pts: one
-    tuple of flat coordinate tensors per input point (3 for G1, 6 for G2, and
-    2 or 4 for a mixed add's affine Q; two points for an add, which also
-    passes the optional mask h); b3s: b3's tensors (one for G1, c0 and c1 for
-    G2).  Returns the flat output coordinates, as many as the first point's."""
+def _require_group_law(spec: FieldSpec, b3s, pts, h=None) -> tuple:
+    """Check the inputs of a group-law kernel: pts, one tuple of flat
+    coordinate tensors per input point, all of one shape (L, *batch); b3s,
+    b3's tensors (one for G1, c0 and c1 for G2); the optional mask h.
+    Returns the shape."""
     shape = tuple(pts[0][0].shape)
     for name, pt in zip("pq", pts):
         for i, c in enumerate(pt):
@@ -296,6 +326,16 @@ def _launch_group_law(kernel: str, spec: FieldSpec, b3s, pts, h=None) -> tuple:
         _ext.require(c, f"b3[{i}]", I32, (spec.L,))
     if h is not None:
         _ext.require(h, "h", torch.bool, shape[1:])
+    return shape
+
+
+def _launch_group_law(kernel: str, spec: FieldSpec, b3s, pts, h=None) -> tuple:
+    """Check the inputs of K2, K7, K9 or K10 and launch it.  pts: one tuple
+    of flat coordinate tensors per input point (3 for G1, 6 for G2, and 2 or
+    4 for a mixed add's affine Q; two points for an add, which also passes
+    the optional mask h); b3s as _require_group_law.  Returns the flat output
+    coordinates, as many as the first point's."""
+    _require_group_law(spec, b3s, pts, h)
     out = tuple(torch.empty_like(pts[0][0]) for _ in pts[0])
     n = pts[0][0].numel() // spec.L
     if n:
@@ -303,6 +343,27 @@ def _launch_group_law(kernel: str, spec: FieldSpec, b3s, pts, h=None) -> tuple:
         mask = (P(h),) if len(pts) == 2 else ()
         _ext.launch(kernel, pts[0][0].device, *(P(c) for pt in pts for c in pt),
                     *mask, *map(P, b3s), *map(P, out), n, _ext.consts_ptr(spec))
+    return out
+
+
+def _launch_chain(kernel: str, spec: FieldSpec, b3s, p, n: int, steps: bool) -> tuple:
+    """Check the inputs of K3 or K8 and launch n doublings of the flat
+    coordinates p (3 for G1, 6 for G2).  Returns the flat coordinates of
+    2^n P, or with ``steps`` the flat (n, L, *batch) steps output, which the
+    kernel writes instead."""
+    _check_chain(n)
+    shape = _require_group_law(spec, b3s, (p,))
+    if steps:
+        out = tuple(torch.empty((n,) + shape, dtype=I32, device=c.device) for c in p)
+        dst = (None,) * len(p) + out
+    else:
+        out = tuple(torch.empty_like(c) for c in p)
+        dst = out + (None,) * len(p)
+    points = p[0].numel() // spec.L
+    if points:
+        P = _ext.ptr
+        _ext.launch(kernel, p[0].device, *map(P, p), *map(P, b3s), *map(P, dst), points, n,
+                    _ext.consts_ptr(spec))
     return out
 
 
@@ -315,11 +376,13 @@ def padd(spec: FieldSpec, b3, p, q, h=None):
     return _launch_group_law("padd", spec, (b3,), (tuple(p), tuple(q)), h)
 
 
-def pdbl(spec: FieldSpec, b3, p):
-    """K3: complete double 2P.  Coordinates (L, *batch) int32; b3 (L,)."""
+def pdbl(spec: FieldSpec, b3, p, n: int = 1, steps: bool = False):
+    """K3: n >= 1 complete doublings, 2^n P, in one launch.  Coordinates
+    (L, *batch) int32; b3 (L,).  With ``steps``, the n points 2P, 4P, ...,
+    2^n P: each coordinate (n, L, *batch), step i a contiguous block at [i]."""
     if not _ext.use_kernel(*p, b3):
-        return pdbl_ref(spec, b3, p)
-    return _launch_group_law("pdbl", spec, (b3,), (tuple(p),))
+        return pdbl_ref(spec, b3, p, n, steps)
+    return _launch_chain("pdbl", spec, (b3,), tuple(p), n, steps)
 
 
 def padd_mixed(spec: FieldSpec, b3, p, qx, qy, h=None):
@@ -353,12 +416,13 @@ def padd2(spec: FieldSpec, b3, p, q, h=None):
     return _pairs(_launch_group_law("padd2", spec, b3, (pl, ql), h))
 
 
-def pdbl2(spec: FieldSpec, b3, p):
-    """K8: complete double 2P over F_q2.  Coordinates as padd2."""
+def pdbl2(spec: FieldSpec, b3, p, n: int = 1, steps: bool = False):
+    """K8: n >= 1 complete doublings over F_q2, 2^n P, in one launch; with
+    ``steps`` the n points as pdbl gives them.  Coordinates as padd2."""
     pl = _leaves2(p)
     if not _ext.use_kernel(*pl, *b3):
-        return pdbl2_ref(spec, b3, p)
-    return _pairs(_launch_group_law("pdbl2", spec, b3, (pl,)))
+        return pdbl2_ref(spec, b3, p, n, steps)
+    return _pairs(_launch_chain("pdbl2", spec, tuple(b3), pl, n, steps))
 
 
 def padd_mixed2(spec: FieldSpec, b3, p, qx, qy, h=None):

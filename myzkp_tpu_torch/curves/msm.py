@@ -266,9 +266,7 @@ def _weighted_bucket_sum(F, b3, buckets: Point, c: int) -> Point:
         cols = wst.tree_sum(F, b3, grid, axis=1)  # (G, lo_n): sum over hi
         s_hi = _weighted_bucket_sum(F, b3, rows, c - k)
         s_lo = _weighted_bucket_sum(F, b3, cols, k)
-        for _ in range(k):
-            s_hi = wst.pdbl(F, b3, s_hi)
-        return wst.padd(F, b3, s_hi, s_lo)
+        return wst.padd(F, b3, wst.pdbl(F, b3, s_hi, k), s_lo)
     num = 1 << c
     idx = torch.arange(num, device=device)
     bitmask = ((idx[None, :] >> torch.arange(c, device=device)[:, None]) & 1) == 1
@@ -358,18 +356,14 @@ def _window_sums(F, b3, buckets: Point, c: int) -> Point:
     main = point_map(lambda a: a[..., :half], buckets)
     top = point_map(lambda a: a[..., half], buckets)
     s_w = _weighted_bucket_sum(F, b3, main, c - 1)
-    for _ in range(c - 1):
-        top = wst.pdbl(F, b3, top)
-    return wst.padd(F, b3, s_w, top)  # (W_pad,)
+    return wst.padd(F, b3, s_w, wst.pdbl(F, b3, top, c - 1))  # (W_pad,)
 
 
 def _horner(F, b3, s_w: Point, c: int) -> Point:
     """sum_w 2^(cw) S_w, most significant window first."""
     res = wst.infinity(F, (), wst.leaves(s_w)[0].device)
     for w in reversed(range(wst.leaves(s_w)[0].shape[1])):
-        for _ in range(c):
-            res = wst.pdbl(F, b3, res)
-        res = wst.padd(F, b3, res, point_map(lambda a: a[:, w], s_w))
+        res = wst.padd(F, b3, wst.pdbl(F, b3, res, c), point_map(lambda a: a[:, w], s_w))
     return res
 
 

@@ -105,9 +105,17 @@ def padd_mixed_sel(F, b3, p: Point, qx, qy, keep_q) -> Point:
                                  _contig_elem(qy), h=keep_q.contiguous()))
 
 
-def pdbl(F, b3, p: Point) -> Point:
-    """Complete doubling 2P (RCB16 Algorithm 9), kernel K3 or K8."""
-    return Point(*_kernels(F)[1](F.spec, b3, _contig(p)))
+def pdbl(F, b3, p: Point, n: int = 1) -> Point:
+    """2^n P: n >= 1 complete doublings (RCB16 Algorithm 9) in one launch of
+    kernel K3 or K8."""
+    return Point(*_kernels(F)[1](F.spec, b3, _contig(p), n))
+
+
+def pdbl_steps(F, b3, p: Point, n: int) -> list:
+    """[2P, 4P, ..., 2^n P] from one launch of K3 or K8 (n >= 1): each point
+    a view of one step of the kernel's steps-first output."""
+    steps = Point(*_kernels(F)[1](F.spec, b3, _contig(p), n, steps=True))
+    return [point_map(lambda a: a[i], steps) for i in range(n)]
 
 
 def pneg(F, p: Point) -> Point:
@@ -135,13 +143,13 @@ def to_affine(F, p: Point, axis: int = -1):
 
 
 def scalar_mul_bits(F, b3, p: Point, bits) -> Point:
-    """[e]P with e given as an LSB-first (nbits, *batch) bit tensor."""
+    """[e]P with e given as an LSB-first (nbits, *batch) bit tensor.  The
+    bases P, 2P, ..., 2^(nbits-1) P come from one steps launch of K3 or K8."""
+    nbits = bits.shape[0]
     acc = infinity(F, F.batch_shape(p.x), leaves(p)[0].device)
-    base = p
-    for i in range(bits.shape[0]):
-        acc = pselect(F, bits[i] > 0, padd(F, b3, acc, base), acc)
-        if i + 1 < bits.shape[0]:
-            base = pdbl(F, b3, base)
+    bases = [p] + (pdbl_steps(F, b3, p, nbits - 1) if nbits > 1 else [])
+    for bit, base in zip(bits, bases):
+        acc = pselect(F, bit > 0, padd(F, b3, acc, base), acc)
     return acc
 
 

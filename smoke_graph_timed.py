@@ -9,8 +9,11 @@ times its kernels in time_cases(cases, results).  That script runs from DIR,
 on DIR's package and kernels, with its time_cases replaced by this tree's:
 each kernel by CUDA-graph replay (graph_time_ms), each plain version with
 CUDA events around its calls.  The two trees' kernel times then come from
-one method, and can be compared within one call.  The exit code is DIR's
-script's.
+one method, and can be compared within one call.  When that script exits 0,
+this tree's time_chains then times DIR's doubling kernels K3 and K8 at the
+chain shapes (chip_smoke.CHAIN_SHAPES): a tree whose wrappers take no step
+count runs a chain of n as n launches, all captured in the one graph.  The
+exit code is DIR's script's.
 """
 
 from __future__ import annotations
@@ -39,7 +42,10 @@ def main(argv: list[str]) -> int:
     if not hasattr(theirs, "time_cases"):
         raise SystemExit(f"{other / 'chip_smoke.py'} has no time_cases to replace")
     theirs.time_cases = ours.time_cases
-    return theirs.main()
+    rc = theirs.main()
+    if rc == 0:
+        ours.time_chains(ours.torch.device("cuda", 0), None)
+    return rc
 
 
 if __name__ == "__main__":
