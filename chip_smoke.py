@@ -10,18 +10,31 @@ Phases, one output line each (or more), in order:
                host pairing library (myzkp_tpu_torch/native/) with g++;
   3. bitcheck  each kernel against its plain PyTorch version on the card,
                exact equality of limbs (the tolerance is 0: modular integers):
-               K1-K3 over F_q and the G1 group law; K4 and its G2 instance
+               K1 over F_q on 2^20 random pairs after every pair of the
+               word edges (values below q whose 32-bit words are each 0 or
+               0xFFFFFFFF, and q - 1, 1, R mod q), every such pair also
+               against the host; K2, K3 over F_q and the G1 group law; K4
+               and its G2 instance
                (acc and the bucket table written in place: all four tags,
                flush targets with -1 and at step 0, rows of 0, 1, q - 1, R
                mod q in every coordinate component, 3000 lanes, K = 4); K7
                (with and without its select mask) and K8 over F_q2 at the
                MSM's 32,768 lanes (P+P, P+(-P), infinity on either side,
                z != 1, and lanes whose every c0 and c1 is 0, 1, q - 1 or R mod
-               q) and K7 at a G2 fixed-base tree level; then K1 over F_r, K5
+               q) and K7 at a G2 fixed-base tree level; then K1 over F_r
+               (the same edges), K1's chain mont_pow over F_q and F_r at 1,
+               2, 3, 16 and 4,097 elements (0, 1, p - 1, R mod p among
+               them) for e = 0, 1, 2, 3, p - 2 and a seeded 256-bit e,
+               against mont_pow_ref and the host's pow(x, e, p), K1 with
+               an operand broadcast as the paths broadcast it (the 1/n
+               constant, coset offsets against (3, n), the four-step level
+               table against E = 3, to_mont / from_mont columns), K5
                on 2^20 pairs and at every stage shape of the m = 2^12 path,
                K6 at every
-               leaf shape of the 2^20 paths and at m = 16, 64, 128 with a
-               ragged batch; segment_sum_mod on the card against the CPU and
+               leaf shape of the 2^20 paths, at m = 16, 64, 128 with a
+               ragged batch and at every stage count s = 1..7 of m = 128
+               with a ragged batch, forward and inverse; segment_sum_mod on
+               the card against the CPU and
                host ints, 2^20 entries with heavy duplicates; K2 and K7 (one
                G2 point on a lane pair) at 32,768 lanes, K2 at 2^17 + 5
                too, and at tail lengths that are not multiples of a block,
@@ -42,8 +55,8 @@ Phases, one output line each (or more), in order:
                2^20 Pippenger MSM against 2^20 scalars k_i, checked against
                the host's [sum k_i m_i mod r]G; kernel launch counts of that
                run; the MSM timed; msm_pippenger at n = 2^16 with c = 14,
-               checked the same way; K1 and K2 timed beside their plain
-               versions; K3 and K8 timed at the prover's shapes (1 point,
+               checked the same way; K2 timed beside its plain version;
+               K3 and K8 timed at the prover's shapes (1 point,
                n = 16: a Horner window; 1 point, n = 255 with every step: a
                ladder's bases) and at their earlier shapes (16 points and
                32,768 lanes, n = 1), per double and beside their bounds;
@@ -63,7 +76,11 @@ Phases, one output line each (or more), in order:
                equals the constraint evaluation u_j, and the Pinocchio
                identity (ell + d_ell t)(r + d_r t) - (o + d_o t) = H t holds at
                a random point; launch counts of each run; the calls timed;
-               K5 and K6 timed beside their plain versions;
+               K5 and K6 timed beside their plain versions, and K1 at the
+               four-step level-twiddle pass over 3 x 2^21 elements (the
+               quotient's shape) and at (16, 8192) (a setup to_mont), and
+               its chain at 2 elements with e = q - 2 (the proof's
+               inversion; also with CUDA events around the calls);
   7. g2 msm    fixed-base setup of 2^20 G2 points [m_i]G2, then the 2^20 G2
                Pippenger MSM (one launch of K4's G2 instance per window
                group) against 2^20 scalars with a zero and duplicates,
@@ -76,7 +93,9 @@ Phases, one output line each (or more), in order:
                prove median of 3, verify seconds (host); then setup and prove
                at m = 2^4 on the card and on the CPU plain versions with the
                same seeds, keys and proofs equal point for point; K3's and
-               K8's prove launches on a line of their own; K7 timed beside
+               K8's prove launches on a line of their own, and K1's and its
+               chain's (at most 100 together, the chain at least once); K7
+               timed beside
                its plain version at the MSM's 32,768 lanes, and K2 at the
                same shape;
   9. mixed add the entry points weierstrass.padd_mixed / padd_mixed_sel, counted:
@@ -91,7 +110,8 @@ Phases, one output line each (or more), in order:
  10. groth16   setup, prove and verify on square_chain(2^20) with 2 public
                inputs: the proof is accepted, and rejected under a wrong public
                input; the proof of a wrong witness is rejected; launch counts
-               of setup and of prove (K3's and K8's on a line of their own);
+               of setup and of prove (K3's and K8's on a line of their own,
+               and K1's and its chain's, as for Pinocchio);
                setup seconds, prove median of 3, verify seconds; then setup
                and prove at m = 2^4 on the card and on the
                CPU plain versions with the same seeds, keys and proofs equal
@@ -135,7 +155,7 @@ HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 132 * 64 * 1.98e9
 IMAD_PER_MONT = 264
 LIMB_BYTES = 64  # one element at the tensor interface: 16 int32 limbs
-MSM_KERNELS = ("mont_mul", "padd", "pdbl", "bucket_scan_rows", "padd_seg_level")
+MSM_KERNELS = ("mont_mul", "mont_pow", "padd", "pdbl", "bucket_scan_rows", "padd_seg_level")
 
 
 def log(msg: str) -> None:
@@ -250,6 +270,9 @@ def sass_counts(lib) -> dict:
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = next((k for k in SASS_KERNELS if k in m.group(1)), None)
+            arg = re.search(r"kernelILi(\d+)E", m.group(1))
+            if name and arg:  # a template instantiation: kernel<R>
+                name = f"{name}<{arg.group(1)}>"
             if name:
                 out[name] = dict.fromkeys(("total",) + SASS_CLASSES, 0)
             continue
@@ -265,7 +288,7 @@ def sass_counts(lib) -> dict:
 
 SASS_KERNELS = ("padd_seg_level_kernel", "padd2_seg_level_kernel", "padd_mixed_kernel",
                 "padd_mixed2_kernel", "padd2_kernel", "pdbl2_kernel", "padd_kernel",
-                "pdbl_kernel")
+                "pdbl_kernel", "mont_mul_kernel", "mont_pow_kernel", "ntt_leaf_kernel")
 
 
 def random_fe(rng: np.random.Generator, n: int, dev) -> torch.Tensor:
@@ -273,6 +296,44 @@ def random_fe(rng: np.random.Generator, n: int, dev) -> torch.Tensor:
     limbs = rng.integers(0, 1 << 16, size=(16, n), dtype=np.int64)
     limbs[15] = rng.integers(0, 0x3064, size=n)
     return torch.from_numpy(limbs.astype(np.int32)).to(dev)
+
+
+def word_edges(p: int) -> list:
+    """The values below p whose eight 32-bit words are each 0 or 0xFFFFFFFF,
+    then p - 1, 1 and R mod p: the operands at the ends of every carry chain
+    of the Montgomery product."""
+    out = []
+    for bits in range(256):
+        v = sum(0xFFFFFFFF << (32 * k) for k in range(8) if bits >> k & 1)
+        if v < p:
+            out.append(v)
+    return out + [p - 1, 1, (1 << 256) % p]
+
+
+def bitcheck_mont_mul(spec, rng, dev, name: str) -> int:
+    """K1 on 2^20 pairs: every pair of word_edges first, then random; exact
+    against the plain version, and the edge pairs against the host too.
+    Returns the max_abs_err."""
+    from myzkp_tpu_torch.fields import limb
+
+    p = spec.p
+    edges = word_edges(p)
+    k = len(edges) ** 2
+    n = 1 << LOG_N
+    a, b = random_fe(rng, n, dev), random_fe(rng, n, dev)
+    a[:, :k] = limb.from_int(spec, [x for x in edges for _ in edges], dev)
+    b[:, :k] = limb.from_int(spec, [y for _ in edges for y in edges], dev)
+    got = limb.mont_mul(spec, a, b)
+    err = check_equal(name, [got], [limb.mont_mul_ref(spec, a, b)])
+    rinv = pow(1 << 256, -1, p)
+    gi = limb.to_int(spec, got[:, :k])
+    if any(int(g) != x * y * rinv % p
+           for g, (x, y) in zip(gi, ((x, y) for x in edges for y in edges))):
+        raise AssertionError(f"{name}: disagrees with the host on the word edges")
+    log(f"# bitcheck {name}: 2^{LOG_N} pairs, the first {k} every pair of {len(edges)} "
+        f"word edges (each 32-bit word 0 or 0xFFFFFFFF below p; p - 1, 1, R mod p): "
+        f"exact, and the edge pairs == host")
+    return err
 
 
 def check_equal(name: str, got, want) -> int:
@@ -284,30 +345,16 @@ def check_equal(name: str, got, want) -> int:
                for g, w in zip(got, want))
 
 
-def phase_bitcheck(dev, results: dict):
+def phase_bitcheck(dev, results: dict) -> None:
     from myzkp_tpu_torch.curves import bn254, curve_kernels as ck, msm
     from myzkp_tpu_torch.fields import limb
 
     rng = np.random.default_rng(SEED)
     spec = bn254.q_spec()
-    p = spec.p
 
-    # K1 at 2^20 elements; the first 16 are all pairs of 0, 1, p-1, R mod p
-    n = 1 << LOG_N
-    a, b = random_fe(rng, n, dev), random_fe(rng, n, dev)
-    edges = [0, 1, p - 1, (1 << 256) % p]
-    ea = limb.from_int(spec, [x for x in edges for _ in edges], dev)
-    eb = limb.from_int(spec, [y for _ in edges for y in edges], dev)
-    a[:, :16], b[:, :16] = ea, eb
-    got, want = limb.mont_mul(spec, a, b), limb.mont_mul_ref(spec, a, b)
-    torch.cuda.synchronize()
-    err = check_equal("mont_mul", [got], [want])
-    ai, bi, gi = (limb.to_int(spec, t[:, :64]) for t in (a, b, got))
-    rinv = pow(1 << 256, -1, p)
-    if any(int(g) != int(x) * int(y) * rinv % p for g, x, y in zip(gi, ai, bi)):
-        raise AssertionError("mont_mul: disagrees with the host on 64 elements")
+    # K1 at 2^20 pairs, the word edges first
+    err = bitcheck_mont_mul(spec, rng, dev, "mont_mul")
     results["mont_mul"] = {"max_abs_err": err}
-    log(f"# bitcheck mont_mul: 2^{LOG_N} elements + 16 edge pairs: exact")
 
     # K2 / K3 at 2^16 points: projective rescalings of 63 host points and
     # infinity, with P+P, P+(-P), P+O, O+Q and O+O among them
@@ -364,7 +411,6 @@ def phase_bitcheck(dev, results: dict):
     err = bitcheck_scan(spec, F, b3, rows, 4, rng, dev)
     results["bucket_scan_rows"] = {"max_abs_err": err}
     log(f"# bitcheck bucket_scan_rows: {SCAN_CASE}: acc and bucket table exact")
-    return a, b
 
 
 SCAN_CASE = ("N = 3000 lanes, K = 4, tags 0-3, flush targets on 3 steps in 10 "
@@ -559,11 +605,10 @@ def cold_calls(fn, inputs: list):
     return call, kept
 
 
-def phase_slice(dev, results: dict, a, b) -> None:
+def phase_slice(dev, results: dict) -> None:
     from myzkp_tpu_torch import _ext
     from myzkp_tpu_torch.curves import bn254, curve_kernels as ck, fixed_base, msm
     from myzkp_tpu_torch.curves import weierstrass as wst
-    from myzkp_tpu_torch.fields import limb
 
     n = 1 << LOG_N
     rng = random.Random(SEED)
@@ -626,17 +671,11 @@ def phase_slice(dev, results: dict, a, b) -> None:
 
     # each kernel beside its plain version at the slice's own shapes
     spec = bn254.q_spec()
-    W, slots = -(-256 // 8), 1 << 8
+    W = -(-256 // 8)
     tree_w = (W // 2) * fixed_base._CHUNK  # first tree level of one chunk
     x = tuple(cc.repeat(1, -(-tree_w // n))[:, :tree_w].contiguous() for cc in pts)
     y = tuple(torch.roll(cc, 1, dims=1) for cc in x)
-    tm = a[:, :W * slots].contiguous(), b[:, :W * slots].contiguous()
-    n_mm = W * slots
     cases = {
-        "mont_mul": (f"(16, {n_mm}) table to_mont",
-                     lambda: limb.mont_mul(spec, *tm),
-                     lambda: limb.mont_mul_ref(spec, *tm), 100, 3,
-                     bound(3 * LIMB_BYTES * n_mm, n_mm)),
         "padd": (f"{tree_w} points, first fixed-base tree level",
                  lambda: ck.padd(spec, b3, x, y),
                  lambda: ck.padd_ref(spec, b3, x, y), 5, 1,
@@ -677,18 +716,10 @@ def phase_bitcheck_fr(dev, results: dict) -> None:
     ea = limb.from_int(spec, [x for x in edges for _ in edges], dev)
     eb = limb.from_int(spec, [y for _ in edges for y in edges], dev)
 
-    # K1 over F_r at 2^20 elements; the first 16 are the crossed edges
+    # K1 over F_r at 2^20 pairs, the word edges first
     n = 1 << LOG_N
-    a, b = random_fe(rng, n, dev), random_fe(rng, n, dev)
-    a[:, :16], b[:, :16] = ea, eb
-    got = limb.mont_mul(spec, a, b)
-    err = check_equal("mont_mul (F_r)", [got], [limb.mont_mul_ref(spec, a, b)])
-    ai, bi, gi = (limb.to_int(spec, t[:, :64]) for t in (a, b, got))
-    rinv = pow(1 << 256, -1, p)
-    if any(int(g) != int(x) * int(y) * rinv % p for g, x, y in zip(gi, ai, bi)):
-        raise AssertionError("mont_mul (F_r): disagrees with the host on 64 elements")
+    err = bitcheck_mont_mul(spec, rng, dev, "mont_mul over F_r")
     results["mont_mul"]["max_abs_err"] = max(results["mont_mul"]["max_abs_err"], err)
-    log(f"# bitcheck mont_mul over F_r: 2^{LOG_N} elements + 16 edge pairs: exact")
 
     # K5: 2^20 pairs as a (16, R = 2, Bk = 4, 2h = 512, B = 512) stage input;
     # u and v of the first 16 pairs are the crossed edges
@@ -730,10 +761,28 @@ def phase_bitcheck_fr(dev, results: dict) -> None:
             err = max(err, check_equal(f"ntt_leaf m = {m} inverse = {inv}",
                                        [nk.ntt_leaf(spec, xl, twl)],
                                        [nk.ntt_leaf_ref(spec, xl, twl)]))
+    m = nk.MAX_LEAF
+    xl = random_fe(rng, 2 * m * 3000, dev).reshape(16, 2, m, 3000)
+    for inv in (False, True):
+        twl = ntt._leaf_twiddles(spec, m, inv, dev)
+        for s in range(1, m.bit_length()):
+            err = max(err, check_equal(f"ntt_leaf m = {m} stages = {s} inverse = {inv}",
+                                       [nk.ntt_leaf(spec, xl, twl, s)],
+                                       [nk.ntt_leaf_ref(spec, xl, twl, s)]))
+    # a table of random entries, so that no stage row starts with 1: the
+    # kernel must then run the j = 0 products it skips on the paths' tables
+    for m in (4, 16, 128):
+        xl = random_fe(rng, 2 * m * 3000, dev).reshape(16, 2, m, 3000)
+        twl = random_fe(rng, m - 1, dev)
+        err = max(err, check_equal(f"ntt_leaf m = {m}, random table",
+                                   [nk.ntt_leaf(spec, xl, twl)],
+                                   [nk.ntt_leaf_ref(spec, xl, twl)]))
     results["ntt_leaf"] = {"max_abs_err": err}
     log(f"# bitcheck ntt_leaf: the paths' leaves (E, m, B, inverse) "
         f"{sorted(set(leaf_shapes()))}; m = 16, 64, 128, E = 2, B = 3000, "
-        f"forward and inverse: exact")
+        f"and m = 128 at every stage count 1..{m.bit_length() - 1}, "
+        f"forward and inverse; m = 4, 16, 128 on a random table: exact")
+    bitcheck_broadcast(spec, rng, dev, results)
 
     # segment_sum_mod at 2^20 entries on the card against the same call on
     # the host's CPU and against Python ints: 2^12 segments, the odd ones
@@ -754,6 +803,82 @@ def phase_bitcheck_fr(dev, results: dict) -> None:
         raise AssertionError("segment_sum_mod: disagrees with the host's sums")
     log(f"# bitcheck segment_sum_mod: {nnz} entries into {nseg} segments "
         f"({nseg // 2 - 1} empty, {heavy} x (r - 1) in one): card == CPU == host")
+
+
+POW_SIZES = (1, 2, 3, 16, 4097)
+
+
+def pow_exponents(p: int) -> tuple:
+    """The chain's exponents: 0, 1, 2, 3, p - 2 and a seeded 256-bit one."""
+    return (0, 1, 2, 3, p - 2, random.Random(SEED).getrandbits(256) | 1 << 255)
+
+
+def phase_bitcheck_pow(dev, results: dict) -> None:
+    """K1's chain (limb.pow_const, one launch) over F_q and F_r against its
+    plain version and the host's pow(x, e, p)."""
+    from myzkp_tpu_torch import _ext
+    from myzkp_tpu_torch.fields import limb
+    from myzkp_tpu_torch.fields.spec import bn254_q_spec, bn254_r_spec
+
+    rng = np.random.default_rng(SEED + 7)
+    err = 0
+    for spec in (bn254_q_spec(), bn254_r_spec()):
+        p, R = spec.p, 1 << 256
+        rinv = pow(R, -1, p)
+        for n in POW_SIZES:
+            a = random_fe(rng, n, dev)
+            edges = [0, 1, p - 1, R % p]  # as Montgomery words
+            a[:, :min(n, 4)] = limb.from_int(spec, edges[:n], dev)
+            xs = [int(v) * rinv % p for v in limb.to_int(spec, a)]
+            for e in pow_exponents(p):
+                before = _ext.launches["mont_pow"]
+                got = limb.pow_const(spec, a, e)
+                if _ext.launches["mont_pow"] != before + 1:
+                    raise AssertionError("pow_const: not one launch of the chain")
+                err = max(err, check_equal(f"mont_pow n = {n} e = {e}", [got],
+                                           [limb.mont_pow_ref(spec, a, e)]))
+                gi = limb.to_int(spec, got)
+                if any(int(g) != pow(x, e, p) * R % p for g, x in zip(gi, xs)):
+                    raise AssertionError(f"mont_pow n = {n} e = {e}: differs from the host")
+    results["mont_pow"] = {"max_abs_err": err}
+    log(f"# bitcheck mont_pow: F_q and F_r, {POW_SIZES} "
+        f"elements (0, 1, p - 1, R mod p among them), e = 0, 1, 2, 3, p - 2 and a "
+        f"seeded 256-bit e, one launch each: exact vs plain and == host pow(x, e, p)")
+
+
+def bitcheck_broadcast(spec, rng, dev, results: dict) -> None:
+    """K1 with one operand broadcast along leading batch axes, read in place
+    with a period, at the broadcasts of the paths (F_r, the 2^21-point
+    batched coset NTT of shifted h at 2^20), against the plain version."""
+    from myzkp_tpu_torch import _ext
+    from myzkp_tpu_torch.fields import limb
+    from myzkp_tpu_torch.ops import ntt
+
+    n, E = 2 << LOG_M_BIG, 3
+    m1, m2 = ntt._fourstep_split(n)
+    x = random_fe(rng, E * n, dev).reshape(16, E, n)
+    r2_col = limb._limb_column(spec.r2_limbs, 1, dev)
+    cases = {
+        "1/n constant (16, 1, 1) against (16, 3, n)": (
+            x, limb.const(spec, spec.to_mont_int(pow(n, -1, spec.p)), (1, 1), dev)),
+        "coset offsets (16, n) against (16, 3, n)": (x, random_fe(rng, n, dev)),
+        "level table (16, m1, m2, 1) against (16, 3, m1, m2, 1)": (
+            x.reshape(16, E, m1, m2, 1),
+            ntt.fourstep_tables(spec, n, False, dev)[0].reshape(16, m1, m2, 1)),
+        "to_mont column (16, 1) against (16, n)": (x[:, 0], r2_col),
+        "the same, operands swapped": (r2_col, x[:, 0]),
+    }
+    err = results["mont_mul"]["max_abs_err"]
+    for name, (a, b) in cases.items():
+        before = _ext.launches["mont_mul"]
+        got = limb.mont_mul(spec, a, b)
+        if _ext.launches["mont_mul"] != before + 1:
+            raise AssertionError(f"mont_mul [{name}]: not one launch")
+        err = max(err, check_equal(f"mont_mul [{name}]", [got],
+                                   [limb.mont_mul_ref(spec, a, b)]))
+    results["mont_mul"]["max_abs_err"] = err
+    log(f"# bitcheck mont_mul with a broadcast operand read in place, n = 2^{LOG_M_BIG + 1}: "
+        f"{'; '.join(cases)}: exact")
 
 
 # The transforms of the paths, as the port runs them (ops/ntt.py): Stockham
@@ -883,6 +1008,13 @@ def phase_shifted_h(dev, log_m: int) -> dict:
     return {"ms": med, "reps_ms": ts, "first_s": first_s, "launches": counts}
 
 
+def leaf_products(m: int) -> int:
+    """The Montgomery products a length-m leaf needs a column: log2(m) stages
+    of m / 2 pairs, less the pairs whose twiddle is 1 (j = 0: one a block,
+    m - 1 in all), which K6 skips."""
+    return m // 2 * (m.bit_length() - 1) - (m - 1)
+
+
 def time_ntt_kernels(dev, results: dict) -> None:
     from myzkp_tpu_torch.fields import ntt_kernels as nk
     from myzkp_tpu_torch.fields.spec import bn254_r_spec
@@ -906,7 +1038,7 @@ def time_ntt_kernels(dev, results: dict) -> None:
                      lambda: nk.ntt_leaf(spec, xl, twl),
                      lambda: nk.ntt_leaf_ref(spec, xl, twl), 5, 1,
                      bound(2 * LIMB_BYTES * E * m * B + (m - 1) * LIMB_BYTES,
-                           E * B * (m // 2) * (m.bit_length() - 1))),
+                           E * B * leaf_products(m))),
         "butterfly": (f"(16, {R}, 1, {c}, 1): stage 0 of the batched "
                       f"2^{LOG_M_SMALL + 1}-point coset NTT",
                       lambda: nk.butterfly(spec, xb, twb),
@@ -914,6 +1046,69 @@ def time_ntt_kernels(dev, results: dict) -> None:
                       bound(4 * LIMB_BYTES * pairs + LIMB_BYTES * (c // 2), pairs)),
     }
     time_cases(cases, results)
+    every = bound(0, E * B * (m // 2) * (m.bit_length() - 1))["bound_ms"]
+    log(f"# ntt_leaf: the bound counts the {leaf_products(m)} products a column needs; "
+        f"all {m // 2 * (m.bit_length() - 1)} would take {every:.4f} ms")
+
+
+def time_k1(dev, results: dict | None) -> dict:
+    """K1 and its chain against their plain versions (exact), each timed by
+    time_cases: K1 at (16, 8192) (a setup to_mont, the shape timed before),
+    at the level-twiddle pass of the batched 2^21-point coset NTT (3 x 2^21
+    elements against the level table: the quotient's widest K1 pass), and
+    pow_const on 2 elements with e = q - 2 (the proof's inversion).  The
+    level pass and the chain go to results (the kernels line); every case
+    to the returned dict, printed as '# k1'.  pow_const is also timed with
+    CUDA events around its calls in every tree (host time included: what
+    it costs a prove), the one method a tree without the chain allows: its
+    pow_const is a loop of K1 launches that makes tensors from host data,
+    which a graph cannot capture, and is held to the same call on the CPU."""
+    from myzkp_tpu_torch.fields import limb
+    from myzkp_tpu_torch.fields.spec import bn254_q_spec, bn254_r_spec
+    from myzkp_tpu_torch.ops import ntt
+
+    rng = np.random.default_rng(SEED + 14)
+    qspec, rspec = bn254_q_spec(), bn254_r_spec()
+    a, b = random_fe(rng, 8192, dev), random_fe(rng, 8192, dev)
+    n = 2 << LOG_M_BIG
+    m1, m2 = ntt._fourstep_split(n)
+    xw = random_fe(rng, 3 * n, dev).reshape(16, 3, m1, m2, 1)
+    tab = ntt.fourstep_tables(rspec, n, False, dev)[0].reshape(16, m1, m2, 1)
+    e = qspec.p - 2
+    a2 = random_fe(rng, 2, dev)
+    products = 2 * (e.bit_length() - 1 + bin(e).count("1"))
+    cases = {
+        "setup": ("mont_mul", "(16, 8192): a setup to_mont",
+                  lambda: limb.mont_mul(qspec, a, b), lambda: limb.mont_mul_ref(qspec, a, b),
+                  100, 3, bound(3 * LIMB_BYTES * 8192, 8192)),
+        "level": ("mont_mul", f"(16, 3, {m1}, {m2}, 1) x (16, {m1}, {m2}, 1): the "
+                  f"level-twiddle pass of the batched 2^{LOG_M_BIG + 1}-point coset NTT",
+                  lambda: limb.mont_mul(rspec, xw, tab),
+                  lambda: limb.mont_mul_ref(rspec, xw, tab), 20, 1,
+                  bound(LIMB_BYTES * (2 * 3 * n + n), 3 * n)),
+        "chain": ("mont_pow", "pow_const, 2 elements, e = q - 2: the proof's inversion",
+                  lambda: limb.pow_const(qspec, a2, e),
+                  lambda: limb.mont_pow_ref(qspec, a2, e), 20, 1,
+                  bound(2 * 2 * LIMB_BYTES, products)),
+    }
+    call = lambda: limb.pow_const(qspec, a2, e)
+    check_equal("pow_const", [call()], [limb.pow_const(qspec, a2.cpu(), e).to(dev)])
+    out = {"inversion_events_ms": cuda_time_ms(call, 5)}
+    log(f"# time pow_const [2 elements, e = q - 2]: exact vs the CPU; "
+        f"{out['inversion_events_ms']:.4f} ms a call (CUDA events around the calls)")
+    if not hasattr(limb, "mont_pow_ref"):
+        del cases["chain"]
+    for key, (name, what, kern, plain, reps, preps, bnd) in cases.items():
+        res = {name: {"max_abs_err": 0}}
+        time_cases({name: (what, kern, plain, reps, preps, bnd)}, res)
+        out[key] = res[name]
+        if results is not None and key != "setup":
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                               res[name]["max_abs_err"])
+            results[name].update({k: res[name][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                            "bound_by", "library_ms")})
+    log(f"# k1 {json.dumps(out)}")
+    return out
 
 
 # The 2^20 MSM's lanes, G * n / K (c = 16, G = 2, K = 64): the width of the
@@ -1333,6 +1528,17 @@ def phase_g2_msm(dev, results: dict) -> None:
     time_scan(F, b3, pts, dev, results)
 
 
+K1_PROVE_LAUNCHES = 100  # K1 + its chain in a prove at 2^20 (818 / 828 before)
+
+
+def check_k1_launches(name: str, counts: dict) -> None:
+    k1, chain = counts.get("mont_mul", 0), counts.get("mont_pow", 0)
+    log(f"# {name} prove: K1 {k1} launches, its chain mont_pow {chain}: {k1 + chain} in all")
+    if chain < 1 or k1 + chain > K1_PROVE_LAUNCHES:
+        raise AssertionError(f"{name} prove: K1 {k1} + mont_pow {chain} launches, expected "
+                             f"the chain at least once and at most {K1_PROVE_LAUNCHES} in all")
+
+
 def _square_chain_case(spec, m: int, dev):
     from myzkp_tpu_torch.arith import sparse
 
@@ -1394,6 +1600,7 @@ def phase_pinocchio(dev, results: dict) -> None:
     log(f"# pinocchio prove launches: {json.dumps(prove_counts)}")
     log(f"# pinocchio prove: K3 {prove_counts['pdbl']} launches, K8 "
         f"{prove_counts['pdbl2']}")
+    check_k1_launches("pinocchio", prove_counts)
 
     # the whole path on the card against the plain versions on the CPU
     cpu = torch.device("cpu")
@@ -1665,6 +1872,7 @@ def phase_groth16(dev, results: dict) -> None:
     log(f"# groth16 prove launches: {json.dumps(prove_counts)}")
     log(f"# groth16 prove: K3 {prove_counts['pdbl']} launches, K8 "
         f"{prove_counts['pdbl2']}")
+    check_k1_launches("groth16", prove_counts)
     del pk, vk, qap, asg, bad_asg
 
     # the whole path on the card against the plain versions on the CPU
@@ -1691,6 +1899,10 @@ def phase_groth16(dev, results: dict) -> None:
 
 SOURCES = {
     "mont_mul": ("myzkp_tpu_torch/csrc/mont_mul.cu",
+                 "myzkp_tpu/fields/limb_pallas.py:286"),
+    # the reference's pow_const / inv: a lax.scan of mont_mul_pallas steps
+    # (myzkp_tpu/fields/limb.py:346-371)
+    "mont_pow": ("myzkp_tpu_torch/csrc/mont_mul.cu",
                  "myzkp_tpu/fields/limb_pallas.py:286"),
     "padd": ("myzkp_tpu_torch/csrc/curve.cu",
              "myzkp_tpu/curves/curve_pallas.py:322"),
@@ -1727,12 +1939,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_build()
     results = {k: {} for k in SOURCES}
-    a, b = phase_bitcheck(dev, results)
+    phase_bitcheck(dev, results)
     phase_bitcheck_g2(dev, results)
     phase_bitcheck_levels(dev, results)
     phase_bitcheck_chains(dev, results)
     phase_bitcheck_fr(dev, results)
-    phase_slice(dev, results, a, b)
+    phase_bitcheck_pow(dev, results)
+    phase_slice(dev, results)
     results["_chains"] = time_chains(dev, results)
     phase_ntt(dev, results)
     big = phase_shifted_h(dev, LOG_M_BIG)
@@ -1745,6 +1958,7 @@ def main() -> int:
     results["butterfly"]["launches"] = small["launches"]["butterfly"]
     results["_shifted_h"] = {f"2^{LOG_M_BIG}": big, f"2^{LOG_M_SMALL}": small}
     time_ntt_kernels(dev, results)
+    results["_k1"] = time_k1(dev, results)
     phase_g2_msm(dev, results)
     phase_pinocchio(dev, results)
     time_g2_kernels(dev, results)
@@ -1765,6 +1979,7 @@ def main() -> int:
     log(f"# probe13 {json.dumps(results['_probe13'])}")
     log(f"# padd_lanes {json.dumps(results['_padd_lanes'])}")
     log(f"# levels_all_adds {json.dumps(results['_levels_all_adds'])}")
+
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources in ``csrc/`` are compiled with nvcc for ``sm_90a`` (one nvcc per
-source, in parallel) and linked into one shared library with a plain C
-interface under ``_build/`` (ignored by git) at first use, and loaded with
-ctypes.  The library's file name carries a digest of the sources and flags,
+source, in parallel, each object kept and reused while its source, the
+headers and its flags are unchanged) and linked into one shared library with
+a plain C interface under ``_build/`` (ignored by git) at first use, and
+loaded with ctypes.  The library's file name carries a digest of the sources and flags,
 so an edited source is never served from a stale build.  A design constant
 that a source leaves to the preprocessor (``#ifndef``) can be set for a build
 with ``use_defines`` without editing the source; each set of definitions is a
@@ -25,7 +26,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -37,7 +40,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("mont_mul", "padd", "pdbl", "bucket_scan_rows", "butterfly",
+KERNELS = ("mont_mul", "mont_pow", "padd", "pdbl", "bucket_scan_rows", "butterfly",
            "ntt_leaf", "padd2", "pdbl2", "padd_mixed", "padd_mixed2",
            "bucket_scan_rows2", "padd_seg_level", "padd2_seg_level")
 
@@ -48,12 +51,13 @@ launches = {k: 0 for k in KERNELS}
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _SIGNATURES = {
-    "mont_mul": (_P, _P, _P, _I64, _P, _P),
+    "mont_mul": (_P, _P, _P, _I64, _I64, _P, _P),
+    "mont_pow": (_P, _P, _I64, _P, _P, _P),
     "padd": (_P,) * 11 + (_I64, _P, _P),
     "pdbl": (_P,) * 10 + (_I64, ctypes.c_int, _P, _P),
     "bucket_scan_rows": (_P,) * 6 + (_I64, ctypes.c_int, _P, _P),
     "butterfly": (_P,) * 3 + (_I64,) * 4 + (_P, _P),
-    "ntt_leaf": (_P,) * 3 + (_I64, ctypes.c_int, _I64, _P, _P),
+    "ntt_leaf": (_P,) * 3 + (_I64, ctypes.c_int, ctypes.c_int, _I64, _P, _P),
     "padd2": (_P,) * 21 + (_I64, _P, _P),
     "pdbl2": (_P,) * 20 + (_I64, ctypes.c_int, _P, _P),
     "padd_mixed": (_P,) * 10 + (_I64, _P, _P),
@@ -111,9 +115,29 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
 def use_defines(defines=()) -> None:
     """Make the library built with ``-D`` of each of ``defines`` (``"NAME=value"``
     strings) the one that launches use, built at its first use; ``()`` is the
-    sources as they stand."""
+    sources as they stand.  Raises on a name that no source mentions."""
     global _lib, _defines
+    _check_defines(defines)
     _defines, _lib = tuple(defines), None
+
+
+def _sources_text(src: Path) -> bytes:
+    """A source and every header, as one byte string."""
+    return src.read_bytes() + b"".join(
+        f.name.encode() + f.read_bytes() for f in sorted(CSRC.glob("*.cuh")))
+
+
+def _mentioned(defines, text: bytes) -> tuple[str, ...]:
+    return tuple(d for d in defines if d.split("=")[0].encode() in text)
+
+
+def _check_defines(defines) -> None:
+    """Raise unless every definition's name appears in a csrc/ source or
+    header: one that none mentions would not be compiled into any object."""
+    text = b"".join(_sources_text(src) for src in sorted(CSRC.glob("*.cu")))
+    unknown = sorted(set(defines) - set(_mentioned(defines, text)))
+    if unknown:
+        raise ValueError(f"no source in {CSRC.name}/ mentions {unknown}")
 
 
 def _flags(defines) -> tuple[str, ...]:
@@ -131,6 +155,7 @@ def _source_digest(defines) -> str:
 def library_path(defines=None) -> Path:
     """The library of ``defines`` (by default those of ``use_defines``)."""
     d = _defines if defines is None else tuple(defines)
+    _check_defines(d)
     return BUILD_DIR / f"libmyzkp_kernels_{_source_digest(d)}.so"
 
 
@@ -141,48 +166,74 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _object_path(src: Path, defines) -> tuple[Path, tuple[str, ...]]:
+    """The object file of one source under ``defines``, and the definitions
+    it is compiled with: only those whose name the source or a header
+    mentions, so that a variant of another source's constant reuses it.  Its
+    name is a digest of the source, the headers and those flags."""
+    text = _sources_text(src)
+    used = _mentioned(defines, text)
+    h = hashlib.sha256(" ".join(_flags(used)).encode() + src.name.encode() + text)
+    return BUILD_DIR / f"{src.stem}_{h.hexdigest()[:16]}.o", used
+
+
+_object_locks: dict = {}
+_object_locks_guard = threading.Lock()
+
+
+def _compile(src: Path, obj: Path, used, nvcc: str) -> str | None:
+    """Compile src to obj unless obj exists (one thread at a time per obj);
+    the compiler's output goes beside it as ``<obj>.log``.  Returns the
+    output if nvcc failed, else None."""
+    with _object_locks_guard:
+        lock = _object_locks.setdefault(obj, threading.Lock())
+    with lock:
+        if obj.exists():
+            return None
+        tmp = obj.with_suffix(f".tmp{os.getpid()}_{threading.get_ident()}.o")
+        try:
+            run = subprocess.run([nvcc, *_flags(used), "-c", "-o", str(tmp), str(src)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            obj.with_suffix(".log").write_text(run.stdout)
+            if run.returncode:
+                return run.stdout
+            os.replace(tmp, obj)
+        finally:
+            tmp.unlink(missing_ok=True)
+    return None
+
+
 def build(defines=None) -> float:
     """Compile the shared library of ``defines`` (by default those of
     ``use_defines``); returns the seconds taken.
 
-    One nvcc per csrc/*.cu source, all started together, each to an object
-    file; then one link.  The compilers' output (register and spill counts
-    from -Xptxas -v) is kept beside the library as ``<library>.log``."""
+    One nvcc per csrc/*.cu source whose object (``_object_path``) is not
+    built yet, all started together; then one link.  The compilers' output
+    (register and spill counts from -Xptxas -v) is kept beside the library
+    as ``<library>.log``."""
     defines = _defines if defines is None else tuple(defines)
     out = library_path(defines)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    sources = sorted(CSRC.glob("*.cu"))
-    objs = [tmp.with_suffix(f".{src.stem}.o") for src in sources]
+    jobs = [(src, *_object_path(src, defines)) for src in sorted(CSRC.glob("*.cu"))]
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([nvcc, *_flags(defines), "-c", "-o", str(obj), str(src)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True)
-             for src, obj in zip(sources, objs)]
-    try:
-        logs = [f"== {src.name}\n{proc.communicate()[0]}"
-                for src, proc in zip(sources, procs)]
-        failed = [src.name for src, proc in zip(sources, procs) if proc.returncode]
-        if not failed:
-            link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
-                                  capture_output=True, text=True)
-            logs.append(f"== link\n{link.stdout}{link.stderr}")
-            if link.returncode:
-                failed.append("link")
-        seconds = time.perf_counter() - t0
-        out.with_suffix(".log").write_text("\n".join(logs))
-        if failed:
-            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs)[-4000:])
-        os.replace(tmp, out)
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        for obj in objs:
-            obj.unlink(missing_ok=True)
-    return seconds
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        errors = list(pool.map(lambda j: _compile(*j, nvcc), jobs))
+    failed = {src.name: err for (src, _, _), err in zip(jobs, errors) if err is not None}
+    if failed:
+        raise RuntimeError(f"nvcc failed on {sorted(failed)}:\n"
+                           + "\n".join(failed.values())[-4000:])
+    tmp = out.with_suffix(f".tmp{os.getpid()}_{threading.get_ident()}.so")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)],
+                          capture_output=True, text=True)
+    logs = [f"== {src.name}\n{obj.with_suffix('.log').read_text()}" for src, obj, _ in jobs]
+    logs.append(f"== link\n{link.stdout}{link.stderr}")
+    out.with_suffix(".log").write_text("\n".join(logs))
+    if link.returncode:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError("nvcc failed on link:\n" + "\n".join(logs)[-4000:])
+    os.replace(tmp, out)
+    return time.perf_counter() - t0
 
 
 def library() -> ctypes.CDLL:
@@ -211,15 +262,39 @@ class _FieldConsts(ctypes.Structure):
 
 @functools.lru_cache(maxsize=None)
 def field_consts(spec: FieldSpec) -> _FieldConsts:
-    """The kernels' constants for a 256-bit-R field (L = 16 limbs)."""
+    """The kernels' constants for a 256-bit-R field (L = 16 limbs) with
+    p < 2^255 (csrc/field.cuh: fe_mul_cc keeps its sum in eight words)."""
     if spec.L != 16:
         raise ValueError(f"the CUDA kernels take L = 16 limbs, not {spec.L}")
+    if spec.p >> 255:
+        raise ValueError("the CUDA kernels take p < 2^255")
     words = lambda x: [(x >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
     c = _FieldConsts()
     c.p[:] = words(spec.p)
     c.one[:] = words((1 << 256) % spec.p)
     c.n0 = (-pow(spec.p, -1, 1 << 32)) % (1 << 32)
     return c
+
+
+class _Exponent(ctypes.Structure):
+    # mirrors struct Exponent in csrc/mont_mul.cu
+    _fields_ = [("w", ctypes.c_uint32 * 8), ("nbits", ctypes.c_int32)]
+
+
+def exponent_words(e: int) -> tuple[tuple[int, ...], int]:
+    """A host exponent 0 <= e < 2^256 as the chain kernel takes it: eight
+    little-endian 32-bit words and the bit length."""
+    if not 0 <= e < 1 << 256:
+        raise ValueError("the exponent must lie in [0, 2^256)")
+    return tuple((e >> (32 * k)) & 0xFFFFFFFF for k in range(8)), e.bit_length()
+
+
+def exponent(e: int) -> _Exponent:
+    words, nbits = exponent_words(e)
+    x = _Exponent()
+    x.w[:] = words
+    x.nbits = nbits
+    return x
 
 
 def launch(kernel: str, device: torch.device, *args) -> None:

@@ -1,46 +1,158 @@
 // K1: elementwise Montgomery multiply a * b * R^-1 mod p over (16, n) limb
-// planes.
+// planes, and its chain: a^e for an exponent known on the host, in one launch.
 //
 // Replaces limb_pallas.mont_mul_pallas (myzkp_tpu/fields/limb_pallas.py:286,
 // kernel body _make_kernel :42), which ran the same product on (32, 128)
-// VMEM tiles.
+// VMEM tiles.  The chain replaces the reference's exponentiation (a lax.scan
+// of mont_mul_pallas steps in myzkp_tpu/fields/limb.py:346-371, pow_const /
+// inv), which the port had run as one K1 launch a product: 368 for a Fermat
+// inversion.
 //
-// Bound on the H100: device memory.  An element moves 192 bytes (two inputs
-// and one output of 16 int32 limbs each, twice the packed size because the
-// interface keeps one 16-bit limb per int32) against ~130 32x32->64-bit
-// multiply-adds.  Design: one thread per element; thread i reads column i
-// of every limb plane, so each warp's loads and stores are 128-byte
-// coalesced, and the whole CIOS product stays in registers (field.cuh).
+// K1.  Bound on the H100: device memory.  An element moves 192 bytes (two
+// inputs and one output of 16 int32 limbs each, twice the packed size
+// because the interface keeps one 16-bit limb per int32) against 264 32-bit
+// multiply-adds.  Design: one thread per element (MYZKP_K1_EPT elements a
+// thread, blocks of MYZKP_K1_THREADS); thread i reads column i of every
+// limb plane, so each warp's loads and stores are 128-byte coalesced, and
+// the product stays in registers (field.cuh, MYZKP_K1_MUL: 0 the
+// carry-chain product, U fe_mul_u<U>).  b is read with a period: element i
+// reads b[i mod nb], so an operand broadcast over leading batch axes (a
+// constant, a table shared by a batch) is never copied out to n elements.
+// Where it repeats at most kMaxReps times (the level table against E = 3),
+// a thread takes one b element and all its repeats, so b crosses device
+// memory once, as the bytes bound counts it; a shorter period (a constant)
+// stays in the caches, and the threads go one to an element.
+//
+// The chain (mont_pow).  Bound: the latency of its dependent products (a
+// few elements at most on the path: the proof's inversions).  Design: the
+// LSB-first ladder acc *= base (where the bit is set), base *= base.  The
+// two products of a bit are independent, so an element sits on a lane pair:
+// the base lane squares, the acc lane multiplies by the base it takes from
+// its partner with __shfl_xor_sync, and the chain is one product deep a bit
+// (254 for p - 2, against 368 for square-and-multiply one product at a
+// time).  a^0 = 1 and 0^e = 0 for e > 0, as the reference.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
 
+#ifndef MYZKP_K1_MUL
+#define MYZKP_K1_MUL 0
+#endif
+#ifndef MYZKP_K1_THREADS
+#define MYZKP_K1_THREADS 256
+#endif
+#ifndef MYZKP_K1_EPT
+#define MYZKP_K1_EPT 1
+#endif
+
 using myzkp::Fe;
 using myzkp::FieldConsts;
 
+// An exponent known on the host: little-endian 32-bit words and its bit
+// length (0 <= nbits <= 256).  Mirrors _ext._Exponent.
+struct Exponent {
+  uint32_t w[myzkp::kWords];
+  int32_t nbits;
+};
+
 namespace {
 
-__global__ void __launch_bounds__(256)
+constexpr int kPowThreads = 64;
+
+__device__ __forceinline__ Fe mul(const Fe& a, const Fe& b, const FieldConsts& c) {
+  return myzkp::fe_mul_sel<MYZKP_K1_MUL>(a, b, c);
+}
+
+constexpr int kMaxReps = 8;
+
+// reps > 0: thread slot j < nb multiplies b[j] into a[j + r nb], r < reps;
+// reps = 0: slot i < n multiplies a[i] by b[i mod nb].
+__global__ void __launch_bounds__(MYZKP_K1_THREADS)
     mont_mul_kernel(const int32_t* __restrict__ a,
                     const int32_t* __restrict__ b, int32_t* __restrict__ out,
-                    int64_t n, FieldConsts c) {
-  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Fe x = myzkp::load_planes(a, n, i);
-  Fe y = myzkp::load_planes(b, n, i);
-  myzkp::store_planes(out, n, i, myzkp::fe_mul(x, y, c));
+                    int64_t n, int64_t nb, int reps, FieldConsts c) {
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * MYZKP_K1_THREADS *
+                            MYZKP_K1_EPT + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < MYZKP_K1_EPT; ++k) {
+    const int64_t slot = first + static_cast<int64_t>(k) * MYZKP_K1_THREADS;
+    if (reps > 0) {
+      if (slot >= nb) return;
+      const Fe y = myzkp::load_planes(b, nb, slot);
+#pragma unroll 1
+      for (int r = 0; r < reps; ++r) {
+        const int64_t i = slot + r * nb;
+        myzkp::store_planes(out, n, i, mul(myzkp::load_planes(a, n, i), y, c));
+      }
+    } else {
+      if (slot >= n) return;
+      const int64_t j = nb == n ? slot : (nb == 1 ? 0 : slot % nb);
+      const Fe x = myzkp::load_planes(a, n, slot);
+      myzkp::store_planes(out, n, slot, mul(x, myzkp::load_planes(b, nb, j), c));
+    }
+  }
+}
+
+// Word k of the exponent with k a runtime index, by selects (no local memory).
+__device__ __forceinline__ uint32_t exp_word(const Exponent& e, int k) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int i = 0; i < myzkp::kWords; ++i) w = i == k ? e.w[i] : w;
+  return w;
+}
+
+__device__ __forceinline__ Fe shfl_xor(const Fe& a, int lane_mask) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < myzkp::kWords; ++k)
+    r.w[k] = __shfl_xor_sync(0xFFFFFFFFu, a.w[k], lane_mask);
+  return r;
+}
+
+// Element i on lanes (2i, 2i + 1); every lane of the warp runs every step
+// (tail pairs on a clamped element), so the shuffles see a full warp.
+__global__ void __launch_bounds__(kPowThreads)
+    mont_pow_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out,
+                         int64_t n, Exponent e, FieldConsts c) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kPowThreads + threadIdx.x;
+  const int64_t i = min(t >> 1, n - 1);
+  const bool base_lane = (t & 1) != 0;
+  Fe x = base_lane ? myzkp::load_planes(a, n, i) : myzkp::fe_one(c);
+#pragma unroll 1
+  for (int bit = 0; bit < e.nbits; ++bit) {
+    const Fe partner = shfl_xor(x, 1);
+    const Fe r = mul(x, base_lane ? x : partner, c);
+    const bool set = (exp_word(e, bit >> 5) >> (bit & 31)) & 1u;
+    x = (base_lane || set) ? r : x;
+  }
+  if (!base_lane && (t >> 1) < n) myzkp::store_planes(out, n, i, x);
 }
 
 }  // namespace
 
 extern "C" int myzkp_mont_mul(const int32_t* a, const int32_t* b,
-                              int32_t* out, int64_t n,
+                              int32_t* out, int64_t n, int64_t nb,
                               const FieldConsts* consts, void* stream) {
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  mont_mul_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(a, b, out, n,
+  if (nb < 1 || n % nb != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int reps = nb < n && n / nb <= kMaxReps ? static_cast<int>(n / nb) : 0;
+  const int64_t slots = reps > 0 ? nb : n;
+  const int64_t per_block = int64_t{MYZKP_K1_THREADS} * MYZKP_K1_EPT;
+  const int64_t blocks = (slots + per_block - 1) / per_block;
+  mont_mul_kernel<<<static_cast<unsigned>(blocks), MYZKP_K1_THREADS, 0,
+                    static_cast<cudaStream_t>(stream)>>>(a, b, out, n, nb, reps,
                                                          *consts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out = a^e elementwise over (16, n) limb planes.
+extern "C" int myzkp_mont_pow(const int32_t* a, int32_t* out, int64_t n,
+                              const Exponent* e, const FieldConsts* consts,
+                              void* stream) {
+  if (n < 1 || e->nbits < 0 || e->nbits > 32 * myzkp::kWords)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto blocks = static_cast<unsigned>((2 * n + kPowThreads - 1) / kPowThreads);
+  mont_pow_kernel<<<blocks, kPowThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, out, n, *e, *consts);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,16 +23,39 @@
 // body _make_ntt_leaf_kernel :156): a full length-m NTT (2 <= m <= 128) along
 // axis -2 of (16, E, m, B), natural order in and out.  The TPU kernel ran the
 // last three stages in place on 8-row sublane groups and unpermuted rows
-// afterwards (ntt_leaf_row_perm), a Mosaic relayout workaround; here every
-// stage is the same Stockham stage and the output needs no permutation.
+// afterwards (ntt_leaf_row_perm), a Mosaic relayout workaround.
+//   Stockham's stage s pairs the rows whose original index differs in bit
+//   L - 1 - s (L = log2 m) with twiddle index j = (original index) mod 2^(L-1-s)
+//   and moves its output bit to the top of the row index.  So the leaf is
+//   the in-place DIF transform over the original positions, and the element
+//   at in-place position P ends in row bitreverse_L(P) (after s < L stages:
+//   the top s bits of P reversed, the others kept).  `stages` runs only the
+//   first s (for the leaf probe); the path runs all L.
 //   Bound on the H100: an element crosses device memory once each way (128
-//   bytes) and takes part in (log2 m) / 2 Montgomery products; at m = 64 and
-//   128 the products bound it (3 and 3.5 x 264 multiply-adds), below 32 the
-//   bytes do.  Design: one block per (e, tile of kCols columns of B); the m x kCols
-//   elements stay in shared memory (8 word planes, 256 * m bytes) for all
-//   log2(m) stages, so x crosses device memory once each way.  One thread
-//   per pair: a stage reads its pair into registers, waits at a barrier,
-//   and writes both outputs in place, so one buffer serves every stage.
+//   bytes), and the products by twiddles that are not 1: at m = 128, 321 of
+//   the 448 (every stage's j = 0 has twiddle 1, the whole last stage
+//   included), which bound it at 0.249 ms by operations against 0.240 ms by
+//   bytes at E = 3, B = 16,384.  Every table of ops/ntt.py starts each
+//   stage row with 1 (R mod p); the block checks each row once, and skips
+//   the j = 0 products of the rows that do (they leave a canonical value
+//   unchanged), so any table gives the plain version's result.
+//   Design: one block per (e, tile of kCols columns of B: MYZKP_K6_COLS,
+//   16 by default).  A thread holds r = MYZKP_K6_RADIX (8) elements of one
+//   column whose positions differ in log2 r bits, and runs those bits'
+//   stages in registers: at m = 128, passes over bits (6, 5, 4), (3, 2, 1),
+//   then bit 0 (whose stage has no products), with two exchanges through
+//   shared memory (the tile, 8 word planes of m x kCols) in between: 4
+//   barriers in all, the first after the twiddle table is staged (packed
+//   words, (m - 1) x 32 B).  The first pass loads from device memory and the
+//   last stores to it straight from registers.  At 16 columns (119
+//   registers, 256 threads, 68 KB) two blocks fit an SM, so one block's
+//   loads and stores overlap the other's products; at 32 columns (128-byte
+//   rows) only one fits and the memory phase runs alone (unroll_sweep.py
+//   leaf, PERF.md).  A warp then spans two thread groups; after the first
+//   pass the groups are taken bit-reversed, so the two differ in the top row
+//   bit, above every later stage's twiddle index, and the j = 0 test is
+//   uniform across the warp (smem_row keeps their rows in distinct banks;
+//   in plain order the skip diverges: PERF.md).
 //   The ragged edge of B is masked; nothing is padded.
 #include <cuda_runtime.h>
 
@@ -68,8 +91,29 @@ __global__ void __launch_bounds__(256)
                       myzkp::fe_mul(myzkp::fe_sub(u, v, c), w, c));
 }
 
-constexpr int kCols = 8;     // columns of B per block
+#ifndef MYZKP_K6_RADIX
+#define MYZKP_K6_RADIX 8
+#endif
+#ifndef MYZKP_K6_COLS
+#define MYZKP_K6_COLS 16
+#endif
+#ifndef MYZKP_K6_MUL
+#define MYZKP_K6_MUL 0
+#endif
+
+constexpr int kCols = MYZKP_K6_COLS;  // columns of B per block
 constexpr int kMaxLeaf = 128;
+constexpr int kRadix = MYZKP_K6_RADIX;
+static_assert(kRadix == 4 || kRadix == 8, "MYZKP_K6_RADIX is 4 or 8");
+static_assert(kCols == 8 || kCols == 16 || kCols == 32, "MYZKP_K6_COLS is 8, 16 or 32");
+constexpr int kWarpBits = __builtin_ctz(32 / kCols);  // thread groups a warp spans: 2^this
+
+// Threads of a block of the R-element kernel: R = kRadix serves m >= kRadix,
+// a smaller R only m = R.
+__host__ __device__ constexpr int leaf_threads(int R) {
+  return (R == kRadix ? kMaxLeaf : R) / R * kCols;
+}
+static_assert(leaf_threads(kRadix) <= 1024, "too many threads a block");
 
 __device__ __forceinline__ Fe smem_load(const uint32_t* sm, int n_el, int idx) {
   Fe r;
@@ -84,50 +128,144 @@ __device__ __forceinline__ void smem_store(uint32_t* sm, int n_el, int idx,
   for (int k = 0; k < myzkp::kWords; ++k) sm[k * n_el + idx] = a.w[k];
 }
 
-__global__ void __launch_bounds__(kMaxLeaf / 2 * kCols)
+// Position of element e of thread group g in a pass whose element bits
+// start at bit lo: g's log2(m / R) bits fill the other positions.
+template <int R>
+__device__ __forceinline__ int leaf_pos(int g, int e, int lo) {
+  constexpr int K = __builtin_ctz(R);
+  return (g & ((1 << lo) - 1)) | (e << lo) | ((g >> lo) << (lo + K));
+}
+
+// The shared-memory row of tile row `row`.  After the first pass the thread
+// groups of one warp differ in the top kWarpBits (W) row bits (the groups
+// are bit-reversed there); those bits are folded onto the
+// low W, so the rows a warp touches fall in distinct banks.  In the first
+// pass the groups of a warp differ in the low W bits, which the fold leaves
+// distinct.  A bijection on [0, m).
+__device__ __forceinline__ int smem_row(int row, int logm) {
+  constexpr int W = kWarpBits;
+  const int s = logm - W;
+  if (W == 0 || s < W) return row;
+  return row ^ ((row >> s) & ((1 << W) - 1));
+}
+
+template <int R>
+__global__ void __launch_bounds__(leaf_threads(R))
     ntt_leaf_kernel(const int32_t* __restrict__ x,
                     const int32_t* __restrict__ tw, int32_t* __restrict__ out,
-                    int64_t tiles, int m, int64_t B, int64_t plane,
-                    FieldConsts c) {
-  extern __shared__ uint32_t sm[];  // word k of element (row, col) at
-                                    // k * n_el + row * kCols + col
+                    int64_t tiles, int logm, int stages, int64_t B,
+                    int64_t plane, FieldConsts c) {
+  constexpr int K = __builtin_ctz(R);
+  // word k of twiddle t at smt[k * kMaxLeaf + t]; word k of element (row,
+  // col) of the tile at smx[k * n_el + row * kCols + col]
+  extern __shared__ uint32_t sm[];
+  uint32_t* smt = sm;
+  uint32_t* smx = sm + myzkp::kWords * kMaxLeaf;
+  const int m = 1 << logm;
   const int n_el = m * kCols;
   const int64_t e = blockIdx.x / tiles;
   const int64_t col0 = (blockIdx.x % tiles) * kCols;
   const int64_t base = e * m * B + col0;
+  // thread -> (group g, column col).  The first pass takes the groups in
+  // order, so a warp's loads read neighbouring rows; the later passes take
+  // them bit-reversed, so that the groups a warp spans (kCols < 32) differ
+  // in their top bits, which lie above every later stage's twiddle index:
+  // the j = 0 test is then uniform across the warp, and the last pass's
+  // stores land on neighbouring rows again
+  const int col = threadIdx.x % kCols, gbits = logm - K;
+  const int g_rev = gbits > 0
+                  ? static_cast<int>(__brev(threadIdx.x / kCols) >> (32 - gbits))
+                  : static_cast<int>(threadIdx.x / kCols);
+  int g = threadIdx.x / kCols;
+  const bool live = col0 + col < B;
 
-  for (int idx = threadIdx.x; idx < n_el; idx += blockDim.x) {
-    const int row = idx / kCols, col = idx % kCols;
-    const Fe v = (col0 + col < B)
-                     ? myzkp::load_planes(x, plane, base + row * B + col)
-                     : myzkp::fe_zero();
-    smem_store(sm, n_el, idx, v);
-  }
+  for (int t = threadIdx.x; t < m - 1; t += blockDim.x)
+    smem_store(smt, kMaxLeaf, t, myzkp::load_planes(tw, m - 1, t));
+  int lo = logm - K;
+  Fe v[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    v[i] = live ? myzkp::load_planes(x, plane, base + int64_t{leaf_pos<R>(g, i, lo)} * B + col)
+                : myzkp::fe_zero();
   __syncthreads();
-
-  // thread -> (pair q, column col); the stage of half-width h pairs rows
-  // (blk * 2h + i, blk * 2h + i + h) into rows (q, q + m / 2)
-  const int q = threadIdx.x / kCols, col = threadIdx.x % kCols;
-  for (int h = m / 2, off = 0; h >= 1; off += h, h >>= 1) {
-    const int blk = q / h, i = q % h;
-    const int iu = (blk * 2 * h + i) * kCols + col;
-    const Fe u = smem_load(sm, n_el, iu);
-    const Fe v = smem_load(sm, n_el, iu + h * kCols);
-    const Fe w = myzkp::load_planes(tw, m - 1, off + i);
-    const Fe su = myzkp::fe_add(u, v, c);
-    const Fe sv = myzkp::fe_mul(myzkp::fe_sub(u, v, c), w, c);
-    __syncthreads();
-    smem_store(sm, n_el, q * kCols + col, su);
-    smem_store(sm, n_el, (q + m / 2) * kCols + col, sv);
-    __syncthreads();
+  // bit b: the stage row of half-width 2^b starts with 1, so its j = 0
+  // products are skipped
+  unsigned unit = 0;
+  for (int b = 0; b < logm; ++b) {
+    bool one = true;
+#pragma unroll
+    for (int k = 0; k < myzkp::kWords; ++k)
+      one &= smt[k * kMaxLeaf + m - (2 << b)] == c.one[k];
+    unit |= static_cast<unsigned>(one) << b;
   }
 
-  for (int idx = threadIdx.x; idx < n_el; idx += blockDim.x) {
-    const int row = idx / kCols, col = idx % kCols;
-    if (col0 + col < B)
-      myzkp::store_planes(out, plane, base + row * B + col,
-                          smem_load(sm, n_el, idx));
+  // bits logm - 1 .. logm - stages are the stages to run; bits >= top are done
+  const int last = logm - stages;
+  int top = logm;
+  for (;;) {
+#pragma unroll
+    for (int t = K - 1; t >= 0; --t) {
+      const int b = lo + t;
+      if (b >= top || b < last) continue;
+      const int h = 1 << b, off = m - 2 * h;  // this stage's row of tw
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (i & (1 << t)) continue;
+        const int i2 = i | (1 << t);
+        const int j = leaf_pos<R>(g, i, lo) & (h - 1);
+        const Fe u = v[i], w = v[i2];
+        v[i] = myzkp::fe_add_cc(u, w, c);
+        const Fe d = myzkp::fe_sub_cc(u, w, c);
+        v[i2] = j == 0 && (unit >> b & 1u)
+                    ? d
+                    : myzkp::fe_mul_sel<MYZKP_K6_MUL>(d, smem_load(smt, kMaxLeaf, off + j), c);
+      }
+    }
+    top = lo;
+    if (top <= last) break;
+    // the next pass: write this pass's elements, read the next one's
+    if (lo + K < logm) __syncthreads();  // every read of the last exchange done
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      smem_store(smx, n_el, smem_row(leaf_pos<R>(g, i, lo), logm) * kCols + col, v[i]);
+    __syncthreads();
+    lo = max(lo - K, 0);
+    g = g_rev;
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      v[i] = smem_load(smx, n_el, smem_row(leaf_pos<R>(g, i, lo), logm) * kCols + col);
   }
+
+  if (!live) return;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int pos = leaf_pos<R>(g, i, lo);
+    const int low = pos & ((1 << last) - 1);
+    const int row = static_cast<int>(__brev(static_cast<unsigned>(pos >> last)) >>
+                                     (32 - stages)) << last | low;
+    myzkp::store_planes(out, plane, base + int64_t{row} * B + col, v[i]);
+  }
+}
+
+template <int R>
+int launch_leaf(const int32_t* x, const int32_t* tw, int32_t* out, int64_t E,
+                int logm, int stages, int64_t B, const FieldConsts& c,
+                cudaStream_t stream) {
+  const int m = 1 << logm;
+  auto smem_of = [](int rows) {
+    return sizeof(uint32_t) * myzkp::kWords * (kMaxLeaf + rows * kCols);
+  };
+  // granted on the current device at the instantiation's largest leaf, so
+  // that launches of any m on any device and thread see the same limit
+  const cudaError_t err = cudaFuncSetAttribute(
+      ntt_leaf_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_of(R == kRadix ? kMaxLeaf : R)));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = smem_of(m);
+  const int64_t tiles = (B + kCols - 1) / kCols;
+  ntt_leaf_kernel<R><<<static_cast<unsigned>(E * tiles), m / R * kCols, smem, stream>>>(
+      x, tw, out, tiles, logm, stages, B, E * m * B, c);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -146,16 +284,18 @@ extern "C" int myzkp_butterfly(const int32_t* x, const int32_t* tw,
 }
 
 // x (16, E, m, B) -> out (16, E, m, B); tw (16, m - 1): the stage tables of
-// half-widths m/2, m/4, ..., 1, concatenated.
+// half-widths m/2, m/4, ..., 1, concatenated.  The first `stages`
+// (1 <= stages <= log2 m) Stockham stages.
 extern "C" int myzkp_ntt_leaf(const int32_t* x, const int32_t* tw,
-                              int32_t* out, int64_t E, int m, int64_t B,
-                              const FieldConsts* consts, void* stream) {
+                              int32_t* out, int64_t E, int m, int stages,
+                              int64_t B, const FieldConsts* consts, void* stream) {
   if (m < 2 || m > kMaxLeaf || (m & (m - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t tiles = (B + kCols - 1) / kCols;
-  const size_t smem = sizeof(uint32_t) * myzkp::kWords * m * kCols;
-  ntt_leaf_kernel<<<static_cast<unsigned>(E * tiles), m / 2 * kCols, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      x, tw, out, tiles, m, B, E * m * B, *consts);
-  return static_cast<int>(cudaGetLastError());
+  const int logm = __builtin_ctz(static_cast<unsigned>(m));
+  if (stages < 1 || stages > logm) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (m == 2) return launch_leaf<2>(x, tw, out, E, logm, stages, B, *consts, s);
+  if (kRadix == 8 && m == 4)
+    return launch_leaf<4>(x, tw, out, E, logm, stages, B, *consts, s);
+  return launch_leaf<kRadix>(x, tw, out, E, logm, stages, B, *consts, s);
 }

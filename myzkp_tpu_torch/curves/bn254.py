@@ -109,15 +109,17 @@ def g2_points_to_device(points, device=None) -> wst.Point:
     return _with_infinity(g2_ops(), infs, (x0, x1), (y0, y1), device)
 
 
-def _ints(a: torch.Tensor):
+def _ints(*coords: torch.Tensor) -> list:
+    """Montgomery limb tensors of one shape -> numpy arrays of host ints, out
+    of the Montgomery domain in one product for all of them."""
     spec = q_spec()
-    return limb.to_int(spec, limb.from_mont(spec, a))
+    return list(limb.to_int(spec, limb.from_mont(spec, torch.stack(coords, 1))))
 
 
 def g1_points_to_host(pt: wst.Point, axis: int = 0) -> list:
     """(n,) device point batch -> list of host PyPoints."""
     x, y, inf = wst.to_affine(g1_ops(), pt, axis=axis)
-    xi, yi = _ints(x), _ints(y)
+    xi, yi = _ints(x, y)
     infn = inf.cpu().numpy()
     return [curve_g1.infinity() if infn[k]
             else curve_g1.point(Fq(int(xi[k])), Fq(int(yi[k])))
@@ -127,7 +129,7 @@ def g1_points_to_host(pt: wst.Point, axis: int = 0) -> list:
 def g2_points_to_host(pt: wst.Point, axis: int = 0) -> list:
     """(n,) device G2 point batch -> list of host PyPoints."""
     x, y, inf = wst.to_affine(g2_ops(), pt, axis=axis)
-    x0, x1, y0, y1 = (_ints(c) for c in (*x, *y))
+    x0, x1, y0, y1 = _ints(*x, *y)
     infn = inf.cpu().numpy()
     return [curve_g2.infinity() if infn[k]
             else curve_g2.point(Fq2([int(x0[k]), int(x1[k])]),

@@ -10,15 +10,20 @@ The plain versions compute in int64: PyTorch on the CPU lacks uint32 ``+``,
 in a column, so the Montgomery product needs no lo/hi split.
 
 ``mont_mul`` is kernel K1 (csrc/mont_mul.cu) for CUDA tensors and
-``mont_mul_ref`` for CPU tensors (the rule of ``_ext.use_kernel``).  Add, sub
-and the rest were plain array code in the reference too and stay plain here.
+``mont_mul_ref`` for CPU tensors (the rule of ``_ext.use_kernel``);
+``pow_const`` (and so ``inv`` and ``batch_inv``'s inversion) is K1's chain
+``mont_pow``, one launch, for CUDA tensors and ``mont_pow_ref`` for CPU ones.
+Add, sub and the rest were plain array code in the reference too and stay
+plain here.
 The constructors (``from_int``, ``const``, ``zeros``, ``one_mont``) make their
 tensors on the card unless the caller names a device (``_ext.resolve_device``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -234,25 +239,51 @@ def mont_mul_ref(spec: FieldSpec, a, b):
 
 
 def mont_mul_cuda(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor):
-    """Launch K1 (csrc/mont_mul.cu) on same-shape contiguous CUDA tensors."""
+    """Launch K1 (csrc/mont_mul.cu) on contiguous CUDA tensors: a (L, *batch)
+    and b holding nb elements, nb dividing a's n; element i of a is
+    multiplied by element i mod nb of b (b of a's shape: nb = n)."""
     _ext.require(a, "a", I32)
-    _ext.require(b, "b", I32, a.shape)
-    if a.shape[0] != spec.L:
-        raise ValueError(f"limb axis {a.shape[0]}, expected {spec.L}")
+    _ext.require(b, "b", I32)
+    if a.shape[0] != spec.L or b.shape[0] != spec.L:
+        raise ValueError(f"limb axes {a.shape[0]}, {b.shape[0]}, expected {spec.L}")
+    n, nb = a.numel() // spec.L, b.numel() // spec.L
+    if n and (nb < 1 or n % nb):
+        raise ValueError(f"b's {nb} elements do not divide a's {n}")
     out = torch.empty_like(a)
-    n = a.numel() // spec.L
     if n:
         _ext.launch("mont_mul", a.device, _ext.ptr(a), _ext.ptr(b),
-                    _ext.ptr(out), n, _ext.consts_ptr(spec))
+                    _ext.ptr(out), n, nb, _ext.consts_ptr(spec))
     return out
 
 
+def _leading_period(b: torch.Tensor, shape: tuple):
+    """The period nb at which b (L, *bs) repeats when broadcast to batch
+    ``shape``, if it is broadcast along leading batch axes only (bs, padded
+    with 1s on the left, is 1 on a prefix of the axes and equal to ``shape``
+    on the rest); else None."""
+    bs = (1,) * (len(shape) - b.dim() + 1) + tuple(b.shape[1:])
+    k = len(shape)
+    while k and bs[k - 1] == shape[k - 1]:
+        k -= 1
+    return math.prod(shape[k:]) if all(d == 1 for d in bs[:k]) else None
+
+
 def mont_mul(spec: FieldSpec, a, b):
-    """(a * b * R^-1) mod p for canonical Montgomery-domain inputs < p."""
+    """(a * b * R^-1) mod p for canonical Montgomery-domain inputs < p.
+
+    On the card an operand broadcast along leading batch axes only is read
+    in place with a period (K1's nb); any other broadcast is copied out to
+    the full shape first."""
     if not _ext.use_kernel(a, b):
         return mont_mul_ref(spec, a, b)
-    a, b = _broadcast_pair(spec.L, a, b)
-    return mont_mul_cuda(spec, a.contiguous(), b.contiguous())
+    shape = tuple(torch.broadcast_shapes(tuple(a.shape[1:]), tuple(b.shape[1:])))
+    if tuple(a.shape[1:]) != shape:
+        a, b = b, a  # the product commutes; put the full-shape operand first
+    nb = _leading_period(b, shape) if tuple(a.shape[1:]) == shape else None
+    if nb is None:
+        a, b = _broadcast_pair(spec.L, a, b)
+        return mont_mul_cuda(spec, a.contiguous(), b.contiguous())
+    return mont_mul_cuda(spec, a.contiguous(), b.reshape(spec.L, nb).contiguous())
 
 
 def mont_sqr(spec: FieldSpec, a):
@@ -273,19 +304,42 @@ def from_mont(spec: FieldSpec, a):
 # Exponentiation / inversion (Montgomery domain)
 # ---------------------------------------------------------------------------
 
-def pow_const(spec: FieldSpec, a, e: int):
-    """a^e for a host exponent e >= 0 (Montgomery in and out).
-
-    LSB-first square-and-multiply; e is known on the host, so zero bits skip
-    their multiply instead of selecting it away."""
+def mont_pow_ref(spec: FieldSpec, a, e: int):
+    """Plain version of K1's chain: a^e (Montgomery in and out), LSB-first
+    square-and-multiply over mont_mul_ref; e is known on the host, so zero
+    bits skip their multiply instead of selecting it away."""
     acc = one_mont(spec, tuple(a.shape[1:]), a.device)
     base = a
     for i in range(e.bit_length()):
         if (e >> i) & 1:
-            acc = mont_mul(spec, acc, base)
+            acc = mont_mul_ref(spec, acc, base)
         if i + 1 < e.bit_length():
-            base = mont_sqr(spec, base)
+            base = mont_mul_ref(spec, base, base)
     return acc.contiguous()
+
+
+def mont_pow_cuda(spec: FieldSpec, a: torch.Tensor, e: int):
+    """Launch K1's chain (csrc/mont_mul.cu: mont_pow) on a contiguous CUDA
+    tensor (L, *batch): a^e elementwise in one launch."""
+    _ext.require(a, "a", I32)
+    if a.shape[0] != spec.L:
+        raise ValueError(f"limb axis {a.shape[0]}, expected {spec.L}")
+    ex = _ext.exponent(e)
+    out = torch.empty_like(a)
+    n = a.numel() // spec.L
+    if n:
+        _ext.launch("mont_pow", a.device, _ext.ptr(a), _ext.ptr(out), n,
+                    ctypes.c_void_p(ctypes.addressof(ex)), _ext.consts_ptr(spec))
+    return out
+
+
+def pow_const(spec: FieldSpec, a, e: int):
+    """a^e for a host exponent 0 <= e < 2^256 (Montgomery in and out);
+    a^0 = 1.  One launch of K1's chain on the card."""
+    _ext.exponent_words(e)  # the range check, on both devices
+    if not _ext.use_kernel(a):
+        return mont_pow_ref(spec, a, e)
+    return mont_pow_cuda(spec, a.contiguous(), e)
 
 
 def inv(spec: FieldSpec, a):
@@ -308,7 +362,8 @@ def _prefix_mul(spec: FieldSpec, x, dim: int):
 
 def batch_inv(spec: FieldSpec, a, axis: int = -1):
     """Montgomery-trick batch inversion along a batch axis (limb axis is 0):
-    inv(a[i]) = prefix[i-1] * suffix[i+1] * inv(total).  Zeros map to zero."""
+    inv(a[i]) = prefix[i-1] * suffix[i+1] * inv(total).  Zeros map to zero.
+    The prefix and suffix scans run side by side, one product a level."""
     dim = axis if axis >= 0 else a.dim() + axis
     if dim < 1:
         raise ValueError("axis must be a batch axis (the limb axis is 0)")
@@ -317,8 +372,8 @@ def batch_inv(spec: FieldSpec, a, axis: int = -1):
     zmask = is_zero(spec, a)
     one_full = one_mont(spec, bshape, a.device)
     safe = select(zmask, one_full, a)
-    prefix = _prefix_mul(spec, safe, dim)
-    suffix = _prefix_mul(spec, safe.flip(dim), dim).flip(dim)
+    scans = _prefix_mul(spec, torch.stack([safe, safe.flip(dim)], 1), dim + 1)
+    prefix, suffix = scans[:, 0], scans[:, 1].flip(dim)
     total_inv = inv(spec, prefix.narrow(dim, n - 1, 1))
     one1 = one_full.narrow(dim, 0, 1)
     left = torch.cat([one1, prefix.narrow(dim, 0, n - 1)], dim=dim)

@@ -41,14 +41,24 @@ def butterfly_ref(spec: FieldSpec, x, tw):
     return _stage64(spec, x.long(), tw).int()
 
 
-def ntt_leaf_ref(spec: FieldSpec, x, tw):
+def _leaf_stages(m: int, stages) -> int:
+    log_m = m.bit_length() - 1
+    s = log_m if stages is None else stages
+    if not 1 <= s <= log_m:
+        raise ValueError(f"stages = {stages}: a length-{m} leaf runs 1 to {log_m}")
+    return s
+
+
+def ntt_leaf_ref(spec: FieldSpec, x, tw, stages=None):
     """Plain version of K6: the length-m NTT along axis 2 of x (L, E, m, B),
     natural order in and out; tw (L, m - 1) holds the stage rows of
-    half-widths m/2, m/4, ..., 1, concatenated."""
+    half-widths m/2, m/4, ..., 1, concatenated.  ``stages`` (default log2 m)
+    runs only the first that many Stockham stages."""
     L, E, m, B = x.shape
+    s = _leaf_stages(m, stages)
     y = x.long().reshape(L, E, 1, m, B)
     off, h = 0, m // 2
-    while h >= 1:
+    for _ in range(s):
         y = _stage64(spec, y, tw[:, off:off + h])
         off, h = off + h, h // 2
     return y.reshape(L, E, m, B).int()
@@ -76,18 +86,21 @@ def butterfly(spec: FieldSpec, x, tw):
     return out
 
 
-def ntt_leaf(spec: FieldSpec, x, tw):
+def ntt_leaf(spec: FieldSpec, x, tw, stages=None):
     """K6: the length-m NTT (m a power of two, 2 <= m <= 128) along axis 2
-    of x (L, E, m, B) int32 contiguous, natural order; tw (L, m - 1)."""
+    of x (L, E, m, B) int32 contiguous, natural order; tw (L, m - 1), each
+    stage row starting with 1 (R mod p): the kernel skips the products by
+    it.  ``stages`` as in ntt_leaf_ref."""
     if not _ext.use_kernel(x, tw):
-        return ntt_leaf_ref(spec, x, tw)
+        return ntt_leaf_ref(spec, x, tw, stages)
     L, E, m, B = x.shape
     if L != spec.L or not 2 <= m <= MAX_LEAF or m & (m - 1):
         raise ValueError(f"leaf input of shape {tuple(x.shape)}")
+    s = _leaf_stages(m, stages)
     _ext.require(x, "x", I32)
     _ext.require(tw, "tw", I32, (L, m - 1))
     out = torch.empty_like(x)
     if out.numel():
         _ext.launch("ntt_leaf", x.device, _ext.ptr(x), _ext.ptr(tw),
-                    _ext.ptr(out), E, m, B, _ext.consts_ptr(spec))
+                    _ext.ptr(out), E, m, s, B, _ext.consts_ptr(spec))
     return out

@@ -24,7 +24,9 @@ The prover's stages run inside ``torch.profiler.record_function`` ranges
 named ``stage:<name>`` (set here by wrapping the functions in STAGES for the
 profiled call only): the quotient stage, the digits' sort, the row gather
 with the scan's inputs, the bucket scan, the lane merge, the window sums
-(bucket sums), Horner and the double-and-add ladders.  Each device event is
+(bucket sums), Horner, the double-and-add ladders, and the conversion of
+points to affine (one batch inversion each: the proof's points on their way
+to the host).  Each device event is
 put in the innermost stage whose range holds the host call that launched it
 (its CUDA runtime call, matched by correlation id), and each stage's host
 time is its ranges' time less the stages nested in them; the table gives per
@@ -104,6 +106,7 @@ STAGES = (
     ("bucket sum", "myzkp_tpu_torch.curves.msm", "_window_sums"),
     ("horner", "myzkp_tpu_torch.curves.msm", "_horner"),
     ("ladder", "myzkp_tpu_torch.curves.weierstrass", "scalar_mul_bits"),
+    ("to affine", "myzkp_tpu_torch.curves.weierstrass", "to_affine"),
 )
 
 

@@ -12,8 +12,10 @@ CUDA events around its calls.  The two trees' kernel times then come from
 one method, and can be compared within one call.  When that script exits 0,
 this tree's time_chains then times DIR's doubling kernels K3 and K8 at the
 chain shapes (chip_smoke.CHAIN_SHAPES): a tree whose wrappers take no step
-count runs a chain of n as n launches, all captured in the one graph.  The
-exit code is DIR's script's.
+count runs a chain of n as n launches, all captured in the one graph; and
+this tree's time_k1 times DIR's K1 at its three shapes and DIR's pow_const
+(a tree without the chain kernel runs it as its loop of K1 launches, in the
+one graph).  The exit code is DIR's script's.
 """
 
 from __future__ import annotations
@@ -44,7 +46,9 @@ def main(argv: list[str]) -> int:
     theirs.time_cases = ours.time_cases
     rc = theirs.main()
     if rc == 0:
-        ours.time_chains(ours.torch.device("cuda", 0), None)
+        dev = ours.torch.device("cuda", 0)
+        ours.time_chains(dev, None)
+        ours.time_k1(dev, None)
     return rc
 
 

@@ -141,6 +141,31 @@ def test_field_consts_match_spec():
     assert (c.n0 * spec.p) % (1 << 32) == (1 << 32) - 1
 
 
+@pytest.mark.parametrize("defines,known", [
+    (("MYZKP_K1_EPT=2",), True),
+    (("MYZKP_K6_COLS=32", "MYZKP_K2_UNROLL=8"), True),
+    (("NDEBUG",), False),
+    (("MYZKP_K1_EPT=2", "MYZKP_NO_SUCH_CONSTANT=1"), False),
+], ids=["k1", "k6-k2", "system-header", "one-unknown"])
+def test_build_definitions_must_name_a_source_constant(defines, known):
+    """A -D definition that no csrc/ source or header mentions would be
+    compiled into no object while the library's name claims it: use_defines
+    and library_path refuse it, and take the others."""
+    before = _ext._defines
+    try:
+        if known:
+            _ext.use_defines(defines)
+            assert _ext.library_path() == _ext.library_path(defines) != \
+                _ext.library_path(())
+        else:
+            with pytest.raises(ValueError, match="mentions"):
+                _ext.use_defines(defines)
+            with pytest.raises(ValueError, match="mentions"):
+                _ext.library_path(defines)
+    finally:
+        _ext.use_defines(before)
+
+
 def test_port_imports_no_jax():
     """Importing every module of the port, those of the NTT, quotient and
     Groth16 slices included, leaves jax and the JAX package out of

@@ -98,6 +98,54 @@ def test_ntt_leaf_ref_matches_pallas_interpret():
         _same(got, want)
 
 
+@pytest.mark.parametrize("m", [2, 16, 128])
+def test_ntt_leaf_ref_stages_equal_butterfly_stages(m):
+    """K6's plain version with stages = s equals s K5 stages (butterfly_ref)
+    run one after another on the same table rows, for s = 1 .. log2 m."""
+    p, E, B = BN254_R, 2, 3
+    spec = tspec.FieldSpec.make(p)
+    x = interop.limbs_from_numpy(_rand(p, (E, m, B), 31 + m), DEV)
+    tw = tntt._leaf_twiddles(spec, m, False, DEV)
+    y, off, h = x.reshape(16, E, 1, m, B), 0, m // 2
+    for s in range(1, m.bit_length()):
+        y = tnk.butterfly_ref(spec, y, tw[:, off:off + h])
+        off, h = off + h, h // 2
+        assert torch.equal(tnk.ntt_leaf_ref(spec, x, tw, s), y.reshape(16, E, m, B))
+    for bad in (0, m.bit_length()):
+        with pytest.raises(ValueError):
+            tnk.ntt_leaf_ref(spec, x, tw, bad)
+
+
+def test_ntt_leaf_ref_all_stages_matches_pallas_interpret():
+    """K6's plain version with stages = log2 m named explicitly against the
+    TPU leaf kernel in interpret mode, as the test above it runs it."""
+    m, E, B = 16, 2, 64
+    x_np = _rand(P32, (E, m, B), 78)
+    spec = tspec.FieldSpec.make(P32)
+    for inv in (False, True):
+        tw = jnp.asarray(jntt._leaf_twiddles_np(FieldSpec.make(P32), m, inv))
+        want = limb_pallas.ntt_leaf_pallas(FieldSpec.make(P32), jnp.asarray(x_np),
+                                           tw, m, True)
+        got = tnk.ntt_leaf_ref(spec, interop.limbs_from_numpy(x_np, DEV),
+                               tntt._leaf_twiddles(spec, m, inv, DEV), stages=4)
+        _same(got, want)
+
+
+@pytest.mark.parametrize("inv", [False, True])
+def test_leaf_twiddle_rows_start_with_one(inv):
+    """K6 skips the products by entry j = 0 of every stage row that starts
+    with 1 (R mod p, Montgomery): each row of the tables ops/ntt.py gives it
+    does, so the paths' leaves skip them all."""
+    spec = tspec.FieldSpec.make(BN254_R)
+    one = torch.tensor(spec.one_limbs, dtype=torch.int32)
+    for m in (2, 4, 8, 16, 32, 64, 128):
+        tw = tntt._leaf_twiddles(spec, m, inv, DEV)
+        h = m // 2
+        while h >= 1:
+            assert torch.equal(tw[:, m - 2 * h], one), (m, h)
+            h //= 2
+
+
 def _ntt_case(p: int, shape, seed: int):
     a_np = _rand(p, shape, seed)
     return (Fp(tspec.FieldSpec.make(p), interop.limbs_from_numpy(a_np, DEV)),

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time the group-law kernels built with other values of their unroll
-constants, on one GPU.
+"""Time the kernels built with other values of their design constants, on
+one GPU.
 
-Run from the repository root:  python3 unroll_sweep.py [add] [dbl]
+Run from the repository root:  python3 unroll_sweep.py [add] [dbl] [mont] [leaf]
 
-The arguments name the families of variants to build and time (both if
+The arguments name the families of variants to build and time (all four if
 none is given).
 
 The constants are the rows of the Montgomery product unrolled in the code of
@@ -23,13 +23,30 @@ flag set at d = 1 on (2, 16384) lanes; K2 at 32,768 points and K7 are held
 to their plain versions bit for bit.  The doubling variants (and the tree)
 time K3 and K8 at the prover's widths, 1 and 16 points, with n = 16 (a Horner
 window) and n = 255 with every step (a ladder's bases), each held to its
-plain version bit for bit.  The last line is a JSON object of every time.
+plain version bit for bit.
+
+The mont variants (csrc/mont_mul.cu) are K1 at blocks of MYZKP_K1_THREADS =
+128, 256, 512 threads with MYZKP_K1_EPT = 1, 2, 4 elements a thread, on the
+carry-chain product (MYZKP_K1_MUL = 0) and on fe_mul_u<8> (8), plus
+fe_mul_u<4> at the tree's block; each times K1 at (16, 8192) (a setup
+to_mont) and at the quotient's level-twiddle pass (3 x 2^21 elements against
+the level table, read with a period), the chain (pow_const, an element on a
+lane pair) at 1, 2 and 16 elements with e = q - 2, and one product's latency
+on one warp: the chain on one element at e = 2^255 less e = 2^16 (256 and
+17 bits, one product deep each, with the pair's shuffle), over 239.  The
+leaf variants (csrc/ntt.cu) are K6 at r = MYZKP_K6_RADIX = 4, 8 elements a
+thread and MYZKP_K6_COLS = 8, 16, 32 columns a block, plus, at the tree's r
+and columns, the products 4 and 8; each times K6 at E = 3, m = 128,
+B = 16,384 running s = 1, 2, 3, 5 and 7 of its stages.  Every variant is held to the plain versions bit for bit.  The last
+line is a JSON object of every time.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -48,14 +65,29 @@ ADD_VARIANTS = {
 # K3 and K8 at the same unroll in one build: they are separate kernels
 DBL_VARIANTS = {"tree": ()} | {
     f"dbl_unroll{u}": (f"MYZKP_K3_UNROLL={u}", f"MYZKP_K8_UNROLL={u}") for u in (1, 2, 4, 8)}
-FAMILIES = {"add": ADD_VARIANTS, "dbl": DBL_VARIANTS}
-KERNELS = ("padd_kernel", "padd_mixed_kernel", "padd_seg_level_kernel", "padd2_kernel",
-           "padd2_seg_level_kernel", "pdbl_kernel", "pdbl2_kernel")
+MONT_VARIANTS = {"tree": ()} | {
+    f"k1_t{t}_e{e}_mul{u}": (f"MYZKP_K1_THREADS={t}", f"MYZKP_K1_EPT={e}", f"MYZKP_K1_MUL={u}")
+    for u in (0, 8) for t in (128, 256, 512) for e in (1, 2, 4) if (t, e, u) != (256, 1, 0)
+} | {"k1_mul4": ("MYZKP_K1_MUL=4",)}
+LEAF_VARIANTS = {"tree": ()} | {
+    f"k6_r{r}_c{c}": (f"MYZKP_K6_RADIX={r}", f"MYZKP_K6_COLS={c}")
+    for r in (4, 8) for c in (8, 16, 32) if (r, c) != (8, 16)
+} | {f"k6_mul{u}": (f"MYZKP_K6_MUL={u}",) for u in (4, 8)}
+FAMILIES = {"add": ADD_VARIANTS, "dbl": DBL_VARIANTS, "mont": MONT_VARIANTS,
+            "leaf": LEAF_VARIANTS}
+GROUP_KERNELS = ("padd_kernel", "padd_mixed_kernel", "padd_seg_level_kernel", "padd2_kernel",
+                 "padd2_seg_level_kernel", "pdbl_kernel", "pdbl2_kernel")
+KERNELS = {"add": GROUP_KERNELS, "dbl": GROUP_KERNELS,
+           "mont": ("mont_mul_kernel", "mont_pow_kernel"),
+           "leaf": ("ntt_leaf_kernel<8>", "ntt_leaf_kernel<4>")}
 K2_WIDTHS = (1 << 15, 1 << 22)
 LANES = 1 << 15
 # (points, n, steps) of the chains: a Horner window and a ladder's bases, on
 # one point and on a window batch
 CHAIN_SHAPES = tuple((pts, n, n == 255) for pts in (1, 16) for n in (16, 255))
+POW_WIDTHS = (1, 2, 16)  # the chain's elements: an inversion and a batch
+LEAF_SHAPE = (3, 128, 1 << 14)  # K6's row: a leaf level of the 2^21 coset NTT
+LEAF_STAGES = (1, 2, 3, 5, 7)
 
 
 def check(name: str, got, want) -> None:
@@ -73,22 +105,13 @@ def main(argv: list[str]) -> int:
     from myzkp_tpu_torch.curves import bn254
 
     todo = [d for d in variants.values() if not _ext.library_path(d).exists()]
+    t0 = time.perf_counter()
     with ThreadPoolExecutor(max(len(todo), 1)) as pool:
-        seconds = list(pool.map(_ext.build, todo))
-    cs.log(f"# built {len(todo)} variants at once in {max(seconds, default=0):.1f} s")
-    for name, defines in variants.items():
-        text = _ext.library_path(defines).with_suffix(".log").read_text()
-        fn = None
-        for line in text.splitlines():
-            if "Compiling entry function" in line:
-                fn = next((k for k in KERNELS if f"{k}P" in line or f"{k}E" in line), None)
-            elif fn and ("registers" in line or "spill" in line):
-                cs.log(f"# {name} ptxas {fn}: {line.split(':', 1)[-1].strip()}")
-        sass = cs.sass_counts(_ext.library_path(defines))
-        for k in KERNELS:
-            c = sass[k]
-            cs.log(f"# {name} sass {k}: total {c['total']}, IMAD {c['IMAD']}, IADD3 "
-                   f"{c['IADD3']}, LDL {c['LDL']}, STL {c['STL']}, SHFL {c['SHFL']}")
+        list(pool.map(_ext.build, todo))
+    cs.log(f"# built {len(todo)} variants at once in {time.perf_counter() - t0:.1f} s")
+    for fam in families:
+        for name, defines in FAMILIES[fam].items():
+            print_build(f"{fam} {name}", _ext.library_path(defines), KERNELS[fam])
 
     dev = torch.device("cuda", 0)
     spec = bn254.q_spec()
@@ -99,9 +122,94 @@ def main(argv: list[str]) -> int:
         time_adds(ADD_VARIANTS, spec, b3, b32, rng, dev, times)
     if "dbl" in families:
         time_chains(DBL_VARIANTS, spec, b3, b32, rng, dev, times)
+    if "mont" in families:
+        time_mont(MONT_VARIANTS, rng, dev, times)
+    if "leaf" in families:
+        time_leaf(LEAF_VARIANTS, rng, dev, times)
     _ext.use_defines(())
     cs.log(json.dumps({"sweep_ms": times}))
     return 0
+
+
+def print_build(label: str, lib, kernels) -> None:
+    """ptxas's registers and spills and the SASS counts of kernels in lib
+    (a template instantiation named kernel<N>)."""
+    fn = None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            arg = re.search(r"kernelILi(\d+)E", m.group(1))
+            name = next((k for k in kernels if k.split("<")[0] in m.group(1)), None)
+            fn = name and (f"{name.split('<')[0]}<{arg.group(1)}>" if arg else name)
+            fn = fn if fn in kernels else None
+        elif fn and ("registers" in line or "spill" in line):
+            cs.log(f"# {label} ptxas {fn}: {line.split(':', 1)[-1].strip()}")
+    sass = cs.sass_counts(lib)
+    for k in kernels:
+        if k in sass:
+            c = sass[k]
+            cs.log(f"# {label} sass {k}: total {c['total']}, IMAD {c['IMAD']}, IADD3 "
+                   f"{c['IADD3']}, LOP3 {c['LOP3']}, LDL {c['LDL']}, STL {c['STL']}, "
+                   f"SHFL {c['SHFL']}, BRA {c['BRA']}")
+
+
+def time_mont(variants, rng, dev, times) -> None:
+    from myzkp_tpu_torch import _ext
+    from myzkp_tpu_torch.fields import limb
+    from myzkp_tpu_torch.fields.spec import bn254_q_spec, bn254_r_spec
+    from myzkp_tpu_torch.ops import ntt
+
+    qspec, rspec = bn254_q_spec(), bn254_r_spec()
+    a, b = cs.random_fe(rng, 8192, dev), cs.random_fe(rng, 8192, dev)
+    n = 1 << 21
+    m1, m2 = ntt._fourstep_split(n)
+    xw = cs.random_fe(rng, 3 * n, dev).reshape(16, 3, m1, m2, 1)
+    tab = ntt.fourstep_tables(rspec, n, False, dev)[0].reshape(16, m1, m2, 1)
+    e = qspec.p - 2
+    xs = {k: cs.random_fe(rng, k, dev) for k in POW_WIDTHS}
+    want_mm = limb.mont_mul_ref(qspec, a, b)
+    want_wide = limb.mont_mul_ref(rspec, xw, tab)
+    want_pow = {k: limb.mont_pow_ref(qspec, x, e) for k, x in xs.items()}
+    one = xs[1]
+    for name, defines in variants.items():
+        _ext.use_defines(defines)
+        check(f"{name}: K1 (16, 8192)", [limb.mont_mul(qspec, a, b)], [want_mm])
+        check(f"{name}: K1 level twiddle", [limb.mont_mul(rspec, xw, tab)], [want_wide])
+        t = times[name]
+        t["k1_8192"] = cs.graph_time_ms(lambda: limb.mont_mul(qspec, a, b), 100)
+        t["k1_level_3x2^21"] = cs.graph_time_ms(lambda: limb.mont_mul(rspec, xw, tab), 20)
+        line = [f"K1 (16, 8192) {t['k1_8192']:.4f} ms, level pass {t['k1_level_3x2^21']:.4f} ms"]
+        for k, x in xs.items():
+            check(f"{name}: chain at {k}", [limb.mont_pow_cuda(qspec, x, e)], [want_pow[k]])
+            t[f"pow_{k}"] = cs.graph_time_ms(lambda: limb.mont_pow_cuda(qspec, x, e), 5)
+        line.append(f"chain at {POW_WIDTHS}: " + ", ".join(
+            f"{t[f'pow_{k}']:.4f}" for k in POW_WIDTHS) + " ms")
+        lat = [cs.graph_time_ms(lambda: limb.mont_pow_cuda(qspec, one, 1 << k), 5)
+               for k in (16, 255)]
+        t["product_latency_us"] = (lat[1] - lat[0]) / 239 * 1e3
+        line.append(f"one product on one warp {t['product_latency_us']:.4f} us "
+                    f"(n = 16: {lat[0]:.4f} ms, n = 255: {lat[1]:.4f} ms)")
+        cs.log(f"# mont {name}: " + "; ".join(line))
+
+
+def time_leaf(variants, rng, dev, times) -> None:
+    from myzkp_tpu_torch import _ext
+    from myzkp_tpu_torch.fields import ntt_kernels as nk
+    from myzkp_tpu_torch.fields.spec import bn254_r_spec
+    from myzkp_tpu_torch.ops import ntt
+
+    spec = bn254_r_spec()
+    E, m, B = LEAF_SHAPE
+    x = cs.random_fe(rng, E * m * B, dev).reshape(16, E, m, B)
+    tw = ntt._leaf_twiddles(spec, m, False, dev)
+    wants = {s: nk.ntt_leaf_ref(spec, x, tw, s) for s in LEAF_STAGES}
+    for name, defines in variants.items():
+        _ext.use_defines(defines)
+        for s in LEAF_STAGES:
+            check(f"{name}: K6 stages = {s}", [nk.ntt_leaf(spec, x, tw, s)], [wants[s]])
+            times[name][f"k6_s{s}"] = cs.graph_time_ms(lambda: nk.ntt_leaf(spec, x, tw, s), 5)
+        cs.log(f"# leaf {name} (E, m, B) = {LEAF_SHAPE}: " + ", ".join(
+            f"s = {s} {times[name][f'k6_s{s}']:.4f} ms" for s in LEAF_STAGES))
 
 
 def time_adds(variants, spec, b3, b32, rng, dev, times) -> None:
