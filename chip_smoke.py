@@ -17,7 +17,15 @@ Phases, one output line each (or more), in order:
                and its G2 instance
                (acc and the bucket table written in place: all four tags,
                flush targets with -1 and at step 0, rows of 0, 1, q - 1, R
-               mod q in every coordinate component, 3000 lanes, K = 4); K7
+               mod q in every coordinate component, 3000 lanes, K = 4; the
+               point table read in order, the row-major contract the scan
+               had before it read by index, and at random repeating
+               indices); K14 gather_planes and K16 scatter_rows in both
+               groups at a fixed-base chunk (8,388,608 int32 indices), the
+               lane merge's 32,768 int64 repeating targets and its bucket
+               table, 2^20 points and ragged sizes, with indices and
+               without, then timed at those shapes beside the PyTorch calls
+               they replaced; K7
                (with and without its select mask) and K8 over F_q2 at the
                MSM's 32,768 lanes (P+P, P+(-P), infinity on either side,
                z != 1, and lanes whose every c0 and c1 is 0, 1, q - 1 or R mod
@@ -61,9 +69,12 @@ Phases, one output line each (or more), in order:
                ladder's bases) and at their earlier shapes (16 points and
                32,768 lanes, n = 1), per double and beside their bounds;
                K4 at the MSM's shape (one window group's sorted digits, K = 64,
-               32,768 lanes; real flush targets checked unique) exact against
-               its plain version, acc and bucket table, and timed beside it,
-               and probe 13: the same 64 steps as 64 launches of K2 with the
+               32,768 lanes, reading the 2^20-point table by the path's own
+               indices, checked below its rows; real flush targets checked
+               unique) exact against its plain version, acc and bucket
+               table, and timed beside it and beside the parent's path
+               (index_select, then the scan of the copy read in order), and
+               probe 13: the same 64 steps as 64 launches of K2 with the
                mask; the lane merge's first level on the scan's acc and the
                real segment heads, exact and timed with cold inputs, and with
                lane 0 the only head (every lane adds);
@@ -89,7 +100,8 @@ Phases, one output line each (or more), in order:
                probe 13 (64 launches of K7 with the mask), as for G1;
   8. pinocchio setup, prove and verify on square_chain(2^20): the proof is
                accepted and the proof of a wrong witness (one x_k changed) is
-               rejected; launch counts of setup and of prove; setup seconds,
+               rejected; launch counts of setup (its fixed-base row tables
+               made anew, as in a fresh process) and of prove; setup seconds,
                prove median of 3, verify seconds (host); then setup and prove
                at m = 2^4 on the card and on the CPU plain versions with the
                same seeds, keys and proofs equal point for point; K3's and
@@ -155,7 +167,8 @@ HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 132 * 64 * 1.98e9
 IMAD_PER_MONT = 264
 LIMB_BYTES = 64  # one element at the tensor interface: 16 int32 limbs
-MSM_KERNELS = ("mont_mul", "mont_pow", "padd", "pdbl", "bucket_scan_rows", "padd_seg_level")
+MSM_KERNELS = ("mont_mul", "mont_pow", "padd", "pdbl", "bucket_scan_rows", "padd_seg_level",
+               "gather_planes", "scatter_rows")
 
 
 def log(msg: str) -> None:
@@ -414,8 +427,9 @@ def phase_bitcheck(dev, results: dict) -> None:
 
 
 SCAN_CASE = ("N = 3000 lanes, K = 4, tags 0-3, flush targets on 3 steps in 10 "
-             "(step 0 included) and -1 elsewhere, 375 rows of 0, 1, q - 1, R mod q "
-             "in every coordinate component at random steps and lanes")
+             "(step 0 included) and -1 elsewhere, 375 table rows of 0, 1, q - 1, R mod q "
+             "in every coordinate component; the table read in order (the row-major "
+             "contract it replaced) and at seeded random indices with repeats")
 
 
 def scan_table(F, S: int, width: int, dev):
@@ -426,27 +440,29 @@ def scan_table(F, S: int, width: int, dev):
     return msm._rows_of_point(wst.infinity(F, (S,), dev), width)[0]
 
 
-def bitcheck_scan(spec, F, b3, rows, K: int, rng, dev) -> int:
-    """K4 (G1) or its G2 instance against the plain version on rows of
-    points: all four tags (the first eight pinned), unique random flush
+def bitcheck_scan(spec, F, b3, table, K: int, rng, dev) -> int:
+    """K4 (G1) or its G2 instance against the plain version on a table of
+    K * N points: all four tags (the first eight pinned), unique random flush
     targets on about 3 steps in 10, step 0 included, -1 elsewhere; N / 8
     rows at seeded random positions hold 0, 1, q - 1 or R mod q in every
-    coordinate component, some of them added (no segment head) to a live
-    accumulator at a step after 0.  acc and the whole bucket table must
-    agree exactly."""
+    coordinate component.  Read in order (idx = arange: step k of lane l
+    reads row k * N + l, the row-major contract the scan had before it read
+    by index), some edge rows are added (no segment head) to a live
+    accumulator at a step after 0; then read at seeded random indices with
+    repeats.  acc and the whole bucket table must agree exactly."""
     from myzkp_tpu_torch.curves import curve_kernels as ck
     from myzkp_tpu_torch.fields import limb
 
-    total, W = rows.shape
+    total, W = table.shape
     N = total // K
-    rows = rows.clone()
+    table = table.clone()
     E = N // 8
-    at = np.sort(rng.choice(total, E, replace=False))  # rows are step-major
+    at = np.sort(rng.choice(total, E, replace=False))
     at_dev = torch.from_numpy(at).to(dev)
     edges = [0, 1, spec.p - 1, (1 << 256) % spec.p]
     for j in range(W // 64 * 3):  # coordinate components: 3 for G1, 6 for G2
         vals = [edges[i] for i in rng.integers(0, 4, E)]
-        rows[at_dev, 16 * j:16 * j + 16] = limb.from_int(spec, vals, dev).T
+        table[at_dev, 16 * j:16 * j + 16] = limb.from_int(spec, vals, dev).T
     tag = torch.from_numpy(rng.integers(0, 4, total).astype(np.int32)).to(dev)
     tag[:8] = torch.tensor([0, 1, 2, 3, 3, 2, 1, 0], dtype=torch.int32)
     if not ((at >= N) & (tag.cpu().numpy()[at] & 2 == 0)).any():
@@ -457,24 +473,36 @@ def bitcheck_scan(spec, F, b3, rows, K: int, rng, dev) -> int:
     if not (tgt[:N] >= 0).any():
         raise AssertionError("bucket scan bitcheck: no flush at step 0")
     g2 = isinstance(b3, tuple)
+    name = "bucket_scan_rows2" if g2 else "bucket_scan_rows"
     scan = ck.bucket_scan_rows2 if g2 else ck.bucket_scan_rows
-    t_k, t_p = scan_table(F, S, W, dev), scan_table(F, S, W, dev)
-    acc = scan(spec, rows, tag, tgt, b3, t_k, K)
-    acc_p = ck.bucket_scan_rows_ref(spec, rows, tag, tgt, b3, t_p, K)
-    torch.cuda.synchronize()
-    return check_equal("bucket_scan_rows2" if g2 else "bucket_scan_rows", [acc, t_k], [acc_p, t_p])
+    at_random = torch.from_numpy(rng.integers(0, total, total).astype(np.int32)).to(dev)
+    if at_random.unique().numel() == total:
+        raise AssertionError("bucket scan bitcheck: no repeated index")
+    err = 0
+    for kind, idx in (("in order", torch.arange(total, dtype=torch.int32, device=dev)),
+                      ("random, repeating", at_random)):
+        t_k, t_p = scan_table(F, S, W, dev), scan_table(F, S, W, dev)
+        acc = scan(spec, table, idx, tag, tgt, b3, t_k, K)
+        acc_p = ck.bucket_scan_rows_ref(spec, table, idx, tag, tgt, b3, t_p, K)
+        torch.cuda.synchronize()
+        err = max(err, check_equal(f"{name} [idx {kind}]", [acc, t_k], [acc_p, t_p]))
+    return err
 
 
 def time_scan(F, b3, pts, dev, results: dict) -> None:
     """The bucket scan at the 2^20 MSM's shape, one window group (c = 16,
-    G = 2, K = 64, 32,768 lanes) of seeded scalars' sorted digits, with the
-    path's own gather, tags and targets: the real targets checked unique,
-    the kernel held to its plain version (acc and the whole bucket table
-    exact; repeated launches rewrite the same rows), both timed; then probe
-    13 (tools/exp_kernel_ledger.py:80): the same K steps as K launches of
-    the select-masked complete add (K2 for G1, K7 for G2)
-    over plane-major inputs laid out beforehand, its result equal to the
-    scan's acc, timed the same way."""
+    G = 2, K = 64, 32,768 lanes) of seeded scalars' sorted digits, reading
+    the 2^20-point table by the path's own indices, with its tags and
+    targets: the indices checked below the table's rows, the real targets
+    unique, the kernel held to its plain version (acc and the whole bucket
+    table exact; repeated launches rewrite the same rows), both timed, and
+    beside them as library_ms the parent's path: the step-major gather
+    (index_select) and the scan over the gathered copy read in order; each
+    of the two also timed alone.  Then probe 13
+    (tools/exp_kernel_ledger.py:80): the same K steps as K launches of the
+    select-masked complete add (K2 for G1, K7 for G2) over plane-major
+    inputs laid out beforehand from its own gathered copy, its result equal
+    to the scan's acc, timed the same way."""
     from myzkp_tpu_torch.curves import curve_kernels as ck, msm
     from myzkp_tpu_torch.curves import weierstrass as wst
 
@@ -492,27 +520,40 @@ def time_scan(F, b3, pts, dev, results: dict) -> None:
     d_sorted, order = torch.sort(digits[:G], dim=1, stable=True)
     vals = (torch.arange(n, dtype=torch.int32, device=dev)[None] << 1) | dneg[:G].int()
     idx, tag, tgt = msm._scan_inputs(vals.gather(1, order), d_sorted, num_buckets, K)
-    table_rows, _ = msm._rows_of_point(pts)
-    rows = table_rows.index_select(0, idx)
-    del table_rows
+    table, C = msm._rows_of_point(pts)
+    if int(idx.min()) < 0 or int(idx.max()) >= table.shape[0]:
+        raise AssertionError(f"{name}: an index outside the {table.shape[0]}-row table")
     real = tgt[tgt >= 0]
     msm._check_unique_targets(real, num_buckets, num_buckets + 1)  # raises
     if (tgt[:N] >= 0).any():
         raise AssertionError(f"{name}: a flush target at step 0")
-    S, W = G * (num_buckets + 1), rows.shape[1]
+    S, W = G * (num_buckets + 1), table.shape[1]
     scan = ck.bucket_scan_rows2 if g2 else ck.bucket_scan_rows
-    t_k, t_p = scan_table(F, S, W, dev), scan_table(F, S, W, dev)
-    kern = lambda: [scan(spec, rows, tag, tgt, b3, t_k, K), t_k]
-    plain = lambda: [ck.bucket_scan_rows_ref(spec, rows, tag, tgt, b3, t_p, K), t_p]
+    t_k, t_p, t_l = (scan_table(F, S, W, dev) for _ in range(3))
+    in_order = torch.arange(K * N, dtype=torch.int32, device=dev)
+    kern = lambda: [scan(spec, table, idx, tag, tgt, b3, t_k, K), t_k]
+    plain = lambda: [ck.bucket_scan_rows_ref(spec, table, idx, tag, tgt, b3, t_p, K), t_p]
+    parent = lambda: [scan(spec, table.index_select(0, idx), in_order, tag, tgt, b3, t_l, K),
+                      t_l]
     heads, flushes = int(((tag & 2) > 0).sum()), int(real.numel())
-    C = 48 * (2 if g2 else 1)
     adds = 42 if g2 else 14  # Montgomery products of a complete add
-    # the used limbs of every row, its tag and target; the real flushes; acc
-    bnd = bound(K * N * (4 * C + 8) + flushes * 4 * C + N * 4 * C + LIMB_BYTES * (C // 48),
-                adds * (K * N - heads))
+    # the used limbs of each table row the steps read, once; each step's
+    # index, tag and target; the real flushes; acc
+    used = int(idx.unique().numel())
+    bnd = bound(used * 4 * C + K * N * 12 + flushes * 4 * C + N * 4 * C
+                + LIMB_BYTES * (C // 48), adds * (K * N - heads))
     shape = f"K = {K}, N = {N} lanes, {heads} heads, {flushes} real flushes"
-    time_cases({name: (shape, kern, plain, 5, 1, bnd)}, results)
+    time_cases({name: (shape, kern, plain, 5, 1, bnd, parent)}, results)
     acc = kern()[0]
+    rows = table.index_select(0, idx)  # the parent's gathered copy
+    split = {"index_select_ms": graph_time_ms(lambda: table.index_select(0, idx), 5),
+             "scan_of_copy_ms": graph_time_ms(
+                 lambda: scan(spec, rows, in_order, tag, tgt, b3, t_l, K), 5)}
+    results.setdefault("_scan_parent_path", {})[name] = split
+    log(f"# {name}: the parent's path {results[name]['library_ms']:.4f} ms = index_select "
+        f"{split['index_select_ms']:.4f} ms + the scan of the copy read in order "
+        f"{split['scan_of_copy_ms']:.4f} ms; the scan reading the table by index "
+        f"{results[name]['ms']:.4f} ms")
 
     # probe 13: K launches of K2 / K7 with the mask, acc <- Q on a head
     q_rows = rows.reshape(K, N, W)
@@ -690,18 +731,25 @@ def time_cases(cases: dict, results: dict) -> None:
     """Each kernel against its plain version (exact), then both timed: the
     kernel by graph replay (graph_time_ms), the plain version with CUDA
     events around its calls; the bound and the library time go beside
-    them."""
+    them.  A case is (shape, kernel, plain, reps, plain reps, bound) and,
+    where PyTorch calls compute the same function, a seventh entry: those
+    calls, held to the kernel's result and timed by graph replay as
+    library_ms (else null: no PyTorch call computes a 256-bit Montgomery
+    product)."""
     as_list = lambda r: [r] if torch.is_tensor(r) else list(r)
-    for name, (shape, kern, plain, reps, preps, bnd) in cases.items():
+    for name, (shape, kern, plain, reps, preps, bnd, *lib) in cases.items():
         err = check_equal(f"{name} [{shape}]", as_list(kern()), as_list(plain()))
         res = results[name]
         res["max_abs_err"] = max(res["max_abs_err"], err)
         ms_k, ms_p = graph_time_ms(kern, reps), cuda_time_ms(plain, preps)
-        # no PyTorch call computes a 256-bit Montgomery product
-        res.update(ms=ms_k, plain_ms=ms_p, library_ms=None, **bnd)
+        ms_l = None
+        if lib:
+            check_equal(f"{name} library [{shape}]", as_list(lib[0]()), as_list(kern()))
+            ms_l = graph_time_ms(lib[0], reps)
+        res.update(ms=ms_k, plain_ms=ms_p, library_ms=ms_l, **bnd)
         log(f"# time {name} [{shape}]: exact vs plain; kernel {ms_k:.4f} ms, "
             f"plain {ms_p:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-            f"({bnd['bound_by']})")
+            f"({bnd['bound_by']})" + (f", library {ms_l:.4f} ms" if lib else ""))
 
 
 def phase_bitcheck_fr(dev, results: dict) -> None:
@@ -1208,6 +1256,205 @@ def phase_bitcheck_g2(dev, results: dict) -> None:
     log(f"# bitcheck bucket_scan_rows2: {SCAN_CASE}: acc and bucket table exact")
 
 
+# The point-row moves K14 and K16 at the path's shapes: a fixed-base chunk
+# (32 windows of the 2^8-entry table for 2^18 scalars: 8,388,608 int32
+# indices into 8,192 rows), the lane merge's (G, B) = (2, 16,384) targets
+# (int64, into the 2 x (2^15 + 2)-row bucket table of the 2^20 MSM, c = 16),
+# the 2^20-point MSM table, and ragged sizes.
+FB_ROWS, FB_INDICES = 32 << 8, 32 << 18
+MERGE_TABLE, MERGE_POINTS = 2 * ((1 << 15) + 2), SCAN_LANES
+ROW_TAILS = (1, 33, 4099)
+
+
+def random_rows(spec, rng, nt: int, C: int, W: int, dev) -> torch.Tensor:
+    """An (nt, W) int32 point table: random 16-bit limbs in the C used
+    columns, zeros after, and 0, 1, q - 1, R mod q in every coordinate
+    component of the first nt / 8 rows and of the last."""
+    from myzkp_tpu_torch.fields import limb
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(0, 1 << 62)))
+    t = torch.randint(0, 1 << 16, (nt, W), generator=gen, dtype=torch.int32, device=dev)
+    t[:, C:] = 0
+    edges = [0, 1, spec.p - 1, (1 << 256) % spec.p]
+    e = max(1, nt // 8)
+    at = torch.cat([torch.arange(e - 1, device=dev), torch.tensor([nt - 1], device=dev)])
+    for j in range(C // 16):
+        vals = [edges[i] for i in rng.integers(0, 4, at.numel())]
+        t[at, 16 * j:16 * j + 16] = limb.from_int(spec, vals, dev).T
+    return t
+
+
+def random_leaves(spec, C: int, n: int, rng, dev) -> list:
+    """The C / 16 coordinate tensors of n points, (16, n) int32: the
+    columns of a random table's used limbs."""
+    t = random_rows(spec, rng, n, C, C, dev)
+    return [t[:, 16 * j:16 * j + 16].T.contiguous() for j in range(C // 16)]
+
+
+def fixed_base_indices(rng, dev) -> torch.Tensor:
+    """A fixed-base chunk's gather indices, as fixed_base_multi makes them:
+    window w's digit of each of the FB_INDICES / 32 scalars, offset by w *
+    2^8, int32, window-major."""
+    digits = rng.integers(0, 256, (32, FB_INDICES // 32)) + (np.arange(32) << 8)[:, None]
+    return torch.from_numpy(digits.reshape(-1).astype(np.int32)).to(dev)
+
+
+def repeating(rng, nt: int, n: int, dtype, dev) -> torch.Tensor:
+    """n indices below nt at random, each of the first n / 16 repeated once
+    more at random places."""
+    idx = rng.integers(0, nt, n)
+    k = max(1, n // 16)
+    idx[rng.integers(0, n, k)] = idx[:k]
+    return torch.from_numpy(idx).to(dtype).to(dev)
+
+
+def phase_bitcheck_rows(dev, results: dict) -> None:
+    """K14 (gather_planes) and K16 (scatter_rows) against their plain
+    versions, exact, in both groups (C = 48, W = 64; C = 96, W = 128).  K14:
+    at a fixed-base chunk's indices (int32, the digits of every window), at
+    the lane merge's targets (int64, random, repeating) and with no indices
+    over the whole bucket table, at ragged sizes with random repeating
+    indices and with none; K16: the 2^20-point MSM table (no targets), the
+    merge's scatter of 32,768 points at int64 targets of which 1 in 16
+    repeat (the tables compared on the rows no two points target; the MSM
+    drops its only repeated rows), and ragged sizes with unique targets and
+    with none, every write over a table of other values, so the zero pad
+    columns and the rows left alone are checked too.  Tables and points:
+    random limbs with rows of 0, 1, q - 1, R mod q in every coordinate
+    component.  Then each timed at the path's shapes beside its plain
+    version, its bound and the PyTorch calls it replaced (library_ms): K14
+    at the fixed-base chunk (index_select, then the transpose's copy) and
+    at the merge's two gathers (the indexing and the transpose), with cold
+    inputs; K16 at 2^20 points (cat, transpose, pad, copy) and at the
+    merge's scatter (the same, then index_put_)."""
+    from myzkp_tpu_torch.curves import bn254, curve_kernels as ck
+
+    rng = np.random.default_rng(SEED + 14)
+    spec = bn254.q_spec()
+    errs = {"gather_planes": 0, "scatter_rows": 0}
+    timed = {}
+    for group, C, W in (("g1", 48, 64), ("g2", 96, 128)):
+        # K14
+        gathers = [("fixed-base chunk", FB_ROWS, fixed_base_indices(rng, dev)),
+                   ("merge targets", MERGE_TABLE,
+                    repeating(rng, MERGE_TABLE, MERGE_POINTS, torch.int64, dev)),
+                   ("merge table", MERGE_TABLE, None)]
+        for n in ROW_TAILS:
+            gathers += [(f"ragged n = {n}", 1000, repeating(rng, 1000, n, torch.int32, dev)),
+                        (f"ragged {n} rows", n, None)]
+        for what, nt, idx in gathers:
+            table = random_rows(spec, rng, nt, C, W, dev)
+            errs["gather_planes"] = max(errs["gather_planes"], check_equal(
+                f"gather_planes [{group}, {what}]", [ck.gather_planes(table, idx, C)],
+                [ck.gather_planes_ref(table, idx, C)]))
+        del table, gathers
+        # K16
+        scatters = [("2^20 points", 1 << LOG_N, 1 << LOG_N, None),
+                    ("merge", MERGE_POINTS, MERGE_TABLE,
+                     repeating(rng, MERGE_TABLE, MERGE_POINTS, torch.int64, dev))]
+        for n in ROW_TAILS:
+            scatters += [(f"ragged n = {n}", n, n + 50, torch.from_numpy(
+                              rng.permutation(n + 50)[:n].astype(np.int32)).to(dev)),
+                         (f"ragged {n} rows", n, n + 50, None)]
+        for what, n, S, tgt in scatters:
+            leaves = random_leaves(spec, C, n, rng, dev)
+            base = random_rows(spec, rng, S, W, W, dev)  # other values, pad included
+            out_k, out_p = base.clone(), base.clone()
+            ck.scatter_rows(leaves, out_k, tgt)
+            ck.scatter_rows_ref(leaves, out_p, tgt)
+            keep = torch.ones(S, dtype=torch.bool, device=dev)
+            if tgt is not None:
+                hits = torch.bincount(tgt.long(), minlength=S)
+                keep = hits <= 1
+            errs["scatter_rows"] = max(errs["scatter_rows"], check_equal(
+                f"scatter_rows [{group}, {what}]", [out_k[keep]], [out_p[keep]]))
+        del leaves, base, out_k, out_p, scatters
+        torch.cuda.synchronize()
+        log(f"# bitcheck gather_planes, scatter_rows [{group}]: a fixed-base chunk "
+            f"({FB_INDICES} int32 indices into {FB_ROWS} rows), the merge's {MERGE_POINTS} "
+            f"int64 repeating targets and its {MERGE_TABLE}-row table, 2^{LOG_N} points, "
+            f"ragged n = {ROW_TAILS} with random repeating indices / unique targets and "
+            f"with none: exact (repeated targets' rows left out)")
+        timed[group] = time_rows(spec, C, W, rng, dev)
+    for k, e in errs.items():
+        results[k] = {"max_abs_err": e}
+    # the kernels line: G1 at the fixed-base chunk (K14) and 2^20 points (K16)
+    for k in errs:
+        results[k].update({f: timed["g1"][k][f] for f in
+                           ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    results["_rows"] = timed
+
+
+def time_rows(spec, C: int, W: int, rng, dev) -> dict:
+    """K14 and K16 of one group timed at the path's shapes (phase_bitcheck_rows);
+    returns {case: timings}."""
+    from myzkp_tpu_torch.curves import curve_kernels as ck
+
+    out = {}
+    # the bytes a gather must move: the used limbs of each distinct row it
+    # reads, once; its indices; the planes it writes
+    gather_bytes = lambda ix, n: ((n if ix is None else int(ix.unique().numel())) * 4 * C
+                                  + (0 if ix is None else ix.nbytes) + n * 4 * C)
+
+    def case(key, shape, kern, plain, lib, nbytes, reps=5):
+        name = key.split()[0]  # the kernel: gather_planes or scatter_rows
+        res = {name: {"max_abs_err": 0}}
+        time_cases({name: (shape, kern, plain, reps, 1, bound(nbytes, 0), lib)}, res)
+        out[key] = res[name]
+
+    old_planes = lambda rows: rows[:, :C].T.contiguous()
+    table = random_rows(spec, rng, FB_ROWS, C, W, dev)
+    idx = fixed_base_indices(rng, dev)
+    n = FB_INDICES
+    case("gather_planes", f"fixed-base chunk: {n} int32 indices into {FB_ROWS} rows",
+         lambda: ck.gather_planes(table, idx, C), lambda: ck.gather_planes_ref(table, idx, C),
+         lambda: old_planes(table.index_select(0, idx)), gather_bytes(idx, n), reps=3)
+    out["gather_planes"]["one_call_ms"] = graph_time_ms(
+        lambda: table[:, :C].T.index_select(1, idx), 3)
+    del table, idx
+    # the merge's gathers, each call on its own copy of the bucket table:
+    # enough copies that the bytes between two uses of one pass the L2
+    base = random_rows(spec, rng, MERGE_TABLE, C, W, dev)
+    copies = [base] + [base.clone() for _ in range(2 * L2_BYTES // base.nbytes + 1)]
+    tgt = repeating(rng, MERGE_TABLE, MERGE_POINTS, torch.int64, dev)
+    for key, ix, n in (("gather_planes merge targets", tgt, MERGE_POINTS),
+                       ("gather_planes merge table", None, MERGE_TABLE)):
+        kern, kept = cold_calls(lambda t, ix=ix: ck.gather_planes(t, ix, C), copies)
+        lib, kept_l = cold_calls(lambda t, ix=ix: old_planes(t if ix is None else t[ix]),
+                                 copies)
+        case(key, f"{n} points from the {MERGE_TABLE}-row bucket table, "
+                  f"{'int64 targets' if ix is not None else 'every row'}; inputs cold "
+                  f"({len(copies)} copies)",
+             kern, lambda ix=ix: ck.gather_planes_ref(copies[0], ix, C), lib,
+             gather_bytes(ix, n), reps=50)
+        kept.clear()
+        kept_l.clear()
+    leaves = random_leaves(spec, C, 1 << LOG_N, rng, dev)
+    rows_k = torch.empty((1 << LOG_N, W), dtype=torch.int32, device=dev)
+    rows_p = torch.empty_like(rows_k)
+    old_rows = lambda ls: torch.nn.functional.pad(torch.cat(ls, dim=0).T,
+                                                  (0, W - C)).contiguous()
+    case("scatter_rows", f"2^{LOG_N} points into a new table",
+         lambda: ck.scatter_rows(leaves, rows_k), lambda: ck.scatter_rows_ref(leaves, rows_p),
+         lambda: old_rows(leaves), (1 << LOG_N) * (4 * C + 4 * W))
+    del leaves, rows_k, rows_p
+    leaves = random_leaves(spec, C, MERGE_POINTS, rng, dev)
+    uniq = torch.from_numpy(rng.permutation(MERGE_TABLE)[:MERGE_POINTS]).to(dev)
+    t_k, t_p, t_l = (base.clone() for _ in range(3))
+
+    def index_put(ls):
+        t_l[uniq] = old_rows(ls)
+        return t_l
+    case("scatter_rows merge", f"{MERGE_POINTS} points at int64 targets into the "
+                               f"{MERGE_TABLE}-row bucket table",
+         lambda: ck.scatter_rows(leaves, t_k, uniq),
+         lambda: ck.scatter_rows_ref(leaves, t_p, uniq), lambda: index_put(leaves),
+         MERGE_POINTS * (4 * C + 8 + 4 * W), reps=50)
+    del copies, base
+    return out
+
+
 # Tail lengths for the add kernels: not multiples of a block (64 or 128
 # threads), of a warp's 16 lane pairs, or of 2.
 TAILS = (1, 17, 63, 65, 4097, SCAN_LANES - 5)
@@ -1513,7 +1760,8 @@ def phase_g2_msm(dev, results: dict) -> None:
     got = bn254.g2_points_to_host(wst.point_map(lambda c: c[:, None], res))[0]
     if got != exp:
         raise AssertionError("G2 MSM 2^20: result differs from the host golden")
-    need = ("padd2", "pdbl2", "bucket_scan_rows2", "padd2_seg_level")
+    need = ("padd2", "pdbl2", "bucket_scan_rows2", "padd2_seg_level", "gather_planes",
+            "scatter_rows")
     if min(counts.get(k, 0) for k in need) < 1:
         raise AssertionError(f"G2 MSM: a kernel of {need} never launched: {counts}")
     med, ts = median_ms(lambda: msm.msm(F, b3, pts, k_limbs))
@@ -1529,6 +1777,21 @@ def phase_g2_msm(dev, results: dict) -> None:
 
 
 K1_PROVE_LAUNCHES = 100  # K1 + its chain in a prove at 2^20 (818 / 828 before)
+
+
+def fresh_tables(fn):
+    """fn() with the fixed-base row tables made anew, as a setup in a fresh
+    process makes them (K16; the host tables stay loaded)."""
+    from myzkp_tpu_torch.curves import fixed_base
+
+    fixed_base._table_rows.cache_clear()
+    return fn()
+
+
+def check_setup_launches(name: str, counts: dict) -> None:
+    need = ("gather_planes", "scatter_rows", "padd", "padd2")
+    if min(counts.get(k, 0) for k in need) < 1:
+        raise AssertionError(f"{name} setup: a kernel of {need} never launched: {counts}")
 
 
 def check_k1_launches(name: str, counts: dict) -> None:
@@ -1567,13 +1830,16 @@ def phase_pinocchio(dev, results: dict) -> None:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    (pk, vk), setup_counts = counted(lambda: pin.setup(qap, random.Random(SEED)))
+    (pk, vk), setup_counts = counted(lambda: fresh_tables(
+        lambda: pin.setup(qap, random.Random(SEED))))
     setup_s = time.perf_counter() - t0
+    check_setup_launches("pinocchio", setup_counts)
     t0 = time.perf_counter()
     proof, prove_counts = counted(lambda: pin.prove(asg, pk, qap, random.Random(SEED + 1)))
     first_s = time.perf_counter() - t0
     need = ("mont_mul", "padd", "pdbl", "bucket_scan_rows", "ntt_leaf", "padd2", "pdbl2",
-            "bucket_scan_rows2", "padd_seg_level", "padd2_seg_level")
+            "bucket_scan_rows2", "padd_seg_level", "padd2_seg_level", "gather_planes",
+            "scatter_rows")
     if min(prove_counts.get(k, 0) for k in need) < 1:
         raise AssertionError(f"prove 2^{LOG_M_PIN}: a kernel of {need} never launched: "
                              f"{prove_counts}")
@@ -1839,13 +2105,16 @@ def phase_groth16(dev, results: dict) -> None:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    (pk, vk), setup_counts = counted(lambda: g16.setup(qap, npub, random.Random(SEED)))
+    (pk, vk), setup_counts = counted(lambda: fresh_tables(
+        lambda: g16.setup(qap, npub, random.Random(SEED))))
     setup_s = time.perf_counter() - t0
+    check_setup_launches("groth16", setup_counts)
     t0 = time.perf_counter()
     proof, prove_counts = counted(lambda: g16.prove(asg, pk, qap, random.Random(SEED + 1)))
     first_s = time.perf_counter() - t0
     need = ("mont_mul", "padd", "pdbl", "bucket_scan_rows", "ntt_leaf", "padd2", "pdbl2",
-            "bucket_scan_rows2", "padd_seg_level", "padd2_seg_level")
+            "bucket_scan_rows2", "padd_seg_level", "padd2_seg_level", "gather_planes",
+            "scatter_rows")
     if min(prove_counts.get(k, 0) for k in need) < 1:
         raise AssertionError(f"groth16 prove 2^{LOG_M_G16}: a kernel of {need} never "
                              f"launched: {prove_counts}")
@@ -1864,6 +2133,8 @@ def phase_groth16(dev, results: dict) -> None:
                            "prove_first_s": first_s, "verify_s": verify_s,
                            "circuit_s": build_s, "setup_launches": setup_counts,
                            "prove_launches": prove_counts}
+    for k in ("gather_planes", "scatter_rows"):
+        results[k]["launches"] = prove_counts[k]
     log(f"# groth16 m = 2^{LOG_M_G16}, {npub} public inputs: circuit {build_s:.3f} s; "
         f"setup {setup_s:.3f} s; prove first {first_s:.3f} s, median {med:.2f} ms of "
         f"{[round(t, 2) for t in ts]}; verify {verify_s:.3f} s (host pairing): accepted; "
@@ -1930,6 +2201,10 @@ SOURCES = {
                        "myzkp_tpu/curves/curve_pallas.py:322"),
     "padd2_seg_level": ("myzkp_tpu_torch/csrc/curve2.cu",
                         "myzkp_tpu/curves/curve_pallas.py:534"),
+    # probe 14's row gather with probe 16's rows -> planes transpose fused in
+    "gather_planes": ("myzkp_tpu_torch/csrc/rows.cu", "tools/exp_gather_pallas.py:33"),
+    # probe 16's planes -> rows transpose, written at targets
+    "scatter_rows": ("myzkp_tpu_torch/csrc/rows.cu", "tools/exp_transpose.py:78"),
 }
 
 
@@ -1941,6 +2216,7 @@ def main() -> int:
     results = {k: {} for k in SOURCES}
     phase_bitcheck(dev, results)
     phase_bitcheck_g2(dev, results)
+    phase_bitcheck_rows(dev, results)
     phase_bitcheck_levels(dev, results)
     phase_bitcheck_chains(dev, results)
     phase_bitcheck_fr(dev, results)
@@ -1977,6 +2253,8 @@ def main() -> int:
     log(f"# mixed_add {json.dumps(results['_mixed_add'])}")
     log(f"# groth16 {json.dumps(results['_groth16'])}")
     log(f"# probe13 {json.dumps(results['_probe13'])}")
+    log(f"# scan_parent_path {json.dumps(results['_scan_parent_path'])}")
+    log(f"# rows {json.dumps(results['_rows'])}")
     log(f"# padd_lanes {json.dumps(results['_padd_lanes'])}")
     log(f"# levels_all_adds {json.dumps(results['_levels_all_adds'])}")
 

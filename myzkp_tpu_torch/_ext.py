@@ -42,7 +42,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 KERNELS = ("mont_mul", "mont_pow", "padd", "pdbl", "bucket_scan_rows", "butterfly",
            "ntt_leaf", "padd2", "pdbl2", "padd_mixed", "padd_mixed2",
-           "bucket_scan_rows2", "padd_seg_level", "padd2_seg_level")
+           "bucket_scan_rows2", "padd_seg_level", "padd2_seg_level", "gather_planes",
+           "scatter_rows")
 
 # Launches of each kernel since the last reset_launches().  A wrapper adds one
 # where it launches its kernel (launch() below) and nowhere else.
@@ -55,16 +56,18 @@ _SIGNATURES = {
     "mont_pow": (_P, _P, _I64, _P, _P, _P),
     "padd": (_P,) * 11 + (_I64, _P, _P),
     "pdbl": (_P,) * 10 + (_I64, ctypes.c_int, _P, _P),
-    "bucket_scan_rows": (_P,) * 6 + (_I64, ctypes.c_int, _P, _P),
+    "bucket_scan_rows": (_P,) * 7 + (_I64, ctypes.c_int, _P, _P),
     "butterfly": (_P,) * 3 + (_I64,) * 4 + (_P, _P),
     "ntt_leaf": (_P,) * 3 + (_I64, ctypes.c_int, ctypes.c_int, _I64, _P, _P),
     "padd2": (_P,) * 21 + (_I64, _P, _P),
     "pdbl2": (_P,) * 20 + (_I64, ctypes.c_int, _P, _P),
     "padd_mixed": (_P,) * 10 + (_I64, _P, _P),
     "padd_mixed2": (_P,) * 19 + (_I64, _P, _P),
-    "bucket_scan_rows2": (_P,) * 7 + (_I64, ctypes.c_int, _P, _P),
+    "bucket_scan_rows2": (_P,) * 8 + (_I64, ctypes.c_int, _P, _P),
     "padd_seg_level": (_P,) * 9 + (_I64,) * 3 + (_P, _P),
     "padd2_seg_level": (_P,) * 16 + (_I64,) * 3 + (_P, _P),
+    "gather_planes": (_P, _P, ctypes.c_int, _P, _I64, ctypes.c_int, ctypes.c_int, _P),
+    "scatter_rows": (_P,) * 7 + (ctypes.c_int, _P, _I64, ctypes.c_int, ctypes.c_int, _P),
 }
 
 _lib = None

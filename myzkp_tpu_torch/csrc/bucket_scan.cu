@@ -1,6 +1,6 @@
-// K4 and its G2 instance: Pippenger's segmented bucket scan over step-major
-// point rows, with the segment flushes written by the kernel into the bucket
-// table.
+// K4 and its G2 instance: Pippenger's segmented bucket scan over the point
+// table read by index in step-major order, with the segment flushes written
+// by the kernel into the bucket table.
 //
 // Replace curve_pallas.bucket_scan_rows (myzkp_tpu/curves/curve_pallas.py:425,
 // kernel _make_bucket_scan_kernel :365) for G1, and for G2 the K-step
@@ -9,11 +9,19 @@
 // tile held 3-leaf G1 rows only.  Here one template over the element type (Fe
 // for G1, Fe2 for G2) on group.cuh's padd serves both, with one C entry point
 // per instance: myzkp_bucket_scan_rows (G1) and myzkp_bucket_scan_rows2 (G2).
+// The reference gathered the rows in step-major order into a copy first
+// (jnp.take, myzkp_tpu/curves/msm.py:309); reading the table by index here
+// is the MSM's part of probe 14 (tools/exp_gather_pallas.py:33), fused into
+// the scan as its docstring planned, so no gathered copy is made.
 //
 // Contract.  A row holds C used 16-bit limbs, one per int32: C = 48 for G1
 // (x | y | z) and 96 for G2 (x0 | x1 | y0 | y1 | z0 | z1), in W = 64 or 128
 // int32 (C rounded up to a multiple of 64, the rest unused).
-//   rows    (K * N, W) int32: row k*N + l is lane l's point at step k;
+//   table   (Nt, W) int32: the point table, one point a row;
+//   idx     (K * N,) int32: row k*N + l is lane l's table row at step k.
+//           Indices may repeat (both windows of a group read each point);
+//           they must lie in [0, Nt), which the kernel does not check (the
+//           caller builds them from an iota);
 //   tag     (K * N,) int32: bit 0 negates the point's y, bit 1 marks a
 //           segment head;
 //   tgt     (K * N,) int32: the row of buckets that receives lane l's
@@ -25,14 +33,16 @@
 //   acc     (C, N) int32 out: each lane's accumulator after step K-1, as limb
 //           planes.
 // Per step: if tgt >= 0, write the accumulator to buckets[tgt]; then
-// acc <- Q on a segment head, else acc <- acc + Q, Q's y negated if bit 0 is set.
+// acc <- Q = table[idx] on a segment head, else acc <- acc + Q, Q's y negated
+// if bit 0 is set.
 //
 // Bound on the H100: the integer multiplies of the complete adds, one per step
 // that is not a segment head: 14 Montgomery products for G1 and 42 for G2
 // (14 F_q2 products of 3 each).  At the MSM's shape (K = 64, N = 32,768, 3% of
 // the steps heads) that is 0.44 ms for G1 and 1.33 ms for G2, against 0.13 ms
-// and 0.26 ms for the bytes the function must move: the used limbs of every
-// row, the tags and targets, the real flushes (3% of the steps) and acc.
+// and 0.26 ms for the bytes the function must move: the used limbs of each
+// step's row, its index, tag and target, the real flushes (3% of the steps)
+// and acc.
 //
 // Design.  One thread owns one lane and loops over the K steps itself, in
 // place of the TPU's sequential grid axis; its accumulator stays in registers
@@ -42,15 +52,19 @@
 // stream of K * N pre-add accumulators is written, and no caller scatters one.
 // Each lane stages its rows in shared memory with cp.async, double-buffered,
 // so that step k+1's row is in flight while step k adds; only the C used
-// limbs are copied.  A lane's staged row starts every C + 4 words, an odd
+// limbs are copied, straight from the table row its index names.  A lane
+// loads its index two steps ahead, so the address of step k+1's copy is in a
+// register when the copy is issued and the index load's latency hides under
+// an add like the row's.  A lane's staged row starts every C + 4 words, an odd
 // number of 16-byte units, so the 8 lanes of one 16-byte shared-memory phase
 // fall on 32 distinct banks.  Before its add a lane packs its staged limbs
 // into 32-bit words in place and negates y there, and the formula reads Q
 // from shared memory where it needs it (its first six products) rather than
 // holding it in registers; b3 sits in shared memory too.  That leaves the G2
 // instance's registers to the accumulator and the formula's temporaries: it
-// still reaches 255 and spills 120 B, against K7's 256 B with P, Q and b3 in
-// registers (the G1 instance: 148, no spill).  A lane needs 2 (C + 4) words
+// still reaches 255 with a 120-byte stack frame (132 B of spill stores; 80
+// and 92 B when it read a gathered copy in order, with no index), against
+// K7's 256 B with P, Q and b3 in registers (the G1 instance: 144, no spill).  A lane needs 2 (C + 4) words
 // of shared memory, so a block is 64 lanes for G1 and 32 for G2: 26 KB and
 // 25 KB, under the 48 KB of static shared memory.  What is left between the
 // kernel and its bound is latency: 32,768 lanes give about 8 warps an SM for
@@ -58,8 +72,12 @@
 // scan but deepen the lane merge; K stays the reference's 64.
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
 #include "group.cuh"
 
+using myzkp::cp_async16;
+using myzkp::cp_async_commit;
+using myzkp::cp_async_wait;
 using myzkp::Fe;
 using myzkp::Fe2;
 using myzkp::FieldConsts;
@@ -88,24 +106,6 @@ static_assert(kSlot<Fe> / 4 % 2 == 1 && kSlot<Fe2> / 4 % 2 == 1,
 static_assert(2 * kThreads<Fe> * kSlot<Fe> * 4 <= 48 * 1024 &&
                   2 * kThreads<Fe2> * kSlot<Fe2> * 4 <= 48 * 1024,
               "two staged rows a lane must fit static shared memory");
-
-// ---- asynchronous copies into shared memory -------------------------------
-
-__device__ __forceinline__ void cp_async16(uint32_t* dst, const int32_t* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most kPending of this thread's copy groups are in flight.
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 // The C used limbs of a global row into a lane's shared slot, as one group.
 template <class E>
@@ -238,7 +238,8 @@ __device__ __forceinline__ void set_infinity(Point<Fe2>& p,
 
 template <class E>
 __global__ void __launch_bounds__(kThreads<E>)
-    bucket_scan_kernel(const int32_t* __restrict__ rows,
+    bucket_scan_kernel(const int32_t* __restrict__ table,
+                       const int32_t* __restrict__ idx,
                        const int32_t* __restrict__ tag,
                        const int32_t* __restrict__ tgt,
                        const int32_t* __restrict__ b3c0,
@@ -254,8 +255,9 @@ __global__ void __launch_bounds__(kThreads<E>)
   const int64_t l = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (l >= n_lanes) return;  // no barrier below: a lane touches its own slots only
 
-  stage_row<E>(staged[0][threadIdx.x], rows + l * W);
+  stage_row<E>(staged[0][threadIdx.x], table + static_cast<int64_t>(idx[l]) * W);
   int32_t t_next = tag[l], g_next = tgt[l];
+  int32_t i_next = K > 1 ? idx[n_lanes + l] : 0;  // step 1's table row
   Point<E> acc;
   set_infinity(acc, c);
   for (int k = 0; k < K; ++k) {
@@ -263,9 +265,11 @@ __global__ void __launch_bounds__(kThreads<E>)
     uint32_t* q = staged[k & 1][threadIdx.x];
     if (k + 1 < K) {
       const int64_t r = static_cast<int64_t>(k + 1) * n_lanes + l;
-      stage_row<E>(staged[(k + 1) & 1][threadIdx.x], rows + r * W);
+      stage_row<E>(staged[(k + 1) & 1][threadIdx.x],
+                   table + static_cast<int64_t>(i_next) * W);
       t_next = tag[r];
       g_next = tgt[r];
+      if (k + 2 < K) i_next = idx[r + n_lanes];
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -287,38 +291,39 @@ __global__ void __launch_bounds__(kThreads<E>)
 }
 
 template <class E>
-int launch_scan(const int32_t* rows, const int32_t* tag, const int32_t* tgt,
-                const int32_t* b3c0, const int32_t* b3c1, int32_t* acc,
-                int32_t* buckets, int64_t n_lanes, int K,
+int launch_scan(const int32_t* table, const int32_t* idx, const int32_t* tag,
+                const int32_t* tgt, const int32_t* b3c0, const int32_t* b3c1,
+                int32_t* acc, int32_t* buckets, int64_t n_lanes, int K,
                 const FieldConsts* consts, void* stream) {
   const unsigned blocks =
       static_cast<unsigned>((n_lanes + kThreads<E> - 1) / kThreads<E>);
   bucket_scan_kernel<E><<<blocks, kThreads<E>, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      rows, tag, tgt, b3c0, b3c1, acc, buckets, n_lanes, K, *consts);
+      table, idx, tag, tgt, b3c0, b3c1, acc, buckets, n_lanes, K, *consts);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// G1: b3 one (16,) tensor; rows and buckets 64 int32 wide, acc (48, N).
-extern "C" int myzkp_bucket_scan_rows(const int32_t* rows, const int32_t* tag,
-                                      const int32_t* tgt, const int32_t* b3,
-                                      int32_t* acc, int32_t* buckets,
-                                      int64_t n_lanes, int K,
+// G1: b3 one (16,) tensor; table and buckets 64 int32 wide, acc (48, N).
+extern "C" int myzkp_bucket_scan_rows(const int32_t* table, const int32_t* idx,
+                                      const int32_t* tag, const int32_t* tgt,
+                                      const int32_t* b3, int32_t* acc,
+                                      int32_t* buckets, int64_t n_lanes, int K,
                                       const FieldConsts* consts, void* stream) {
-  return launch_scan<Fe>(rows, tag, tgt, b3, nullptr, acc, buckets, n_lanes, K,
-                         consts, stream);
+  return launch_scan<Fe>(table, idx, tag, tgt, b3, nullptr, acc, buckets,
+                         n_lanes, K, consts, stream);
 }
 
-// G2: b3 the pair (c0, c1) of (16,) tensors; rows and buckets 128 int32
+// G2: b3 the pair (c0, c1) of (16,) tensors; table and buckets 128 int32
 // wide, acc (96, N).
-extern "C" int myzkp_bucket_scan_rows2(const int32_t* rows, const int32_t* tag,
-                                       const int32_t* tgt, const int32_t* b3c0,
-                                       const int32_t* b3c1, int32_t* acc,
-                                       int32_t* buckets, int64_t n_lanes, int K,
+extern "C" int myzkp_bucket_scan_rows2(const int32_t* table, const int32_t* idx,
+                                       const int32_t* tag, const int32_t* tgt,
+                                       const int32_t* b3c0, const int32_t* b3c1,
+                                       int32_t* acc, int32_t* buckets,
+                                       int64_t n_lanes, int K,
                                        const FieldConsts* consts,
                                        void* stream) {
-  return launch_scan<Fe2>(rows, tag, tgt, b3c0, b3c1, acc, buckets, n_lanes, K,
-                          consts, stream);
+  return launch_scan<Fe2>(table, idx, tag, tgt, b3c0, b3c1, acc, buckets,
+                          n_lanes, K, consts, stream);
 }

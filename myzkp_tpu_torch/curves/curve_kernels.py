@@ -4,7 +4,9 @@ scan) and K9 (mixed add, optional select); G2 K7 (complete add over F_q2,
 optional select), K8 (a chain of complete doublings), K10 (mixed add,
 optional select) and K4's G2 instance (the bucket scan over F_q2); in both
 groups one level of the lane merge's segmented scan (``padd_seg_level``,
-``padd2_seg_level``) on the complete add's body.
+``padd2_seg_level``) on the complete add's body, and the moves between a
+row-major point table and a point's limb planes: K14 (``gather_planes``, rows
+by index into planes) and K16 (``scatter_rows``, planes into rows at targets).
 
 Counterparts of ``padd_fused`` / ``padd_sel_fused``, ``pdbl_fused``,
 ``bucket_scan_rows``, ``padd_mixed_fused`` / ``padd_mixed_sel_fused``,
@@ -13,11 +15,14 @@ Counterparts of ``padd_fused`` / ``padd_sel_fused``, ``pdbl_fused``,
 ``myzkp_tpu/curves/curve_pallas.py``; the G2 scan replaces the reference's
 ``lax.scan`` of ``padd2_sel_fused`` (``myzkp_tpu/curves/msm.py:215``), and
 the levels the rolls, selects and add of one level of its ``_seg_scan_hs``
-(``myzkp_tpu/curves/msm.py:335-357``).  The
-wrappers (``padd``, ``pdbl``, ``bucket_scan_rows``, ``padd_mixed``,
-``padd2``, ``pdbl2``, ``padd_mixed2``, ``bucket_scan_rows2``)
-launch the CUDA kernel for CUDA tensors and run the plain version (``*_ref``,
-int64 inside) for CPU tensors.  One formula text each (``_padd64``,
+(``myzkp_tpu/curves/msm.py:335-357``); K14 and K16 replace the probes
+``tools/exp_gather_pallas.py:33`` and ``tools/exp_transpose.py:78`` and the
+reference's ``jnp.take`` and transposes around its row tables
+(``myzkp_tpu/curves/msm.py:190-212``).  The wrappers (``padd``, ``pdbl``,
+``bucket_scan_rows``, ``padd_mixed``, ``padd2``, ``pdbl2``, ``padd_mixed2``,
+``bucket_scan_rows2``, ``gather_planes``, ``scatter_rows``) launch the CUDA
+kernel for CUDA tensors and run the plain version (``*_ref``, int64 inside
+for the arithmetic) for CPU tensors.  One formula text each (``_padd64``,
 ``_padd_mixed64``, ``_pdbl64``) serves both groups through an ops triple, and
 replays ``weierstrass.py``'s formulas step for step, so the kernels agree with
 it limb for limb.  A G2 coordinate is a ``(c0, c1)`` pair of limb tensors; its
@@ -275,14 +280,16 @@ def padd2_seg_level_ref(spec: FieldSpec, b3, x, flags, d: int):
     return padd2_ref(spec, b3, xs, x, flags), flags | shifted
 
 
-def bucket_scan_rows_ref(spec: FieldSpec, rows, tag, tgt, b3, buckets, K: int):
+def bucket_scan_rows_ref(spec: FieldSpec, table, idx, tag, tgt, b3, buckets, K: int):
     """Plain version of K4 (G1, b3 one (L,) tensor) and of its G2 instance
-    (b3 a (c0, c1) pair): contract in csrc/bucket_scan.cu.  Writes the real
-    flushes into ``buckets`` in place and returns acc (C, N)."""
+    (b3 a (c0, c1) pair): contract in csrc/bucket_scan.cu.  Reads the rows
+    ``table.index_select(0, idx)`` (which raises on an index out of range),
+    writes the real flushes into ``buckets`` in place and returns acc (C, N)."""
     e = 2 if isinstance(b3, tuple) else 1  # base-field components a coordinate
     L = spec.L
     C = 3 * e * L
-    N = rows.shape[0] // K
+    N = idx.shape[0] // K
+    rows = table.index_select(0, idx)
     r = rows.reshape(K, N, -1)
     t, g = tag.reshape(K, N), tgt.reshape(K, N)
     ops = _ops64_fq2(spec) if e == 2 else _ops64(spec)
@@ -307,6 +314,26 @@ def bucket_scan_rows_ref(spec: FieldSpec, rows, tag, tgt, b3, buckets, K: int):
         head = (t[k] & 2) > 0
         acc = tuple(torch.where(head, qi, si) for qi, si in zip(q, s))
     return planes(acc).int()
+
+
+def gather_planes_ref(table, idx, C: int):
+    """Plain version of K14: (C, n) limb planes of rows ``idx`` of ``table``
+    (every row where idx is None), planes[j, i] = table[idx[i], j]."""
+    rows = table if idx is None else table.index_select(0, idx)
+    return rows[:, :C].T.contiguous()
+
+
+def scatter_rows_ref(leaves, out, tgt=None):
+    """Plain version of K16: the (16, n) coordinate tensors ``leaves`` as
+    rows of ``out`` (S, W), at rows ``tgt`` (rows 0..n-1 where tgt is None),
+    columns C..W-1 zero; returns out, written in place."""
+    rows = torch.cat(tuple(leaves), dim=0).T
+    rows = torch.nn.functional.pad(rows, (0, out.shape[1] - rows.shape[1]))
+    if tgt is None:
+        out[:rows.shape[0]] = rows
+    else:
+        out[tgt] = rows
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -479,46 +506,123 @@ def padd2_seg_level(spec: FieldSpec, b3, x, flags, d: int):
     return _pairs(out), oflags
 
 
-def _scan(kernel: str, spec: FieldSpec, rows, tag, tgt, b3s, buckets, K: int):
+def _scan(kernel: str, spec: FieldSpec, table, idx, tag, tgt, b3s, buckets, K: int):
     """Check the inputs of K4 or its G2 instance and launch it; b3s: b3's
     tensors (one for G1, c0 and c1 for G2).  Returns acc."""
-    total = rows.shape[0]
+    total = idx.shape[0]
     if K < 1 or total % K:
-        raise ValueError(f"{total} rows do not split into K = {K} steps")
+        raise ValueError(f"{total} steps do not split into K = {K}")
     C = 3 * len(b3s) * spec.L
     W = -(-C // 64) * 64
-    _ext.require(rows, "rows", I32, (total, W))
+    _ext.require(table, "table", I32, (table.shape[0], W))
+    _ext.require(idx, "idx", I32, (total,))
     _ext.require(tag, "tag", I32, (total,))
     _ext.require(tgt, "tgt", I32, (total,))
     _ext.require(buckets, "buckets", I32, (buckets.shape[0], W))
     for i, b in enumerate(b3s):
         _ext.require(b, f"b3[{i}]", I32, (spec.L,))
-    if rows.data_ptr() % 16 or buckets.data_ptr() % 16:
-        raise ValueError("rows and buckets must be 16-byte aligned")
+    if table.data_ptr() % 16 or buckets.data_ptr() % 16:
+        raise ValueError("table and buckets must be 16-byte aligned")
     N = total // K
-    acc = torch.empty((C, N), dtype=I32, device=rows.device)
+    acc = torch.empty((C, N), dtype=I32, device=table.device)
     if N:
         P = _ext.ptr
-        _ext.launch(kernel, rows.device, P(rows), P(tag), P(tgt), *map(P, b3s),
+        _ext.launch(kernel, table.device, P(table), P(idx), P(tag), P(tgt), *map(P, b3s),
                     P(acc), P(buckets), N, K, _ext.consts_ptr(spec))
     return acc
 
 
-def bucket_scan_rows(spec: FieldSpec, rows, tag, tgt, b3, buckets, K: int):
-    """K4: the G1 segmented bucket scan over step-major point rows, flushes
-    written into the bucket table in place (contract in csrc/bucket_scan.cu).
+def bucket_scan_rows(spec: FieldSpec, table, idx, tag, tgt, b3, buckets, K: int):
+    """K4: the G1 segmented bucket scan over the point table read by index in
+    step-major order, flushes written into the bucket table in place
+    (contract in csrc/bucket_scan.cu).
 
-    rows (K * N, 64) int32, tag and tgt (K * N,) int32, b3 (L,), buckets
-    (S, 64) int32.  Returns acc (48, N); any N >= 1 is accepted."""
-    if not _ext.use_kernel(rows, tag, tgt, b3, buckets):
-        return bucket_scan_rows_ref(spec, rows, tag, tgt, b3, buckets, K)
-    return _scan("bucket_scan_rows", spec, rows, tag, tgt, (b3,), buckets, K)
+    table (Nt, 64) int32, idx, tag and tgt (K * N,) int32 (indices may
+    repeat and must lie below Nt: the kernel does not check), b3 (L,),
+    buckets (S, 64) int32.  Returns acc (48, N); any N >= 1 is accepted."""
+    if not _ext.use_kernel(table, idx, tag, tgt, b3, buckets):
+        return bucket_scan_rows_ref(spec, table, idx, tag, tgt, b3, buckets, K)
+    return _scan("bucket_scan_rows", spec, table, idx, tag, tgt, (b3,), buckets, K)
 
 
-def bucket_scan_rows2(spec: FieldSpec, rows, tag, tgt, b3, buckets, K: int):
-    """K4's G2 instance: rows (K * N, 128) int32, b3 a (c0, c1) pair of (L,),
+def bucket_scan_rows2(spec: FieldSpec, table, idx, tag, tgt, b3, buckets, K: int):
+    """K4's G2 instance: table (Nt, 128) int32, b3 a (c0, c1) pair of (L,),
     buckets (S, 128) int32, the rest as bucket_scan_rows.  Returns acc
     (96, N)."""
-    if not _ext.use_kernel(rows, tag, tgt, *b3, buckets):
-        return bucket_scan_rows_ref(spec, rows, tag, tgt, b3, buckets, K)
-    return _scan("bucket_scan_rows2", spec, rows, tag, tgt, tuple(b3), buckets, K)
+    if not _ext.use_kernel(table, idx, tag, tgt, *b3, buckets):
+        return bucket_scan_rows_ref(spec, table, idx, tag, tgt, b3, buckets, K)
+    return _scan("bucket_scan_rows2", spec, table, idx, tag, tgt, tuple(b3), buckets, K)
+
+
+# Used limbs of a point row: 3 coordinates of 16 limbs (G1) or 6 (G2).
+_ROW_LIMBS = (48, 96)
+
+
+def _require_rows(table, name: str, C: int) -> int:
+    """Check a row table that K14 or K16 takes; returns its width W."""
+    if C not in _ROW_LIMBS:
+        raise ValueError(f"C = {C}: a point row uses 48 (G1) or 96 (G2) limbs")
+    if table.dim() != 2 or table.shape[1] < C or table.shape[1] % 4:
+        raise ValueError(f"{name}: shape {tuple(table.shape)}, expected (rows, W) with "
+                         f"W >= {C} a multiple of 4")
+    _ext.require(table, name, I32)
+    if table.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+    return table.shape[1]
+
+
+def _index_arg(t, name: str, n: int) -> tuple:
+    """(pointer, bytes an entry) of an optional index tensor of n entries,
+    int32 or int64; (null, 0) for None."""
+    if t is None:
+        return _ext.ptr(None), 0
+    if t.dtype not in (I32, torch.int64):
+        raise TypeError(f"{name}: dtype {t.dtype}, expected int32 or int64")
+    _ext.require(t, name, t.dtype, (n,))
+    return _ext.ptr(t), t.element_size()
+
+
+def gather_planes(table, idx, C: int):
+    """K14: the (C, n) int32 limb planes of rows ``idx`` of the point table
+    (Nt, W), planes[j, i] = table[idx[i], j], in one launch; every row
+    (n = Nt) where idx is None.  idx: (n,) int32 or int64; indices may
+    repeat and must lie below Nt (the kernel does not check).  C = 48 (G1)
+    or 96 (G2)."""
+    extra = () if idx is None else (idx,)
+    if not _ext.use_kernel(table, *extra):
+        return gather_planes_ref(table, idx, C)
+    W = _require_rows(table, "table", C)
+    n = table.shape[0] if idx is None else idx.numel()
+    idx_p, idx_bytes = _index_arg(idx, "idx", n)
+    planes = torch.empty((C, n), dtype=I32, device=table.device)
+    if n:
+        _ext.launch("gather_planes", table.device, _ext.ptr(table), idx_p, idx_bytes,
+                    _ext.ptr(planes), n, W, C)
+    return planes
+
+
+def scatter_rows(leaves, out, tgt=None):
+    """K16: the (16, n) int32 coordinate tensors ``leaves`` (3 for G1, 6 for
+    G2, read in place) as rows of the table ``out`` (S, W), in one launch:
+    row tgt[i] gets point i's C used limbs and zeros in columns C..W-1;
+    rows 0..n-1 where tgt is None.  tgt: (n,) int32 or int64 below S (the
+    kernel does not check); a row that two points target ends up with
+    16-byte pieces of either, in no set order.  Returns out, written in
+    place."""
+    leaves = tuple(leaves)
+    extra = () if tgt is None else (tgt,)
+    if not _ext.use_kernel(*leaves, out, *extra):
+        return scatter_rows_ref(leaves, out, tgt)
+    C = 16 * len(leaves)
+    W = _require_rows(out, "out", C)
+    n = leaves[0].shape[-1]
+    for i, c in enumerate(leaves):
+        _ext.require(c, f"leaves[{i}]", I32, (16, n))
+    if tgt is None and n > out.shape[0]:
+        raise ValueError(f"{n} points do not fit a table of {out.shape[0]} rows")
+    tgt_p, tgt_bytes = _index_arg(tgt, "tgt", n)
+    if n:
+        ptrs = [_ext.ptr(c) for c in leaves] + [_ext.ptr(None)] * (6 - len(leaves))
+        _ext.launch("scatter_rows", out.device, *ptrs, tgt_p, tgt_bytes, _ext.ptr(out),
+                    n, W, C)
+    return out

@@ -3,8 +3,9 @@
 Counterpart of ``myzkp_tpu/curves/fixed_base.py`` for G1 and G2.  The host
 builds the table T[j, d] = [d * 2^(c*j)] G (W = ceil(256/c) windows of 2^c
 entries) once per group and caches it as .npz under the ignored build
-directory, in the JAX package's format (keys l0..l2 for G1, l0..l5 for G2);
-each scalar then costs W row gathers and a W -> 1 tree of batched complete
+directory, in the JAX package's format (keys l0..l2 for G1, l0..l5 for G2),
+and the device holds it as a row-major table (K16); each scalar then costs W
+rows gathered into limb planes (K14) and a W -> 1 tree of batched complete
 adds (K2 for G1, K7 for G2).
 """
 
@@ -18,8 +19,8 @@ from .. import _ext, interop
 from . import bn254, msm as _msm, weierstrass as wst
 
 _TABLE_C = 8  # window bits: W = 32 windows, 2^8 entries each
-# Scalars per gather + tree sum: bounds the gathered copy at W rows per
-# scalar, 2 GB for G1 (64-lane rows) and 4 GB for G2 (128-lane rows).
+# Scalars per gather + tree sum: bounds the gathered planes at W points per
+# scalar, 1.5 GiB for G1 (48 limbs a point) and 3 GiB for G2 (96).
 _CHUNK = 1 << 18
 TABLE_DIR = _ext.BUILD_DIR / "fixed_base"
 _GROUPS = {
@@ -85,11 +86,10 @@ def fixed_base_multi(which: str, scalars_std) -> wst.Point:
     F, b3 = ops(), b3_of((), device)
     digits = _msm.scalar_digits(scalars_std, c)  # (W, n)
     W, n = digits.shape
-    offsets = (torch.arange(W, device=device) << c)[:, None]
+    offsets = (torch.arange(W, dtype=torch.int32, device=device) << c)[:, None]
     outs = []
     for off in range(0, n, _CHUNK):
         d = digits[:, off:off + _CHUNK]
-        g = rows.index_select(0, (d + offsets).reshape(-1))
-        pts = _msm._point_of_rows(g, C, tuple(d.shape))
+        pts = _msm._point_of_rows(rows, C, tuple(d.shape), (d + offsets).reshape(-1))
         outs.append(wst.tree_sum(F, b3, pts, axis=0))
     return wst.point_map(lambda *cs: torch.cat(cs, dim=1), *outs)

@@ -1,16 +1,18 @@
 """Multi-scalar multiplication: signed-digit Pippenger over G1 and G2.
 
-Counterpart of ``myzkp_tpu/curves/msm.py``.  Per group of windows: one stable
-sort of the window digits, one row gather of the projective point table in
-step-major order, the bucket scan, then the merge of the lanes' partial sums
-and, over all windows at once, the hierarchical weighted bucket sum and the
-Horner combine.
+Counterpart of ``myzkp_tpu/curves/msm.py``.  The points go once into a
+row-major table (K16); per group of windows: one stable sort of the window
+digits, the bucket scan reading that table by index in step-major order,
+then the merge of the lanes' partial sums and, over all windows at once, the
+hierarchical weighted bucket sum and the Horner combine.
 
 Both groups take the reference's row-major scan path (its ``_rows_scan``):
 the whole K-step scan of a window group is one launch of K4 (G1) or of its G2
-instance, which write each segment's flush straight into the bucket table and
-accept any lane count.  The reference ran G2 through a ``lax.scan`` of the
-select-masked complete add instead, as its TPU kernel held 3-leaf G1 rows only.
+instance, which read each step's row from the point table by its index (the
+reference gathered them into a step-major copy first), write each segment's
+flush straight into the bucket table and accept any lane count.  The
+reference ran G2 through a ``lax.scan`` of the select-masked complete add
+instead, as its TPU kernel held 3-leaf G1 rows only.
 Scalars enter as standard-domain ``(L, n)`` int32 limb tensors; everything
 runs on their device.
 """
@@ -118,19 +120,28 @@ def default_window(n: int) -> int:
 _LEAF_LIMBS = 16
 
 
+def _flat_leaves(pt: Point) -> tuple:
+    """The coordinate tensors as contiguous (L, N) tensors."""
+    return tuple(a.reshape(a.shape[0], -1).contiguous() for a in wst.leaves(pt))
+
+
 def _rows_of_point(pt: Point, lanes: int | None = None):
-    """(L, N) coordinate tensors -> (N, lanes) int32 rows: all coordinate
-    limbs side by side (x | y | z for G1, C = 48; x0 | x1 | y0 | y1 | z0 | z1
-    for G2, C = 96), zero-padded to a multiple of 64.  Returns (rows, C)."""
-    rows = torch.cat(wst.leaves(pt), dim=0).T
-    C = rows.shape[1]
+    """(L, N) coordinate tensors -> (N, lanes) int32 rows (one launch of
+    K16): all coordinate limbs side by side (x | y | z for G1, C = 48;
+    x0 | x1 | y0 | y1 | z0 | z1 for G2, C = 96), zero-padded to a multiple of
+    64.  Returns (rows, C)."""
+    leaves = _flat_leaves(pt)
+    C = _LEAF_LIMBS * len(leaves)
     lanes = lanes or -(-C // 64) * 64
-    return torch.nn.functional.pad(rows, (0, lanes - C)).contiguous(), C
+    rows = torch.empty((leaves[0].shape[1], lanes), dtype=torch.int32,
+                       device=leaves[0].device)
+    return curve_kernels.scatter_rows(leaves, rows), C
 
 
-def _point_of_rows(rows, C: int, shape) -> Point:
-    """Inverse of _rows_of_point: (N, lanes) -> Point of (L, *shape)."""
-    planes = rows[:, :C].T.reshape((C,) + tuple(shape))
+def _point_of_rows(rows, C: int, shape, idx=None) -> Point:
+    """Inverse of _rows_of_point: rows ``idx`` of an (Nt, lanes) table (every
+    row where idx is None) -> Point of (L, *shape), in one launch of K14."""
+    planes = curve_kernels.gather_planes(rows, idx, C).reshape((C,) + tuple(shape))
     return wst.from_leaves(planes.split(_LEAF_LIMBS, dim=0))
 
 
@@ -140,7 +151,7 @@ def _point_of_rows(rows, C: int, shape) -> Point:
 
 def _scan_inputs(vsort, dsort, num_buckets: int, K: int):
     """The bucket scan's step-major inputs for G windows of n_pad sorted
-    digits each: the point-row indices to gather, the tags (bit 0 negate,
+    digits each: the point-table row each step reads, the tags (bit 0 negate,
     bit 1 segment head) and the flush targets, rows of a (G * (num_buckets +
     1))-row bucket table or -1.  dsort / vsort: (G, n_pad) sorted digits and
     packed (index << 1 | negate) values; lane l of a window holds its digits
@@ -166,27 +177,26 @@ def _scan_inputs(vsort, dsort, num_buckets: int, K: int):
 
     v2 = vsort.reshape(G, B, K)
     tag = sm(v2 & 1) | (sm(head.int()) << 1)
-    return sm(v2 >> 1), tag.contiguous(), sm(tgt).int().contiguous()
+    return sm(v2 >> 1).contiguous(), tag.contiguous(), sm(tgt).int().contiguous()
 
 
 def _bucket_accumulate(F, b3, rows, vsort, dsort, num_buckets: int, K: int) -> Point:
-    """Bucket sums of G windows: step-major row gather, one bucket-scan launch
-    over G * n / K lanes (K4 for G1, its G2 instance for G2) that writes the
-    segment flushes into the bucket table, and the merge of the lanes' end
-    partials.  dsort / vsort: (G, n_pad) sorted digits and packed (index << 1
-    | negate) values.  Returns a (G, num_buckets) point batch (bucket 0
-    unused)."""
+    """Bucket sums of G windows: one bucket-scan launch over G * n / K lanes
+    (K4 for G1, its G2 instance for G2) that reads the point table ``rows``
+    by index in step-major order and writes the segment flushes into the
+    bucket table, and the merge of the lanes' end partials.  dsort / vsort:
+    (G, n_pad) sorted digits and packed (index << 1 | negate) values.
+    Returns a (G, num_buckets) point batch (bucket 0 unused)."""
     G, n_pad = dsort.shape
     B = n_pad // K
     slots = num_buckets + 1  # +1 per-window dummy slot for the merge, dropped at the end
     idx, tag, tgt = _scan_inputs(vsort, dsort, num_buckets, K)
-    g_rows = rows.index_select(0, idx)
     bk_rows, _ = _rows_of_point(wst.infinity(F, (G * slots,), rows.device), rows.shape[1])
     if not _ext.use_kernel(tgt):
         _check_unique_targets(tgt[tgt >= 0], num_buckets, slots)
     scan = (curve_kernels.bucket_scan_rows2 if isinstance(F, Fq2Ops)
             else curve_kernels.bucket_scan_rows)
-    acc = wst.from_leaves(scan(F.spec, g_rows, tag, tgt, b3, bk_rows, K).split(_LEAF_LIMBS))
+    acc = wst.from_leaves(scan(F.spec, rows, idx, tag, tgt, b3, bk_rows, K).split(_LEAF_LIMBS))
     acc = point_map(lambda a: a.reshape(a.shape[0], G, B), acc)
     return _merge_lane_partials(F, b3, acc, dsort.reshape(G, B, K), bk_rows,
                                 num_buckets, slots)
@@ -219,14 +229,15 @@ def _merge_lane_partials(F, b3, acc: Point, d2, bk_rows, num_buckets: int,
                          slots: int) -> Point:
     """Merge the lanes' end partials (segmented sum across lanes in sorted
     order) and add the segment totals to their buckets in bk_rows, the
-    (G * slots, lanes) table the scan filled with the mid-lane flushes.
+    (G * slots, lanes) table the scan filled with the mid-lane flushes: the
+    current buckets gathered into planes (K14), the adds, the sums scattered
+    back as rows (K16), and the whole table into planes (K14).
 
     The scatter goes through a per-window dummy slot that is sliced off at
     the end: real targets are unique (checked on the plain path), and the
-    dummies collide harmlessly however index_put_ orders duplicates."""
+    dummies collide harmlessly however their writes interleave."""
     G, B, _ = d2.shape
     device = d2.device
-    lanes = bk_rows.shape[1]
     C = _LEAF_LIMBS * len(wst.leaves(acc))
     w_off = (torch.arange(G, device=device) * slots)[:, None]
     d_end = d2[..., -1]  # (G, B)
@@ -237,11 +248,9 @@ def _merge_lane_partials(F, b3, acc: Point, d2, bk_rows, num_buckets: int,
     tgt = (torch.where(is_end, d_end, num_buckets) + w_off).reshape(-1)
     if not _ext.use_kernel(tgt):
         _check_unique_targets(tgt, num_buckets, slots)
-    cur = _point_of_rows(bk_rows[tgt], C, (G, B))
+    cur = _point_of_rows(bk_rows, C, (G, B), tgt)
     merged = wst.padd(F, b3, cur, seg_total)
-    merged_rows, _ = _rows_of_point(
-        point_map(lambda a: a.reshape(a.shape[0], -1), merged), lanes)
-    bk_rows[tgt] = merged_rows
+    curve_kernels.scatter_rows(_flat_leaves(merged), bk_rows, tgt)
     buckets = _point_of_rows(bk_rows, C, (G, slots))
     return point_map(lambda a: a[..., :num_buckets], buckets)
 
@@ -286,8 +295,9 @@ def _next_pow2(x: int) -> int:
 
 
 def _group_size(n_pad: int, W: int, slots: int = 0) -> int:
-    """Windows per bucket-accumulation pass: caps the gathered copy and the
-    bucket table at ~2^21 points each."""
+    """Windows per bucket-accumulation pass: caps the scan's step-major
+    inputs (index, tag and target of G * n_pad steps) and the bucket table
+    at ~2^21 entries each."""
     cap = (1 << 21) // max(n_pad, slots, 1)
     return int(min(W, max(1, cap)))
 
@@ -298,9 +308,10 @@ def msm_pippenger(F, b3, points: Point, s_limbs, c: int | None = None,
     domain.  Returns one (unbatched) projective point.
 
     Signed digits lie in [-2^(c-1), 2^(c-1)]; negative ones enter the scan
-    negated, which halves the buckets.  The W = ceil(256 / c) windows go in
-    groups of G (sized by _group_size) through one stable sort, one row
-    gather and one K-step bucket scan each (G * n / K lanes)."""
+    negated, which halves the buckets.  The points go into one row-major
+    table; the W = ceil(256 / c) windows go in groups of G (sized by
+    _group_size) through one stable sort and one K-step bucket scan each
+    (G * n / K lanes), which reads that table by index."""
     n = s_limbs.shape[1]
     if c is None:
         c = default_window(n)

@@ -22,8 +22,9 @@ idle share is an upper bound.
 
 The prover's stages run inside ``torch.profiler.record_function`` ranges
 named ``stage:<name>`` (set here by wrapping the functions in STAGES for the
-profiled call only): the quotient stage, the digits' sort, the row gather
-with the scan's inputs, the bucket scan, the lane merge, the window sums
+profiled call only): the quotient stage, the digits' sort, the scan's
+inputs (each step's index, tag and target, and the bucket table), the bucket
+scan, the lane merge, the window sums
 (bucket sums), Horner, the double-and-add ladders, and the conversion of
 points to affine (one batch inversion each: the proof's points on their way
 to the host).  Each device event is
@@ -99,7 +100,7 @@ STAGES = (
     ("quotient", "myzkp_tpu_torch.arith.sparse", "SparseQAP.combine_batched"),
     ("quotient", "myzkp_tpu_torch.arith.sparse", "SparseQAP.quotient"),
     ("sort", "myzkp_tpu_torch.curves.msm", "_sorted_digits"),
-    ("gather", "myzkp_tpu_torch.curves.msm", "_bucket_accumulate"),
+    ("scan inputs", "myzkp_tpu_torch.curves.msm", "_bucket_accumulate"),
     ("scan", "myzkp_tpu_torch.curves.curve_kernels", "bucket_scan_rows"),
     ("scan", "myzkp_tpu_torch.curves.curve_kernels", "bucket_scan_rows2"),
     ("lane merge", "myzkp_tpu_torch.curves.msm", "_merge_lane_partials"),

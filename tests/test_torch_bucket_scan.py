@@ -98,7 +98,8 @@ def test_bucket_scan_rows_matches_jax_kernel():
         jbn.q_spec(), rows_j, jnp.asarray(tags), jbn.g1_b3(()), K, True)
     rows = torch.from_numpy(np.asarray(rows_j).astype(np.int32))
     table, _ = tmsm._rows_of_point(tw.infinity(tbn.g1_ops(), (S,), DEV), rows.shape[1])
-    acc = ck.bucket_scan_rows(tbn.q_spec(), rows, torch.from_numpy(tags),
+    idx = torch.arange(K * N, dtype=torch.int32)  # the kernel's rows in order
+    acc = ck.bucket_scan_rows(tbn.q_spec(), rows, idx, torch.from_numpy(tags),
                               torch.from_numpy(tgt), tbn.g1_b3((), DEV), table, K)
     np.testing.assert_array_equal(acc.numpy(), np.asarray(acc_j).astype(np.int32))
     real = np.flatnonzero(tgt >= 0)

@@ -137,7 +137,8 @@ def test_bucket_scan_rows_ref_matches_host(group, N):
     vs a host-simulated segmented scan, as affine points: each lane's
     accumulator, the bucket rows at the real targets (the accumulator before
     the step, step 0 included), and every other row left as it was: -1 writes
-    nothing.  N = 1000 and 300 are ragged lane counts the TPU kernel did not
+    nothing.  Each step reads the point table at a seeded random index, with
+    repeats.  N = 1000 and 300 are ragged lane counts the TPU kernel did not
     take (curve_pallas.bucket_scan_rows, tests/test_pallas.py:271)."""
     rng = np.random.default_rng(23)
     g2 = group == "g2"
@@ -153,6 +154,7 @@ def test_bucket_scan_rows_ref_matches_host(group, N):
     else:
         host_pts = [tbn.g1_generator() * int(v) for v in rng.integers(1, 1 << 30, K * N)]
     rows, C = tmsm._rows_of_point(to_device(host_pts, DEV))
+    idx = rng.integers(0, K * N, K * N).astype(np.int32)
     tags = rng.integers(0, 4, K * N).astype(np.int32)
     tags[:7] = [0, 1, 2, 3, 2, 1, 0]  # all combinations early
     S = K * N + 17  # bucket rows, some never targeted
@@ -160,8 +162,8 @@ def test_bucket_scan_rows_ref_matches_host(group, N):
     table, _ = tmsm._rows_of_point(tw.infinity(F, (S,), DEV), rows.shape[1])
     before = table.clone()
     scan = ck.bucket_scan_rows2 if g2 else ck.bucket_scan_rows
-    acc = scan(tbn.q_spec(), rows, torch.from_numpy(tags), torch.from_numpy(tgt), b3,
-               table, K)
+    acc = scan(tbn.q_spec(), rows, torch.from_numpy(idx), torch.from_numpy(tags),
+               torch.from_numpy(tgt), b3, table, K)
     inf = (tbn.curve_g2 if g2 else tbn.curve_g1).infinity()
     acc_h, flushed = [inf] * N, {}
     for k in range(K):
@@ -169,7 +171,7 @@ def test_bucket_scan_rows_ref_matches_host(group, N):
             r = k * N + lane
             if tgt[r] >= 0:
                 flushed[int(tgt[r])] = acc_h[lane]
-            q = -host_pts[r] if tags[r] & 1 else host_pts[r]
+            q = -host_pts[idx[r]] if tags[r] & 1 else host_pts[idx[r]]
             acc_h[lane] = q if tags[r] & 2 else acc_h[lane] + q
     assert to_host(tw.from_leaves(acc.split(tbn.q_spec().L))) == acc_h
     real = sorted(flushed)
