@@ -127,11 +127,32 @@ Phases, one output line each (or more), in order:
                setup seconds, prove median of 3, verify seconds; then setup
                and prove at m = 2^4 on the card and on the
                CPU plain versions with the same seeds, keys and proofs equal
-               point for point.
+               point for point;
+ 11. kzg       KZG and Gemini (commit/kzg.py, commit/gemini.py) from a seeded
+               toxic waste s: setup of degree 2^20 with every G2 power (the
+               fixed-base tables; seconds, the host's powers of s timed
+               alone), [s^i]G1 and [s^i]G2 equal to the host's at seeded i;
+               a 2^20-coefficient commit equal to [p(s)]G1 (median of 3);
+               open at a seeded u (y and w equal to the host's; verify
+               accepts, and rejects y + 1; K1 and its chain launched fewer
+               than 1,000 times); batch open at 3 points (ys and w equal to
+               the host's; batch verify accepts, and rejects one y changed);
+               the degree proof at d = 2^19 (equal to the host's; verify true
+               at d, false at d - 1); Gemini over the 2^20 coefficients with
+               20 seeded rhos and a seeded beta (each of the 21 commitments
+               equal to the host's [f_i(s)]G1; verify accepts, and rejects
+               mu + 1, two whole verifies timed apart); fast_multiply at 2^19 x 2^19 (K6) and 2^8 x 2^8 (K5)
+               against the host's p(x) q(x) at 3 points; KZG and Gemini at
+               degree 15 on the card and on the CPU plain versions with the
+               same s, commitments and proofs equal point for point; launch
+               counts of commit, open, batch open, the degree proof and
+               Gemini's commit and open; times beside the card's name and
+               power limit.
 The build phase prints ptxas's registers and spills of every kernel and the
 static SASS instruction counts (cuobjdump -sass) of the curve kernels.
 Each path's launch counts are set to 0 just before it and read just after.
-The line before the last is a JSON object with one entry per kernel; the last
+The line before the last is a JSON object with one entry per kernel (its
+"launches" from the proves, "kzg_launches" from phase 11's runs); the last
 line is {"ok": true, "device": {...}}.  Any failure exits nonzero before it.
 Neither this script nor the port imports JAX.
 """
@@ -227,17 +248,31 @@ def bound(nbytes: float, mont_products: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def timed(fn):
+    """(fn(), its seconds on the host clock, ended by a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def phase_device() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = card()
     from myzkp_tpu_torch import _ext
 
     nvcc = subprocess.run([_ext._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
-    log(smi.splitlines()[0])
+    log(smi)
     log(f"# device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"torch {torch.__version__} (CUDA {torch.version.cuda}); nvcc {nvcc}")
 
@@ -496,9 +531,10 @@ def time_scan(F, b3, pts, dev, results: dict) -> None:
     targets: the indices checked below the table's rows, the real targets
     unique, the kernel held to its plain version (acc and the whole bucket
     table exact; repeated launches rewrite the same rows), both timed, and
-    beside them as library_ms the parent's path: the step-major gather
-    (index_select) and the scan over the gathered copy read in order; each
-    of the two also timed alone.  Then probe 13
+    beside them the parent's path: the step-major gather (index_select) and
+    the scan over the gathered copy read in order, held to the kernel's
+    result and timed, each of the two also alone.  It is two steps, not one
+    PyTorch call computing the scan, so library_ms stays null.  Then probe 13
     (tools/exp_kernel_ledger.py:80): the same K steps as K launches of the
     select-masked complete add (K2 for G1, K7 for G2) over plane-major
     inputs laid out beforehand from its own gathered copy, its result equal
@@ -543,14 +579,16 @@ def time_scan(F, b3, pts, dev, results: dict) -> None:
     bnd = bound(used * 4 * C + K * N * 12 + flushes * 4 * C + N * 4 * C
                 + LIMB_BYTES * (C // 48), adds * (K * N - heads))
     shape = f"K = {K}, N = {N} lanes, {heads} heads, {flushes} real flushes"
-    time_cases({name: (shape, kern, plain, 5, 1, bnd, parent)}, results)
+    time_cases({name: (shape, kern, plain, 5, 1, bnd)}, results)
     acc = kern()[0]
+    check_equal(f"{name} the parent's path [{shape}]", parent(), kern())
     rows = table.index_select(0, idx)  # the parent's gathered copy
-    split = {"index_select_ms": graph_time_ms(lambda: table.index_select(0, idx), 5),
+    split = {"parent_path_ms": graph_time_ms(parent, 5),
+             "index_select_ms": graph_time_ms(lambda: table.index_select(0, idx), 5),
              "scan_of_copy_ms": graph_time_ms(
                  lambda: scan(spec, rows, in_order, tag, tgt, b3, t_l, K), 5)}
     results.setdefault("_scan_parent_path", {})[name] = split
-    log(f"# {name}: the parent's path {results[name]['library_ms']:.4f} ms = index_select "
+    log(f"# {name}: the parent's path {split['parent_path_ms']:.4f} ms = index_select "
         f"{split['index_select_ms']:.4f} ms + the scan of the copy read in order "
         f"{split['scan_of_copy_ms']:.4f} ms; the scan reading the table by index "
         f"{results[name]['ms']:.4f} ms")
@@ -2168,6 +2206,230 @@ def phase_groth16(dev, results: dict) -> None:
         f"verifying keys and proofs equal point for point; both accepted")
 
 
+# Phase 11: KZG and Gemini at 2^20 coefficients (commit/kzg.py, commit/gemini.py).
+# The SRS has degree 2^20: Gemini's first fold carries a degree bound of its
+# 2^20 coefficients, which needs the power s^(2^20).
+LOG_KZG = 20
+KZG_SMALL = 15  # KZG and Gemini on the card and on the CPU: the JAX tests' degree
+K1_OPEN_LAUNCHES = 1000  # K1 + its chain in one open at 2^20 (a loop a coefficient: ~2^20)
+# The kernels of the KZG / Gemini path (the MSMs, the G2 setup tree and the
+# ladder of commit_g2) and of fast_multiply (K5 below 2^14 points, K6 above)
+KZG_KERNELS = MSM_KERNELS + ("padd2", "pdbl2")
+FAST_MUL_LOGS = ((19, "ntt_leaf"), (8, "butterfly"))
+
+
+def lagrange_at(xs, ys, x: int, p: int) -> int:
+    """I(x) for the interpolant of the host points (xs, ys)."""
+    total = 0
+    for i, (xi, yi) in enumerate(zip(xs, ys)):
+        num = den = 1
+        for j, xj in enumerate(xs):
+            if j != i:
+                num, den = num * (x - xj) % p, den * (xi - xj) % p
+        total = (total + yi * num * pow(den, -1, p)) % p
+    return total
+
+
+def host_folds(coeffs, rhos, p: int) -> list:
+    """Gemini's folds f_i = even(f_(i-1)) + rho_i odd(f_(i-1)) on host ints."""
+    fs = [coeffs]
+    for rho in rhos:
+        f = fs[-1]
+        fs.append([(e + rho * o) % p for e, o in zip(f[0::2], f[1::2])])
+    return fs
+
+
+def kzg_small(d, s: int) -> tuple:
+    """KZG and Gemini at degree KZG_SMALL on device d from one seed: the
+    commitment, the opening, the batch opening, the degree proof, Gemini's
+    commitments and proof (host points and ints), and the key."""
+    from myzkp_tpu_torch.commit import gemini, kzg
+    from myzkp_tpu_torch.curves import bn254
+    from myzkp_tpu_torch.fields.fp import Fp
+    from myzkp_tpu_torch.ops.poly import Poly
+
+    spec, R = bn254.r_spec(), bn254.R
+    rng = random.Random(SEED + 21)
+    pk = kzg.setup(KZG_SMALL, s=s, full_g2=True, device=d)
+    p = Poly.from_int_coeffs(spec, [rng.randrange(R) for _ in range(8)], d)
+    mcoefs, rhos = [rng.randrange(R) for _ in range(4)], [rng.randrange(R) for _ in range(2)]
+    beta = rng.randrange(R)
+    fs = gemini.split_and_fold(Fp.from_int(spec, mcoefs, d), rhos)
+    pi = gemini.open_gemini(fs, beta, pk)
+    out = [kzg.commit(pk, p), kzg.open(pk, p, 123), kzg.batch_open(pk, p, [2, 5, 9]),
+           kzg.prove_degree_bound(pk, p, 8), gemini.commit_gemini(fs, pk), pi.es,
+           pi.degree_proofs]
+    return out, pk, (rhos, int(fs[-1].to_int()[0]), beta)
+
+
+def phase_kzg(dev, results: dict) -> None:
+    from myzkp_tpu_torch.commit import gemini, kzg
+    from myzkp_tpu_torch.curves import bn254, weierstrass as wst
+    from myzkp_tpu_torch.curves.msm import scalars_from_int
+    from myzkp_tpu_torch.fields.fp import Fp
+    from myzkp_tpu_torch.ops import ntt
+    from myzkp_tpu_torch.ops.poly import Poly
+
+    t_phase = time.perf_counter()
+    spec, R = bn254.r_spec(), bn254.R
+    G1, G2 = bn254.g1_generator(), bn254.g2_generator()
+    n = 1 << LOG_KZG
+    rng = random.Random(SEED + 20)
+    s = rng.randrange(1, R)
+    counts, secs = {}, {}
+
+    def run(name: str, fn):
+        (out, counts[name]), secs[name] = timed(lambda: counted(fn))
+        return out
+
+    # setup: the host powers of s and their limbs, then the whole setup
+    _, secs["setup_host"] = timed(lambda: scalars_from_int(spec, kzg._powers_of_s(s, n + 1), dev))
+    pk = run("setup", lambda: fresh_tables(lambda: kzg.setup(n, s=s, full_g2=True)))
+    idx = sorted({0, 1, n} | set(rng.sample(range(n + 1), 5)))
+    sample = lambda pt: wst.point_map(lambda a: a[:, idx], pt)
+    if (bn254.g1_points_to_host(sample(pk.powers1)) != [G1 * pow(s, i, R) for i in idx]
+            or bn254.g2_points_to_host(sample(pk.powers2)) != [G2 * pow(s, i, R) for i in idx]):
+        raise AssertionError(f"KZG setup 2^{LOG_KZG}: [s^i]G1 or [s^i]G2 differs from the "
+                             f"host at i in {idx}")
+
+    # commit, open, batch open
+    coeffs = [rng.randrange(R) for _ in range(n)]
+    p = Poly.from_int_coeffs(spec, coeffs, dev)
+    ps = horner(coeffs, s, R)
+    C = run("commit", lambda: kzg.commit(pk, p))
+    if C != G1 * ps:
+        raise AssertionError(f"KZG commit 2^{LOG_KZG}: C != [p(s)]G1")
+    commit_ms, commit_reps = median_ms(lambda: kzg.commit(pk, p), reps=3)
+    u = rng.randrange(R)
+    y, w = run("open", lambda: kzg.open(pk, p, u))
+    if y != horner(coeffs, u, R) or w != G1 * ((ps - y) * pow(s - u, -1, R) % R):
+        raise AssertionError(f"KZG open 2^{LOG_KZG}: y or w differs from the host")
+    k1_open = counts["open"].get("mont_mul", 0) + counts["open"].get("mont_pow", 0)
+    if k1_open >= K1_OPEN_LAUNCHES:
+        raise AssertionError(f"KZG open 2^{LOG_KZG}: {k1_open} K1 + chain launches, "
+                             f"expected fewer than {K1_OPEN_LAUNCHES}")
+    ok = run("verify", lambda: (kzg.verify(pk, u, y, C, w),
+                                kzg.verify(pk, u, (y + 1) % R, C, w)))
+    if ok != (True, False):
+        raise AssertionError(f"KZG verify 2^{LOG_KZG}: (accept, y + 1) gave {ok}")
+    us = [rng.randrange(R) for _ in range(3)]
+    ys, wb = run("batch_open", lambda: kzg.batch_open(pk, p, us))
+    z_s = (s - us[0]) * (s - us[1]) * (s - us[2]) % R
+    if (ys != [horner(coeffs, x, R) for x in us]
+            or wb != G1 * ((ps - lagrange_at(us, ys, s, R)) * pow(z_s, -1, R) % R)):
+        raise AssertionError(f"KZG batch open 2^{LOG_KZG}: ys or w differs from the host")
+    bad = [(ys[0] + 1) % R] + ys[1:]
+    ok = run("batch_verify", lambda: (kzg.batch_verify(pk, us, ys, C, wb),
+                                      kzg.batch_verify(pk, us, bad, C, wb)))
+    if ok != (True, False):
+        raise AssertionError(f"KZG batch verify 2^{LOG_KZG}: (accept, one y changed) gave {ok}")
+
+    # the degree bound: d = 2^19 on a polynomial of degree 2^19
+    d = n // 2
+    p_d = Poly(p.coef[: d + 1])
+    pd_s = horner(coeffs[: d + 1], s, R)
+    C_d = kzg.commit(pk, p_d)
+    dp = run("degree", lambda: kzg.prove_degree_bound(pk, p_d, d))
+    if C_d != G1 * pd_s or dp != G1 * (pow(s, n - d, R) * pd_s % R):
+        raise AssertionError(f"KZG degree bound 2^{LOG_KZG - 1}: C or proof differs from the host")
+    ok = run("verify_degree", lambda: (kzg.verify_degree_bound(pk, C_d, dp, d),
+                                       kzg.verify_degree_bound(pk, C_d, dp, d - 1)))
+    if ok != (True, False):
+        raise AssertionError(f"KZG degree bound: (d, d - 1) gave {ok}")
+
+    # Gemini over the 2^20 coefficients: 20 folds, 21 polynomials
+    rhos = [rng.randrange(R) for _ in range(LOG_KZG)]
+    beta = rng.randrange(R)
+    def fold_and_commit():
+        fs = gemini.split_and_fold(p.coef, rhos)
+        return fs, gemini.commit_gemini(fs, pk)
+
+    fs, cg = run("gemini_commit", fold_and_commit)
+    host = host_folds(coeffs, rhos, R)
+    mu = host[-1][0]
+    if int(fs[-1].to_int()[0]) != mu or cg != [G1 * horner(f, s, R) for f in host]:
+        raise AssertionError(f"Gemini 2^{LOG_KZG}: a commitment differs from [f_i(s)]G1")
+    pi = run("gemini_open", lambda: gemini.open_gemini(fs, beta, pk))
+    # two whole verifies: each checks every degree bound and batch opening
+    # and computes its own [Z(s)]G2 (the mu + 1 proof fails only at the end)
+    ok = (run("gemini_verify", lambda: gemini.verify_gemini(rhos, mu, beta, cg, pi, pk)),
+          run("gemini_reject", lambda: gemini.verify_gemini(rhos, (mu + 1) % R, beta, cg, pi, pk)))
+    if ok != (True, False):
+        raise AssertionError(f"Gemini 2^{LOG_KZG}: verify (accept, mu + 1) gave {ok}")
+    del fs, pi, p, p_d
+
+    # fast_multiply: K6 at 2^19 x 2^19, K5 at 2^8 x 2^8
+    fm = {}
+    for logm, kern in FAST_MUL_LOGS:
+        a, b = ([rng.randrange(R) for _ in range(1 << logm)] for _ in range(2))
+        fa, fb = Fp.from_int(spec, a, dev), Fp.from_int(spec, b, dev)
+        prod = run(f"fast_multiply_2^{logm}", lambda: ntt.fast_multiply(fa, fb))
+        if counts[f"fast_multiply_2^{logm}"].get(kern, 0) < 1:
+            raise AssertionError(f"fast_multiply 2^{logm}: {kern} never launched")
+        pv = [int(v) for v in prod.to_int()]
+        xs = [rng.randrange(R) for _ in range(3)]
+        if [horner(pv, x, R) for x in xs] != [horner(a, x, R) * horner(b, x, R) % R for x in xs]:
+            raise AssertionError(f"fast_multiply 2^{logm}: p(x) q(x) differs from the host")
+        fm[f"2^{logm}"] = median_ms(lambda: ntt.fast_multiply(fa, fb), reps=3)[0]
+
+    # degree KZG_SMALL on the card and on the CPU plain versions, same s
+    (card_out, pk_c, (rh, mu_c, be)), card_s = timed(lambda: kzg_small(dev, s))
+    (plain_out, _, _), plain_s = timed(lambda: kzg_small(torch.device("cpu"), s))
+    if card_out != plain_out:
+        raise AssertionError(f"KZG / Gemini degree {KZG_SMALL}: the card's commitments or "
+                             f"proofs differ from the CPU plain versions'")
+    C_c, (y_c, w_c), (ys_c, wb_c), dp_c, cg_c, es_c, dps_c = card_out
+    ok = (kzg.verify(pk_c, 123, y_c, C_c, w_c), kzg.batch_verify(pk_c, [2, 5, 9], ys_c, C_c, wb_c),
+          kzg.verify_degree_bound(pk_c, C_c, dp_c, 8),
+          gemini.verify_gemini(rh, mu_c, be, cg_c, gemini.ProofGemini(es_c, dps_c), pk_c))
+    if not all(ok):
+        raise AssertionError(f"KZG / Gemini degree {KZG_SMALL} on the card: a verifier "
+                             f"rejected: {ok}")
+
+    total = {}
+    for c in counts.values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    need = KZG_KERNELS + tuple(k for _, k in FAST_MUL_LOGS)
+    if min(total.get(k, 0) for k in need) < 1:
+        raise AssertionError(f"KZG phase: a kernel of {need} never launched: {total}")
+    if min(counts["commit"].get(k, 0) for k in MSM_KERNELS) < 1:
+        raise AssertionError(f"KZG commit: a kernel of {MSM_KERNELS} never launched: "
+                             f"{counts['commit']}")
+    for k in results:
+        if not k.startswith("_"):
+            results[k]["kzg_launches"] = total.get(k, 0)
+    secs["phase"] = time.perf_counter() - t_phase
+    results["_kzg"] = {"card": card(), "seconds": secs, "commit_ms": commit_ms,
+                       "commit_reps_ms": commit_reps, "fast_multiply_ms": fm,
+                       "small_card_s": card_s, "small_plain_s": plain_s, "launches": counts}
+    smi = card()
+    log(f"# kzg 2^{LOG_KZG} ({smi}): setup of degree 2^{LOG_KZG}, full G2, "
+        f"{secs['setup']:.3f} s (host powers and limbs {secs['setup_host']:.3f} s), "
+        f"[s^i]G1, G2 == host at i in {idx}; commit == [p(s)]G1, median {commit_ms:.2f} ms of "
+        f"{[round(t, 2) for t in commit_reps]}; open {secs['open']:.3f} s, y and w == host, "
+        f"verify {secs['verify']:.3f} s (2 calls, pairings on the host): accepted, y + 1 rejected; "
+        f"batch open at 3 points {secs['batch_open']:.3f} s, ys and w == host, batch verify "
+        f"{secs['batch_verify']:.3f} s (2 calls): accepted, one y changed rejected; degree "
+        f"bound d = 2^{LOG_KZG - 1} {secs['degree']:.3f} s == host: verify (2 calls) "
+        f"{secs['verify_degree']:.3f} s, true at d, false at d - 1")
+    log(f"# gemini 2^{LOG_KZG} ({smi}): fold + commit of 21 polynomials "
+        f"{secs['gemini_commit']:.3f} s, each == [f_i(s)]G1; open {secs['gemini_open']:.3f} s; "
+        f"verify {secs['gemini_verify']:.3f} s: accepted; the same proof with mu + 1 "
+        f"{secs['gemini_reject']:.3f} s: rejected")
+    sizes = " and ".join(f"2^{m} x 2^{m} ({k})" for m, k in FAST_MUL_LOGS)
+    log(f"# fast_multiply ({smi}): {sizes} == host p(x) q(x) at 3 points; median ms "
+        f"{json.dumps(fm)}")
+    log(f"# kzg degree {KZG_SMALL}: on the card ({card_s:.2f} s) and on the CPU plain "
+        f"versions ({plain_s:.2f} s), same s: commitments, openings, degree proof and "
+        f"Gemini's commitments and proof equal point for point; the card's verified")
+    for name in ("commit", "open", "batch_open", "degree", "gemini_commit", "gemini_open"):
+        log(f"# kzg {name} launches: {json.dumps(counts[name])}")
+    log(f"# kzg open: K1 {counts['open'].get('mont_mul', 0)} launches, its chain "
+        f"{counts['open'].get('mont_pow', 0)}: {k1_open} in all (under {K1_OPEN_LAUNCHES})")
+    log(f"# kzg phase {secs['phase']:.1f} s")
+
+
 SOURCES = {
     "mont_mul": ("myzkp_tpu_torch/csrc/mont_mul.cu",
                  "myzkp_tpu/fields/limb_pallas.py:286"),
@@ -2240,8 +2502,9 @@ def main() -> int:
     time_g2_kernels(dev, results)
     phase_mixed_add(dev, results)
     phase_groth16(dev, results)
-    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+    phase_kzg(dev, results)
+    keys = ("launches", "kzg_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k][0],
                 "replaces": SOURCES[k][1], **{key: results[k][key] for key in keys}}
                for k in SOURCES]
@@ -2252,6 +2515,7 @@ def main() -> int:
     log(f"# pinocchio {json.dumps(results['_pinocchio'])}")
     log(f"# mixed_add {json.dumps(results['_mixed_add'])}")
     log(f"# groth16 {json.dumps(results['_groth16'])}")
+    log(f"# kzg {json.dumps(results['_kzg'])}")
     log(f"# probe13 {json.dumps(results['_probe13'])}")
     log(f"# scan_parent_path {json.dumps(results['_scan_parent_path'])}")
     log(f"# rows {json.dumps(results['_rows'])}")

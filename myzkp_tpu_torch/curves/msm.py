@@ -408,6 +408,13 @@ def msm_many(F, b3, jobs) -> list:
     return out
 
 
+def msm_naive(F, b3, points: Point, s_limbs) -> Point:
+    """sum_i [s_i] P_i by one batched double-and-add ladder over all points
+    (bases from one steps launch of the doubling chain) and a tree sum."""
+    each = wst.scalar_mul_bits(F, b3, points, scalar_bits(s_limbs))
+    return wst.tree_sum(F, b3, each)
+
+
 def msm(F, b3, points: Point, s_limbs, **kw) -> Point:
     """sum_i [s_i] P_i: the double-and-add ladder below _PIPPENGER_MIN_N
     points unless Pippenger's c or K is given, else msm_pippenger."""

@@ -214,6 +214,15 @@ def neg(spec: FieldSpec, a):
     return sub(spec, torch.zeros_like(a), a)
 
 
+def reduce_below_p(spec: FieldSpec, a):
+    """a mod p for canonical limbs a < R = 2^(16L), by one conditional
+    subtraction of p per whole multiple of p below R."""
+    t = a.long()
+    for _ in range(((1 << (W * spec.L)) - 1) // spec.p):
+        t = _cond_sub_p(spec, t)
+    return t.int()
+
+
 def is_zero(spec: FieldSpec, a):
     return (a == 0).all(dim=0)
 

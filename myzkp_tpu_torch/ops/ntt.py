@@ -1,7 +1,8 @@
 """Number-theoretic transform over limb tensors: the radix-2 Stockham NTT, its
-four-step recursion and the coset transforms.
+four-step recursion, the coset transforms and the product of polynomials
+(``fast_multiply``).
 
-Counterpart of ``myzkp_tpu/ops/ntt.py:36-561`` with the same decomposition:
+Counterpart of ``myzkp_tpu/ops/ntt.py:36-483`` with the same decomposition:
 below ``_FOURSTEP_MIN_N`` points one Stockham pass of log2(n) stages, one
 launch of kernel K5 each; from there up a recursive four-step split n = m1 * m2
 whose length-m1 (<= ``_LEAF_M``) transforms are single launches of kernel K6,
@@ -250,6 +251,27 @@ def intt(a: Fp) -> Fp:
     """Inverse NTT, natural order in and out."""
     out = _ntt_natural(a.spec, a.mont, True)
     return Fp(a.spec, _scale_by_n_inv(a.spec, out))
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def fast_multiply(a: Fp, b: Fp, out_len: int | None = None) -> Fp:
+    """Polynomial product by the NTT: a (..., na) and b (..., nb) low-first,
+    zero-padded to the next power of two past na + nb - 1, transformed, multiplied
+    pointwise and transformed back.  Returns na + nb - 1 coefficients, or
+    ``out_len`` (cut or zero-padded)."""
+    spec = a.spec
+    full = a.shape[-1] + b.shape[-1] - 1
+    n = _next_pow2(full)
+    fa = _ntt_natural(spec, a.pad_to(n).mont, False)
+    fb = _ntt_natural(spec, b.pad_to(n).mont, False)
+    out = _scale_by_n_inv(spec, _ntt_natural(spec, limb.mont_mul(spec, fa, fb), True))
+    res = Fp(spec, out[..., :full])
+    if out_len is not None:
+        res = res.pad_to(out_len) if out_len >= full else res[..., :out_len]
+    return res
 
 
 def _geometric_mont(spec: FieldSpec, c: int, n: int, device) -> torch.Tensor:

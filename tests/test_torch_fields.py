@@ -167,9 +167,9 @@ def test_build_definitions_must_name_a_source_constant(defines, known):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, those of the NTT, quotient and
-    Groth16 slices included, leaves jax and the JAX package out of
-    sys.modules."""
+    """Importing every module of the port, those of the NTT, quotient,
+    Groth16 and KZG / Gemini slices included, leaves jax and the JAX package
+    out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import myzkp_tpu_torch as m\n"
@@ -187,6 +187,7 @@ def test_port_imports_no_jax():
     slices = {"fields.limb", "curves.msm", "curves.fixed_base",  # the G1 MSM
               "fields.fp", "fields.ntt_kernels", "ops.ntt", "ops.poly",
               "arith.sparse", "snark.pinocchio", "interop",  # the quotient stage
-              "snark.groth16"}  # Groth16 on the sparse QAP
+              "snark.groth16",  # Groth16 on the sparse QAP
+              "commit.kzg", "commit.gemini"}  # KZG and Gemini on ops.poly
     assert {f"myzkp_tpu_torch.{m}" for m in slices} <= loaded
     assert len(loaded) >= 24
