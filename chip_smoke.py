@@ -147,12 +147,28 @@ Phases, one output line each (or more), in order:
                same s, commitments and proofs equal point for point; launch
                counts of commit, open, batch open, the degree proof and
                Gemini's commit and open; times beside the card's name and
-               power limit.
+               power limit;
+ 12. sumcheck  both sumcheck provers (protocols/sumcheck_tpu.py,
+               protocols/sumcheck.py): the table prover on the sumcheck
+               demo's problem (three multilinear factors of 8 terms from
+               seed 45, degree 3) over a 2^20-point hypercube: the verifier
+               accepts, and rejects a changed claimed sum and a changed
+               round coefficient; K1 launches a prove under 2,000; the
+               prove timed (median of 3, split into table build and
+               rounds); the same prover at 2^12 equal to the host mirror
+               (claimed sum and every round polynomial); the Gemini-tied
+               prove_sumcheck at el = 20 on phase 11's SRS, an 8-term
+               multilinear g: the hypercube sum equal to the host's, c_g
+               equal to [f_i(s)]G1 of the host folds at the transcript's
+               challenges, verify_sumcheck accepting, and rejecting a
+               changed h and a changed g_j; the prove split into host
+               rounds, commit and open; each verify timed; launch counts.
 The build phase prints ptxas's registers and spills of every kernel and the
 static SASS instruction counts (cuobjdump -sass) of the curve kernels.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object with one entry per kernel (its
-"launches" from the proves, "kzg_launches" from phase 11's runs); the last
+"launches" from the proves, "kzg_launches" from phase 11's runs,
+"sumcheck_launches" from phase 12's); the last
 line is {"ok": true, "device": {...}}.  Any failure exits nonzero before it.
 Neither this script nor the port imports JAX.
 """
@@ -2262,7 +2278,7 @@ def kzg_small(d, s: int) -> tuple:
     return out, pk, (rhos, int(fs[-1].to_int()[0]), beta)
 
 
-def phase_kzg(dev, results: dict) -> None:
+def phase_kzg(dev, results: dict) -> tuple:
     from myzkp_tpu_torch.commit import gemini, kzg
     from myzkp_tpu_torch.curves import bn254, weierstrass as wst
     from myzkp_tpu_torch.curves.msm import scalars_from_int
@@ -2428,6 +2444,183 @@ def phase_kzg(dev, results: dict) -> None:
     log(f"# kzg open: K1 {counts['open'].get('mont_mul', 0)} launches, its chain "
         f"{counts['open'].get('mont_pow', 0)}: {k1_open} in all (under {K1_OPEN_LAUNCHES})")
     log(f"# kzg phase {secs['phase']:.1f} s")
+    return pk, s
+
+
+# Phase 12: both sumcheck provers (protocols/sumcheck_tpu.py, protocols/sumcheck.py)
+# at the width of the port's other paths: a 2^20-point hypercube, and the
+# Gemini-tied sumcheck at el = 20 (Gemini over 2^20 coefficients) on phase 11's
+# SRS.  The table prover's problem is the demo's (examples/sumcheck_demo.py:
+# three multilinear factors of 8 terms from random.Random(45), degree 3).
+LOG_SC = 20
+LOG_SC_HOST = 12  # the table prover against the port's host mirror
+SC_FACTORS, SC_TERMS, SC_SEED = 3, 8, 45
+K1_SUMCHECK_LAUNCHES = 2000  # K1 + its chain in a table prove (a loop an element: ~2^20)
+
+
+def demo_factors(spec, num_vars: int) -> list:
+    """The demo's factors: random multilinear MPolys of SC_TERMS terms."""
+    from myzkp_tpu_torch.ops.mpoly import MPoly
+
+    rng = random.Random(SC_SEED)
+    out = []
+    for _ in range(SC_FACTORS):
+        d = {}
+        for _ in range(SC_TERMS):
+            d[tuple(rng.randint(0, 1) for _ in range(num_vars))] = rng.randrange(spec.p)
+        out.append(MPoly(spec, d))
+    return out
+
+
+class split_timer:
+    """Within the block, each call of owner.name also adds its seconds (host
+    clock, ended by a synchronize) to ``self.secs``; callers reach the
+    function through its owner, so they see the wrapper."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name, self.secs = owner, name, 0.0
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.owner, self.name)
+
+        def wrapped(*a, **k):
+            out, sec = timed(lambda: fn(*a, **k))
+            self.secs += sec
+            return out
+
+        setattr(self.owner, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.fn)
+
+
+def phase_sumcheck(dev, results: dict, pk, s: int) -> None:
+    from myzkp_tpu_torch.commit import gemini
+    from myzkp_tpu_torch.curves import bn254
+    from myzkp_tpu_torch.ops.mpoly import MPoly
+    from myzkp_tpu_torch.protocols import sumcheck as sc
+    from myzkp_tpu_torch.protocols import sumcheck_tpu as st
+
+    t_phase = time.perf_counter()
+    spec, R = bn254.r_spec(), bn254.R
+    G1 = bn254.g1_generator()
+    counts, secs = {}, {}
+
+    def run(name: str, fn):
+        (out, counts[name]), secs[name] = timed(lambda: counted(fn))
+        return out
+
+    def rejects(name: str, fn, what: str):
+        if run(name, fn):
+            raise AssertionError(f"sumcheck: the verifier accepted {what}")
+
+    # (a) the table prover over the 2^20-point hypercube
+    factors = demo_factors(spec, LOG_SC)
+    prover, verifier = st.SumCheckProverTPU(spec, SC_FACTORS), st.SumCheckVerifier(spec)
+    with split_timer(st, "eval_all_binary_combinations") as build:
+        proof = run("table_prove", lambda: prover.prove(factors, LOG_SC))
+    first = {"total_s": secs["table_prove"], "build_s": build.secs}
+    k1 = counts["table_prove"].get("mont_mul", 0) + counts["table_prove"].get("mont_pow", 0)
+    if k1 >= K1_SUMCHECK_LAUNCHES or counts["table_prove"].get("mont_mul", 0) < 1:
+        raise AssertionError(f"sumcheck table prove 2^{LOG_SC}: {k1} K1 + chain launches, "
+                             f"expected 1 to {K1_SUMCHECK_LAUNCHES - 1}")
+    if not run("table_verify", lambda: verifier.verify(proof, factors)):
+        raise AssertionError(f"sumcheck table prove 2^{LOG_SC}: the verifier rejected it")
+    rejects("table_reject_sum", lambda: verifier.verify(st.ProductSumcheckProof(
+        proof.el, (proof.claimed_sum + 1) % R, proof.round_polys), factors),
+        "a changed claimed sum")
+    rp = [list(c) for c in proof.round_polys]
+    rp[LOG_SC // 2][2] = (rp[LOG_SC // 2][2] + 1) % R
+    rejects("table_reject_round", lambda: verifier.verify(st.ProductSumcheckProof(
+        proof.el, proof.claimed_sum, rp), factors), "a changed round coefficient")
+    reps = []
+    for _ in range(3):
+        with split_timer(st, "eval_all_binary_combinations") as build:
+            again, total = timed(lambda: prover.prove(factors, LOG_SC))
+        if (again.claimed_sum, again.round_polys) != (proof.claimed_sum, proof.round_polys):
+            raise AssertionError(f"sumcheck table prove 2^{LOG_SC}: a second prove differs")
+        reps.append((total * 1e3, build.secs * 1e3))
+    med = sorted(reps)[1]
+    table = {"prove_ms": med[0], "build_ms": med[1], "rounds_ms": med[0] - med[1],
+             "reps_ms": reps, "first": first, "k1_launches": k1}
+    del factors, proof, again
+
+    # (b) the same prover at 2^12 against the port's host mirror
+    small = demo_factors(spec, LOG_SC_HOST)
+    card_p, card_s = timed(lambda: prover.prove(small, LOG_SC_HOST))
+    t0 = time.perf_counter()
+    host_p = st.SumCheckProverHost(spec, SC_FACTORS).prove(small, LOG_SC_HOST)
+    host_s = time.perf_counter() - t0
+    if (card_p.claimed_sum, card_p.round_polys) != (host_p.claimed_sum, host_p.round_polys):
+        raise AssertionError(f"sumcheck table prove 2^{LOG_SC_HOST}: the card's claimed sum "
+                             f"or round polynomials differ from the host mirror's")
+    if not verifier.verify(card_p, small):
+        raise AssertionError(f"sumcheck table prove 2^{LOG_SC_HOST}: the verifier rejected it")
+
+    # (c) the Gemini-tied sumcheck at el = 20 on phase 11's SRS
+    rng = random.Random(SEED + 30)
+    d = {tuple(rng.randint(0, 1) for _ in range(LOG_SC)): rng.randrange(R)
+         for _ in range(SC_TERMS)}
+    d[(1,) * LOG_SC] = rng.randrange(1, R)  # g has all 20 variables
+    g = MPoly(spec, d)
+    h = run("hypercube_sum", lambda: sc.sum_over_boolean_hypercube(g, dev))
+    if h != sum(c << (LOG_SC - sum(e)) for e, c in g.d.items()) % R:
+        raise AssertionError(f"sumcheck 2^{LOG_SC}: the hypercube sum differs from the host's")
+    with split_timer(sc, "commit_sumcheck") as commit, \
+            split_timer(gemini, "open_gemini") as opening:
+        sp = run("gemini_prove", lambda: sc.prove_sumcheck(g, h, pk))
+    stream = sc._transcript(sp.el, sp.h)
+    rs = [sc._round_challenge(spec, stream, g_j) for g_j in sp.gs]
+    folds = host_folds(sc.get_coefs_in_order(g), rs, R)
+    if sp.c_g != [G1 * horner(f, s, R) for f in folds]:
+        raise AssertionError(f"sumcheck 2^{LOG_SC}: c_g differs from the host's [f_i(s)]G1")
+    if not run("gemini_verify", lambda: sc.verify_sumcheck(sp, pk)):
+        raise AssertionError(f"sumcheck 2^{LOG_SC}: verify_sumcheck rejected the proof")
+    rejects("gemini_reject_h", lambda: sc.verify_sumcheck(
+        sc.SumCheckProof(**{**sp.__dict__, "h": (h + 1) % R}), pk), "a changed h")
+    gs = list(sp.gs)
+    gs[LOG_SC // 2] = gs[LOG_SC // 2] + MPoly.constant(spec, 1)
+    rejects("gemini_reject_gj", lambda: sc.verify_sumcheck(
+        sc.SumCheckProof(**{**sp.__dict__, "gs": gs}), pk), "a changed g_j")
+    gem = {"prove_s": secs["gemini_prove"], "commit_s": commit.secs, "open_s": opening.secs,
+           "rounds_s": secs["gemini_prove"] - commit.secs - opening.secs}
+
+    need = {"gemini_prove": MSM_KERNELS, "gemini_verify": ("padd", "pdbl", "padd2", "pdbl2")}
+    for name, kernels in need.items():
+        if min(counts[name].get(k, 0) for k in kernels) < 1:
+            raise AssertionError(f"sumcheck {name}: a kernel of {kernels} never launched: "
+                                 f"{counts[name]}")
+    total = {}
+    for c in counts.values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    for k in results:
+        if not k.startswith("_"):
+            results[k]["sumcheck_launches"] = total.get(k, 0)
+    secs["phase"] = time.perf_counter() - t_phase
+    results["_sumcheck"] = {"card": card(), "table": table, "small_card_s": card_s,
+                            "small_host_s": host_s, "gemini": gem, "seconds": secs,
+                            "launches": counts}
+    smi = card()
+    log(f"# sumcheck table 2^{LOG_SC} ({smi}): {SC_FACTORS} factors x {SC_TERMS} terms, "
+        f"degree {SC_FACTORS}; prove median {med[0]:.2f} ms of "
+        f"{[round(t, 2) for t, _ in reps]} (table build {med[1]:.2f}, rounds "
+        f"{med[0] - med[1]:.2f}); first {first['total_s']:.3f} s (build "
+        f"{first['build_s']:.3f}); verify {secs['table_verify']:.3f} s: accepted; a changed "
+        f"claimed sum and a changed round coefficient rejected; K1 {k1} launches "
+        f"(under {K1_SUMCHECK_LAUNCHES})")
+    log(f"# sumcheck table 2^{LOG_SC_HOST}: the card's proof ({card_s:.3f} s) == the host "
+        f"mirror's ({host_s:.3f} s): claimed sum and all {LOG_SC_HOST} round polynomials")
+    log(f"# sumcheck gemini el = {LOG_SC} ({smi}): hypercube sum == host "
+        f"({secs['hypercube_sum']:.3f} s); prove {gem['prove_s']:.3f} s (host rounds "
+        f"{gem['rounds_s']:.3f}, commit {gem['commit_s']:.3f}, open {gem['open_s']:.3f}); "
+        f"c_g == [f_i(s)]G1 of the host folds; verify {secs['gemini_verify']:.3f} s: "
+        f"accepted; a changed h {secs['gemini_reject_h']:.3f} s and a changed g_j "
+        f"{secs['gemini_reject_gj']:.3f} s: rejected")
+    for name in ("table_prove", "gemini_prove", "gemini_verify"):
+        log(f"# sumcheck {name} launches: {json.dumps(counts[name])}")
+    log(f"# sumcheck phase {secs['phase']:.1f} s")
 
 
 SOURCES = {
@@ -2502,8 +2695,10 @@ def main() -> int:
     time_g2_kernels(dev, results)
     phase_mixed_add(dev, results)
     phase_groth16(dev, results)
-    phase_kzg(dev, results)
-    keys = ("launches", "kzg_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+    srs, s = phase_kzg(dev, results)
+    phase_sumcheck(dev, results, srs, s)
+    del srs
+    keys = ("launches", "kzg_launches", "sumcheck_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k][0],
                 "replaces": SOURCES[k][1], **{key: results[k][key] for key in keys}}
@@ -2516,6 +2711,7 @@ def main() -> int:
     log(f"# mixed_add {json.dumps(results['_mixed_add'])}")
     log(f"# groth16 {json.dumps(results['_groth16'])}")
     log(f"# kzg {json.dumps(results['_kzg'])}")
+    log(f"# sumcheck {json.dumps(results['_sumcheck'])}")
     log(f"# probe13 {json.dumps(results['_probe13'])}")
     log(f"# scan_parent_path {json.dumps(results['_scan_parent_path'])}")
     log(f"# rows {json.dumps(results['_rows'])}")

@@ -3,8 +3,9 @@
 The JAX package holds field elements as ``(L, *batch)`` uint32 arrays of
 16-bit limbs; the port holds the same integers as int32 tensors.  These
 functions move limb arrays, G1 and G2 point batches (3 or 6 coordinate
-arrays, in the order of ``weierstrass.leaves``), ``Fp`` / ``Poly`` values and
-sparse circuits across, and read what the JAX side writes: the fixed-base
+arrays, in the order of ``weierstrass.leaves``), ``Fp`` / ``Poly`` values,
+``MPoly`` dicts, a KZG key's powers and sparse circuits across, and read
+what the JAX side writes: the fixed-base
 tables (``curves/fixed_base.py``, keys ``l0..l2`` or ``l0..l5``), the bench's
 MSM point table (``bench.py``, keys ``x, y, z``), any proving key written
 by ``utils/serialize.save_point_batches`` (``load_key``: Pinocchio's,
@@ -29,6 +30,7 @@ from .curves.weierstrass import Point, from_leaves, leaves
 from .fields.host import Fq, Fq2, curve_g1, curve_g2
 from .fields.fp import Fp
 from .fields.spec import FieldSpec
+from .ops.mpoly import MPoly
 from .ops.poly import Poly
 
 
@@ -94,6 +96,21 @@ def poly_from_numpy(spec: FieldSpec, coef_mont, device=None) -> Poly:
 
 def poly_to_numpy(a: Poly) -> np.ndarray:
     return fp_to_numpy(a.coef)
+
+
+def mpoly_from_dict(spec: FieldSpec, d: dict) -> MPoly:
+    """The JAX ``MPoly.d`` ({exponent tuple: int coefficient}) -> MPoly."""
+    return MPoly(spec, d)
+
+
+def kzg_pk_from_numpy(powers1_arrays, powers2_arrays, device=None):
+    """A ``commit.kzg.KZGPublicKey`` from the JAX key's ``powers1`` (3
+    coordinate limb arrays) and ``powers2`` (6) as numpy, so that both
+    packages can hold one SRS."""
+    from .commit.kzg import KZGPublicKey  # kzg imports this module (via fixed_base)
+
+    return KZGPublicKey(powers1=point_from_numpy(powers1_arrays, device),
+                        powers2=point_from_numpy(powers2_arrays, device))
 
 
 def sparse_matrix_from_numpy(spec: FieldSpec, rows, cols, vals_mont, shape,

@@ -2,7 +2,7 @@
 """Device-time profile of one call of a path of the port on one GPU.
 
 Run from the repository root:
-    python3 profile_paths.py [--path msm|ntt|shifted_h|prove|groth16] [--log-n 20]
+    python3 profile_paths.py [--path msm|ntt|shifted_h|prove|groth16|sumcheck] [--log-n 20]
 
 Paths: ``msm``, one BN254 G1 MSM of 2^log_n points (made with
 fixed_base_multi from seeded scalars); ``ntt``, one forward NTT of 2^log_n
@@ -10,7 +10,10 @@ seeded F_r elements; ``shifted_h``, the prover's quotient stage
 get_shifted_h on square_chain(2^log_n); ``prove``, one Pinocchio prove on
 square_chain(2^log_n) with a key from a seeded setup (the setup is not
 profiled); ``groth16``, one Groth16 prove the same way, with 2 public
-inputs.  Builds the kernels, runs the call
+inputs; ``sumcheck``, one prove of the table sumcheck prover over a
+2^log_n-point hypercube (log_n variables), on the sumcheck demo's problem
+(examples/sumcheck_demo.py: three multilinear factors of 8 seeded terms,
+degree 3).  Builds the kernels, runs the call
 twice to warm up and a third time under torch.profiler.  Prints the card
 (nvidia-smi name and power limit), the wall time of the profiled call (host
 clock, synchronized), the device busy time (the sum of the durations of every
@@ -27,7 +30,11 @@ inputs (each step's index, tag and target, and the bucket table), the bucket
 scan, the lane merge, the window sums
 (bucket sums), Horner, the double-and-add ladders, and the conversion of
 points to affine (one batch inversion each: the proof's points on their way
-to the host).  Each device event is
+to the host); for the sumcheck prover, the table build (and within it the
+hypercube), the folds, the pointwise products, the table sums, the
+transcript (pushes, hashes, challenges and the round polynomials'
+interpolation on the host) and the rounds (the rest of the prove: the
+loop and its host reads of the sums).  Each device event is
 put in the innermost stage whose range holds the host call that launched it
 (its CUDA runtime call, matched by correlation id), and each stage's host
 time is its ranges' time less the stages nested in them; the table gives per
@@ -70,6 +77,17 @@ def _path(name: str, n: int, seed: int, dev):
     from myzkp_tpu_torch.fields.spec import bn254_r_spec
 
     spec = bn254_r_spec()
+    if name == "sumcheck":
+        from myzkp_tpu_torch.ops.mpoly import MPoly
+        from myzkp_tpu_torch.protocols.sumcheck_tpu import SumCheckProverTPU
+
+        num_vars, prng = n.bit_length() - 1, random.Random(seed)
+        factors = [MPoly(spec, {tuple(prng.randint(0, 1) for _ in range(num_vars)):
+                                prng.randrange(spec.p) for _ in range(8)})
+                   for _ in range(3)]
+        prover = SumCheckProverTPU(spec, 3, dev)
+        return (lambda: prover.prove(factors, num_vars),
+                f"sumcheck table prove over 2^{num_vars} points (3 factors x 8 terms)")
     if name == "ntt":
         from myzkp_tpu_torch.ops import ntt
 
@@ -108,6 +126,16 @@ STAGES = (
     ("horner", "myzkp_tpu_torch.curves.msm", "_horner"),
     ("ladder", "myzkp_tpu_torch.curves.weierstrass", "scalar_mul_bits"),
     ("to affine", "myzkp_tpu_torch.curves.weierstrass", "to_affine"),
+    ("rounds", "myzkp_tpu_torch.protocols.sumcheck_tpu", "SumCheckProverTPU.prove"),
+    ("table build", "myzkp_tpu_torch.protocols.sumcheck_tpu", "eval_all_binary_combinations"),
+    ("hypercube", "myzkp_tpu_torch.protocols.sumcheck_tpu", "hypercube_points"),
+    ("fold", "myzkp_tpu_torch.protocols.sumcheck_tpu", "fold_into_half"),
+    ("product", "myzkp_tpu_torch.protocols.sumcheck_tpu", "fold_factors_pointwise"),
+    ("sum", "myzkp_tpu_torch.protocols.sumcheck_tpu", "table_sum"),
+    ("transcript", "myzkp_tpu_torch.protocols.sumcheck_tpu", "_push_ints"),
+    ("transcript", "myzkp_tpu_torch.protocols.sumcheck_tpu", "sample_field"),
+    ("transcript", "myzkp_tpu_torch.protocols.sumcheck_tpu", "_host_interpolate"),
+    ("transcript", "myzkp_tpu_torch.utils.fiat_shamir", "FiatShamirTransformer.prover_fiat_shamir"),
 )
 
 
@@ -175,7 +203,8 @@ def stage_split(events, wall_ms: float) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("msm", "ntt", "shifted_h", "prove", "groth16"),
+    ap.add_argument("--path", choices=("msm", "ntt", "shifted_h", "prove", "groth16",
+                                       "sumcheck"),
                     default="msm")
     ap.add_argument("--log-n", type=int, default=20)
     ap.add_argument("--seed", type=int, default=7)
