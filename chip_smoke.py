@@ -37,7 +37,11 @@ Phases, one output line each (or more), in order:
                an operand broadcast as the paths broadcast it (the 1/n
                constant, coset offsets against (3, n), the four-step level
                table against E = 3, to_mont / from_mont columns), K5
-               on 2^20 pairs and at every stage shape of the m = 2^12 path,
+               on 2^20 pairs (one stage, and log2 r stages: r =
+               MYZKP_K5_RADIX) and at every pass of the m = 2^12 path's
+               transforms and of fast_multiply's 2^9-point ones, each pass
+               on the kernel's previous output, those of the first
+               transform on a random table too (rows not starting with 1),
                K6 at every
                leaf shape of the 2^20 paths, at m = 16, 64, 128 with a
                ragged batch and at every stage count s = 1..7 of m = 128
@@ -87,7 +91,11 @@ Phases, one output line each (or more), in order:
                equals the constraint evaluation u_j, and the Pinocchio
                identity (ell + d_ell t)(r + d_r t) - (o + d_o t) = H t holds at
                a random point; launch counts of each run; the calls timed;
-               K5 and K6 timed beside their plain versions, and K1 at the
+               K5's launches at m = 2^12 exactly ceil(log2 n / log2 r) a
+               transform; K5 timed at each pass of the batched 2^13-point
+               coset NTT and over the whole transform (its passes in one
+               graph, beside the transform's bound), K6
+               timed beside its plain version, and K1 at the
                four-step level-twiddle pass over 3 x 2^21 elements (the
                quotient's shape) and at (16, 8192) (a setup to_mont), and
                its chain at 2 elements with e = q - 2 (the proof's
@@ -112,13 +120,16 @@ Phases, one output line each (or more), in order:
                same shape;
   9. mixed add the entry points weierstrass.padd_mixed / padd_mixed_sel, counted:
                K9 over G1 at 2^15 lanes (the mask set on about 1 lane in 32)
-               and at 4,194,304 points, K10 over G2 at the MSM's 32,768
-               lanes; inputs with P = O, P = lam (qx, qy, 1) with lam != 1 (a
-               doubling through the mixed formula), P = -Q (the sum is O), and
+               and at 4,194,304 points, K10 (one point on a lane pair) over
+               G2 at the MSM's 32,768 lanes; inputs with P = O, P = lam
+               (qx, qy, 1) with lam != 1 (a doubling through the mixed
+               formula), P = -Q (the sum is O), and
                lanes whose every c0 and c1 is 0, 1, q - 1 or R mod q; each
                kernel held against its plain version, against the complete add
                (K2, K7) of P and (qx, qy, one) and against the host group law
-               on a sample of lanes, then timed beside its plain version;
+               on a sample of lanes, then timed beside its plain version; K10
+               at 32,768 lanes (mask on 1 in 32) and at 2^20 lanes, and K7
+               on the same inputs with Q = (qx, qy, one);
  10. groth16   setup, prove and verify on square_chain(2^20) with 2 public
                inputs: the proof is accepted, and rejected under a wrong public
                input; the proof of a wrong witness is rejected; launch counts
@@ -141,7 +152,9 @@ Phases, one output line each (or more), in order:
                at d, false at d - 1); Gemini over the 2^20 coefficients with
                20 seeded rhos and a seeded beta (each of the 21 commitments
                equal to the host's [f_i(s)]G1; verify accepts, and rejects
-               mu + 1, two whole verifies timed apart); fast_multiply at 2^19 x 2^19 (K6) and 2^8 x 2^8 (K5)
+               mu + 1, two whole verifies timed apart); fast_multiply at
+               2^19 x 2^19 (K6) and 2^8 x 2^8 (K5, ceil(9 / log2 r)
+               launches a transform, three transforms)
                against the host's p(x) q(x) at 3 points; KZG and Gemini at
                degree 15 on the card and on the CPU plain versions with the
                same s, commitments and proofs equal point for point; launch
@@ -352,7 +365,8 @@ def sass_counts(lib) -> dict:
 
 SASS_KERNELS = ("padd_seg_level_kernel", "padd2_seg_level_kernel", "padd_mixed_kernel",
                 "padd_mixed2_kernel", "padd2_kernel", "pdbl2_kernel", "padd_kernel",
-                "pdbl_kernel", "mont_mul_kernel", "mont_pow_kernel", "ntt_leaf_kernel")
+                "pdbl_kernel", "mont_mul_kernel", "mont_pow_kernel", "ntt_leaf_kernel",
+                "butterfly_kernel")
 
 
 def random_fe(rng: np.random.Generator, n: int, dev) -> torch.Tensor:
@@ -823,30 +837,41 @@ def phase_bitcheck_fr(dev, results: dict) -> None:
     err = bitcheck_mont_mul(spec, rng, dev, "mont_mul over F_r")
     results["mont_mul"]["max_abs_err"] = max(results["mont_mul"]["max_abs_err"], err)
 
-    # K5: 2^20 pairs as a (16, R = 2, Bk = 4, 2h = 512, B = 512) stage input;
-    # u and v of the first 16 pairs are the crossed edges
+    # K5: 2^20 pairs as a (16, R = 2, Bk = 4, c = 512, B = 512) stage input;
+    # u and v of the first 16 pairs are the crossed edges; one stage, then
+    # log2 r stages on random tables
     x = random_fe(rng, 2 * n, dev).reshape(16, 2, 4, 512, n >> 11)
     x[:, 0, 0, 0, :16], x[:, 0, 0, 256, :16] = ea, eb
-    tw = random_fe(rng, 256, dev)
-    err = check_equal("butterfly", [nk.butterfly(spec, x, tw)],
-                      [nk.butterfly_ref(spec, x, tw)])
+    top = nk.k5_radix().bit_length() - 1
+    err = 0
+    for s in sorted({1, top}):
+        tw = random_fe(rng, 512 - (512 >> s), dev)
+        err = max(err, check_equal(f"butterfly stages = {s}", [nk.butterfly(spec, x, tw, s)],
+                                   [nk.butterfly_ref(spec, x, tw, s)]))
 
-    # K5 at every stage of the m = 2^12 path's transforms: the batched INTT
-    # (R = 3, 2^12 points), the batched coset NTT (R = 3, 2^13) and the coset
-    # INTT (R = 1, 2^13); each stage's input is the kernel's previous output
-    for R, c, inv in STOCKHAM_TRANSFORMS:
+    # K5 at every pass of the m = 2^12 path's transforms (the batched INTT,
+    # R = 3, 2^12 points; the batched coset NTT, R = 3, 2^13; the coset INTT,
+    # R = 1, 2^13) and of fast_multiply's three 2^9-point transforms; each
+    # pass's input is the kernel's previous output; the first transform's
+    # passes again on random tables (rows not starting with 1)
+    shapes = []
+    for k, (R, c, inv) in enumerate(STOCKHAM_TRANSFORMS + FAST_MUL_TRANSFORMS):
         y = random_fe(rng, R * c, dev).reshape(16, R, 1, c, 1)
-        for s in range(c.bit_length() - 1):
-            tw = ntt._stage_twiddle_dev(spec, c, s, inv, dev)
-            got = nk.butterfly(spec, y, tw)
-            err = max(err, check_equal(f"butterfly {tuple(y.shape)}", [got],
-                                       [nk.butterfly_ref(spec, y, tw)]))
-            y = got
+        for s0, s in ntt._stockham_passes(c):
+            tw = ntt._pass_twiddles(spec, c, s0, s, inv, dev)
+            tables = [tw] + ([random_fe(rng, tw.shape[1], dev)] if k == 0 else [])
+            for twk in tables:
+                got = nk.butterfly(spec, y, twk, s)
+                err = max(err, check_equal(f"butterfly {tuple(y.shape)} stages = {s}", [got],
+                                           [nk.butterfly_ref(spec, y, twk, s)]))
+            shapes.append((tuple(y.shape[1:]), s))
+            y = nk.butterfly(spec, y, tw, s)
     results["butterfly"] = {"max_abs_err": err}
-    log(f"# bitcheck butterfly: 2^{LOG_N} pairs (R = 2, Bk = 4, h = 256, "
-        f"B = {n >> 11}) + 16 edge pairs, and every stage of "
-        f"{len(STOCKHAM_TRANSFORMS)} transforms (R, n, inverse) "
-        f"{STOCKHAM_TRANSFORMS}: exact")
+    log(f"# bitcheck butterfly (r = {nk.k5_radix()}): 2^{LOG_N} pairs (R = 2, Bk = 4, "
+        f"c = 512, B = {n >> 11}) + 16 edge pairs at stages = {sorted({1, top})}, and "
+        f"every pass of {len(STOCKHAM_TRANSFORMS + FAST_MUL_TRANSFORMS)} transforms "
+        f"(R, n, inverse) {STOCKHAM_TRANSFORMS + FAST_MUL_TRANSFORMS}, chained: "
+        f"(R, Bk, c, B), stages {shapes}: exact")
 
     # K6 at every leaf shape of the main paths, then E = 2 with a ragged B
     err = 0
@@ -988,6 +1013,18 @@ def bitcheck_broadcast(spec, rng, dev, results: dict) -> None:
 # inverse) of the four-step recursion of shifted h at m = 2^20 and the NTT.
 STOCKHAM_TRANSFORMS = ((3, 1 << LOG_M_SMALL, True), (3, 2 << LOG_M_SMALL, False),
                        (1, 2 << LOG_M_SMALL, True))
+# fast_multiply of two 2^8-coefficient inputs (phase 11): two forward
+# 2^9-point transforms and one inverse
+FAST_MUL_TRANSFORMS = ((1, 1 << 9, False), (1, 1 << 9, False), (1, 1 << 9, True))
+
+
+def k5_launches(transforms) -> int:
+    """K5's launches for the transforms (R, n, inverse): ceil(log2 n / log2
+    r) each, r = MYZKP_K5_RADIX of the library in use."""
+    from myzkp_tpu_torch.fields import ntt_kernels as nk
+
+    per = nk.k5_radix().bit_length() - 1
+    return sum(-(-(n.bit_length() - 1) // per) for _, n, _ in transforms)
 
 
 def leaf_shapes() -> list:
@@ -1117,6 +1154,15 @@ def leaf_products(m: int) -> int:
     return m // 2 * (m.bit_length() - 1) - (m - 1)
 
 
+def k5_pass_bound(R: int, m: int, Bk: int, c: int, s: int) -> dict:
+    """The bound of a K5 pass of s stages on (R, Bk, c, 1) of a length-m
+    transform: each element read and written once and the pass's table read
+    once; the products by twiddles other than 1, m / 2 - Bk 2^t a stage t of
+    the pass and R (the j = 0 pair of each block has twiddle 1)."""
+    return bound(2 * LIMB_BYTES * R * m + LIMB_BYTES * (c - (c >> s)),
+                 R * sum(m // 2 - (Bk << t) for t in range(s)))
+
+
 def time_ntt_kernels(dev, results: dict) -> None:
     from myzkp_tpu_torch.fields import ntt_kernels as nk
     from myzkp_tpu_torch.fields.spec import bn254_r_spec
@@ -1125,32 +1171,54 @@ def time_ntt_kernels(dev, results: dict) -> None:
     spec = bn254_r_spec()
     rng = np.random.default_rng(SEED + 3)
     # K6 at the leaf shape of the batched 2^21 coset NTT (three of the nine
-    # launches of shifted h at 2^20); K5 at stage 0 of the batched 2^13 coset
-    # NTT of shifted h at 2^12
+    # launches of shifted h at 2^20)
     E, m, B = 3, 128, 1 << 14
     xl = random_fe(rng, E * m * B, dev).reshape(16, E, m, B)
     twl = ntt._leaf_twiddles(spec, m, False, dev)
-    R, c = 3, 2 << LOG_M_SMALL
-    xb = random_fe(rng, R * c, dev).reshape(16, R, 1, c, 1)
-    twb = ntt._stage_twiddle_dev(spec, c, 0, False, dev)
-    pairs = R * c // 2
-    cases = {
+    time_cases({
         "ntt_leaf": (f"E = {E}, m = {m}, B = {B}: a leaf level of the batched "
                      f"2^{LOG_M_BIG + 1}-point coset NTT",
                      lambda: nk.ntt_leaf(spec, xl, twl),
                      lambda: nk.ntt_leaf_ref(spec, xl, twl), 5, 1,
                      bound(2 * LIMB_BYTES * E * m * B + (m - 1) * LIMB_BYTES,
-                           E * B * leaf_products(m))),
-        "butterfly": (f"(16, {R}, 1, {c}, 1): stage 0 of the batched "
-                      f"2^{LOG_M_SMALL + 1}-point coset NTT",
-                      lambda: nk.butterfly(spec, xb, twb),
-                      lambda: nk.butterfly_ref(spec, xb, twb), 100, 3,
-                      bound(4 * LIMB_BYTES * pairs + LIMB_BYTES * (c // 2), pairs)),
-    }
-    time_cases(cases, results)
+                           E * B * leaf_products(m)))}, results)
     every = bound(0, E * B * (m // 2) * (m.bit_length() - 1))["bound_ms"]
     log(f"# ntt_leaf: the bound counts the {leaf_products(m)} products a column needs; "
         f"all {m // 2 * (m.bit_length() - 1)} would take {every:.4f} ms")
+
+    # K5 at each pass of the batched 2^13 coset NTT of shifted h at 2^12, on
+    # the previous pass's output, then the whole transform: its passes in one
+    # graph against the plain version's passes
+    R, n = 3, 2 << LOG_M_SMALL
+    x = random_fe(rng, R * n, dev).reshape(16, R, n, 1)
+    passes, y = [], x.reshape(16, R, 1, n, 1)
+    for s0, s in ntt._stockham_passes(n):
+        passes.append((y, ntt._pass_twiddles(spec, n, s0, s, False, dev), s))
+        y = nk.butterfly(spec, y, passes[-1][1], s)
+    per_pass = {}
+    for k, (y, tw, s) in enumerate(passes):
+        _, _, Bk, c, _ = y.shape
+        shape = f"(16, {R}, {Bk}, {c}, 1), stages = {s}"
+        per_pass[shape] = {"max_abs_err": 0}
+        time_cases({shape: (f"pass {k} of the batched 2^{LOG_M_SMALL + 1}-point coset NTT",
+                            lambda: nk.butterfly(spec, y, tw, s),
+                            lambda: nk.butterfly_ref(spec, y, tw, s), 100, 3,
+                            k5_pass_bound(R, n, Bk, c, s))}, per_pass)
+
+    def plain():
+        z = x.reshape(16, R, 1, n, 1)
+        for _, tw, s in passes:
+            z = nk.butterfly_ref(spec, z, tw, s)
+        return z.reshape(x.shape)
+
+    time_cases({"butterfly": (f"the batched 2^{LOG_M_SMALL + 1}-point coset NTT (R = {R}): "
+                              f"{len(passes)} launches, r = {nk.k5_radix()}",
+                              lambda: ntt._stockham_axis(spec, x, n, False), plain, 20, 3,
+                              bound(2 * LIMB_BYTES * R * n + LIMB_BYTES * (n - 1),
+                                    R * leaf_products(n)))}, results)
+    results["_k5"] = {"radix": nk.k5_radix(), "passes": per_pass,
+                      "transform": {k: results["butterfly"][k]
+                                    for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
 
 
 def time_k1(dev, results: dict | None) -> dict:
@@ -1897,6 +1965,8 @@ def phase_pinocchio(dev, results: dict) -> None:
     if min(prove_counts.get(k, 0) for k in need) < 1:
         raise AssertionError(f"prove 2^{LOG_M_PIN}: a kernel of {need} never launched: "
                              f"{prove_counts}")
+    if prove_counts.get("butterfly", 0):
+        raise AssertionError(f"prove 2^{LOG_M_PIN}: K5 launched (the four-step path has none)")
     t0 = time.perf_counter()
     ok = pin.verify(proof, vk)
     verify_s = time.perf_counter() - t0
@@ -2126,8 +2196,25 @@ def phase_mixed_add(dev, results: dict) -> None:
     k2_ms = graph_time_ms(lambda: ck.padd(spec, b31, Pt, Qt), 5)
     log(f"# time padd [{MIX_WIDE} points, the same P and Q = (qx, qy, one) as "
         f"padd_mixed's]: kernel {k2_ms:.4f} ms")
+    del Pt, qxt, qyt, Qt
+    # K7 on the same inputs as K10's timed call, with the mask, Q = (qx, qy, one)
+    one2 = tuple(c.contiguous() for c in F2.one((m,), dev))
+    k7_ms = graph_time_ms(lambda: ck.padd2(spec, b32, P2t, (*q2t, one2), h), 20)
+    log(f"# time padd2 [{m} lanes, the same P, Q = (qx, qy, one) and h as padd_mixed2's]: "
+        f"kernel {k7_ms:.4f} ms")
+    # K10 at 2^20 lanes, no mask
+    wide2 = {"padd_mixed2": {"max_abs_err": 0}}
+    nw = 1 << LOG_N
+    P2w = tuple((fe(nw), fe(nw)) for _ in range(3))
+    q2w = tuple((fe(nw), fe(nw)) for _ in range(2))
+    time_cases({"padd_mixed2": (
+        f"{nw} lanes, no mask",
+        lambda: L(wst.Point(*ck.padd_mixed2(spec, b32, P2w, *q2w))),
+        lambda: L(wst.Point(*ck.padd_mixed2_ref(spec, b32, P2w, *q2w))), 5, 1,
+        bound(16 * LIMB_BYTES * nw + 2 * LIMB_BYTES, 39 * nw))}, wide2)
     results["_mixed_add"] = {"probe12": probe["padd_mixed"], "launches": counts,
-                             "padd_same_inputs_ms": k2_ms}
+                             "padd_same_inputs_ms": k2_ms, "padd2_same_inputs_ms": k7_ms,
+                             "padd_mixed2_2^20": wide2["padd_mixed2"]}
 
 
 def _key_points(pk, vk) -> dict:
@@ -2189,6 +2276,8 @@ def phase_groth16(dev, results: dict) -> None:
                            "prove_launches": prove_counts}
     for k in ("gather_planes", "scatter_rows"):
         results[k]["launches"] = prove_counts[k]
+    if prove_counts.get("butterfly", 0):
+        raise AssertionError(f"Groth16 2^{LOG_M_G16}: K5 launched (the four-step path has none)")
     log(f"# groth16 m = 2^{LOG_M_G16}, {npub} public inputs: circuit {build_s:.3f} s; "
         f"setup {setup_s:.3f} s; prove first {first_s:.3f} s, median {med:.2f} ms of "
         f"{[round(t, 2) for t in ts]}; verify {verify_s:.3f} s (host pairing): accepted; "
@@ -2382,6 +2471,10 @@ def phase_kzg(dev, results: dict) -> tuple:
         prod = run(f"fast_multiply_2^{logm}", lambda: ntt.fast_multiply(fa, fb))
         if counts[f"fast_multiply_2^{logm}"].get(kern, 0) < 1:
             raise AssertionError(f"fast_multiply 2^{logm}: {kern} never launched")
+        if kern == "butterfly" and counts[f"fast_multiply_2^{logm}"][kern] != k5_launches(
+                FAST_MUL_TRANSFORMS):
+            raise AssertionError(f"fast_multiply 2^{logm}: {counts[f'fast_multiply_2^{logm}']} "
+                                 f"K5 launches, not {k5_launches(FAST_MUL_TRANSFORMS)}")
         pv = [int(v) for v in prod.to_int()]
         xs = [rng.randrange(R) for _ in range(3)]
         if [horner(pv, x, R) for x in xs] != [horner(a, x, R) * horner(b, x, R) % R for x in xs]:
@@ -2685,6 +2778,9 @@ def main() -> int:
         if min(run["launches"].get(k, 0) for k in need) < 1:
             raise AssertionError(f"shifted h: a kernel of {need} never launched: "
                                  f"{run['launches']}")
+    if small["launches"]["butterfly"] != k5_launches(STOCKHAM_TRANSFORMS):
+        raise AssertionError(f"shifted h 2^{LOG_M_SMALL}: {small['launches']['butterfly']} K5 "
+                             f"launches, not {k5_launches(STOCKHAM_TRANSFORMS)}")
     results["ntt_leaf"]["launches"] = big["launches"]["ntt_leaf"]
     results["butterfly"]["launches"] = small["launches"]["butterfly"]
     results["_shifted_h"] = {f"2^{LOG_M_BIG}": big, f"2^{LOG_M_SMALL}": small}
@@ -2705,6 +2801,7 @@ def main() -> int:
                for k in SOURCES]
     log(f"# msm {json.dumps(results['_msm'])}")
     log(f"# ntt {json.dumps(results['_ntt'])}")
+    log(f"# k5 {json.dumps(results['_k5'])}")
     log(f"# shifted_h {json.dumps(results['_shifted_h'])}")
     log(f"# g2_msm {json.dumps(results['_g2_msm'])}")
     log(f"# pinocchio {json.dumps(results['_pinocchio'])}")

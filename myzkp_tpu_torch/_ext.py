@@ -57,7 +57,7 @@ _SIGNATURES = {
     "padd": (_P,) * 11 + (_I64, _P, _P),
     "pdbl": (_P,) * 10 + (_I64, ctypes.c_int, _P, _P),
     "bucket_scan_rows": (_P,) * 7 + (_I64, ctypes.c_int, _P, _P),
-    "butterfly": (_P,) * 3 + (_I64,) * 4 + (_P, _P),
+    "butterfly": (_P,) * 3 + (_I64,) * 4 + (ctypes.c_int, _P, _P),
     "ntt_leaf": (_P,) * 3 + (_I64, ctypes.c_int, ctypes.c_int, _I64, _P, _P),
     "padd2": (_P,) * 21 + (_I64, _P, _P),
     "pdbl2": (_P,) * 20 + (_I64, ctypes.c_int, _P, _P),
@@ -122,6 +122,16 @@ def use_defines(defines=()) -> None:
     global _lib, _defines
     _check_defines(defines)
     _defines, _lib = tuple(defines), None
+
+
+def defined(name: str, default: int) -> int:
+    """The value that the definitions of ``use_defines`` give the constant
+    ``name``, else ``default`` (the source's own ``#ifndef`` value)."""
+    for d in _defines:
+        key, _, value = d.partition("=")
+        if key == name:
+            return int(value)
+    return default
 
 
 def _sources_text(src: Path) -> bytes:

@@ -41,21 +41,23 @@
 // bound at those widths is latency, not the multiply rate; its outputs are
 // write-only.
 //
-// K10 runs one thread per point with the whole formula in registers
-// (group.cuh), 64 threads a block; it may spill.  Only the output planes
-// are written, and they are write-only; b3 (the pair 3 * B2, not 9) is read
-// once per thread from two (16,) tensors.  The mixed add holds P and an
-// affine Q, 10 F_q elements against the complete add's 12, and does 13 F_q2
-// products (39 Montgomery products); where its mask is set it writes
-// (qx, qy, (R mod q, 0)) without reading P.
+// K10 runs on the lane pair too (it ran one thread a point, with the whole
+// formula in 255 registers and a 232-byte stack): group.cuh's padd_mixed over
+// this lane's components, qx and qy loaded as this lane's component, 13 F_q2
+// products of two F_q products each, two deep.  Every lane computes, on
+// clamped indices past the end, and the mask acts only at the store: where h
+// is set the lane stores (qx, qy, one), the one (R mod q, 0) split over the
+// pair.  The products run on the carry chains of fe_mul_cc
+// (MYZKP_K10_UNROLL = 0; U > 0 unrolls U rows of fe_mul_u<U>).  b3 (the
+// pair 3 * B2, not 9) is read as this lane's component from two (16,)
+// tensors; the outputs are write-only.  The mixed add holds P and an affine
+// Q, 10 F_q elements against the complete add's 12.
 #include <cuda_runtime.h>
 
 #include "pair.cuh"
 
-using myzkp::Fe2;
 using myzkp::Fe2p;
 using myzkp::FieldConsts;
-using myzkp::Pt2;
 using Pt2p = myzkp::Point<Fe2p>;
 
 namespace {
@@ -72,26 +74,6 @@ struct Out6 {
 struct In4 {
   const int32_t* v[4];
 };
-
-__device__ __forceinline__ Fe2 load_fe2(const int32_t* c0, const int32_t* c1,
-                                        int64_t n, int64_t i) {
-  return Fe2{myzkp::load_planes(c0, n, i), myzkp::load_planes(c1, n, i)};
-}
-
-__device__ __forceinline__ Pt2 load_point2(const In6& a, int64_t n, int64_t i) {
-  return Pt2{load_fe2(a.v[0], a.v[1], n, i), load_fe2(a.v[2], a.v[3], n, i),
-             load_fe2(a.v[4], a.v[5], n, i)};
-}
-
-__device__ __forceinline__ void store_point2(const Out6& o, int64_t n,
-                                             int64_t i, const Pt2& p) {
-  myzkp::store_planes(o.v[0], n, i, p.x.c0);
-  myzkp::store_planes(o.v[1], n, i, p.x.c1);
-  myzkp::store_planes(o.v[2], n, i, p.y.c0);
-  myzkp::store_planes(o.v[3], n, i, p.y.c1);
-  myzkp::store_planes(o.v[4], n, i, p.z.c0);
-  myzkp::store_planes(o.v[5], n, i, p.z.c1);
-}
 
 // This lane's component (pair_half) of each coordinate of point i.
 template <class E = Fe2p>
@@ -213,28 +195,36 @@ __global__ void __launch_bounds__(kPairThreads)
   if (live && o.v[0] != nullptr) store_point2p(o, half, n, i, v);
 }
 
-constexpr int kThreads = 64;
+// Rows of the Montgomery product unrolled in K10's products, 0 meaning the
+// carry chains of fe_mul_cc.  On an H100 80GB HBM3 at 700 W, 32,768 lanes
+// with the mask on 1 in 32 took 0.0570 ms at U = 0 (194 registers), 0.0882
+// at 1, 0.0809 at 2 (128 registers), 0.1028 at 4 and 0.1048 at 8
+// (unroll_sweep.py mixed, PERF.md).  A build may set it with
+// -DMYZKP_K10_UNROLL=U.
+#ifndef MYZKP_K10_UNROLL
+#define MYZKP_K10_UNROLL 0
+#endif
+using Fe2pK10 = myzkp::Fe2pU<MYZKP_K10_UNROLL>;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPairThreads)
     padd_mixed2_kernel(In6 p, In4 q, const bool* __restrict__ h,
                        const int32_t* __restrict__ b3c0,
                        const int32_t* __restrict__ b3c1, Out6 o, int64_t n,
                        FieldConsts c) {
-  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Fe2 qx = load_fe2(q.v[0], q.v[1], n, i);
-  Fe2 qy = load_fe2(q.v[2], q.v[3], n, i);
-  if (h != nullptr && h[i]) {
-    store_point2(o, n, i, Pt2{qx, qy, Fe2{myzkp::fe_one(c), myzkp::fe_zero()}});
-    return;
+  using E = Fe2pK10;
+  const int half = myzkp::pair_half();
+  const int64_t i = myzkp::pair_index();
+  const int64_t ic = i < n ? i : n - 1;  // every lane reaches the shuffles
+  const E qx{myzkp::load_planes(half ? q.v[1] : q.v[0], n, ic)};
+  const E qy{myzkp::load_planes(half ? q.v[3] : q.v[2], n, ic)};
+  const myzkp::Point<E> pv = load_point2p<E>(p, half, n, ic);
+  const E b3{myzkp::load_planes(half ? b3c1 : b3c0, 1, 0)};
+  const myzkp::Point<E> r = myzkp::padd_mixed(pv, qx, qy, b3, c);
+  if (i < n) {
+    const bool keep_q = h != nullptr && h[i];
+    const myzkp::Point<E> qp{qx, qy, {myzkp::pair_one(c)}};
+    store_point2p(o, half, n, i, myzkp::pt_select(keep_q, qp, r));
   }
-  Pt2 pv = load_point2(p, n, i);
-  Fe2 b3 = load_fe2(b3c0, b3c1, 1, 0);
-  store_point2(o, n, i, myzkp::padd_mixed(pv, qx, qy, b3, c));
-}
-
-unsigned blocks_for(int64_t n) {
-  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
 }  // namespace
@@ -297,7 +287,7 @@ extern "C" int myzkp_padd_mixed2(const int32_t* p0, const int32_t* p1,
   In6 p{{p0, p1, p2, p3, p4, p5}};
   In4 q{{q0, q1, q2, q3}};
   Out6 o{{o0, o1, o2, o3, o4, o5}};
-  padd_mixed2_kernel<<<blocks_for(n), kThreads, 0,
+  padd_mixed2_kernel<<<pair_blocks_for(n), kPairThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(p, q, h, b3c0,
                                                             b3c1, o, n,
                                                             *consts);

@@ -1,23 +1,44 @@
 // K5 (butterfly) and K6 (ntt_leaf): the radix-2 Stockham NTT over limb
-// planes, one stage at a time (K5) or a whole short transform at once (K6).
+// planes, a few stages at a time (K5) or a whole short transform at once (K6).
 //
-// Both are DIF Stockham stages, as ops/ntt.py's _stockham_axis runs them: the
+// Both run DIF Stockham stages, as ops/ntt.py's _stockham_axis runs them: the
 // stage input (blocks, c = 2h, B) splits its c axis in halves u, v; the
 // output (2 * blocks, h, B) holds u + v in its first `blocks` blocks and
 // (u - v) * tw[j] in the others, with j < h the position inside the half.
 // After log2(m) stages the result is in natural order (Stockham autosort).
 // Every value is canonical, so both kernels agree with their plain versions
-// (ops/ntt_kernels.py) limb for limb.
+// (fields/ntt_kernels.py) limb for limb.
 //
 // K5 replaces limb_pallas.butterfly_pallas (myzkp_tpu/fields/limb_pallas.py:76,
 // body _make_butterfly_kernel :54), DIF mode; DIT has no caller.  The TPU
-// kernel took u, v and a twiddle broadcast to u's shape, each sliced and
-// copied out by the caller.  This one reads the stage input in place and
-// indexes the (16, h) twiddle row itself.
-//   Bound on the H100: device memory.  A pair moves 256 bytes (u, v in; two
-//   outputs; one int32 per 16-bit limb) against one Montgomery product
-//   (264 32-bit multiply-adds).  Design: one thread per pair, limb-plane
-//   loads and stores coalesced along B (or along j when B = 1).
+// kernel ran one stage a launch on u, v and a twiddle broadcast to u's shape,
+// each sliced and copied out by the caller.  This one reads the stage input
+// in place and runs `stages` (1 to log2 MYZKP_K5_RADIX) consecutive stages a
+// launch in registers: after the pass's first stage the pair (t, t + E/2) of
+// the E elements x[k, j + t h'] (t < E, h' = c / E) lands in blocks k and
+// Bk + k at position j + t h', so the next stage pairs (t, t + E/4) inside
+// each of them, and so on; the element of index t ends in block
+// bitreverse_s(t) Bk + k at position j (s = log2 E).  The pass's twiddles
+// are its stage rows concatenated (half-widths c/2 .. c/E), read straight
+// from device memory.
+//   Bound on the H100: at the paths' widths (2^13 points x 3, B = 1) the
+//   work is small (3 x 2^13 elements of 64 B each way: 0.94 us; the
+//   products about 2.1 us a whole transform), so latency and launches bound
+//   it.  A group of E elements on one thread (E/2 products a stage) left 96
+//   warps for 528 schedulers and ran each product's dependent carry chain
+//   unhidden: a three-stage pass took 0.0103-0.0110 ms, a whole 2^13-point
+//   transform as long as 13 one-stage launches (H100 80GB HBM3 at 700 W,
+//   unroll_sweep.py ntt; PERF.md).
+//   Design: the group sits on E/2 neighbouring lanes, each holding one pair
+//   a stage and trading one element with lane q ^ 2^b before the stage of
+//   bit b (8 shuffles), so a lane runs one product a stage and a pass has R
+//   m / 2 threads whatever r; r = 8 (three stages a launch: a 2^13-point
+//   transform is 5 launches, not 13); products on the carry chains of
+//   fe_mul_sel<MYZKP_K5_MUL>; blocks of 64; no product where a stage row's
+//   entry 0 is 1 (R mod p) at position 0, as K6 skips them (every table of
+//   ops/ntt.py starts each row with 1).  Lanes past the end compute on a
+//   clamped group and store nothing.  A warp's loads and stores run along
+//   j (or along B), whole 32-byte sectors.
 //
 // K6 replaces limb_pallas.ntt_leaf_pallas (myzkp_tpu/fields/limb_pallas.py:242,
 // body _make_ntt_leaf_kernel :156): a full length-m NTT (2 <= m <= 128) along
@@ -66,29 +87,111 @@ using myzkp::FieldConsts;
 
 namespace {
 
-__global__ void __launch_bounds__(256)
+#ifndef MYZKP_K5_RADIX
+#define MYZKP_K5_RADIX 8
+#endif
+#ifndef MYZKP_K5_MUL
+#define MYZKP_K5_MUL 0
+#endif
+
+constexpr int kK5Radix = MYZKP_K5_RADIX;  // most elements a group: 2^stages
+constexpr int kK5Threads = 64;
+static_assert(kK5Radix == 2 || kK5Radix == 4 || kK5Radix == 8 || kK5Radix == 16 ||
+                  kK5Radix == 32,
+              "MYZKP_K5_RADIX is 2, 4, 8, 16 or 32");
+
+__device__ __forceinline__ bool fe_is_one(const Fe& a, const FieldConsts& c) {
+  bool one = true;
+#pragma unroll
+  for (int k = 0; k < myzkp::kWords; ++k) one &= a.w[k] == c.one[k];
+  return one;
+}
+
+// Group g -> (r, k, j, b) of (R, Bk, hq, B), b fastest.
+template <class I>
+__device__ __forceinline__ void k5_split(I g, I B, I hq, I Bk, int64_t& r, int64_t& k,
+                                         int64_t& j, int64_t& b) {
+  b = static_cast<int64_t>(g % B);
+  g /= B;
+  j = static_cast<int64_t>(g % hq);
+  g /= hq;
+  k = static_cast<int64_t>(g % Bk);
+  r = static_cast<int64_t>(g / Bk);
+}
+
+// log2 E stages of (R, Bk, c = E hq, B) -> (R, E Bk, hq, B) on groups of E
+// elements x[r, k, j + t hq, b], t < E, each on E/2 neighbouring lanes.  tw:
+// the stage rows of half-widths c/2, c/4, ..., hq.  At the stage of bit bb
+// lane q holds elements e and e + 2^bb, e being q with a 0 put in at bit bb;
+// before it (but the first) lanes q and q ^ 2^bb trade one element.
+template <int E>
+__global__ void __launch_bounds__(kK5Threads)
     butterfly_kernel(const int32_t* __restrict__ x,
                      const int32_t* __restrict__ tw, int32_t* __restrict__ out,
-                     int64_t R, int64_t Bk, int64_t h, int64_t B,
+                     int64_t R, int64_t Bk, int64_t hq, int64_t B,
                      FieldConsts c) {
-  const int64_t pairs = R * Bk * h * B;
+  constexpr int S = __builtin_ctz(E);
+  constexpr int G = E / 2;  // lanes a group
+  const int64_t groups = R * Bk * hq * B;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= pairs) return;
-  const int64_t b = i % B;
-  int64_t t = i / B;
-  const int64_t j = t % h;
-  t /= h;
-  const int64_t k = t % Bk;
-  const int64_t r = t / Bk;
-  const int64_t plane = 2 * pairs;  // both x and out hold 2 * pairs elements
-  const int64_t iu = ((r * Bk + k) * 2 * h + j) * B + b;
-  const int64_t ou = ((r * 2 * Bk + k) * h + j) * B + b;
-  const Fe u = myzkp::load_planes(x, plane, iu);
-  const Fe v = myzkp::load_planes(x, plane, iu + h * B);
-  const Fe w = myzkp::load_planes(tw, h, j);
-  myzkp::store_planes(out, plane, ou, myzkp::fe_add(u, v, c));
-  myzkp::store_planes(out, plane, ou + Bk * h * B,
-                      myzkp::fe_mul(myzkp::fe_sub(u, v, c), w, c));
+  const int q = static_cast<int>(i & (G - 1));
+  const bool live = i / G < groups;
+  const int64_t g = live ? i / G : groups - 1;  // every lane reaches the shuffles
+  int64_t r, k, j, b;
+  if (groups <= 0xFFFFFFFFll)  // 32-bit divisions where they suffice
+    k5_split<uint32_t>(g, B, hq, Bk, r, k, j, b);
+  else
+    k5_split<uint64_t>(g, B, hq, Bk, r, k, j, b);
+  const int64_t plane = groups * E;  // both x and out hold E elements a group
+  const int64_t ntw = hq * (E - 1);
+  const int64_t step = hq * B;  // from element t of a group to t + 1
+  const int64_t in = ((r * Bk + k) * E * hq + j) * B + b;
+  Fe lo = myzkp::load_planes(x, plane, in + q * step);
+  Fe hi = myzkp::load_planes(x, plane, in + (q + G) * step);
+  int64_t off = 0;  // this stage's row of tw
+#pragma unroll
+  for (int bb = S - 1; bb >= 0; --bb) {
+    const int half = 1 << bb;
+    if (bb < S - 1) {  // of lanes q, q ^ 2^bb the one with bit bb set takes the lows
+      const bool up = (q >> bb) & 1;
+      const Fe send = myzkp::fe_select(up, lo, hi);
+      Fe got;
+#pragma unroll
+      for (int w = 0; w < myzkp::kWords; ++w)
+        got.w[w] = __shfl_xor_sync(0xffffffffu, send.w[w], half);
+      lo = myzkp::fe_select(up, got, lo);
+      hi = myzkp::fe_select(up, hi, got);
+    }
+    const int64_t pos = j + (q & (half - 1)) * hq;
+    const Fe w = myzkp::load_planes(tw, ntw, off + pos);
+    const Fe d = myzkp::fe_sub_cc(lo, hi, c);
+    lo = myzkp::fe_add_cc(lo, hi, c);
+    hi = pos == 0 && fe_is_one(w, c) ? d : myzkp::fe_mul_sel<MYZKP_K5_MUL>(d, w, c);
+    off += half * hq;
+  }
+  if (!live) return;
+  // lane q ends with elements 2q and 2q + 1, bound for blocks
+  // bitreverse_S(2q) Bk + k and bitreverse_S(2q + 1) Bk + k
+  const int64_t ob = ((r * E * Bk + k) * hq + j) * B + b;  // block k of the output
+  const int q0 = static_cast<int>(__brev(static_cast<unsigned>(2 * q)) >> (32 - S));
+  myzkp::store_planes(out, plane, ob + q0 * Bk * step, lo);
+  myzkp::store_planes(out, plane, ob + (q0 | G) * Bk * step, hi);
+}
+
+// The pass of `stages` stages on the instantiation of 2^stages elements,
+// for stages <= log2 E.
+template <int E>
+int launch_butterfly(const int32_t* x, const int32_t* tw, int32_t* out,
+                     int64_t R, int64_t Bk, int64_t hq, int64_t B, int stages,
+                     const FieldConsts& c, cudaStream_t stream) {
+  if constexpr (E > 2) {
+    if (stages < __builtin_ctz(E))
+      return launch_butterfly<E / 2>(x, tw, out, R, Bk, hq, B, stages, c, stream);
+  }
+  const int64_t blocks = (R * Bk * hq * B * (E / 2) + kK5Threads - 1) / kK5Threads;
+  butterfly_kernel<E><<<static_cast<unsigned>(blocks), kK5Threads, 0, stream>>>(
+      x, tw, out, R, Bk, hq, B, c);
+  return static_cast<int>(cudaGetLastError());
 }
 
 #ifndef MYZKP_K6_RADIX
@@ -270,17 +373,18 @@ int launch_leaf(const int32_t* x, const int32_t* tw, int32_t* out, int64_t E,
 
 }  // namespace
 
-// x (16, R, Bk, 2h, B) -> out (16, R, 2 Bk, h, B); tw (16, h).
+// x (16, R, Bk, c, B) -> out (16, R, 2^stages Bk, c / 2^stages, B);
+// tw (16, c - c / 2^stages): the stage rows of half-widths c/2, c/4, ...,
+// c / 2^stages, concatenated.  1 <= stages <= log2 MYZKP_K5_RADIX, and
+// 2^stages divides c.
 extern "C" int myzkp_butterfly(const int32_t* x, const int32_t* tw,
-                               int32_t* out, int64_t R, int64_t Bk, int64_t h,
-                               int64_t B, const FieldConsts* consts,
+                               int32_t* out, int64_t R, int64_t Bk, int64_t c,
+                               int64_t B, int stages, const FieldConsts* consts,
                                void* stream) {
-  const int threads = 256;
-  const int64_t blocks = (R * Bk * h * B + threads - 1) / threads;
-  butterfly_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(x, tw, out, R, Bk, h,
-                                                          B, *consts);
-  return static_cast<int>(cudaGetLastError());
+  if (stages < 1 || (1 << stages) > kK5Radix || c % (int64_t{1} << stages) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_butterfly<kK5Radix>(x, tw, out, R, Bk, c >> stages, B, stages,
+                                    *consts, static_cast<cudaStream_t>(stream));
 }
 
 // x (16, E, m, B) -> out (16, E, m, B); tw (16, m - 1): the stage tables of

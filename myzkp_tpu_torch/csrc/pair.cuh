@@ -53,7 +53,8 @@ __device__ __forceinline__ Fe pair_swap(const Fe& a) {
 constexpr int kPair2Unroll = MYZKP_PAIR2_UNROLL;
 
 // One component of an F_q2 element; the partner lane holds the other.  Its
-// products unroll U of the Montgomery product's 8 rows.
+// products unroll U of the Montgomery product's 8 rows (fe_mul_sel<U>), or
+// with U = 0 run on the carry chains (fe_mul_cc).
 template <int U>
 struct Fe2pU {
   Fe v;
@@ -78,8 +79,8 @@ __device__ __forceinline__ Fe2pU<U> mul(const Fe2pU<U>& a, const Fe2pU<U>& b,
                                         const FieldConsts& c) {
   const Fe ap = pair_swap(a.v), bp = pair_swap(b.v);
   const bool hi = pair_half() != 0;
-  const Fe m1 = fe_mul_u<U>(a.v, fe_select(hi, bp, b.v), c);  // a0 b0 | a1 b0
-  const Fe m2 = fe_mul_u<U>(ap, fe_select(hi, b.v, bp), c);   // a1 b1 | a0 b1
+  const Fe m1 = fe_mul_sel<U>(a.v, fe_select(hi, bp, b.v), c);  // a0 b0 | a1 b0
+  const Fe m2 = fe_mul_sel<U>(ap, fe_select(hi, b.v, bp), c);   // a1 b1 | a0 b1
   return Fe2pU<U>{fe_select(hi, fe_add(m1, m2, c), fe_sub(m1, m2, c))};
 }
 
@@ -89,8 +90,8 @@ template <int U>
 __device__ __forceinline__ Fe2pU<U> sqr(const Fe2pU<U>& a, const FieldConsts& c) {
   const Fe ap = pair_swap(a.v);
   const bool hi = pair_half() != 0;
-  const Fe m = fe_mul_u<U>(fe_select(hi, a.v, fe_add(a.v, ap, c)),
-                           fe_select(hi, ap, fe_sub(a.v, ap, c)), c);
+  const Fe m = fe_mul_sel<U>(fe_select(hi, a.v, fe_add(a.v, ap, c)),
+                             fe_select(hi, ap, fe_sub(a.v, ap, c)), c);
   return Fe2pU<U>{fe_select(hi, fe_add(m, m, c), m)};
 }
 
@@ -102,10 +103,14 @@ __device__ __forceinline__ Point<Fe2pU<U>> pt_select(bool m, const Point<Fe2pU<U
                          {fe_select(m, a.z.v, b.z.v)}};
 }
 
-// This lane's component of the point at infinity (0, 1, 0): y = (R mod q, 0).
+// This lane's component of the F_q2 one, (R mod q, 0).
+__device__ __forceinline__ Fe pair_one(const FieldConsts& c) {
+  return fe_select(pair_half() != 0, fe_zero(), fe_one(c));
+}
+
+// This lane's component of the point at infinity (0, 1, 0).
 __device__ __forceinline__ Point<Fe2p> pt2p_infinity(const FieldConsts& c) {
-  const Fe y = fe_select(pair_half() != 0, fe_zero(), fe_one(c));
-  return Point<Fe2p>{{fe_zero()}, {y}, {fe_zero()}};
+  return Point<Fe2p>{{fe_zero()}, {pair_one(c)}, {fe_zero()}};
 }
 
 }  // namespace myzkp

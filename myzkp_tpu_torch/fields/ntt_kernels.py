@@ -1,5 +1,6 @@
-"""NTT kernels K5 (one radix-2 Stockham stage) and K6 (a whole NTT of length
-m <= 128 along one axis), each beside its plain PyTorch version.
+"""NTT kernels K5 (up to log2 r consecutive radix-2 Stockham stages, r =
+``k5_radix()``) and K6 (a whole NTT of length m <= 128 along one axis), each
+beside its plain PyTorch version.
 
 Counterparts of ``butterfly_pallas`` (DIF) and ``ntt_leaf_pallas`` in
 ``myzkp_tpu/fields/limb_pallas.py``.  The wrappers (``butterfly``,
@@ -9,6 +10,9 @@ the plain version (``*_ref``, int64 inside) for CPU tensors.
 A stage, as ``ops/ntt.py`` runs it: x (L, R, Bk, 2h, B) splits its third axis
 in halves u, v; the output (L, R, 2 Bk, h, B) holds u + v in its first Bk
 blocks and (u - v) * tw[j] in the last Bk, with tw an (L, h) Montgomery row.
+A pass of s stages takes (L, R, Bk, c, B) to (L, R, 2^s Bk, c / 2^s, B) and
+its twiddles as the s stage rows (half-widths c/2, c/4, ..., c / 2^s)
+concatenated, (L, c - c / 2^s): K6's table is the pass of all log2 m stages.
 """
 
 from __future__ import annotations
@@ -21,6 +25,14 @@ from .spec import FieldSpec
 
 I32 = torch.int32
 MAX_LEAF = 128  # csrc/ntt.cu: kMaxLeaf
+K5_RADIX = 8  # csrc/ntt.cu: MYZKP_K5_RADIX's default
+
+
+def k5_radix() -> int:
+    """r, the most elements a K5 thread holds: a launch runs 1 to log2 r
+    stages.  The -D value of the library in use (``_ext.use_defines``), else
+    the source's default; the plain version follows the same value."""
+    return _ext.defined("MYZKP_K5_RADIX", K5_RADIX)
 
 
 # ---------------------------------------------------------------------------
@@ -36,9 +48,23 @@ def _stage64(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor
     return torch.cat([su, sv], dim=2)
 
 
-def butterfly_ref(spec: FieldSpec, x, tw):
-    """Plain version of K5: one DIF Stockham stage (contract above)."""
-    return _stage64(spec, x.long(), tw).int()
+def _check_stages(c: int, stages: int) -> None:
+    if stages < 1 or c % (1 << stages):
+        raise ValueError(f"stages = {stages}: a length-{c} block runs 1 to "
+                         f"{(c & -c).bit_length() - 1} stages")
+
+
+def butterfly_ref(spec: FieldSpec, x, tw, stages: int = 1):
+    """Plain version of K5: ``stages`` DIF Stockham stages, one after
+    another (contract above)."""
+    c = x.shape[3]
+    _check_stages(c, stages)
+    y = x.long()
+    off, h = 0, c // 2
+    for _ in range(stages):
+        y = _stage64(spec, y, tw[:, off:off + h])
+        off, h = off + h, h // 2
+    return y.int()
 
 
 def _leaf_stages(m: int, stages) -> int:
@@ -56,33 +82,31 @@ def ntt_leaf_ref(spec: FieldSpec, x, tw, stages=None):
     runs only the first that many Stockham stages."""
     L, E, m, B = x.shape
     s = _leaf_stages(m, stages)
-    y = x.long().reshape(L, E, 1, m, B)
-    off, h = 0, m // 2
-    for _ in range(s):
-        y = _stage64(spec, y, tw[:, off:off + h])
-        off, h = off + h, h // 2
-    return y.reshape(L, E, m, B).int()
+    y = butterfly_ref(spec, x.reshape(L, E, 1, m, B), tw, s)
+    return y.reshape(L, E, m, B)
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def butterfly(spec: FieldSpec, x, tw):
-    """K5: one DIF Stockham stage.  x (L, R, Bk, 2h, B) int32 contiguous,
-    tw (L, h) int32; returns (L, R, 2 Bk, h, B)."""
+def butterfly(spec: FieldSpec, x, tw, stages: int = 1):
+    """K5: ``stages`` (1 to log2 ``k5_radix()``) DIF Stockham stages in one
+    launch.  x (L, R, Bk, c, B) int32 contiguous, tw (L, c - c / 2^stages)
+    int32, the stage rows concatenated; returns (L, R, 2^stages Bk,
+    c / 2^stages, B)."""
     if not _ext.use_kernel(x, tw):
-        return butterfly_ref(spec, x, tw)
+        return butterfly_ref(spec, x, tw, stages)
     L, R, Bk, c, B = x.shape
-    h = c // 2
-    if L != spec.L or c != 2 * h:
+    if L != spec.L:
         raise ValueError(f"stage input of shape {tuple(x.shape)}")
+    _check_stages(c, stages)
     _ext.require(x, "x", I32)
-    _ext.require(tw, "tw", I32, (L, h))
-    out = torch.empty((L, R, 2 * Bk, h, B), dtype=I32, device=x.device)
+    _ext.require(tw, "tw", I32, (L, c - (c >> stages)))
+    out = torch.empty((L, R, Bk << stages, c >> stages, B), dtype=I32, device=x.device)
     if out.numel():
         _ext.launch("butterfly", x.device, _ext.ptr(x), _ext.ptr(tw),
-                    _ext.ptr(out), R, Bk, h, B, _ext.consts_ptr(spec))
+                    _ext.ptr(out), R, Bk, c, B, stages, _ext.consts_ptr(spec))
     return out
 
 

@@ -3,8 +3,9 @@ four-step recursion, the coset transforms and the product of polynomials
 (``fast_multiply``).
 
 Counterpart of ``myzkp_tpu/ops/ntt.py:36-483`` with the same decomposition:
-below ``_FOURSTEP_MIN_N`` points one Stockham pass of log2(n) stages, one
-launch of kernel K5 each; from there up a recursive four-step split n = m1 * m2
+below ``_FOURSTEP_MIN_N`` points a Stockham transform of log2(n) stages, up
+to log2 r of them in each launch of kernel K5 (r = ``ntt_kernels.k5_radix()``,
+8 by default); from there up a recursive four-step split n = m1 * m2
 whose length-m1 (<= ``_LEAF_M``) transforms are single launches of kernel K6,
 with one twiddle product (K1) and one transpose per level.  Stockham
 autosorts, so results are in natural order without a bit-reversal gather.
@@ -12,7 +13,8 @@ The values are exact whatever the split; the reference's split keeps the
 launch counts comparable.
 
 Twiddle tables are built once per (spec, size, direction, device) and cached:
-the Stockham stage rows on the host, the four-step level tables (L, m1, m2) on
+the Stockham stage rows on the host (a pass's rows concatenated on the
+device), the four-step level tables (L, m1, m2) on
 the device by one Montgomery product of two small host tables.  Coset offsets
 [1, c, c^2, ...] are built on the device by log-doubling.
 """
@@ -105,17 +107,18 @@ def _stage_twiddle(spec: FieldSpec, m: int, s: int, inverse: bool) -> np.ndarray
 
 
 @functools.lru_cache(maxsize=None)
-def _stage_twiddle_dev(spec: FieldSpec, m: int, s: int, inverse: bool,
-                       device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_stage_twiddle(spec, m, s, inverse)).to(device)
+def _pass_twiddles(spec: FieldSpec, m: int, s0: int, stages: int, inverse: bool,
+                   device: torch.device) -> torch.Tensor:
+    """K5's table for stages s0 .. s0 + stages - 1 of a length-m transform:
+    their stage rows concatenated, (L, c - c / 2^stages) with c = m >> s0."""
+    rows = [_stage_twiddle(spec, m, s, inverse) for s in range(s0, s0 + stages)]
+    return torch.from_numpy(np.concatenate(rows, axis=1)).to(device)
 
 
-@functools.lru_cache(maxsize=None)
 def _leaf_twiddles(spec: FieldSpec, m: int, inverse: bool,
                    device: torch.device) -> torch.Tensor:
     """K6's table (L, m - 1): the stage rows of a length-m transform."""
-    rows = [_stage_twiddle(spec, m, s, inverse) for s in range(m.bit_length() - 1)]
-    return torch.from_numpy(np.concatenate(rows, axis=1)).to(device)
+    return _pass_twiddles(spec, m, 0, m.bit_length() - 1, inverse, device)
 
 
 def _outer_twiddle_np(spec: FieldSpec, w: int, n1: int, cols: int) -> np.ndarray:
@@ -165,17 +168,25 @@ def fourstep_tables(spec: FieldSpec, n: int, inverse: bool,
 # Core transforms (limb tensors; the transform axis is -2, batch B last)
 # ---------------------------------------------------------------------------
 
+def _stockham_passes(m: int) -> list[tuple[int, int]]:
+    """(first stage, stages) of each K5 launch of a length-m transform:
+    log2 r stages a pass (r = ntt_kernels.k5_radix()), the last pass shorter
+    where they do not divide log2 m."""
+    total, per = m.bit_length() - 1, ntt_kernels.k5_radix().bit_length() - 1
+    return [(s0, min(per, total - s0)) for s0 in range(0, total, per)]
+
+
 def _stockham_axis(spec: FieldSpec, x, m: int, inverse: bool):
     """Natural-order NTT over axis -2 of x (L, *lead, m, B): log2(m) DIF
-    Stockham stages, one K5 launch each."""
+    Stockham stages, one K5 launch a pass of _stockham_passes(m)."""
     if m == 1:
         return x
     shape = x.shape
     R = math.prod(shape[1:-2])
     y = x.reshape(spec.L, R, 1, m, shape[-1]).contiguous()
-    for s in range(m.bit_length() - 1):
+    for s0, s in _stockham_passes(m):
         y = ntt_kernels.butterfly(
-            spec, y, _stage_twiddle_dev(spec, m, s, inverse, x.device))
+            spec, y, _pass_twiddles(spec, m, s0, s, inverse, x.device), s)
     return y.reshape(shape)
 
 

@@ -3,12 +3,15 @@
 The same numpy-seeded Montgomery limb arrays go through both packages (via
 interop); outputs must agree limb for limb (modular integers: the tolerance
 is 0).  On the CPU the port runs the plain versions of kernels K5
-(``butterfly``) and K6 (``ntt_leaf``).  BN254's scalar field r unless a case
+(``butterfly``: up to log2 r Stockham stages a call, r =
+``ntt_kernels.k5_radix()``) and K6 (``ntt_leaf``).  BN254's scalar field r unless a case
 says otherwise; the 32-bit prime 3221225473 (L = 2) keeps the JAX package's
 four-step compiles short where BN254 would not.
 """
 
 import random
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -67,6 +70,113 @@ def test_butterfly_ref_matches_pallas_interpret():
                             interop.limbs_from_numpy(tw, DEV))
     _same(out[:, 0, 0, :, 0], su)
     _same(out[:, 0, 1, :, 0], sv)
+
+
+@pytest.fixture
+def radix():
+    """Set K5's r (MYZKP_K5_RADIX) for the test, as a build would, and
+    restore the definitions after it."""
+    before = _ext._defines
+
+    def use(r: int) -> None:
+        _ext.use_defines((f"MYZKP_K5_RADIX={r}",))
+        assert tnk.k5_radix() == r
+
+    yield use
+    _ext.use_defines(before)
+
+
+def test_k5_radix_default_is_the_sources():
+    """ntt_kernels.K5_RADIX, the r of the plain path when no -D sets it, is
+    csrc/ntt.cu's own default."""
+    src = (Path(tntt.__file__).parents[1] / "csrc" / "ntt.cu").read_text()
+    assert int(re.search(r"#define MYZKP_K5_RADIX (\d+)", src).group(1)) == tnk.K5_RADIX
+    assert _ext.defined("MYZKP_K5_RADIX", tnk.K5_RADIX) == tnk.K5_RADIX
+
+
+def _one_stage_chain(spec, y, m: int, s0: int, stages: int, inv: bool):
+    for s in range(s0, s0 + stages):
+        y = tnk.butterfly_ref(spec, y, tntt._pass_twiddles(spec, m, s, 1, inv, DEV))
+    return y
+
+
+@pytest.mark.parametrize("per", [1, 2, 3])
+@pytest.mark.parametrize("m,R,B", [(16, 1, 1), (32, 3, 2), (64, 1, 2), (128, 3, 1),
+                                   (256, 1, 1), (512, 3, 2)])
+def test_butterfly_ref_passes_equal_one_stage_chain(m, R, B, per):
+    """K5's plain version over passes of ``per`` stages (the last pass shorter
+    where per does not divide log2 m: m = 2^4, 2^5, 2^7, 2^8 at per = 3)
+    equals the one-stage plain versions run one after another over the same
+    stage rows, pass by pass, on the pass's concatenated table."""
+    spec = tspec.FieldSpec.make(BN254_R)
+    y = interop.limbs_from_numpy(_rand(BN254_R, (R, m, B), m * 10 + R + per), DEV)
+    y = y.reshape(16, R, 1, m, B)
+    total = m.bit_length() - 1
+    for s0 in range(0, total, per):
+        s = min(per, total - s0)
+        tw = tntt._pass_twiddles(spec, m, s0, s, False, DEV)
+        c = y.shape[3]
+        assert tw.shape == (16, c - (c >> s))
+        got = tnk.butterfly_ref(spec, y, tw, s)
+        assert torch.equal(got, _one_stage_chain(spec, y, m, s0, s, False))
+        assert got.shape == (16, R, y.shape[2] << s, c >> s, B)
+        y = got
+
+
+def test_butterfly_ref_refuses_a_stage_count_the_block_cannot_hold():
+    spec = tspec.FieldSpec.make(BN254_R)
+    x = interop.limbs_from_numpy(_rand(BN254_R, (1, 1, 8, 1), 3), DEV)
+    for bad in (0, 4):
+        with pytest.raises(ValueError):
+            tnk.butterfly_ref(spec, x, tntt._leaf_twiddles(spec, 8, False, DEV), bad)
+
+
+@pytest.mark.parametrize("r", [4, 8])
+@pytest.mark.parametrize("m,R,B", [(16, 1, 1), (128, 3, 2), (512, 2, 1)])
+def test_stockham_axis_matches_reference(m, R, B, r, radix):
+    """The port's Stockham transform (passes of log2 r stages, K5's plain
+    version) against the JAX package's per-stage pass on the CPU, forward
+    and inverse, with the edge values 0, 1, r - 1 and R mod r among the
+    inputs."""
+    radix(r)
+    p = BN254_R
+    x_np = _rand(p, (R, m, B), 7 * m + R).copy()
+    edges = _mont_np(p, [0, 1, p - 1, (1 << 256) % p])
+    x_np[:, 0, :4, 0] = edges
+    x_np[:, R - 1, m - 4:, B - 1] = edges[:, ::-1]
+    x = interop.limbs_from_numpy(x_np, DEV)
+    spec, jspec = tspec.FieldSpec.make(p), FieldSpec.make(p)
+    for inv in (False, True):
+        _same(tntt._stockham_axis(spec, x, m, inv),
+              jntt._stockham_axis(jspec, jnp.asarray(x_np), m, inv))
+
+
+@pytest.mark.parametrize("r", [2, 4, 8, 16, 32])
+def test_butterfly_calls_per_transform(r, radix, monkeypatch):
+    """ntt and intt below the four-step size call ntt_kernels.butterfly
+    ceil(log2 m / log2 r) times a transform, each call with the pass's stage
+    count: log2 r but the last (r = 8: shifted h at m = 2^12 makes 4 + 5 + 5
+    = 14 calls, fast_multiply of 2^8-coefficient inputs 3 x 3 = 9)."""
+    radix(r)
+    calls = []
+    real = tnk.butterfly
+
+    def counted(spec, x, tw, stages=1):
+        calls.append(stages)
+        return real(spec, x, tw, stages)
+
+    monkeypatch.setattr(tnk, "butterfly", counted)
+    spec = tspec.FieldSpec.make(BN254_R)
+    per = r.bit_length() - 1
+    for log_m in (1, 4, 9, 12, 13):
+        a = Fp(spec, interop.limbs_from_numpy(_rand(BN254_R, (1 << log_m,), log_m), DEV))
+        for transform in (tntt.ntt, tntt.intt):
+            calls.clear()
+            transform(a)
+            assert len(calls) == -(-log_m // per), (r, log_m, calls)
+            assert sum(calls) == log_m and all(s == per for s in calls[:-1])
+    assert [len(tntt._stockham_passes(1 << k)) for k in (12, 13, 13, 9)] == (
+        [4, 5, 5, 3] if r == 8 else [-(-k // per) for k in (12, 13, 13, 9)])
 
 
 @pytest.mark.parametrize("m,E,B", [(16, 2, 64), (64, 1, 128), (128, 1, 130)])

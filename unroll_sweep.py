@@ -2,10 +2,16 @@
 """Time the kernels built with other values of their design constants, on
 one GPU.
 
-Run from the repository root:  python3 unroll_sweep.py [add] [dbl] [mont] [leaf]
+Run from the repository root:
 
-The arguments name the families of variants to build and time (all four if
-none is given).
+    python3 unroll_sweep.py [add] [dbl] [mont] [leaf] [ntt] [mixed] [--parent DIR]
+
+The arguments name the families of variants to build and time (all six if
+none is given).  With --parent DIR (a checkout of an earlier commit, for
+example unpacked with `git archive` into an ignored directory), the ntt and
+mixed families also time DIR's package (its K5 and K10 through the same
+entry points, built from DIR's sources into DIR's own build directory),
+first and last, around this tree's variants: parent, variants, parent.
 
 The constants are the rows of the Montgomery product unrolled in the code of
 K2 and the G1 level (MYZKP_K2_UNROLL, csrc/curve.cu), of the G2 lane pair's
@@ -37,17 +43,31 @@ on one warp: the chain on one element at e = 2^255 less e = 2^16 (256 and
 leaf variants (csrc/ntt.cu) are K6 at r = MYZKP_K6_RADIX = 4, 8 elements a
 thread and MYZKP_K6_COLS = 8, 16, 32 columns a block, plus, at the tree's r
 and columns, the products 4 and 8; each times K6 at E = 3, m = 128,
-B = 16,384 running s = 1, 2, 3, 5 and 7 of its stages.  Every variant is held to the plain versions bit for bit.  The last
-line is a JSON object of every time.
+B = 16,384 running s = 1, 2, 3, 5 and 7 of its stages.  The ntt variants
+(csrc/ntt.cu) are K5 at r = MYZKP_K5_RADIX = 2, 4, 8, 16, 32 (log2 r stages a
+launch) on the carry-chain product (MYZKP_K5_MUL = 0) and on fe_mul_u<8>
+(8); each times the Stockham transforms of the paths through
+ops/ntt._stockham_axis, its passes in one graph (shifted h at m = 2^12: the
+batched 2^12-point INTT and 2^13-point coset NTT, R = 3, and the 2^13-point
+coset INTT; fast_multiply's 2^9-point transform), and each pass of the
+batched 2^13-point coset NTT.  The
+mixed variants (csrc/curve2.cu) are K10 at MYZKP_K10_UNROLL = 0 (the carry
+chains), 1, 2, 4, 8; each times K10 at 32,768 lanes with its mask on 1 lane
+in 32 and at 2^20 lanes without, and K7 on the first inputs with Q =
+(qx, qy, one).  Every variant is held to the plain versions bit for bit.
+The last line is a JSON object of every time.
 """
 
 from __future__ import annotations
 
+import importlib
+import importlib.util
 import json
 import re
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -73,13 +93,21 @@ LEAF_VARIANTS = {"tree": ()} | {
     f"k6_r{r}_c{c}": (f"MYZKP_K6_RADIX={r}", f"MYZKP_K6_COLS={c}")
     for r in (4, 8) for c in (8, 16, 32) if (r, c) != (8, 16)
 } | {f"k6_mul{u}": (f"MYZKP_K6_MUL={u}",) for u in (4, 8)}
+NTT_VARIANTS = {"tree": ()} | {
+    f"k5_r{r}_mul{u}": (f"MYZKP_K5_RADIX={r}", f"MYZKP_K5_MUL={u}")
+    for r in (2, 4, 8, 16, 32) for u in (0, 8)}
+MIXED_VARIANTS = {"tree": ()} | {
+    f"k10_unroll{u}": (f"MYZKP_K10_UNROLL={u}",) for u in (0, 1, 2, 4, 8)}
 FAMILIES = {"add": ADD_VARIANTS, "dbl": DBL_VARIANTS, "mont": MONT_VARIANTS,
-            "leaf": LEAF_VARIANTS}
+            "leaf": LEAF_VARIANTS, "ntt": NTT_VARIANTS, "mixed": MIXED_VARIANTS}
 GROUP_KERNELS = ("padd_kernel", "padd_mixed_kernel", "padd_seg_level_kernel", "padd2_kernel",
                  "padd2_seg_level_kernel", "pdbl_kernel", "pdbl2_kernel")
 KERNELS = {"add": GROUP_KERNELS, "dbl": GROUP_KERNELS,
            "mont": ("mont_mul_kernel", "mont_pow_kernel"),
-           "leaf": ("ntt_leaf_kernel<8>", "ntt_leaf_kernel<4>")}
+           "leaf": ("ntt_leaf_kernel<8>", "ntt_leaf_kernel<4>"),
+           "ntt": tuple(f"butterfly_kernel<{e}>" for e in (2, 4, 8, 16, 32)),
+           "mixed": ("padd_mixed2_kernel", "padd2_kernel", "pdbl2_kernel",
+                     "padd2_seg_level_kernel")}
 K2_WIDTHS = (1 << 15, 1 << 22)
 LANES = 1 << 15
 # (points, n, steps) of the chains: a Horner window and a ladder's bases, on
@@ -88,6 +116,11 @@ CHAIN_SHAPES = tuple((pts, n, n == 255) for pts in (1, 16) for n in (16, 255))
 POW_WIDTHS = (1, 2, 16)  # the chain's elements: an inversion and a batch
 LEAF_SHAPE = (3, 128, 1 << 14)  # K6's row: a leaf level of the 2^21 coset NTT
 LEAF_STAGES = (1, 2, 3, 5, 7)
+# (R, n, inverse) of the Stockham transforms: shifted h at m = 2^12 and
+# fast_multiply of 2^8-coefficient inputs; the second's passes are timed too
+K5_TRANSFORMS = cs.STOCKHAM_TRANSFORMS + cs.FAST_MUL_TRANSFORMS[:1]
+K5_PASSES = K5_TRANSFORMS[1]
+MIXED_WIDTHS = (LANES, 1 << 20)  # K10 with the mask on 1 lane in 32, and without
 
 
 def check(name: str, got, want) -> None:
@@ -95,7 +128,23 @@ def check(name: str, got, want) -> None:
         raise AssertionError(f"{name} differs from its plain version")
 
 
+def load_parent(path: str):
+    """DIR's myzkp_tpu_torch as the package ``parent_port`` (its modules
+    import each other relatively), with its own _ext and build directory."""
+    init = Path(path).resolve() / "myzkp_tpu_torch" / "__init__.py"
+    spec = importlib.util.spec_from_file_location(
+        "parent_port", init, submodule_search_locations=[str(init.parent)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules["parent_port"] = module
+    spec.loader.exec_module(module)
+    return module
+
+
 def main(argv: list[str]) -> int:
+    parent_dir = None
+    if "--parent" in argv:
+        k = argv.index("--parent")
+        parent_dir, argv = argv[k + 1], argv[:k] + argv[k + 2:]
     families = tuple(argv) or tuple(FAMILIES)
     if not set(families) <= set(FAMILIES):
         raise SystemExit(f"families: {', '.join(FAMILIES)}, not {families}")
@@ -104,14 +153,24 @@ def main(argv: list[str]) -> int:
     from myzkp_tpu_torch import _ext
     from myzkp_tpu_torch.curves import bn254
 
-    todo = [d for d in variants.values() if not _ext.library_path(d).exists()]
+    todo = [lambda d=d: _ext.build(d) for d in variants.values()
+            if not _ext.library_path(d).exists()]
+    parent = None
+    if parent_dir is not None:
+        load_parent(parent_dir)
+        parent = {k: importlib.import_module(f"parent_port.{k}") for k in
+                  ("_ext", "ops.ntt", "fields.spec", "curves.bn254", "curves.curve_kernels")}
+        todo.append(lambda: parent["_ext"].build(()))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max(len(todo), 1)) as pool:
-        list(pool.map(_ext.build, todo))
-    cs.log(f"# built {len(todo)} variants at once in {time.perf_counter() - t0:.1f} s")
+        list(pool.map(lambda f: f(), todo))
+    cs.log(f"# built {len(todo)} libraries at once in {time.perf_counter() - t0:.1f} s")
     for fam in families:
         for name, defines in FAMILIES[fam].items():
             print_build(f"{fam} {name}", _ext.library_path(defines), KERNELS[fam])
+    if parent is not None:
+        print_build("parent", parent["_ext"].library_path(()),
+                    GROUP_KERNELS + ("padd_mixed2_kernel", "butterfly_kernel"))
 
     dev = torch.device("cuda", 0)
     spec = bn254.q_spec()
@@ -126,6 +185,14 @@ def main(argv: list[str]) -> int:
         time_mont(MONT_VARIANTS, rng, dev, times)
     if "leaf" in families:
         time_leaf(LEAF_VARIANTS, rng, dev, times)
+    runs = lambda fam: ([("parent", None)] if parent else []) + list(
+        FAMILIES[fam].items()) + ([("parent_2", None)] if parent else [])
+    if parent:
+        times["parent"], times["parent_2"] = {}, {}
+    if "ntt" in families:
+        time_ntt(runs("ntt"), parent, rng, dev, times)
+    if "mixed" in families:
+        time_mixed(runs("mixed"), parent, rng, dev, times)
     _ext.use_defines(())
     cs.log(json.dumps({"sweep_ms": times}))
     return 0
@@ -210,6 +277,89 @@ def time_leaf(variants, rng, dev, times) -> None:
             times[name][f"k6_s{s}"] = cs.graph_time_ms(lambda: nk.ntt_leaf(spec, x, tw, s), 5)
         cs.log(f"# leaf {name} (E, m, B) = {LEAF_SHAPE}: " + ", ".join(
             f"s = {s} {times[name][f'k6_s{s}']:.4f} ms" for s in LEAF_STAGES))
+
+
+def time_ntt(runs, parent, rng, dev, times) -> None:
+    """The K5 variants (and the parent's K5) over K5_TRANSFORMS, each
+    transform's passes in one graph, and this tree's variants at each pass of
+    K5_PASSES.  A run named parent* goes through the parent's modules."""
+    from myzkp_tpu_torch import _ext
+    from myzkp_tpu_torch.fields import ntt_kernels as nk
+    from myzkp_tpu_torch.fields.spec import bn254_r_spec
+    from myzkp_tpu_torch.ops import ntt
+
+    spec = bn254_r_spec()
+    xs = [cs.random_fe(rng, R * n, dev).reshape(16, R, n, 1) for R, n, _ in K5_TRANSFORMS]
+    wants = []
+    for x, (R, n, inv) in zip(xs, K5_TRANSFORMS):  # the one-stage plain chain
+        y = x.reshape(16, R, 1, n, 1)
+        for s in range(n.bit_length() - 1):
+            y = nk.butterfly_ref(spec, y, ntt._pass_twiddles(spec, n, s, 1, inv, dev))
+        wants.append(y.reshape(x.shape))
+    for name, defines in runs:
+        if name.startswith("parent"):
+            mod, sp = parent["ops.ntt"], parent["fields.spec"].bn254_r_spec()
+        else:
+            _ext.use_defines(defines)
+            mod, sp = ntt, spec
+        t, line = times[name], []
+        for x, want, (R, n, inv) in zip(xs, wants, K5_TRANSFORMS):
+            check(f"{name}: K5 transform {(R, n, inv)}",
+                  [mod._stockham_axis(sp, x, n, inv)], [want])
+            key = f"k5_{R}x{n}{'_inv' if inv else ''}"
+            t[key] = cs.graph_time_ms(lambda: mod._stockham_axis(sp, x, n, inv), 20)
+            line.append(f"{key} {t[key]:.4f} ms")
+        if not name.startswith("parent"):
+            R, n, inv = K5_PASSES
+            y = xs[K5_TRANSFORMS.index(K5_PASSES)].reshape(16, R, 1, n, 1)
+            for s0, s in ntt._stockham_passes(n):
+                tw = ntt._pass_twiddles(spec, n, s0, s, inv, dev)
+                check(f"{name}: K5 pass {tuple(y.shape)}", [nk.butterfly(spec, y, tw, s)],
+                      [nk.butterfly_ref(spec, y, tw, s)])
+                key = f"k5_pass_{y.shape[2]}x{y.shape[3]}_s{s}"
+                t[key] = cs.graph_time_ms(lambda: nk.butterfly(spec, y, tw, s), 100)
+                line.append(f"{key} {t[key]:.4f} ms")
+                y = nk.butterfly(spec, y, tw, s)
+        cs.log(f"# ntt {name}: " + ", ".join(line))
+
+
+def time_mixed(runs, parent, rng, dev, times) -> None:
+    """The K10 variants (and the parent's K10) at MIXED_WIDTHS, and K7 on the
+    first width's inputs.  A run named parent* goes through the parent's
+    modules."""
+    from myzkp_tpu_torch import _ext
+    from myzkp_tpu_torch.curves import bn254, curve_kernels as ck
+
+    spec, b32 = bn254.q_spec(), bn254.g2_b3((), dev)
+    h = torch.arange(LANES, device=dev) % 32 == 0
+    fe2 = lambda n: (cs.random_fe(rng, n, dev), cs.random_fe(rng, n, dev))
+    cases = []
+    for n in MIXED_WIDTHS:
+        P, q = tuple(fe2(n) for _ in range(3)), tuple(fe2(n) for _ in range(2))
+        hn = h if n == LANES else None
+        cases.append((n, P, q, hn, ck._leaves2(ck.padd_mixed2_ref(spec, b32, P, *q, hn))))
+    _, P, q, _, _ = cases[0]
+    one = tuple(c.contiguous() for c in bn254.g2_ops().one((LANES,), dev))
+    want7 = ck._leaves2(ck.padd2_ref(spec, b32, P, (*q, one), h))
+    for name, defines in runs:
+        if name.startswith("parent"):
+            mod = parent["curves.curve_kernels"]
+            sp, b = parent["curves.bn254"].q_spec(), parent["curves.bn254"].g2_b3((), dev)
+        else:
+            _ext.use_defines(defines)
+            mod, sp, b = ck, spec, b32
+        t, line = times[name], []
+        for n, P, q, hn, want in cases:
+            check(f"{name}: K10 at {n}", ck._leaves2(mod.padd_mixed2(sp, b, P, *q, hn)), want)
+            t[f"k10_{n}"] = cs.graph_time_ms(lambda: mod.padd_mixed2(sp, b, P, *q, hn),
+                                             20 if n == LANES else 5)
+            line.append(f"K10 at {n}{' (mask)' if hn is not None else ''} "
+                        f"{t[f'k10_{n}']:.4f} ms")
+        _, P, q, _, _ = cases[0]
+        check(f"{name}: K7", ck._leaves2(mod.padd2(sp, b, P, (*q, one), h)), want7)
+        t["k7"] = cs.graph_time_ms(lambda: mod.padd2(sp, b, P, (*q, one), h), 20)
+        line.append(f"K7 on the same inputs {t['k7']:.4f} ms")
+        cs.log(f"# mixed {name}: " + ", ".join(line))
 
 
 def time_adds(variants, spec, b3, b32, rng, dev, times) -> None:
