@@ -176,20 +176,46 @@ Phases, one output line each (or more), in order:
                challenges, verify_sumcheck accepting, and rejecting a
                changed h and a changed g_j; the prove split into host
                rounds, commit and open; each verify timed; launch counts.
+ 13. stark     the STARK over M128 (L = 8: the four-word kernels mont_mul_l8,
+               mont_pow_l8, butterfly_l8, ntt_leaf_l8 and K17
+               long_division_l8): K1 on 2^20 pairs after every pair of the
+               four-word edges (32-bit words 0 or all ones, p - 1, 1, R mod
+               p, and values in [2^127, p): M128 has no spare bit) against
+               its plain version and the host, its chain at 1 to 4,097
+               elements for e = 0, 1, 2, p - 2 and alpha^-1; Rescue-Prime
+               (27 rounds) through Stark and FastStark on the card and on the
+               CPU plain versions with the same seed, the proofs equal byte
+               for byte, accepted, and a false output rejected on the card;
+               hash_batch over 2^20 inputs (64 sampled outputs equal the host
+               hash; timed); FastStark on the JAX package's squaring AIR at
+               65,528 cycles over a 2^20-point FRI domain: preprocess, three
+               proves from random.Random(7) (equal, each split by stage:
+               trace interpolation, boundary quotients, codewords + Merkle,
+               symbolic AIR, transition quotients, combination, FRI,
+               openings), verify accepting, a false boundary's proof
+               rejected, the first prove's launches (K5 gated under 5,940);
+               K5, K6 and K17 at every shape that prove launched them at
+               against their plain versions (K17 past 512 steps a row
+               against a = q b + r), then the five four-word kernels and
+               K17's BN254 instance timed beside their plain versions and
+               bounds (68 multiply-adds a 128-bit product).
 The build phase prints ptxas's registers and spills of every kernel and the
 static SASS instruction counts (cuobjdump -sass) of the curve kernels.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object with one entry per kernel (its
-"launches" from the proves, "kzg_launches" from phase 11's runs,
-"sumcheck_launches" from phase 12's); the last
+"launches" from the proves (for the four-word kernels and K17, phase
+13's first FastStark prove), "kzg_launches" from phase 11's runs,
+"sumcheck_launches" from phase 12's, "stark_launches" from phase 13's prove); the last
 line is {"ok": true, "device": {...}}.  Any failure exits nonzero before it.
 Neither this script nor the port imports JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
+import math
 import random
 import statistics
 import subprocess
@@ -212,11 +238,14 @@ MIX_WIDE = 1 << 22  # K9 at a fixed-base tree level's width (K2's timed shape)
 # memory 3.35 TB/s; 32-bit integer multiply-adds at 64 per SM per clock
 # (half the 128 float32 lanes behind the 67 TFLOP/s float32 peak), 132 SMs,
 # 1.98 GHz.  A 256-bit Montgomery product (CIOS over eight 32-bit words) is
-# 264 of them: 64 wide products a*b and 64 m*p at two each, plus 8 for m.
+# 264 of them: 64 wide products a*b and 64 m*p at two each, plus 8 for m; a
+# 128-bit one (M128, four words) 68: 16 and 16 at two each, plus 4.
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 132 * 64 * 1.98e9
 IMAD_PER_MONT = 264
+IMAD_PER_MONT4 = 68
 LIMB_BYTES = 64  # one element at the tensor interface: 16 int32 limbs
+LIMB_BYTES4 = 32  # an M128 element: 8 int32 limbs
 MSM_KERNELS = ("mont_mul", "mont_pow", "padd", "pdbl", "bucket_scan_rows", "padd_seg_level",
                "gather_planes", "scatter_rows")
 
@@ -268,11 +297,12 @@ def graph_time_ms(fn, reps: int) -> float:
     return ms
 
 
-def bound(nbytes: float, mont_products: float) -> dict:
+def bound(nbytes: float, mont_products: float, imad: int = IMAD_PER_MONT) -> dict:
     """The least time the card could take: bytes at the memory rate against
-    Montgomery products at the integer multiply rate, whichever is longer."""
+    Montgomery products (``imad`` multiply-adds each) at the integer
+    multiply rate, whichever is longer."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = mont_products * IMAD_PER_MONT / IMAD_PER_S * 1e3
+    t_ops = mont_products * imad / IMAD_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -366,7 +396,9 @@ def sass_counts(lib) -> dict:
 SASS_KERNELS = ("padd_seg_level_kernel", "padd2_seg_level_kernel", "padd_mixed_kernel",
                 "padd_mixed2_kernel", "padd2_kernel", "pdbl2_kernel", "padd_kernel",
                 "pdbl_kernel", "mont_mul_kernel", "mont_pow_kernel", "ntt_leaf_kernel",
-                "butterfly_kernel")
+                "butterfly_kernel", "mont_mul_l8_kernel", "mont_pow_l8_kernel",
+                "ntt_leaf_l8_kernel", "butterfly_l8_kernel", "long_division_kernel",
+                "long_division_l8_kernel")
 
 
 def random_fe(rng: np.random.Generator, n: int, dev) -> torch.Tensor:
@@ -376,16 +408,20 @@ def random_fe(rng: np.random.Generator, n: int, dev) -> torch.Tensor:
     return torch.from_numpy(limbs.astype(np.int32)).to(dev)
 
 
-def word_edges(p: int) -> list:
-    """The values below p whose eight 32-bit words are each 0 or 0xFFFFFFFF,
-    then p - 1, 1 and R mod p: the operands at the ends of every carry chain
-    of the Montgomery product."""
+def word_edges(p: int, words: int = 8) -> list:
+    """The values below p whose 32-bit words (eight, or four for M128) are
+    each 0 or 0xFFFFFFFF, then p - 1, 1 and R mod p: the operands at the ends
+    of every carry chain of the Montgomery product.  Where p has no spare bit
+    (M128: p > R / 2) also values in [R / 2, p), whose sums and products
+    pass R: 2^127, 2^127 + 1, 2^127 + 2^96 - 1 and p - 2."""
     out = []
-    for bits in range(256):
-        v = sum(0xFFFFFFFF << (32 * k) for k in range(8) if bits >> k & 1)
+    for bits in range(1 << words):
+        v = sum(0xFFFFFFFF << (32 * k) for k in range(words) if bits >> k & 1)
         if v < p:
             out.append(v)
-    return out + [p - 1, 1, (1 << 256) % p]
+    half = 1 << (32 * words - 1)
+    top = [half, half + 1, half + (1 << 96) - 1, p - 2] if p > half else []
+    return out + [p - 1, 1, (1 << (32 * words)) % p] + top
 
 
 def bitcheck_mont_mul(spec, rng, dev, name: str) -> int:
@@ -2716,6 +2752,382 @@ def phase_sumcheck(dev, results: dict, pk, s: int) -> None:
     log(f"# sumcheck phase {secs['phase']:.1f} s")
 
 
+STARK_CYCLES = 65528  # the squaring AIR: 8 randomizers fill a 2^16-row trace
+STARK_PARAMS = (4, 2, 2, 1, STARK_CYCLES, 2)  # initialize_fast_stark_m128's arguments
+STARK_SEED = 7
+STARK_X0 = 123456789
+HASH_BATCH = 1 << 20
+K5_STARK_LAUNCHES = 5940  # K5 launches of a prove on a one-stage-a-launch K5
+STARK_KERNELS = ("mont_mul_l8", "mont_pow_l8", "butterfly_l8", "ntt_leaf_l8",
+                 "long_division_l8")
+STARK_STAGES = (  # (owner module, attribute, stage): the prove's split
+    ("fast_stark", "FastStark._interpolate_trace", "trace interpolation"),
+    ("fast_stark", "FastStark._boundary_quotients", "boundary quotients"),
+    ("fast_stark", "FastStark._commit_codeword", "codewords + Merkle"),
+    ("fast_stark", "FastStark._transition_polys", "symbolic AIR"),
+    ("fast_stark", "FastStark._coset_divide", "transition quotients"),
+    ("fast_stark", "FastStark._combined_codeword", "combination"),
+    ("fri", "FRI.prove", "FRI"),
+    ("fast_stark", "FastStark._open", "openings"),
+)
+DIV_DIRECT = 512  # K17 held to its plain loop up to this many steps a row
+
+
+def random_fe4(rng: random.Random, n: int, dev, spec) -> torch.Tensor:
+    """n random canonical M128 elements as (8, n) limbs (standard domain)."""
+    from myzkp_tpu_torch.fields import limb
+
+    return limb.from_int(spec, [rng.randrange(spec.p) for _ in range(n)], dev).contiguous()
+
+
+def squaring_air(spec, cycles: int):
+    """The JAX package's squaring AIR (tests/test_stark_e2e.py:50-75): one
+    register, x_(i+1) = x_i^2; trace, AIR and boundary (first and last)."""
+    from myzkp_tpu_torch.ops.mpoly import MPoly
+
+    trace, x = [], STARK_X0
+    for _ in range(cycles):
+        trace.append([x])
+        x = x * x % spec.p
+    var = MPoly.variables(spec, 3)  # (cycle, prev, next)
+    return trace, [var[1] ** 2 - var[2]], [(0, 0, STARK_X0), (cycles - 1, 0, trace[-1][0])]
+
+
+def phase_bitcheck_m128(dev, results: dict) -> None:
+    """K1, its chain at four words (M128) against their plain versions and
+    the host: K1 on 2^20 pairs, every pair of the four-word edges first; the
+    chain at 1, 2, 3, 16, 4,097 elements (edges among them) for e = 0, 1, 2,
+    p - 2 and alpha^-1 (Rescue-Prime's inverse S-box)."""
+    from myzkp_tpu_torch import _ext
+    from myzkp_tpu_torch.fields import limb
+    from myzkp_tpu_torch.fields.spec import m128_spec
+    from myzkp_tpu_torch.stark import rescue_constants
+
+    spec = m128_spec()
+    p, R = spec.p, 1 << 128
+    rng = random.Random(SEED + 128)
+    edges = word_edges(p, 4)
+    k = len(edges) ** 2
+    n = 1 << LOG_N
+    a = random_fe4(rng, n, dev, spec)
+    b = torch.roll(a, 12345, 1).contiguous()
+    a[:, :k] = limb.from_int(spec, [x for x in edges for _ in edges], dev)
+    b[:, :k] = limb.from_int(spec, [y for _ in edges for y in edges], dev)
+    got = limb.mont_mul(spec, a, b)
+    err = check_equal("mont_mul_l8", [got], [limb.mont_mul_ref(spec, a, b)])
+    rinv = pow(R, -1, p)
+    gi = limb.to_int(spec, got[:, :k])
+    if any(int(g) != x * y * rinv % p
+           for g, (x, y) in zip(gi, ((x, y) for x in edges for y in edges))):
+        raise AssertionError("mont_mul_l8: disagrees with the host on the word edges")
+    results["mont_mul_l8"]["max_abs_err"] = err
+    log(f"# bitcheck mont_mul_l8 (M128): 2^{LOG_N} pairs, the first {k} every pair of "
+        f"{len(edges)} word edges (each 32-bit word 0 or 0xFFFFFFFF below p; p - 1, 1, "
+        f"R mod p; 2^127, 2^127 + 1, 2^127 + 2^96 - 1, p - 2): exact, and the edge pairs "
+        f"== host")
+    err = 0
+    exps = (0, 1, 2, p - 2, rescue_constants.ALPHA_INV)
+    for n in POW_SIZES:
+        a = random_fe4(rng, n, dev, spec)
+        a[:, :min(n, len(edges))] = limb.from_int(spec, edges[:n], dev)
+        xs = [int(v) * rinv % p for v in limb.to_int(spec, a)]
+        for e in exps:
+            before = _ext.launches["mont_pow_l8"]
+            got = limb.pow_const(spec, a, e)
+            if _ext.launches["mont_pow_l8"] != before + 1:
+                raise AssertionError("pow_const (M128): not one launch of the chain")
+            err = max(err, check_equal(f"mont_pow_l8 n = {n} e = {e}", [got],
+                                       [limb.mont_pow_ref(spec, a, e)]))
+            if any(int(g) != pow(x, e, p) * R % p
+                   for g, x in zip(limb.to_int(spec, got), xs)):
+                raise AssertionError(f"mont_pow_l8 n = {n} e = {e}: differs from the host")
+    results["mont_pow_l8"]["max_abs_err"] = err
+    log(f"# bitcheck mont_pow_l8 (M128): {POW_SIZES} elements (word edges among them), "
+        f"e = 0, 1, 2, p - 2, alpha^-1, one launch each: exact vs plain and == host")
+
+
+class recorder:
+    """Within the block, each call of owner.name is also recorded: its
+    arguments (tensors kept) under key(*args), the first call of each key
+    only."""
+
+    def __init__(self, owner, name: str, key):
+        self.owner, self.name, self.key, self.calls = owner, name, key, {}
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.owner, self.name)
+
+        def wrapped(*a, **k):
+            self.calls.setdefault(self.key(*a, **k), (a, k))
+            return fn(*a, **k)
+
+        setattr(self.owner, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.fn)
+
+
+def bitcheck_stark_shapes(spec, k5, k6, k17, dev, results: dict) -> None:
+    """K5, K6 and K17 at every shape the full-width prove launched them at
+    (random inputs of each shape, the path's own tables), against their
+    plain versions; K17 where a row takes more than DIV_DIRECT steps (the
+    upper levels of the remainder tree and the boundary quotient) against
+    the identity a = q b + r instead, by fast_multiply on the card."""
+    from myzkp_tpu_torch.fields import ntt_kernels as nk
+    from myzkp_tpu_torch.fields.fp import Fp
+    from myzkp_tpu_torch.ops import ntt, poly
+
+    rng = random.Random(SEED + 129)
+    rand = lambda shape: random_fe4(rng, math.prod(shape[1:]), dev, spec).reshape(shape)
+    err5 = err6 = err17 = 0
+    for (shape, s), ((_, _, tw, *_), _) in k5.items():
+        y = rand(shape)
+        err5 = max(err5, check_equal(f"butterfly_l8 {shape} s = {s}",
+                                     [nk.butterfly(spec, y, tw, s)],
+                                     [nk.butterfly_ref(spec, y, tw, s)]))
+    for shape, ((_, _, tw, *_), _) in k6.items():
+        y = rand(shape)
+        err6 = max(err6, check_equal(f"ntt_leaf_l8 {shape}", [nk.ntt_leaf(spec, y, tw)],
+                                     [nk.ntt_leaf_ref(spec, y, tw)]))
+    identity = []
+    for (rows, na, bd), _ in k17.items():
+        a, b = rand((8, rows, na)), rand((8, rows, bd + 1))
+        q, r = poly.long_division_cuda(spec, a, b, bd)
+        if na - bd <= DIV_DIRECT:
+            err17 = max(err17, check_equal(f"long_division_l8 {(rows, na, bd)}", [q, r],
+                                           list(poly.long_division_ref(spec, a, b, bd))))
+        else:
+            back = ntt.fast_multiply(Fp(spec, q), Fp(spec, b)) + Fp(spec, r).pad_to(na)
+            if not torch.equal(back.mont, a):
+                raise AssertionError(f"long_division_l8 {(rows, na, bd)}: a != q b + r")
+            identity.append((rows, na, bd))
+    results["butterfly_l8"]["max_abs_err"] = err5
+    results["ntt_leaf_l8"]["max_abs_err"] = err6
+    results["long_division_l8"]["max_abs_err"] = err17
+    log(f"# bitcheck butterfly_l8 (M128) at the {len(k5)} (shape, stages) of the prove: "
+        f"exact vs plain")
+    log(f"# bitcheck ntt_leaf_l8 (M128) at the {len(k6)} shapes of the prove: exact vs plain")
+    log(f"# bitcheck long_division_l8 (M128) at the {len(k17)} (rows, na, bd) of the prove: "
+        f"exact vs plain up to {DIV_DIRECT} steps a row; a == q b + r exactly at "
+        f"{identity}")
+
+
+def stark_cases(spec, k5, k6, k17, dev) -> dict:
+    """The timed cases of the four-word kernels and K17 (time_cases), at the
+    prove's shapes: K1 at the FRI fold's first products (2^19 x 2^19) and
+    the coset scaling (2^20 x 2^20); the chain on hash_batch's S-box (2^20
+    elements, alpha^-1); K5 at the prove's widest pass; K6 at the top leaf of
+    the 2^20-point coset NTT; K17 at a remainder-tree level whose plain loop
+    fits the run (the largest at most DIV_DIRECT steps), and its BN254
+    instance on the same shape."""
+    from myzkp_tpu_torch.fields import limb, ntt_kernels as nk
+    from myzkp_tpu_torch.fields.spec import bn254_r_spec
+    from myzkp_tpu_torch.ops import ntt, poly
+    from myzkp_tpu_torch.stark import rescue_constants
+
+    rng = random.Random(SEED + 130)
+    B4 = LIMB_BYTES4
+    n = 1 << LOG_N
+    a, b = random_fe4(rng, n, dev, spec), random_fe4(rng, n, dev, spec)
+    e = rescue_constants.ALPHA_INV
+    sbox = random_fe4(rng, HASH_BATCH, dev, spec)
+    (shape5, s5), ((_, _, tw5, *_), _) = max(k5.items(), key=lambda kv: math.prod(kv[0][0]))
+    x5 = random_fe4(rng, math.prod(shape5[1:]), dev, spec).reshape(shape5)
+    _, R5, Bk5, c5, b5 = shape5
+    m5 = Bk5 * c5
+    shape6, ((_, _, tw6, *_), _) = max(k6.items(), key=lambda kv: math.prod(kv[0]))
+    x6 = random_fe4(rng, math.prod(shape6[1:]), dev, spec).reshape(shape6)
+    _, E6, m6, B6 = shape6
+    rows, na, bd = max((k for k in k17 if k[1] - k[2] <= DIV_DIRECT), key=lambda k: k[2])
+    xa, xb = random_fe4(rng, rows * na, dev, spec), random_fe4(rng, rows * (bd + 1), dev, spec)
+    da, db = xa.reshape(8, rows, na), xb.reshape(8, rows, bd + 1)
+    r_spec = bn254_r_spec()
+    ba = random_fe(np.random.default_rng(SEED + 131), rows * na, dev).reshape(16, rows, na)
+    bb = random_fe(np.random.default_rng(SEED + 132), rows * (bd + 1), dev).reshape(
+        16, rows, bd + 1)
+    div_bytes = rows * (na + bd + 1 + na) * B4  # a, b in; q, r out
+    div_products = rows * (na - bd) * (bd + 1)
+    return {
+        "mont_mul_l8": (f"(8, 2^{LOG_N}) x (8, 2^{LOG_N}): a coset scaling of the prove",
+                        lambda: limb.mont_mul(spec, a, b),
+                        lambda: limb.mont_mul_ref(spec, a, b), 20, 3,
+                        bound(3 * B4 * n, n, IMAD_PER_MONT4)),
+        "mont_pow_l8": (f"2^{LOG_N} elements, e = alpha^-1 ({e.bit_length()} bits): "
+                        f"hash_batch's inverse S-box",
+                        lambda: limb.pow_const(spec, sbox, e),
+                        lambda: limb.mont_pow_ref(spec, sbox, e), 3, 1,
+                        bound(2 * B4 * HASH_BATCH,
+                              HASH_BATCH * (e.bit_length() - 1 + bin(e).count("1")),
+                              IMAD_PER_MONT4)),
+        "butterfly_l8": (f"{tuple(shape5)}, stages = {s5}: the prove's widest K5 pass",
+                         lambda: nk.butterfly(spec, x5, tw5, s5),
+                         lambda: nk.butterfly_ref(spec, x5, tw5, s5), 20, 3,
+                         bound(2 * B4 * R5 * m5 * b5 + B4 * (c5 - (c5 >> s5)),
+                               R5 * b5 * sum(m5 // 2 - (Bk5 << t) for t in range(s5)),
+                               IMAD_PER_MONT4)),
+        "ntt_leaf_l8": (f"{tuple(shape6)}: the prove's widest K6 leaf",
+                        lambda: nk.ntt_leaf(spec, x6, tw6),
+                        lambda: nk.ntt_leaf_ref(spec, x6, tw6), 10, 2,
+                        bound(2 * B4 * E6 * m6 * B6 + (m6 - 1) * B4,
+                              E6 * B6 * leaf_products(m6), IMAD_PER_MONT4)),
+        "long_division_l8": (f"(rows, na, bd) = {(rows, na, bd)}: a remainder-tree level "
+                             f"of the prove",
+                             lambda: poly.long_division_cuda(spec, da, db, bd),
+                             lambda: poly.long_division_ref(spec, da, db, bd), 3, 1,
+                             bound(div_bytes, div_products, IMAD_PER_MONT4)),
+        "long_division": (f"(rows, na, bd) = {(rows, na, bd)} over F_r (on no path)",
+                          lambda: poly.long_division_cuda(r_spec, ba, bb, bd),
+                          lambda: poly.long_division_ref(r_spec, ba, bb, bd), 3, 1,
+                          bound(2 * div_bytes, div_products)),
+    }
+
+
+def rescue_exactness(dev) -> dict:
+    """Rescue-Prime (m = 2, 27 rounds, 28 cycles) through Stark and
+    FastStark, on the card and on the CPU plain versions from the same
+    seed: the proofs equal byte for byte and each accepted; on the card a
+    false output's proof rejected.  Returns the seconds of each prove."""
+    import dataclasses
+
+    from myzkp_tpu_torch.stark import fast_stark, rescueprime, stark
+
+    rp = rescueprime.RescuePrime()
+    inp = 123456789
+    out = rp.hash(inp)
+    secs = {}
+    for name, init in (("stark", stark.initialize_stark_m128),
+                       ("fast_stark", fast_stark.initialize_fast_stark_m128)):
+        proofs = {}
+        for where in (dev, torch.device("cpu")):
+            st = init(4, 2, 2, rp.m, rp.n + 1, 2, device=where)
+            air = rp.transition_constraints(st.omicron)
+            bnd, false_bnd = rp.boundary_constraints(out), rp.boundary_constraints(out + 1)
+            kw = {"preprocessed": st.preprocess()} if name == "fast_stark" else {}
+            verify = ((lambda pr, b: st.verify(pr, air, kw["preprocessed"][2], b))
+                      if kw else (lambda pr, b: st.verify(pr, air, b)))
+            proof, sec = timed(lambda: st.prove(rp.trace(inp), bnd, air,
+                                                rng=random.Random(SEED), **kw))
+            secs[f"{name} Rescue-Prime {where.type}"] = sec
+            if not verify(proof, bnd):
+                raise AssertionError(f"{name} Rescue-Prime ({where}): proof rejected")
+            if where.type == "cuda":
+                bad = st.prove(rp.trace(inp), false_bnd, air, rng=random.Random(SEED + 1), **kw)
+                if verify(bad, false_bnd):
+                    raise AssertionError(f"{name} Rescue-Prime: a false output accepted")
+            proofs[where.type] = dataclasses.asdict(proof)
+        if proofs["cuda"] != proofs["cpu"]:
+            raise AssertionError(f"{name} Rescue-Prime: the card's proof != the CPU's")
+    return secs
+
+
+def phase_stark(dev, results: dict) -> None:
+    import dataclasses
+    import importlib
+
+    from myzkp_tpu_torch import _ext
+    from myzkp_tpu_torch.fields import ntt_kernels as nk
+    from myzkp_tpu_torch.fields.fp import Fp
+    from myzkp_tpu_torch.fields.spec import m128_spec
+    from myzkp_tpu_torch.ops import poly
+    from myzkp_tpu_torch.stark import fast_stark, rescueprime
+
+    t_phase = time.perf_counter()
+    spec = m128_spec()
+    p = spec.p
+    smi = card()
+    phase_bitcheck_m128(dev, results)
+    secs = rescue_exactness(dev)
+    log(f"# stark Rescue-Prime ({smi}): Stark and FastStark, the card's proof == the CPU "
+        f"plain versions' (seed {SEED}), byte for byte; both accepted; on the card a false "
+        f"output rejected "
+        f"({json.dumps({k: round(v, 3) for k, v in secs.items()})} s)")
+
+    rp = rescueprime.RescuePrime()
+    rng = random.Random(SEED + 131)
+    inputs = [rng.randrange(p) for _ in range(HASH_BATCH)]
+    x = Fp.from_int(spec, inputs, dev)
+    hashed, sec = timed(lambda: rp.hash_batch(x))
+    picks = rng.sample(range(HASH_BATCH), 64)
+    got = Fp(spec, hashed.mont[:, picks]).to_int()
+    if [int(g) for g in got] != [rp.hash(inputs[i]) for i in picks]:
+        raise AssertionError("hash_batch: a sampled output differs from RescuePrime.hash")
+    hb_ms, hb_reps = median_ms(lambda: rp.hash_batch(x), 3)
+    secs["hash_batch_first"] = sec
+    log(f"# stark hash_batch 2^{LOG_N} ({smi}): 64 sampled outputs == host hash; median "
+        f"{hb_ms:.3f} ms of {[round(t, 3) for t in hb_reps]}")
+
+    st = fast_stark.initialize_fast_stark_m128(*STARK_PARAMS, device=dev)
+    trace, air, boundary = squaring_air(spec, STARK_CYCLES)
+    pre, secs["preprocess"] = timed(st.preprocess)
+    proofs, reps = [], []
+    for rep in range(3):  # each from a fresh random.Random(STARK_SEED)
+        timers = [split_timer(getattr(importlib.import_module(f"myzkp_tpu_torch.stark.{mod}"),
+                                      attr.split(".")[0]), attr.split(".")[1])
+                  for mod, attr, _ in STARK_STAGES]
+        with contextlib.ExitStack() as stack:
+            for t in timers:
+                stack.enter_context(t)
+            if rep == 0:  # the shapes K5, K6 and K17 run at, and the launch counts
+                k5 = stack.enter_context(recorder(
+                    nk, "butterfly", lambda _, x, tw, s=1: (tuple(x.shape), s)))
+                k6 = stack.enter_context(recorder(
+                    nk, "ntt_leaf", lambda _, x, tw, s=None: tuple(x.shape)))
+                k17 = stack.enter_context(recorder(
+                    poly, "long_division_cuda",
+                    lambda _, a, b, bd: (math.prod(a.shape[1:-1]), a.shape[-1], bd)))
+                _ext.reset_launches()
+            proof, sec = timed(lambda: st.prove(trace, boundary, air, preprocessed=pre,
+                                                rng=random.Random(STARK_SEED)))
+            if rep == 0:
+                counts = {k: v for k, v in _ext.launches.items() if v}
+        split = {"prove_s": sec}
+        split.update({name: t.secs for (_, _, name), t in zip(STARK_STAGES, timers)})
+        split["other"] = sec - sum(t.secs for t in timers)
+        reps.append(split)
+        proofs.append(dataclasses.asdict(proof))
+    for k in STARK_KERNELS:
+        if counts.get(k, 0) < 1:
+            raise AssertionError(f"FastStark prove: {k} never launched: {counts}")
+    if counts["butterfly_l8"] >= K5_STARK_LAUNCHES:
+        raise AssertionError(f"FastStark prove: {counts['butterfly_l8']} K5 launches")
+    if any(pr != proofs[0] for pr in proofs[1:]):
+        raise AssertionError("FastStark: the proves from one seed differ")
+    ok, secs["verify"] = timed(lambda: st.verify(proof, air, pre[2], boundary))
+    if not ok:
+        raise AssertionError("FastStark 2^20: proof rejected")
+    false_bnd = [(0, 0, STARK_X0), (STARK_CYCLES - 1, 0, (trace[-1][0] + 1) % p)]
+    bad, secs["false_prove"] = timed(lambda: st.prove(trace, false_bnd, air, preprocessed=pre,
+                                                      rng=random.Random(STARK_SEED + 1)))
+    ok, secs["false_verify"] = timed(lambda: st.verify(bad, air, pre[2], false_bnd))
+    if ok:
+        raise AssertionError("FastStark 2^20: a false boundary's proof accepted")
+    med = sorted(reps, key=lambda r: r["prove_s"])[1]
+    log(f"# stark fast 2^20 ({smi}): {STARK_CYCLES} cycles, FRI domain "
+        f"{st.fri.domain_length}; preprocess {secs['preprocess']:.3f} s; prove median "
+        f"{med['prove_s']:.3f} s of {[round(r['prove_s'], 3) for r in reps]} (the three "
+        f"proofs equal); verify {secs['verify']:.4f} s: accepted; a false boundary's "
+        f"prove {secs['false_prove']:.3f} s, verify {secs['false_verify']:.4f} s: rejected")
+    log(f"# stark prove split (median rep, s): "
+        f"{json.dumps({k: round(v, 4) for k, v in med.items()})}")
+    log(f"# stark prove launches: {json.dumps(counts)}; K5 {counts['butterfly_l8']} "
+        f"(under {K5_STARK_LAUNCHES})")
+
+    bitcheck_stark_shapes(spec, k5.calls, k6.calls, k17.calls, dev, results)
+    results["long_division"]["max_abs_err"] = 0
+    time_cases(stark_cases(spec, k5.calls, k6.calls, k17.calls, dev), results)
+    for k in results:
+        if not k.startswith("_"):
+            results[k]["stark_launches"] = counts.get(k, 0)
+    for k in STARK_KERNELS + ("long_division",):
+        results[k]["launches"] = counts.get(k, 0)
+    secs["phase"] = time.perf_counter() - t_phase
+    results["_stark"] = {"card": smi, "prove_median": med, "reps": reps, "seconds": secs,
+                         "launches": counts, "hash_batch_ms": hb_ms,
+                         "hash_batch_reps_ms": hb_reps}
+    log(f"# stark phase {secs['phase']:.1f} s")
+
+
 SOURCES = {
     "mont_mul": ("myzkp_tpu_torch/csrc/mont_mul.cu",
                  "myzkp_tpu/fields/limb_pallas.py:286"),
@@ -2753,6 +3165,16 @@ SOURCES = {
     "gather_planes": ("myzkp_tpu_torch/csrc/rows.cu", "tools/exp_gather_pallas.py:33"),
     # probe 16's planes -> rows transpose, written at targets
     "scatter_rows": ("myzkp_tpu_torch/csrc/rows.cu", "tools/exp_transpose.py:78"),
+    # the four-word (M128) instances, on the STARK's path
+    "mont_mul_l8": ("myzkp_tpu_torch/csrc/mont_mul.cu",
+                    "myzkp_tpu/fields/limb_pallas.py:286"),
+    "mont_pow_l8": ("myzkp_tpu_torch/csrc/mont_mul.cu",
+                    "myzkp_tpu/fields/limb_pallas.py:286"),
+    "butterfly_l8": ("myzkp_tpu_torch/csrc/ntt.cu", "myzkp_tpu/fields/limb_pallas.py:76"),
+    "ntt_leaf_l8": ("myzkp_tpu_torch/csrc/ntt.cu", "myzkp_tpu/fields/limb_pallas.py:242"),
+    # the reference's long division, a lax.scan on the device (ops/poly.py:229-261)
+    "long_division_l8": ("myzkp_tpu_torch/csrc/poly.cu", "myzkp_tpu/ops/poly.py:230"),
+    "long_division": ("myzkp_tpu_torch/csrc/poly.cu", "myzkp_tpu/ops/poly.py:230"),
 }
 
 
@@ -2794,8 +3216,9 @@ def main() -> int:
     srs, s = phase_kzg(dev, results)
     phase_sumcheck(dev, results, srs, s)
     del srs
-    keys = ("launches", "kzg_launches", "sumcheck_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+    phase_stark(dev, results)
+    keys = ("launches", "kzg_launches", "sumcheck_launches", "stark_launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k][0],
                 "replaces": SOURCES[k][1], **{key: results[k][key] for key in keys}}
                for k in SOURCES]
@@ -2809,6 +3232,7 @@ def main() -> int:
     log(f"# groth16 {json.dumps(results['_groth16'])}")
     log(f"# kzg {json.dumps(results['_kzg'])}")
     log(f"# sumcheck {json.dumps(results['_sumcheck'])}")
+    log(f"# stark {json.dumps(results['_stark'])}")
     log(f"# probe13 {json.dumps(results['_probe13'])}")
     log(f"# scan_parent_path {json.dumps(results['_scan_parent_path'])}")
     log(f"# rows {json.dumps(results['_rows'])}")

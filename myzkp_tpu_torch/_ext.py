@@ -43,7 +43,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("mont_mul", "mont_pow", "padd", "pdbl", "bucket_scan_rows", "butterfly",
            "ntt_leaf", "padd2", "pdbl2", "padd_mixed", "padd_mixed2",
            "bucket_scan_rows2", "padd_seg_level", "padd2_seg_level", "gather_planes",
-           "scatter_rows")
+           "scatter_rows", "long_division", "mont_mul_l8", "mont_pow_l8", "butterfly_l8",
+           "ntt_leaf_l8", "long_division_l8")
+# The kernels with an instance at each width: "<name>" at L = 16 limbs
+# (BN254's fields), "<name>_l8" at L = 8 (M128) (kernel_name).
+FIELD_KERNELS = ("mont_mul", "mont_pow", "butterfly", "ntt_leaf", "long_division")
 
 # Launches of each kernel since the last reset_launches().  A wrapper adds one
 # where it launches its kernel (launch() below) and nowhere else.
@@ -68,7 +72,9 @@ _SIGNATURES = {
     "padd2_seg_level": (_P,) * 16 + (_I64,) * 3 + (_P, _P),
     "gather_planes": (_P, _P, ctypes.c_int, _P, _I64, ctypes.c_int, ctypes.c_int, _P),
     "scatter_rows": (_P,) * 7 + (ctypes.c_int, _P, _I64, ctypes.c_int, ctypes.c_int, _P),
+    "long_division": (_P,) * 6 + (_I64,) * 3 + (_P, _P),
 }
+_SIGNATURES.update({f"{k}_l8": _SIGNATURES[k] for k in FIELD_KERNELS})
 
 _lib = None
 # -D definitions of the library that launches use (use_defines)
@@ -267,26 +273,45 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-class _FieldConsts(ctypes.Structure):
-    # mirrors struct FieldConsts in csrc/field.cuh
-    _fields_ = [("p", ctypes.c_uint32 * 8), ("one", ctypes.c_uint32 * 8),
-                ("n0", ctypes.c_uint32)]
+def _field_consts_type(words: int):
+    # mirrors struct FieldConstsN<N> in csrc/field.cuh
+    return type(f"_FieldConsts{words}", (ctypes.Structure,), {"_fields_": [
+        ("p", ctypes.c_uint32 * words), ("one", ctypes.c_uint32 * words),
+        ("n0", ctypes.c_uint32)]})
+
+
+# Limbs L -> the kernels' constants struct at N = L / 2 words.
+_FIELD_CONSTS = {16: _field_consts_type(8), 8: _field_consts_type(4)}
+
+
+def _check_width(spec: FieldSpec) -> None:
+    """The kernels take L = 16 limbs (BN254's fields, p < 2^255: the
+    eight-word product keeps its sum in eight words) and L = 8 (M128: the
+    four-word product keeps a carry word, so any odd p < 2^128)."""
+    if spec.L not in _FIELD_CONSTS:
+        raise ValueError(f"the CUDA kernels take L = 16 or 8 limbs, not {spec.L}")
+    if spec.L == 16 and spec.p >> 255:
+        raise ValueError("the CUDA kernels take p < 2^255 at L = 16")
 
 
 @functools.lru_cache(maxsize=None)
-def field_consts(spec: FieldSpec) -> _FieldConsts:
-    """The kernels' constants for a 256-bit-R field (L = 16 limbs) with
-    p < 2^255 (csrc/field.cuh: fe_mul_cc keeps its sum in eight words)."""
-    if spec.L != 16:
-        raise ValueError(f"the CUDA kernels take L = 16 limbs, not {spec.L}")
-    if spec.p >> 255:
-        raise ValueError("the CUDA kernels take p < 2^255")
-    words = lambda x: [(x >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
-    c = _FieldConsts()
+def field_consts(spec: FieldSpec):
+    """The kernels' constants of ``spec`` (``_check_width``)."""
+    _check_width(spec)
+    nw = spec.L // 2
+    words = lambda x: [(x >> (32 * k)) & 0xFFFFFFFF for k in range(nw)]
+    c = _FIELD_CONSTS[spec.L]()
     c.p[:] = words(spec.p)
-    c.one[:] = words((1 << 256) % spec.p)
+    c.one[:] = words((1 << (32 * nw)) % spec.p)
     c.n0 = (-pow(spec.p, -1, 1 << 32)) % (1 << 32)
     return c
+
+
+def kernel_name(name: str, spec: FieldSpec) -> str:
+    """The instance of a kernel of FIELD_KERNELS at ``spec``'s width:
+    ``name`` at L = 16, ``name_l8`` at L = 8; raises at any other L."""
+    _check_width(spec)
+    return name if spec.L == 16 else f"{name}_l8"
 
 
 class _Exponent(ctypes.Structure):

@@ -1,22 +1,27 @@
-// In-kernel prime-field library for the BN254-width fields (256-bit R).
+// In-kernel prime-field library: BN254's fields (256-bit R) and M128 (128-bit R).
 //
 // CUDA counterpart of TileFp (myzkp_tpu/fields/tile_ops.py:28-182): add, sub,
 // neg, Montgomery multiply, select and the conditional subtract of p, as
 // __device__ functions that every kernel of the port is built from.  It is not
 // a kernel itself.
 //
-// Layout.  At the tensor interface an element is 16 little-endian 16-bit limbs,
+// Layout.  At the tensor interface an element is 2N little-endian 16-bit limbs,
 // one int32 per limb, limb k of element i at base[k * stride + i] (limb planes,
 // so a warp reading one limb of 32 neighbouring elements reads 128 contiguous
-// bytes).  Inside a thread an element is repacked into 8 little-endian 32-bit
-// words.  R = 2^256 in both layouts, so Montgomery form is unchanged by the
-// repack.
+// bytes).  Inside a thread an element is repacked into N little-endian 32-bit
+// words: N = 8 for BN254 (L = 16 limbs, R = 2^256), N = 4 for M128 (L = 8,
+// R = 2^128).  R is the same in both layouts, so Montgomery form is unchanged
+// by the repack.  The types and the carry-chain helpers (FeN<N>,
+// FieldConstsN<N>, load_planes / store_planes, fe_add_cc, fe_sub_cc,
+// fe_mul_cc, fe_mul_sel) take the word count as a template parameter; Fe and
+// FieldConsts name the eight-word instances, which the curve kernels use.
 //
 // Carries.  The TPU kernels keep 16-bit limbs and lazy uint32 columns (bound
 // 4L * 2^16, tile_ops.py:12-14).  With 32-bit words that bound no longer holds,
 // so every carry here is a true carry chain: through 64-bit accumulators in
-// fe_add / fe_sub / fe_mul_u<U> (K2-K10), and on the PTX carry flag in
-// fe_add_cc / fe_sub_cc / fe_mul_cc (K1 and K6), half the instructions.
+// fe_add / fe_sub / fe_mul_u<U> (K2-K10, eight words), and on the PTX carry
+// flag in fe_add_cc / fe_sub_cc / fe_mul_cc (K1, K5, K6 and K10), half the
+// instructions.
 //
 // Every result is canonical (< p), so it equals the reference's result limb
 // for limb whatever order the partial products are summed in.
@@ -26,26 +31,32 @@
 
 namespace myzkp {
 
-constexpr int kLimbs = 16;  // 16-bit limbs at the tensor interface
-constexpr int kWords = 8;   // 32-bit words inside a thread
+constexpr int kLimbs = 16;  // 16-bit limbs at the tensor interface (BN254)
+constexpr int kWords = 8;   // 32-bit words inside a thread (BN254)
 
 // Field constants, passed to each kernel by value (they land in the constant
 // bank).  The host builds them from the FieldSpec (_ext.field_consts).
-struct FieldConsts {
-  uint32_t p[kWords];
-  uint32_t one[kWords];  // R mod p: Montgomery form of 1
-  uint32_t n0;           // -p^{-1} mod 2^32
+template <int N>
+struct FieldConstsN {
+  uint32_t p[N];
+  uint32_t one[N];  // R mod p: Montgomery form of 1
+  uint32_t n0;      // -p^{-1} mod 2^32
 };
 
-struct Fe {
-  uint32_t w[kWords];
+template <int N>
+struct FeN {
+  uint32_t w[N];
 };
 
-__device__ __forceinline__ Fe load_planes(const int32_t* __restrict__ base,
-                                          int64_t stride, int64_t i) {
-  Fe r;
+using FieldConsts = FieldConstsN<kWords>;
+using Fe = FeN<kWords>;
+
+template <int N = kWords>
+__device__ __forceinline__ FeN<N> load_planes(const int32_t* __restrict__ base,
+                                              int64_t stride, int64_t i) {
+  FeN<N> r;
 #pragma unroll
-  for (int k = 0; k < kWords; ++k) {
+  for (int k = 0; k < N; ++k) {
     uint32_t lo = static_cast<uint32_t>(base[(2 * k) * stride + i]);
     uint32_t hi = static_cast<uint32_t>(base[(2 * k + 1) * stride + i]);
     r.w[k] = lo | (hi << 16);
@@ -53,34 +64,38 @@ __device__ __forceinline__ Fe load_planes(const int32_t* __restrict__ base,
   return r;
 }
 
+template <int N>
 __device__ __forceinline__ void store_planes(int32_t* __restrict__ base,
                                              int64_t stride, int64_t i,
-                                             const Fe& a) {
+                                             const FeN<N>& a) {
 #pragma unroll
-  for (int k = 0; k < kWords; ++k) {
+  for (int k = 0; k < N; ++k) {
     base[(2 * k) * stride + i] = static_cast<int32_t>(a.w[k] & 0xFFFFu);
     base[(2 * k + 1) * stride + i] = static_cast<int32_t>(a.w[k] >> 16);
   }
 }
 
-__device__ __forceinline__ Fe fe_zero() {
-  Fe r;
+template <int N = kWords>
+__device__ __forceinline__ FeN<N> fe_zero() {
+  FeN<N> r;
 #pragma unroll
-  for (int k = 0; k < kWords; ++k) r.w[k] = 0;
+  for (int k = 0; k < N; ++k) r.w[k] = 0;
   return r;
 }
 
-__device__ __forceinline__ Fe fe_one(const FieldConsts& c) {
-  Fe r;
+template <int N>
+__device__ __forceinline__ FeN<N> fe_one(const FieldConstsN<N>& c) {
+  FeN<N> r;
 #pragma unroll
-  for (int k = 0; k < kWords; ++k) r.w[k] = c.one[k];
+  for (int k = 0; k < N; ++k) r.w[k] = c.one[k];
   return r;
 }
 
-__device__ __forceinline__ Fe fe_select(bool m, const Fe& a, const Fe& b) {
-  Fe r;
+template <int N>
+__device__ __forceinline__ FeN<N> fe_select(bool m, const FeN<N>& a, const FeN<N>& b) {
+  FeN<N> r;
 #pragma unroll
-  for (int k = 0; k < kWords; ++k) r.w[k] = m ? a.w[k] : b.w[k];
+  for (int k = 0; k < N; ++k) r.w[k] = m ? a.w[k] : b.w[k];
   return r;
 }
 
@@ -240,6 +255,7 @@ MYZKP_CC3(mad_lo_cc, "mad.lo.cc.u32")
 MYZKP_CC3(madc_lo_cc, "madc.lo.cc.u32")
 MYZKP_CC3(madc_hi_cc, "madc.hi.cc.u32")
 MYZKP_CC3(madc_hi, "madc.hi.u32")
+MYZKP_CC3(mad_hi_cc, "mad.hi.cc.u32")
 MYZKP_CC2(add_cc, "add.cc.u32")
 MYZKP_CC2(addc_cc, "addc.cc.u32")
 MYZKP_CC2(addc, "addc.u32")
@@ -262,6 +278,7 @@ inline uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) { return put(hi(a
 inline uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) {
   return static_cast<uint32_t>(hi(a, b) + c + flag);
 }
+inline uint32_t mad_hi_cc(uint32_t a, uint32_t b, uint32_t c) { return put(hi(a, b) + c); }
 inline uint32_t add_cc(uint32_t a, uint32_t b) { return put(uint64_t{a} + b); }
 inline uint32_t addc_cc(uint32_t a, uint32_t b) { return put(uint64_t{a} + b + flag); }
 inline uint32_t addc(uint32_t a, uint32_t b) { return a + b + flag; }
@@ -272,32 +289,36 @@ inline uint32_t subc(uint32_t a, uint32_t b) { return a - b - flag; }
 
 }  // namespace cc
 
-// a + b mod p and a - b mod p on carry chains (canonical in and out).
-__device__ __forceinline__ Fe fe_add_cc(const Fe& a, const Fe& b,
-                                        const FieldConsts& c) {
-  Fe s, d;
+// a + b mod p and a - b mod p on carry chains (canonical in and out).  The
+// sum keeps its carry word (top), so it holds for p up to 2^(32N) - 1: for
+// M128, a + b reaches 2^129 - 2.
+template <int N>
+__device__ __forceinline__ FeN<N> fe_add_cc(const FeN<N>& a, const FeN<N>& b,
+                                            const FieldConstsN<N>& c) {
+  FeN<N> s, d;
   s.w[0] = cc::add_cc(a.w[0], b.w[0]);
 #pragma unroll
-  for (int k = 1; k < kWords; ++k) s.w[k] = cc::addc_cc(a.w[k], b.w[k]);
+  for (int k = 1; k < N; ++k) s.w[k] = cc::addc_cc(a.w[k], b.w[k]);
   const uint32_t top = cc::addc(0, 0);
   d.w[0] = cc::sub_cc(s.w[0], c.p[0]);
 #pragma unroll
-  for (int k = 1; k < kWords; ++k) d.w[k] = cc::subc_cc(s.w[k], c.p[k]);
+  for (int k = 1; k < N; ++k) d.w[k] = cc::subc_cc(s.w[k], c.p[k]);
   // top - borrow: all ones exactly when s < p (then s is the sum)
   const bool keep = cc::subc(top, 0) == 0xFFFFFFFFu;
   return fe_select(keep, s, d);
 }
 
-__device__ __forceinline__ Fe fe_sub_cc(const Fe& a, const Fe& b,
-                                        const FieldConsts& c) {
-  Fe d, r;
+template <int N>
+__device__ __forceinline__ FeN<N> fe_sub_cc(const FeN<N>& a, const FeN<N>& b,
+                                            const FieldConstsN<N>& c) {
+  FeN<N> d, r;
   d.w[0] = cc::sub_cc(a.w[0], b.w[0]);
 #pragma unroll
-  for (int k = 1; k < kWords; ++k) d.w[k] = cc::subc_cc(a.w[k], b.w[k]);
+  for (int k = 1; k < N; ++k) d.w[k] = cc::subc_cc(a.w[k], b.w[k]);
   const uint32_t mask = cc::subc(0, 0);  // all ones where a < b
   r.w[0] = cc::add_cc(d.w[0], c.p[0] & mask);
 #pragma unroll
-  for (int k = 1; k < kWords; ++k) r.w[k] = cc::addc_cc(d.w[k], c.p[k] & mask);
+  for (int k = 1; k < N; ++k) r.w[k] = cc::addc_cc(d.w[k], c.p[k] & mask);
   return r;
 }
 
@@ -374,8 +395,8 @@ __device__ __forceinline__ void mont_mul_row(uint32_t (&ev)[kWords],
   }
 }
 
-__device__ __forceinline__ Fe fe_mul_cc(const Fe& a, const Fe& b,
-                                        const FieldConsts& c) {
+__device__ __forceinline__ Fe fe_mul_cc_spare(const Fe& a, const Fe& b,
+                                              const FieldConsts& c) {
   uint32_t ev[kWords], od[kWords], top = 0;
   const uint32_t b0 = b.w[0];
 #pragma unroll
@@ -405,12 +426,79 @@ __device__ __forceinline__ Fe fe_mul_cc(const Fe& a, const Fe& b,
   return fe_select(keep, r, d);
 }
 
+// Montgomery product a * b * 2^(-32N) mod p on carry chains for p with no
+// spare bit (M128: p > 2^127 = R / 2).  There T < 2p can pass R, so the even
+// / odd split above, whose accumulators hold N words, does not apply.  CIOS
+// with the running sum T in N + 2 words t[0..N+1]: a row adds a * b_i (the
+// low halves of the products at positions 0..N-1, the high halves at 1..N,
+// two chains), then m p with m = t_0 n0 (two more chains), and shifts down
+// a word.  Inputs below p keep T < 2p after each row, so T fits in N words
+// and one bit (t[N]), and before the shift in N + 1 words and one bit
+// (t[N+1]); the chains' carries run into t[N] and t[N+1] and never past
+// them.  The result is T - p where t[N] is set or T >= p.  4 N + 7
+// instructions a row: about 100 a product at N = 4.
+template <int N>
+__device__ __forceinline__ FeN<N> fe_mul_cc_wide(const FeN<N>& a, const FeN<N>& b,
+                                                 const FieldConstsN<N>& c) {
+  uint32_t t[N + 2];
+#pragma unroll
+  for (int k = 0; k < N + 2; ++k) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const uint32_t bi = b.w[i];
+    t[0] = cc::mad_lo_cc(a.w[0], bi, t[0]);
+#pragma unroll
+    for (int j = 1; j < N; ++j) t[j] = cc::madc_lo_cc(a.w[j], bi, t[j]);
+    t[N] = cc::addc_cc(t[N], 0);
+    t[N + 1] = cc::addc(t[N + 1], 0);
+    t[1] = cc::mad_hi_cc(a.w[0], bi, t[1]);
+#pragma unroll
+    for (int j = 1; j < N; ++j) t[j + 1] = cc::madc_hi_cc(a.w[j], bi, t[j + 1]);
+    t[N + 1] = cc::addc(t[N + 1], 0);
+    const uint32_t m = t[0] * c.n0;
+    t[0] = cc::mad_lo_cc(m, c.p[0], t[0]);  // 0, and its carry
+#pragma unroll
+    for (int j = 1; j < N; ++j) t[j] = cc::madc_lo_cc(m, c.p[j], t[j]);
+    t[N] = cc::addc_cc(t[N], 0);
+    t[N + 1] = cc::addc(t[N + 1], 0);
+    t[1] = cc::mad_hi_cc(m, c.p[0], t[1]);
+#pragma unroll
+    for (int j = 1; j < N; ++j) t[j + 1] = cc::madc_hi_cc(m, c.p[j], t[j + 1]);
+    t[N + 1] = cc::addc(t[N + 1], 0);
+#pragma unroll
+    for (int k = 0; k <= N; ++k) t[k] = t[k + 1];
+    t[N + 1] = 0;
+  }
+  FeN<N> r, d;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.w[k] = t[k];
+  d.w[0] = cc::sub_cc(r.w[0], c.p[0]);
+#pragma unroll
+  for (int k = 1; k < N; ++k) d.w[k] = cc::subc_cc(r.w[k], c.p[k]);
+  const bool keep = cc::subc(t[N], 0) == 0xFFFFFFFFu;  // t[N] = 0 and T < p
+  return fe_select(keep, r, d);
+}
+
+// The carry-chain product at N words: the even / odd accumulators at eight
+// words (BN254's fields, p < 2^255: _ext.field_consts checks it), the wide
+// CIOS at four (M128, p > 2^127).
+template <int N>
+__device__ __forceinline__ FeN<N> fe_mul_cc(const FeN<N>& a, const FeN<N>& b,
+                                            const FieldConstsN<N>& c) {
+  if constexpr (N == kWords) {
+    return fe_mul_cc_spare(a, b, c);
+  } else {
+    return fe_mul_cc_wide(a, b, c);
+  }
+}
+
 // The product a kernel is built on, by a -D constant: 0 the carry-chain
-// product above, U = 1, 2, 4, 8 fe_mul_u<U>.
-template <int MUL>
-__device__ __forceinline__ Fe fe_mul_sel(const Fe& a, const Fe& b,
-                                         const FieldConsts& c) {
-  if constexpr (MUL == 0) {
+// product above, U = 1, 2, 4, 8 fe_mul_u<U>.  fe_mul_u exists at eight words
+// only: the four-word instances run the carry chains at any MUL.
+template <int MUL, int N>
+__device__ __forceinline__ FeN<N> fe_mul_sel(const FeN<N>& a, const FeN<N>& b,
+                                             const FieldConstsN<N>& c) {
+  if constexpr (MUL == 0 || N != kWords) {
     return fe_mul_cc(a, b, c);
   } else {
     return fe_mul_u<MUL>(a, b, c);

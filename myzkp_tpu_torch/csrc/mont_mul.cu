@@ -1,5 +1,8 @@
-// K1: elementwise Montgomery multiply a * b * R^-1 mod p over (16, n) limb
+// K1: elementwise Montgomery multiply a * b * R^-1 mod p over (2N, n) limb
 // planes, and its chain: a^e for an exponent known on the host, in one launch.
+// Each at two widths: N = 8 words (BN254, mont_mul_kernel / mont_pow_kernel)
+// and N = 4 (M128, mont_mul_l8_kernel / mont_pow_l8_kernel), one templated
+// body each.
 //
 // Replaces limb_pallas.mont_mul_pallas (myzkp_tpu/fields/limb_pallas.py:286,
 // kernel body _make_kernel :42), which ran the same product on (32, 128)
@@ -31,6 +34,12 @@
 // its partner with __shfl_xor_sync, and the chain is one product deep a bit
 // (254 for p - 2, against 368 for square-and-multiply one product at a
 // time).  a^0 = 1 and 0^e = 0 for e > 0, as the reference.
+//
+// At four words (M128) an element moves 96 bytes against 68 32-bit
+// multiply-adds (field.cuh: fe_mul_cc_wide; 16 wide products a_j b_i and 16
+// m p_j at two each, and 4 for m), so K1 stays bound by device memory.  The
+// chain runs the Rescue-Prime S-box's alpha^-1 (127 bits) and the Fermat
+// inversion (128 bits) on the same lane pairs.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -45,8 +54,10 @@
 #define MYZKP_K1_EPT 1
 #endif
 
-using myzkp::Fe;
+using myzkp::FeN;
 using myzkp::FieldConsts;
+using myzkp::FieldConstsN;
+using FieldConsts4 = FieldConstsN<4>;
 
 // An exponent known on the host: little-endian 32-bit words and its bit
 // length (0 <= nbits <= 256).  Mirrors _ext._Exponent.
@@ -59,7 +70,9 @@ namespace {
 
 constexpr int kPowThreads = 64;
 
-__device__ __forceinline__ Fe mul(const Fe& a, const Fe& b, const FieldConsts& c) {
+template <int N>
+__device__ __forceinline__ FeN<N> mul(const FeN<N>& a, const FeN<N>& b,
+                                      const FieldConstsN<N>& c) {
   return myzkp::fe_mul_sel<MYZKP_K1_MUL>(a, b, c);
 }
 
@@ -67,10 +80,12 @@ constexpr int kMaxReps = 8;
 
 // reps > 0: thread slot j < nb multiplies b[j] into a[j + r nb], r < reps;
 // reps = 0: slot i < n multiplies a[i] by b[i mod nb].
-__global__ void __launch_bounds__(MYZKP_K1_THREADS)
-    mont_mul_kernel(const int32_t* __restrict__ a,
-                    const int32_t* __restrict__ b, int32_t* __restrict__ out,
-                    int64_t n, int64_t nb, int reps, FieldConsts c) {
+template <int N>
+__device__ __forceinline__ void mont_mul_body(const int32_t* __restrict__ a,
+                                              const int32_t* __restrict__ b,
+                                              int32_t* __restrict__ out, int64_t n,
+                                              int64_t nb, int reps,
+                                              const FieldConstsN<N>& c) {
   const int64_t first = static_cast<int64_t>(blockIdx.x) * MYZKP_K1_THREADS *
                             MYZKP_K1_EPT + threadIdx.x;
 #pragma unroll
@@ -78,19 +93,33 @@ __global__ void __launch_bounds__(MYZKP_K1_THREADS)
     const int64_t slot = first + static_cast<int64_t>(k) * MYZKP_K1_THREADS;
     if (reps > 0) {
       if (slot >= nb) return;
-      const Fe y = myzkp::load_planes(b, nb, slot);
+      const FeN<N> y = myzkp::load_planes<N>(b, nb, slot);
 #pragma unroll 1
       for (int r = 0; r < reps; ++r) {
         const int64_t i = slot + r * nb;
-        myzkp::store_planes(out, n, i, mul(myzkp::load_planes(a, n, i), y, c));
+        myzkp::store_planes(out, n, i, mul(myzkp::load_planes<N>(a, n, i), y, c));
       }
     } else {
       if (slot >= n) return;
       const int64_t j = nb == n ? slot : (nb == 1 ? 0 : slot % nb);
-      const Fe x = myzkp::load_planes(a, n, slot);
-      myzkp::store_planes(out, n, slot, mul(x, myzkp::load_planes(b, nb, j), c));
+      const FeN<N> x = myzkp::load_planes<N>(a, n, slot);
+      myzkp::store_planes(out, n, slot, mul(x, myzkp::load_planes<N>(b, nb, j), c));
     }
   }
+}
+
+__global__ void __launch_bounds__(MYZKP_K1_THREADS)
+    mont_mul_kernel(const int32_t* __restrict__ a,
+                    const int32_t* __restrict__ b, int32_t* __restrict__ out,
+                    int64_t n, int64_t nb, int reps, FieldConsts c) {
+  mont_mul_body<8>(a, b, out, n, nb, reps, c);
+}
+
+__global__ void __launch_bounds__(MYZKP_K1_THREADS)
+    mont_mul_l8_kernel(const int32_t* __restrict__ a,
+                       const int32_t* __restrict__ b, int32_t* __restrict__ out,
+                       int64_t n, int64_t nb, int reps, FieldConsts4 c) {
+  mont_mul_body<4>(a, b, out, n, nb, reps, c);
 }
 
 // Word k of the exponent with k a runtime index, by selects (no local memory).
@@ -101,59 +130,99 @@ __device__ __forceinline__ uint32_t exp_word(const Exponent& e, int k) {
   return w;
 }
 
-__device__ __forceinline__ Fe shfl_xor(const Fe& a, int lane_mask) {
-  Fe r;
+template <int N>
+__device__ __forceinline__ FeN<N> shfl_xor(const FeN<N>& a, int lane_mask) {
+  FeN<N> r;
 #pragma unroll
-  for (int k = 0; k < myzkp::kWords; ++k)
+  for (int k = 0; k < N; ++k)
     r.w[k] = __shfl_xor_sync(0xFFFFFFFFu, a.w[k], lane_mask);
   return r;
 }
 
 // Element i on lanes (2i, 2i + 1); every lane of the warp runs every step
 // (tail pairs on a clamped element), so the shuffles see a full warp.
-__global__ void __launch_bounds__(kPowThreads)
-    mont_pow_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out,
-                         int64_t n, Exponent e, FieldConsts c) {
+template <int N>
+__device__ __forceinline__ void mont_pow_body(const int32_t* __restrict__ a,
+                                              int32_t* __restrict__ out, int64_t n,
+                                              const Exponent& e,
+                                              const FieldConstsN<N>& c) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kPowThreads + threadIdx.x;
   const int64_t i = min(t >> 1, n - 1);
   const bool base_lane = (t & 1) != 0;
-  Fe x = base_lane ? myzkp::load_planes(a, n, i) : myzkp::fe_one(c);
+  FeN<N> x = base_lane ? myzkp::load_planes<N>(a, n, i) : myzkp::fe_one(c);
 #pragma unroll 1
   for (int bit = 0; bit < e.nbits; ++bit) {
-    const Fe partner = shfl_xor(x, 1);
-    const Fe r = mul(x, base_lane ? x : partner, c);
+    const FeN<N> partner = shfl_xor(x, 1);
+    const FeN<N> r = mul(x, base_lane ? x : partner, c);
     const bool set = (exp_word(e, bit >> 5) >> (bit & 31)) & 1u;
     x = (base_lane || set) ? r : x;
   }
   if (!base_lane && (t >> 1) < n) myzkp::store_planes(out, n, i, x);
 }
 
-}  // namespace
+__global__ void __launch_bounds__(kPowThreads)
+    mont_pow_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out,
+                         int64_t n, Exponent e, FieldConsts c) {
+  mont_pow_body<8>(a, out, n, e, c);
+}
 
-extern "C" int myzkp_mont_mul(const int32_t* a, const int32_t* b,
-                              int32_t* out, int64_t n, int64_t nb,
-                              const FieldConsts* consts, void* stream) {
+__global__ void __launch_bounds__(kPowThreads)
+    mont_pow_l8_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out,
+                       int64_t n, Exponent e, FieldConsts4 c) {
+  mont_pow_body<4>(a, out, n, e, c);
+}
+
+template <class Kernel, class Consts>
+int launch_mont_mul(Kernel kernel, const int32_t* a, const int32_t* b, int32_t* out,
+                    int64_t n, int64_t nb, const Consts& consts, void* stream) {
   if (nb < 1 || n % nb != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int reps = nb < n && n / nb <= kMaxReps ? static_cast<int>(n / nb) : 0;
   const int64_t slots = reps > 0 ? nb : n;
   const int64_t per_block = int64_t{MYZKP_K1_THREADS} * MYZKP_K1_EPT;
   const int64_t blocks = (slots + per_block - 1) / per_block;
-  mont_mul_kernel<<<static_cast<unsigned>(blocks), MYZKP_K1_THREADS, 0,
-                    static_cast<cudaStream_t>(stream)>>>(a, b, out, n, nb, reps,
-                                                         *consts);
+  kernel<<<static_cast<unsigned>(blocks), MYZKP_K1_THREADS, 0,
+           static_cast<cudaStream_t>(stream)>>>(a, b, out, n, nb, reps, consts);
   return static_cast<int>(cudaGetLastError());
 }
 
-// out = a^e elementwise over (16, n) limb planes.
-extern "C" int myzkp_mont_pow(const int32_t* a, int32_t* out, int64_t n,
-                              const Exponent* e, const FieldConsts* consts,
-                              void* stream) {
+template <class Kernel, class Consts>
+int launch_mont_pow(Kernel kernel, const int32_t* a, int32_t* out, int64_t n,
+                    const Exponent* e, const Consts& consts, void* stream) {
   if (n < 1 || e->nbits < 0 || e->nbits > 32 * myzkp::kWords)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto blocks = static_cast<unsigned>((2 * n + kPowThreads - 1) / kPowThreads);
-  mont_pow_kernel<<<blocks, kPowThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, out, n, *e, *consts);
+  kernel<<<blocks, kPowThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, out, n, *e,
+                                                                       consts);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// out = a * b * R^-1 elementwise over (16, n) limb planes (BN254) or (8, n)
+// (M128, the _l8 entry points); b holds nb elements, nb dividing n.
+extern "C" int myzkp_mont_mul(const int32_t* a, const int32_t* b,
+                              int32_t* out, int64_t n, int64_t nb,
+                              const FieldConsts* consts, void* stream) {
+  return launch_mont_mul(mont_mul_kernel, a, b, out, n, nb, *consts, stream);
+}
+
+extern "C" int myzkp_mont_mul_l8(const int32_t* a, const int32_t* b,
+                                 int32_t* out, int64_t n, int64_t nb,
+                                 const FieldConsts4* consts, void* stream) {
+  return launch_mont_mul(mont_mul_l8_kernel, a, b, out, n, nb, *consts, stream);
+}
+
+// out = a^e elementwise over (16, n) or (8, n) limb planes.
+extern "C" int myzkp_mont_pow(const int32_t* a, int32_t* out, int64_t n,
+                              const Exponent* e, const FieldConsts* consts,
+                              void* stream) {
+  return launch_mont_pow(mont_pow_kernel, a, out, n, e, *consts, stream);
+}
+
+extern "C" int myzkp_mont_pow_l8(const int32_t* a, int32_t* out, int64_t n,
+                                 const Exponent* e, const FieldConsts4* consts,
+                                 void* stream) {
+  return launch_mont_pow(mont_pow_l8_kernel, a, out, n, e, *consts, stream);
 }
 
 extern "C" const char* myzkp_error_string(int err) {

@@ -78,12 +78,21 @@
 //   uniform across the warp (smem_row keeps their rows in distinct banks;
 //   in plain order the skip diverges: PERF.md).
 //   The ragged edge of B is masked; nothing is padded.
+//
+// Both kernels come at two widths from one templated body each: N = 8 words
+// (BN254: butterfly_kernel, ntt_leaf_kernel) and N = 4 (M128, the STARK's
+// field: butterfly_l8_kernel, ntt_leaf_l8_kernel, entry points with _l8).
+// At four words an element is 32 bytes each way and a product about 100
+// instructions (field.cuh: fe_mul_cc_wide) against eight words' 290, so the
+// K5 shuffles and registers halve; the radix and K6's columns are the same
+// constants at both widths (unroll_sweep.py ntt / leaf time both; PERF.md).
 #include <cuda_runtime.h>
 
 #include "field.cuh"
 
-using myzkp::Fe;
+using myzkp::FeN;
 using myzkp::FieldConsts;
+using myzkp::FieldConstsN;
 
 namespace {
 
@@ -100,10 +109,11 @@ static_assert(kK5Radix == 2 || kK5Radix == 4 || kK5Radix == 8 || kK5Radix == 16 
                   kK5Radix == 32,
               "MYZKP_K5_RADIX is 2, 4, 8, 16 or 32");
 
-__device__ __forceinline__ bool fe_is_one(const Fe& a, const FieldConsts& c) {
+template <int N>
+__device__ __forceinline__ bool fe_is_one(const FeN<N>& a, const FieldConstsN<N>& c) {
   bool one = true;
 #pragma unroll
-  for (int k = 0; k < myzkp::kWords; ++k) one &= a.w[k] == c.one[k];
+  for (int k = 0; k < N; ++k) one &= a.w[k] == c.one[k];
   return one;
 }
 
@@ -124,12 +134,12 @@ __device__ __forceinline__ void k5_split(I g, I B, I hq, I Bk, int64_t& r, int64
 // the stage rows of half-widths c/2, c/4, ..., hq.  At the stage of bit bb
 // lane q holds elements e and e + 2^bb, e being q with a 0 put in at bit bb;
 // before it (but the first) lanes q and q ^ 2^bb trade one element.
-template <int E>
-__global__ void __launch_bounds__(kK5Threads)
-    butterfly_kernel(const int32_t* __restrict__ x,
-                     const int32_t* __restrict__ tw, int32_t* __restrict__ out,
-                     int64_t R, int64_t Bk, int64_t hq, int64_t B,
-                     FieldConsts c) {
+template <int E, int N>
+__device__ __forceinline__ void butterfly_body(const int32_t* __restrict__ x,
+                                               const int32_t* __restrict__ tw,
+                                               int32_t* __restrict__ out, int64_t R,
+                                               int64_t Bk, int64_t hq, int64_t B,
+                                               const FieldConstsN<N>& c) {
   constexpr int S = __builtin_ctz(E);
   constexpr int G = E / 2;  // lanes a group
   const int64_t groups = R * Bk * hq * B;
@@ -146,25 +156,25 @@ __global__ void __launch_bounds__(kK5Threads)
   const int64_t ntw = hq * (E - 1);
   const int64_t step = hq * B;  // from element t of a group to t + 1
   const int64_t in = ((r * Bk + k) * E * hq + j) * B + b;
-  Fe lo = myzkp::load_planes(x, plane, in + q * step);
-  Fe hi = myzkp::load_planes(x, plane, in + (q + G) * step);
+  FeN<N> lo = myzkp::load_planes<N>(x, plane, in + q * step);
+  FeN<N> hi = myzkp::load_planes<N>(x, plane, in + (q + G) * step);
   int64_t off = 0;  // this stage's row of tw
 #pragma unroll
   for (int bb = S - 1; bb >= 0; --bb) {
     const int half = 1 << bb;
     if (bb < S - 1) {  // of lanes q, q ^ 2^bb the one with bit bb set takes the lows
       const bool up = (q >> bb) & 1;
-      const Fe send = myzkp::fe_select(up, lo, hi);
-      Fe got;
+      const FeN<N> send = myzkp::fe_select(up, lo, hi);
+      FeN<N> got;
 #pragma unroll
-      for (int w = 0; w < myzkp::kWords; ++w)
+      for (int w = 0; w < N; ++w)
         got.w[w] = __shfl_xor_sync(0xffffffffu, send.w[w], half);
       lo = myzkp::fe_select(up, got, lo);
       hi = myzkp::fe_select(up, hi, got);
     }
     const int64_t pos = j + (q & (half - 1)) * hq;
-    const Fe w = myzkp::load_planes(tw, ntw, off + pos);
-    const Fe d = myzkp::fe_sub_cc(lo, hi, c);
+    const FeN<N> w = myzkp::load_planes<N>(tw, ntw, off + pos);
+    const FeN<N> d = myzkp::fe_sub_cc(lo, hi, c);
     lo = myzkp::fe_add_cc(lo, hi, c);
     hi = pos == 0 && fe_is_one(w, c) ? d : myzkp::fe_mul_sel<MYZKP_K5_MUL>(d, w, c);
     off += half * hq;
@@ -178,19 +188,41 @@ __global__ void __launch_bounds__(kK5Threads)
   myzkp::store_planes(out, plane, ob + (q0 | G) * Bk * step, hi);
 }
 
+template <int E>
+__global__ void __launch_bounds__(kK5Threads)
+    butterfly_kernel(const int32_t* __restrict__ x,
+                     const int32_t* __restrict__ tw, int32_t* __restrict__ out,
+                     int64_t R, int64_t Bk, int64_t hq, int64_t B,
+                     FieldConsts c) {
+  butterfly_body<E, 8>(x, tw, out, R, Bk, hq, B, c);
+}
+
+template <int E>
+__global__ void __launch_bounds__(kK5Threads)
+    butterfly_l8_kernel(const int32_t* __restrict__ x,
+                        const int32_t* __restrict__ tw, int32_t* __restrict__ out,
+                        int64_t R, int64_t Bk, int64_t hq, int64_t B,
+                        FieldConstsN<4> c) {
+  butterfly_body<E, 4>(x, tw, out, R, Bk, hq, B, c);
+}
+
 // The pass of `stages` stages on the instantiation of 2^stages elements,
 // for stages <= log2 E.
-template <int E>
+template <int E, int N>
 int launch_butterfly(const int32_t* x, const int32_t* tw, int32_t* out,
                      int64_t R, int64_t Bk, int64_t hq, int64_t B, int stages,
-                     const FieldConsts& c, cudaStream_t stream) {
+                     const FieldConstsN<N>& c, cudaStream_t stream) {
   if constexpr (E > 2) {
     if (stages < __builtin_ctz(E))
-      return launch_butterfly<E / 2>(x, tw, out, R, Bk, hq, B, stages, c, stream);
+      return launch_butterfly<E / 2, N>(x, tw, out, R, Bk, hq, B, stages, c, stream);
   }
   const int64_t blocks = (R * Bk * hq * B * (E / 2) + kK5Threads - 1) / kK5Threads;
-  butterfly_kernel<E><<<static_cast<unsigned>(blocks), kK5Threads, 0, stream>>>(
-      x, tw, out, R, Bk, hq, B, c);
+  if constexpr (N == myzkp::kWords)
+    butterfly_kernel<E><<<static_cast<unsigned>(blocks), kK5Threads, 0, stream>>>(
+        x, tw, out, R, Bk, hq, B, c);
+  else
+    butterfly_l8_kernel<E><<<static_cast<unsigned>(blocks), kK5Threads, 0, stream>>>(
+        x, tw, out, R, Bk, hq, B, c);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -218,17 +250,19 @@ __host__ __device__ constexpr int leaf_threads(int R) {
 }
 static_assert(leaf_threads(kRadix) <= 1024, "too many threads a block");
 
-__device__ __forceinline__ Fe smem_load(const uint32_t* sm, int n_el, int idx) {
-  Fe r;
+template <int N>
+__device__ __forceinline__ FeN<N> smem_load(const uint32_t* sm, int n_el, int idx) {
+  FeN<N> r;
 #pragma unroll
-  for (int k = 0; k < myzkp::kWords; ++k) r.w[k] = sm[k * n_el + idx];
+  for (int k = 0; k < N; ++k) r.w[k] = sm[k * n_el + idx];
   return r;
 }
 
+template <int N>
 __device__ __forceinline__ void smem_store(uint32_t* sm, int n_el, int idx,
-                                           const Fe& a) {
+                                           const FeN<N>& a) {
 #pragma unroll
-  for (int k = 0; k < myzkp::kWords; ++k) sm[k * n_el + idx] = a.w[k];
+  for (int k = 0; k < N; ++k) sm[k * n_el + idx] = a.w[k];
 }
 
 // Position of element e of thread group g in a pass whose element bits
@@ -252,18 +286,18 @@ __device__ __forceinline__ int smem_row(int row, int logm) {
   return row ^ ((row >> s) & ((1 << W) - 1));
 }
 
-template <int R>
-__global__ void __launch_bounds__(leaf_threads(R))
-    ntt_leaf_kernel(const int32_t* __restrict__ x,
-                    const int32_t* __restrict__ tw, int32_t* __restrict__ out,
-                    int64_t tiles, int logm, int stages, int64_t B,
-                    int64_t plane, FieldConsts c) {
+template <int R, int N>
+__device__ __forceinline__ void ntt_leaf_body(const int32_t* __restrict__ x,
+                                              const int32_t* __restrict__ tw,
+                                              int32_t* __restrict__ out, int64_t tiles,
+                                              int logm, int stages, int64_t B,
+                                              int64_t plane, const FieldConstsN<N>& c) {
   constexpr int K = __builtin_ctz(R);
   // word k of twiddle t at smt[k * kMaxLeaf + t]; word k of element (row,
   // col) of the tile at smx[k * n_el + row * kCols + col]
   extern __shared__ uint32_t sm[];
   uint32_t* smt = sm;
-  uint32_t* smx = sm + myzkp::kWords * kMaxLeaf;
+  uint32_t* smx = sm + N * kMaxLeaf;
   const int m = 1 << logm;
   const int n_el = m * kCols;
   const int64_t e = blockIdx.x / tiles;
@@ -283,13 +317,14 @@ __global__ void __launch_bounds__(leaf_threads(R))
   const bool live = col0 + col < B;
 
   for (int t = threadIdx.x; t < m - 1; t += blockDim.x)
-    smem_store(smt, kMaxLeaf, t, myzkp::load_planes(tw, m - 1, t));
+    smem_store(smt, kMaxLeaf, t, myzkp::load_planes<N>(tw, m - 1, t));
   int lo = logm - K;
-  Fe v[R];
+  FeN<N> v[R];
 #pragma unroll
   for (int i = 0; i < R; ++i)
-    v[i] = live ? myzkp::load_planes(x, plane, base + int64_t{leaf_pos<R>(g, i, lo)} * B + col)
-                : myzkp::fe_zero();
+    v[i] = live ? myzkp::load_planes<N>(x, plane,
+                                        base + int64_t{leaf_pos<R>(g, i, lo)} * B + col)
+                : myzkp::fe_zero<N>();
   __syncthreads();
   // bit b: the stage row of half-width 2^b starts with 1, so its j = 0
   // products are skipped
@@ -297,7 +332,7 @@ __global__ void __launch_bounds__(leaf_threads(R))
   for (int b = 0; b < logm; ++b) {
     bool one = true;
 #pragma unroll
-    for (int k = 0; k < myzkp::kWords; ++k)
+    for (int k = 0; k < N; ++k)
       one &= smt[k * kMaxLeaf + m - (2 << b)] == c.one[k];
     unit |= static_cast<unsigned>(one) << b;
   }
@@ -316,12 +351,13 @@ __global__ void __launch_bounds__(leaf_threads(R))
         if (i & (1 << t)) continue;
         const int i2 = i | (1 << t);
         const int j = leaf_pos<R>(g, i, lo) & (h - 1);
-        const Fe u = v[i], w = v[i2];
+        const FeN<N> u = v[i], w = v[i2];
         v[i] = myzkp::fe_add_cc(u, w, c);
-        const Fe d = myzkp::fe_sub_cc(u, w, c);
+        const FeN<N> d = myzkp::fe_sub_cc(u, w, c);
         v[i2] = j == 0 && (unit >> b & 1u)
                     ? d
-                    : myzkp::fe_mul_sel<MYZKP_K6_MUL>(d, smem_load(smt, kMaxLeaf, off + j), c);
+                    : myzkp::fe_mul_sel<MYZKP_K6_MUL>(d, smem_load<N>(smt, kMaxLeaf, off + j),
+                                                      c);
       }
     }
     top = lo;
@@ -336,7 +372,7 @@ __global__ void __launch_bounds__(leaf_threads(R))
     g = g_rev;
 #pragma unroll
     for (int i = 0; i < R; ++i)
-      v[i] = smem_load(smx, n_el, smem_row(leaf_pos<R>(g, i, lo), logm) * kCols + col);
+      v[i] = smem_load<N>(smx, n_el, smem_row(leaf_pos<R>(g, i, lo), logm) * kCols + col);
   }
 
   if (!live) return;
@@ -351,55 +387,106 @@ __global__ void __launch_bounds__(leaf_threads(R))
 }
 
 template <int R>
+__global__ void __launch_bounds__(leaf_threads(R))
+    ntt_leaf_kernel(const int32_t* __restrict__ x,
+                    const int32_t* __restrict__ tw, int32_t* __restrict__ out,
+                    int64_t tiles, int logm, int stages, int64_t B,
+                    int64_t plane, FieldConsts c) {
+  ntt_leaf_body<R, 8>(x, tw, out, tiles, logm, stages, B, plane, c);
+}
+
+template <int R>
+__global__ void __launch_bounds__(leaf_threads(R))
+    ntt_leaf_l8_kernel(const int32_t* __restrict__ x,
+                       const int32_t* __restrict__ tw, int32_t* __restrict__ out,
+                       int64_t tiles, int logm, int stages, int64_t B,
+                       int64_t plane, FieldConstsN<4> c) {
+  ntt_leaf_body<R, 4>(x, tw, out, tiles, logm, stages, B, plane, c);
+}
+
+template <int R, int N>
 int launch_leaf(const int32_t* x, const int32_t* tw, int32_t* out, int64_t E,
-                int logm, int stages, int64_t B, const FieldConsts& c,
+                int logm, int stages, int64_t B, const FieldConstsN<N>& c,
                 cudaStream_t stream) {
   const int m = 1 << logm;
   auto smem_of = [](int rows) {
-    return sizeof(uint32_t) * myzkp::kWords * (kMaxLeaf + rows * kCols);
+    return sizeof(uint32_t) * N * (kMaxLeaf + rows * kCols);
   };
+  auto kernel = [] {
+    if constexpr (N == myzkp::kWords)
+      return ntt_leaf_kernel<R>;
+    else
+      return ntt_leaf_l8_kernel<R>;
+  }();
   // granted on the current device at the instantiation's largest leaf, so
   // that launches of any m on any device and thread see the same limit
   const cudaError_t err = cudaFuncSetAttribute(
-      ntt_leaf_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_of(R == kRadix ? kMaxLeaf : R)));
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = smem_of(m);
   const int64_t tiles = (B + kCols - 1) / kCols;
-  ntt_leaf_kernel<R><<<static_cast<unsigned>(E * tiles), m / R * kCols, smem, stream>>>(
+  kernel<<<static_cast<unsigned>(E * tiles), m / R * kCols, smem, stream>>>(
       x, tw, out, tiles, logm, stages, B, E * m * B, c);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// x (16, R, Bk, c, B) -> out (16, R, 2^stages Bk, c / 2^stages, B);
-// tw (16, c - c / 2^stages): the stage rows of half-widths c/2, c/4, ...,
-// c / 2^stages, concatenated.  1 <= stages <= log2 MYZKP_K5_RADIX, and
-// 2^stages divides c.
-extern "C" int myzkp_butterfly(const int32_t* x, const int32_t* tw,
-                               int32_t* out, int64_t R, int64_t Bk, int64_t c,
-                               int64_t B, int stages, const FieldConsts* consts,
-                               void* stream) {
+template <int N>
+int butterfly_pass(const int32_t* x, const int32_t* tw, int32_t* out, int64_t R,
+                   int64_t Bk, int64_t c, int64_t B, int stages,
+                   const FieldConstsN<N>& consts, void* stream) {
   if (stages < 1 || (1 << stages) > kK5Radix || c % (int64_t{1} << stages) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_butterfly<kK5Radix>(x, tw, out, R, Bk, c >> stages, B, stages,
-                                    *consts, static_cast<cudaStream_t>(stream));
+  return launch_butterfly<kK5Radix, N>(x, tw, out, R, Bk, c >> stages, B, stages,
+                                       consts, static_cast<cudaStream_t>(stream));
 }
 
-// x (16, E, m, B) -> out (16, E, m, B); tw (16, m - 1): the stage tables of
-// half-widths m/2, m/4, ..., 1, concatenated.  The first `stages`
-// (1 <= stages <= log2 m) Stockham stages.
-extern "C" int myzkp_ntt_leaf(const int32_t* x, const int32_t* tw,
-                              int32_t* out, int64_t E, int m, int stages,
-                              int64_t B, const FieldConsts* consts, void* stream) {
+template <int N>
+int leaf(const int32_t* x, const int32_t* tw, int32_t* out, int64_t E, int m,
+         int stages, int64_t B, const FieldConstsN<N>& consts, void* stream) {
   if (m < 2 || m > kMaxLeaf || (m & (m - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int logm = __builtin_ctz(static_cast<unsigned>(m));
   if (stages < 1 || stages > logm) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  if (m == 2) return launch_leaf<2>(x, tw, out, E, logm, stages, B, *consts, s);
+  if (m == 2) return launch_leaf<2, N>(x, tw, out, E, logm, stages, B, consts, s);
   if (kRadix == 8 && m == 4)
-    return launch_leaf<4>(x, tw, out, E, logm, stages, B, *consts, s);
-  return launch_leaf<kRadix>(x, tw, out, E, logm, stages, B, *consts, s);
+    return launch_leaf<4, N>(x, tw, out, E, logm, stages, B, consts, s);
+  return launch_leaf<kRadix, N>(x, tw, out, E, logm, stages, B, consts, s);
+}
+
+}  // namespace
+
+// x (2N, R, Bk, c, B) -> out (2N, R, 2^stages Bk, c / 2^stages, B), 2N = 16
+// limbs (BN254) or 8 (M128, the _l8 entry point); tw (2N, c - c / 2^stages):
+// the stage rows of half-widths c/2, c/4, ..., c / 2^stages, concatenated.
+// 1 <= stages <= log2 MYZKP_K5_RADIX, and 2^stages divides c.
+extern "C" int myzkp_butterfly(const int32_t* x, const int32_t* tw,
+                               int32_t* out, int64_t R, int64_t Bk, int64_t c,
+                               int64_t B, int stages, const FieldConsts* consts,
+                               void* stream) {
+  return butterfly_pass(x, tw, out, R, Bk, c, B, stages, *consts, stream);
+}
+
+extern "C" int myzkp_butterfly_l8(const int32_t* x, const int32_t* tw,
+                                  int32_t* out, int64_t R, int64_t Bk, int64_t c,
+                                  int64_t B, int stages,
+                                  const FieldConstsN<4>* consts, void* stream) {
+  return butterfly_pass(x, tw, out, R, Bk, c, B, stages, *consts, stream);
+}
+
+// x (2N, E, m, B) -> out (2N, E, m, B); tw (2N, m - 1): the stage tables of
+// half-widths m/2, m/4, ..., 1, concatenated.  The first `stages`
+// (1 <= stages <= log2 m) Stockham stages.
+extern "C" int myzkp_ntt_leaf(const int32_t* x, const int32_t* tw,
+                              int32_t* out, int64_t E, int m, int stages,
+                              int64_t B, const FieldConsts* consts, void* stream) {
+  return leaf(x, tw, out, E, m, stages, B, *consts, stream);
+}
+
+extern "C" int myzkp_ntt_leaf_l8(const int32_t* x, const int32_t* tw,
+                                 int32_t* out, int64_t E, int m, int stages,
+                                 int64_t B, const FieldConstsN<4>* consts,
+                                 void* stream) {
+  return leaf(x, tw, out, E, m, stages, B, *consts, stream);
 }

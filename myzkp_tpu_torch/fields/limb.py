@@ -13,6 +13,9 @@ in a column, so the Montgomery product needs no lo/hi split.
 ``mont_mul_ref`` for CPU tensors (the rule of ``_ext.use_kernel``);
 ``pow_const`` (and so ``inv`` and ``batch_inv``'s inversion) is K1's chain
 ``mont_pow``, one launch, for CUDA tensors and ``mont_pow_ref`` for CPU ones.
+Both kernels come at L = 16 limbs (BN254) and L = 8 (M128: ``mont_mul_l8``,
+``mont_pow_l8``, ``_ext.kernel_name``); a CUDA tensor of any other field
+raises.
 Add, sub and the rest were plain array code in the reference too and stay
 plain here.
 The constructors (``from_int``, ``const``, ``zeros``, ``one_mont``) make their
@@ -248,7 +251,8 @@ def mont_mul_ref(spec: FieldSpec, a, b):
 
 
 def mont_mul_cuda(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor):
-    """Launch K1 (csrc/mont_mul.cu) on contiguous CUDA tensors: a (L, *batch)
+    """Launch K1 (csrc/mont_mul.cu, the instance of spec's width) on
+    contiguous CUDA tensors: a (L, *batch)
     and b holding nb elements, nb dividing a's n; element i of a is
     multiplied by element i mod nb of b (b of a's shape: nb = n)."""
     _ext.require(a, "a", I32)
@@ -260,7 +264,7 @@ def mont_mul_cuda(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor):
         raise ValueError(f"b's {nb} elements do not divide a's {n}")
     out = torch.empty_like(a)
     if n:
-        _ext.launch("mont_mul", a.device, _ext.ptr(a), _ext.ptr(b),
+        _ext.launch(_ext.kernel_name("mont_mul", spec), a.device, _ext.ptr(a), _ext.ptr(b),
                     _ext.ptr(out), n, nb, _ext.consts_ptr(spec))
     return out
 
@@ -337,7 +341,7 @@ def mont_pow_cuda(spec: FieldSpec, a: torch.Tensor, e: int):
     out = torch.empty_like(a)
     n = a.numel() // spec.L
     if n:
-        _ext.launch("mont_pow", a.device, _ext.ptr(a), _ext.ptr(out), n,
+        _ext.launch(_ext.kernel_name("mont_pow", spec), a.device, _ext.ptr(a), _ext.ptr(out), n,
                     ctypes.c_void_p(ctypes.addressof(ex)), _ext.consts_ptr(spec))
     return out
 

@@ -4,8 +4,10 @@ beside its plain PyTorch version.
 
 Counterparts of ``butterfly_pallas`` (DIF) and ``ntt_leaf_pallas`` in
 ``myzkp_tpu/fields/limb_pallas.py``.  The wrappers (``butterfly``,
-``ntt_leaf``) launch the CUDA kernel (csrc/ntt.cu) for CUDA tensors and run
-the plain version (``*_ref``, int64 inside) for CPU tensors.
+``ntt_leaf``) launch the CUDA kernel (csrc/ntt.cu; its instance at L = 16
+limbs, or ``butterfly_l8`` / ``ntt_leaf_l8`` at L = 8 for M128) for CUDA
+tensors and run the plain version (``*_ref``, int64 inside) for CPU
+tensors.
 
 A stage, as ``ops/ntt.py`` runs it: x (L, R, Bk, 2h, B) splits its third axis
 in halves u, v; the output (L, R, 2 Bk, h, B) holds u + v in its first Bk
@@ -105,7 +107,7 @@ def butterfly(spec: FieldSpec, x, tw, stages: int = 1):
     _ext.require(tw, "tw", I32, (L, c - (c >> stages)))
     out = torch.empty((L, R, Bk << stages, c >> stages, B), dtype=I32, device=x.device)
     if out.numel():
-        _ext.launch("butterfly", x.device, _ext.ptr(x), _ext.ptr(tw),
+        _ext.launch(_ext.kernel_name("butterfly", spec), x.device, _ext.ptr(x), _ext.ptr(tw),
                     _ext.ptr(out), R, Bk, c, B, stages, _ext.consts_ptr(spec))
     return out
 
@@ -125,6 +127,6 @@ def ntt_leaf(spec: FieldSpec, x, tw, stages=None):
     _ext.require(tw, "tw", I32, (L, m - 1))
     out = torch.empty_like(x)
     if out.numel():
-        _ext.launch("ntt_leaf", x.device, _ext.ptr(x), _ext.ptr(tw),
+        _ext.launch(_ext.kernel_name("ntt_leaf", spec), x.device, _ext.ptr(x), _ext.ptr(tw),
                     _ext.ptr(out), E, m, s, B, _ext.consts_ptr(spec))
     return out

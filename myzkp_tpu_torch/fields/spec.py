@@ -3,8 +3,9 @@
 A field element of F_p is ``L`` little-endian 16-bit limbs with the limb axis
 leading: a tensor of shape ``(L, *batch)``.  All multiplicative arithmetic is
 in the Montgomery domain with R = 2^(16*L); for BN254 (L = 16) that is
-R = 2^256, the same R as eight 32-bit words, so a CUDA kernel may repack to
-32-bit words internally with no change of domain.
+R = 2^256, the same R as eight 32-bit words, and for M128 (L = 8) R = 2^128,
+four words, so a CUDA kernel may repack to 32-bit words internally with no
+change of domain.
 
 Pure Python, the same integers as ``myzkp_tpu/fields/spec.py``.  It is a copy
 rather than an import because the JAX package imports ``jax`` on import.
@@ -81,6 +82,12 @@ BN254_R = 2188824287183927522224640574525727508854836440041603434369820418657580
 # BN254 base field q.
 BN254_Q = 21888242871839275222246405745257275088696311157297823662689037894645226208583
 
+# The STARK field p = 1 + 407 * 2^119 (L = 8: exactly 128 bits, so p > R / 2).
+M128 = 270497897142230380135924736767050121217
+
+# Goldilocks p = 2^64 - 2^32 + 1 (L = 4).
+M64 = (1 << 64) - (1 << 32) + 1
+
 
 def bn254_r_spec() -> FieldSpec:
     return FieldSpec.make(BN254_R)
@@ -88,3 +95,11 @@ def bn254_r_spec() -> FieldSpec:
 
 def bn254_q_spec() -> FieldSpec:
     return FieldSpec.make(BN254_Q)
+
+
+def m128_spec() -> FieldSpec:
+    return FieldSpec.make(M128)
+
+
+def m64_spec() -> FieldSpec:
+    return FieldSpec.make(M64)

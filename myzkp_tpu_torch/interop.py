@@ -4,7 +4,8 @@ The JAX package holds field elements as ``(L, *batch)`` uint32 arrays of
 16-bit limbs; the port holds the same integers as int32 tensors.  These
 functions move limb arrays, G1 and G2 point batches (3 or 6 coordinate
 arrays, in the order of ``weierstrass.leaves``), ``Fp`` / ``Poly`` values,
-``MPoly`` dicts, a KZG key's powers and sparse circuits across, and read
+``MPoly`` dicts, a KZG key's powers, a FastStark's preprocessed state and
+sparse circuits across, and read
 what the JAX side writes: the fixed-base
 tables (``curves/fixed_base.py``, keys ``l0..l2`` or ``l0..l5``), the bench's
 MSM point table (``bench.py``, keys ``x, y, z``), any proving key written
@@ -96,6 +97,15 @@ def poly_from_numpy(spec: FieldSpec, coef_mont, device=None) -> Poly:
 
 def poly_to_numpy(a: Poly) -> np.ndarray:
     return fp_to_numpy(a.coef)
+
+
+def stark_preprocessed_from_numpy(spec: FieldSpec, tz_coef_mont, tz_codeword_mont, tz_root,
+                                  tz_leaves, device=None) -> tuple:
+    """The JAX ``FastStark.preprocess()`` tuple, with its polynomial and
+    codeword as Montgomery limb arrays, -> the port's (tz Poly, tz codeword
+    Fp, root, leaves)."""
+    return (poly_from_numpy(spec, tz_coef_mont, device),
+            fp_from_numpy(spec, tz_codeword_mont, device), bytes(tz_root), list(tz_leaves))
 
 
 def mpoly_from_dict(spec: FieldSpec, d: dict) -> MPoly:

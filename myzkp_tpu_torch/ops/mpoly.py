@@ -10,7 +10,8 @@ Two consumers run on the device:
   per variable, then one product per exponent of each term (K1 on the card)
   and a sum over the terms; the sumcheck prover's factor tables;
 - ``evaluate_symbolic``: substitution of univariate device polynomials for
-  the variables (``Poly`` products and powers).
+  the variables (``Poly`` products and powers; the terms grouped by their
+  exponents of variables 1.., one product a group).
 
 Results on the device follow the points' device (``evaluate_batch``) or the
 polynomials' (``evaluate_symbolic``).
@@ -202,7 +203,14 @@ class MPoly:
                           ) -> Poly:
         """Substitute univariate device polynomials for the variables.  The
         result lies on the polynomials' device (on the card when none is
-        given)."""
+        given).
+
+        The same polynomial as the reference's sum of c * prod_v polys[v]^e_v
+        term by term, reassociated: the terms that share their exponents of
+        variables 1.. are summed over variable 0 first, a linear combination
+        of the powers of polys[0] (built once, one product a power), and each
+        such group is then multiplied once by its other powers: each of
+        Rescue-Prime's two transition constraints has 272 terms in 12 groups."""
         spec = self.spec
         dev = polys[0].device if polys else _ext.resolve_device(None)
         if not self.d:
@@ -216,12 +224,25 @@ class MPoly:
                 )
                 deg = max(deg, d_term)
             capacity = deg + 1
-        acc = Poly.zero(spec, capacity, dev)
+        groups = {}  # exponents of variables 1.. (no trailing zeros) -> [(e_0, c)]
         for e, c in sorted(self.d.items()):
-            term = Poly.from_int_coeffs(spec, [c], dev)
-            for v in range(min(len(e), len(polys))):
-                if e[v]:
-                    term = term * (polys[v] ** e[v])
+            e = tuple(e[:len(polys)])
+            rest = e[1:]
+            while rest and not rest[-1]:
+                rest = rest[:-1]
+            groups.setdefault(rest, []).append((e[0] if e else 0, c))
+        pows0 = [Poly.one(spec, device=dev)]
+        for _ in range(max(e0 for terms in groups.values() for e0, _ in terms)):
+            pows0.append(pows0[-1] * polys[0])
+        acc = Poly.zero(spec, capacity, dev)
+        for rest, terms in sorted(groups.items()):
+            width = max(pows0[e0].capacity for e0, _ in terms)
+            term = Poly.zero(spec, width, dev)
+            for e0, c in terms:
+                term = term + pows0[e0].pad_to(width).scale_const(c)
+            for v, ev in enumerate(rest, start=1):
+                if ev:
+                    term = term * (polys[v] ** ev)
             if term.capacity > capacity:
                 term = Poly(term.coef[:capacity])
             acc = acc + term.pad_to(capacity)

@@ -12,6 +12,10 @@ autosorts, so results are in natural order without a bit-reversal gather.
 The values are exact whatever the split; the reference's split keeps the
 launch counts comparable.
 
+The fast algebra of the reference's ``ops/ntt.py:554-734`` (subproduct trees,
+multipoint evaluation, interpolation, coset division) sits on top, over
+``fast_multiply`` and ``ops/poly.poly_divmod``.
+
 Twiddle tables are built once per (spec, size, direction, device) and cached:
 the Stockham stage rows on the host (a pass's rows concatenated on the
 device), the four-step level tables (L, m1, m2) on
@@ -317,3 +321,146 @@ def coset_interpolate(evals: Fp, offset: int) -> Fp:
     coeffs = intt(evals)
     offs = _geometric_mont(spec, pow(offset, -1, spec.p), n, evals.device)
     return Fp(spec, limb.mont_mul(spec, coeffs.mont, offs))
+
+
+def evaluate_on_rou_domain(a: Fp, n: int) -> Fp:
+    """Evaluate coefficients on the n-point root-of-unity domain (LDE)."""
+    return ntt(a.pad_to(n))
+
+
+def interpolate_on_rou_domain(evals: Fp) -> Fp:
+    """Coefficients of the unique polynomial with the given values on <w_n>."""
+    return intt(evals)
+
+
+# ---------------------------------------------------------------------------
+# Divide-and-conquer polynomial algebra over arbitrary point sets
+#
+# Counterpart of myzkp_tpu/ops/ntt.py:554-734, the same algorithm: every
+# level of the subproduct tree is one batched fast_multiply over the level's
+# nodes (the node axis leads the coefficient axis), and the remainder tree one
+# batched poly_divmod a level (one launch of kernel K17 on the card).
+# ---------------------------------------------------------------------------
+
+def _zerofier_tree(xs: Fp) -> list:
+    """Subproduct tree of a power-of-two point set xs (n,): levels[k] holds
+    the n / 2^k monic zerofiers of its nodes, (n / 2^k, 2^k + 1)."""
+    spec = xs.spec
+    n = xs.shape[-1]
+    if n & (n - 1):
+        raise ValueError(f"{n} points: the tree takes a power of two")
+    ones = limb.one_mont(spec, (n,), xs.device)
+    lvl = Fp(spec, torch.stack([(-xs).mont, ones], dim=-1))  # (n, 2)
+    levels = [lvl]
+    while lvl.shape[0] > 1:
+        lvl = fast_multiply(Fp(spec, lvl.mont[:, 0::2]), Fp(spec, lvl.mont[:, 1::2]))
+        levels.append(lvl)
+    return levels
+
+
+def _pow2_chunks(n: int) -> list:
+    """Binary decomposition of n, largest chunk first."""
+    return [1 << b for b in range(n.bit_length() - 1, -1, -1) if n >> b & 1]
+
+
+def fast_zerofier(xs: Fp) -> Fp:
+    """prod_i (X - x_i), n + 1 coefficients: the root of each power-of-two
+    chunk's tree, the roots multiplied in chunk order."""
+    spec = xs.spec
+    acc, off = None, 0
+    for c in _pow2_chunks(xs.shape[-1]):
+        z = Fp(spec, _zerofier_tree(xs[off:off + c])[-1].mont[:, 0])  # (c + 1,)
+        acc = z if acc is None else fast_multiply(acc, z)
+        off += c
+    return acc
+
+
+def _fast_evaluate_pow2(coef: Fp, xs: Fp, tree: list | None = None) -> Fp:
+    """coef (nc,) at a power-of-two point set xs (n,) -> (n,): the residue
+    modulo the root (when nc > n), then down the remainder tree, each level
+    one batched poly_divmod of the parents' residues by the nodes."""
+    from .poly import poly_divmod, poly_eval
+
+    spec = coef.spec
+    n = xs.shape[-1]
+    if n == 1:
+        return poly_eval(coef, xs)
+    tree = tree or _zerofier_tree(xs)
+    r = Fp(spec, coef.mont[:, None, :])  # (1, nc): one node
+    if coef.shape[-1] > n:
+        _, r = poly_divmod(r, tree[-1], n)
+    else:
+        r = r.pad_to(n)
+    for k in range(len(tree) - 2, -1, -1):
+        r2 = Fp(spec, r.mont.repeat_interleave(2, dim=1))  # (m, 2^(k + 1))
+        _, r = poly_divmod(r2, tree[k], 1 << k)
+    return Fp(spec, r.mont[..., 0])
+
+
+def fast_evaluate(coef: Fp, xs: Fp) -> Fp:
+    """Evaluations of coef at arbitrary points xs (n,), by power-of-two
+    chunks of xs."""
+    spec = coef.spec
+    outs, off = [], 0
+    for c in _pow2_chunks(xs.shape[-1]):
+        outs.append(_fast_evaluate_pow2(coef, xs[off:off + c]).mont)
+        off += c
+    return Fp(spec, torch.cat(outs, dim=-1))
+
+
+def _fast_interpolate_pow2(xs: Fp, ys: Fp) -> Fp:
+    """Interpolation through a power-of-two point set: weights y_i / Z'(x_i)
+    (Z' evaluated down the remainder tree, one batch inversion), then
+    combined up the tree (node polynomial = left Z_right + right Z_left).
+    ys may carry leading batch dims (one row per register)."""
+    spec = xs.spec
+    n = xs.shape[-1]
+    if n == 1:
+        return Fp(spec, ys.mont)
+    tree = _zerofier_tree(xs)
+    root = Fp(spec, tree[-1].mont[:, 0])  # (n + 1,)
+    ks = Fp.from_int(spec, list(range(1, n + 1)), xs.device)
+    zp = root[1:] * ks  # Z'(X): coefficient k is (k + 1) z_(k + 1)
+    w = ys * _fast_evaluate_pow2(zp, xs, tree).batch_inv(axis=-1)
+    cur = Fp(spec, w.mont[..., None])  # (..., n, 1)
+    for k in range(len(tree) - 1):
+        zs, cap = tree[k].mont, 1 << (k + 1)
+        left = fast_multiply(Fp(spec, cur.mont[..., 0::2, :]), Fp(spec, zs[..., 1::2, :]),
+                             out_len=cap)
+        right = fast_multiply(Fp(spec, cur.mont[..., 1::2, :]), Fp(spec, zs[..., 0::2, :]),
+                              out_len=cap)
+        cur = left + right
+    return Fp(spec, cur.mont[..., 0, :])
+
+
+def fast_interpolate(xs: Fp, ys: Fp) -> Fp:
+    """Interpolation through arbitrary points.  A size that is not a power of
+    two splits at its largest power of two: I_(A+B) = I_A' Z_B + I_B' Z_A,
+    with I_A' through y_a / Z_B(a) and I_B' through y_b / Z_A(b)."""
+    spec = xs.spec
+    n = xs.shape[-1]
+    if n & (n - 1) == 0:
+        return _fast_interpolate_pow2(xs, ys)
+    c = 1 << (n.bit_length() - 1)
+    xa, xb = xs[..., :c], xs[..., c:]
+    ya, yb = ys[..., :c], ys[..., c:]
+    za, zb = fast_zerofier(xa), fast_zerofier(xb)
+    ya2 = ya * fast_evaluate(zb, xa).batch_inv(axis=-1)
+    yb2 = yb * fast_evaluate(za, xb).batch_inv(axis=-1)
+    t1 = fast_multiply(fast_interpolate(xa, ya2), zb, out_len=n)
+    t2 = fast_multiply(fast_interpolate(xb, yb2), za, out_len=n)
+    return t1 + t2
+
+
+def fast_coset_evaluate(a: Fp, offset: int, n: int) -> Fp:
+    """coset_evaluate under the reference's name."""
+    return coset_evaluate(a, offset, n)
+
+
+def fast_coset_divide(lhs: Fp, rhs: Fp, offset: int, n: int) -> Fp:
+    """Exact division lhs / rhs by pointwise division on the coset offset *
+    <w_n> (n above deg lhs): both evaluated, one batch inversion, one
+    coset interpolation."""
+    lc = coset_evaluate(lhs, offset, n)
+    rc = coset_evaluate(rhs, offset, n)
+    return coset_interpolate(lc * rc.batch_inv(axis=-1), offset)

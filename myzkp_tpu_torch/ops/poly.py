@@ -8,15 +8,20 @@ launch count grows as log2(n) on the card, with the same field values:
 evaluation is the powers of x by doubling, one product and a pairwise field
 sum; division by X - u is a suffix scan of log2(n) Hillis-Steele levels (one
 product and one add a level); division by prod_i (X - x_i) is one such scan
-per point.  The loops whose trip count grows with the number of points
-(``from_monomials``) and the long division by a general divisor stay loops
-of vector steps.
+per point.  The loop whose trip count grows with the number of points
+(``from_monomials``) stays a loop of vector steps.  The long division by a
+general divisor keeps the reference's na - bd steps, all in one launch of
+kernel K17 (csrc/poly.cu, ``long_division``) on the card; its plain version
+``long_division_ref`` runs them as a loop of vector steps.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from .. import _ext
 from ..fields import limb
 from ..fields.fp import Fp
 from ..fields.spec import FieldSpec
@@ -222,11 +227,13 @@ def divide_by_roots(a: Fp, roots: Fp):
     return q, a[..., :t] - qz[..., :t]
 
 
-def _long_division(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, bd: int):
-    """a (L, ..., na) by b (L, ..., >= bd + 1) of stated degree bd >= 1:
-    na - bd steps, each one product and one subtraction on a bd-wide window.
-    The leading coefficient's inverse is inv(0) = 0 when it is zero, which
-    gives q = 0 and r = a's low bd coefficients, as in the reference."""
+def long_division_ref(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, bd: int):
+    """Plain version of K17: a (L, ..., na) by b (L, ..., >= bd + 1) of stated
+    degree 1 <= bd < na, b's batch dims broadcasting against a's: na - bd
+    steps, each one product and one subtraction on a bd-wide window.  The
+    leading coefficient's inverse is inv(0) = 0 when it is zero, which gives
+    q = 0 and r = a's low bd coefficients, as in the reference.  Returns q
+    (L, ..., na - bd) and r (L, ..., bd)."""
     na = a.shape[-1]
     lead = limb.inv(spec, b[..., bd].contiguous())
     bl = b[..., :bd]
@@ -240,6 +247,41 @@ def _long_division(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, bd: int):
         rem[..., pos] = 0
         qs.append(c)
     return torch.stack(qs[::-1], dim=-1), rem[..., :bd]
+
+
+def long_division_cuda(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, bd: int):
+    """Launch K17 (csrc/poly.cu, the instance of spec's width) on CUDA
+    tensors, the contract of long_division_ref: the rows of a's batch dims in
+    one launch, b broadcast to them; the leading coefficients' inverses by
+    one launch of K1's chain (limb.inv)."""
+    L, na = spec.L, a.shape[-1]
+    if a.dtype != limb.I32 or b.dtype != limb.I32:
+        raise TypeError(f"dtypes {a.dtype}, {b.dtype}, expected {limb.I32}")
+    if a.shape[0] != L or b.shape[0] != L or not 1 <= bd < na or b.shape[-1] < bd + 1:
+        raise ValueError(f"long division of {tuple(a.shape)} by {tuple(b.shape)} "
+                         f"at degree {bd}")
+    batch = tuple(a.shape[1:-1])
+    rows = math.prod(batch)
+    a3 = a.reshape(L, rows, na).contiguous()
+    bb = b[..., :bd + 1]  # its batch dims right-aligned against a's, as limb.mont_mul's
+    bb = bb.reshape((L,) + (1,) * (len(batch) + 2 - bb.dim()) + tuple(bb.shape[1:]))
+    b3 = bb.expand((L,) + batch + (bd + 1,)).reshape(L, rows, bd + 1).contiguous()
+    lead = limb.inv(spec, b3[..., bd].contiguous())
+    q = torch.empty((L, rows, na - bd), dtype=a.dtype, device=a.device)
+    r = torch.empty((L, rows, bd), dtype=a.dtype, device=a.device)
+    work = torch.empty((rows, na, L // 2), dtype=a.dtype, device=a.device)  # the kernel's rem
+    if rows:
+        _ext.launch(_ext.kernel_name("long_division", spec), a.device, _ext.ptr(a3),
+                    _ext.ptr(b3), _ext.ptr(lead), _ext.ptr(q), _ext.ptr(r), _ext.ptr(work),
+                    rows, na, bd, _ext.consts_ptr(spec))
+    return q.reshape((L,) + batch + (na - bd,)), r.reshape((L,) + batch + (bd,))
+
+
+def _long_division(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, bd: int):
+    """K17 on the card, its plain version on the CPU."""
+    if not _ext.use_kernel(a, b):
+        return long_division_ref(spec, a, b, bd)
+    return long_division_cuda(spec, a, b, bd)
 
 
 def poly_divmod(a: Fp, b: Fp, b_degree: int):

@@ -2,7 +2,7 @@
 """Device-time profile of one call of a path of the port on one GPU.
 
 Run from the repository root:
-    python3 profile_paths.py [--path msm|ntt|shifted_h|prove|groth16|sumcheck] [--log-n 20]
+    python3 profile_paths.py [--path msm|ntt|shifted_h|prove|groth16|sumcheck|stark] [--log-n 20]
 
 Paths: ``msm``, one BN254 G1 MSM of 2^log_n points (made with
 fixed_base_multi from seeded scalars); ``ntt``, one forward NTT of 2^log_n
@@ -13,7 +13,10 @@ profiled); ``groth16``, one Groth16 prove the same way, with 2 public
 inputs; ``sumcheck``, one prove of the table sumcheck prover over a
 2^log_n-point hypercube (log_n variables), on the sumcheck demo's problem
 (examples/sumcheck_demo.py: three multilinear factors of 8 seeded terms,
-degree 3).  Builds the kernels, runs the call
+degree 3); ``stark``, one FastStark prove over M128 on the JAX package's
+squaring AIR (one register, x_(i+1) = x_i^2) at 2^(log_n - 4) - 8 cycles,
+so that the FRI domain has 2^log_n points (the preprocessed zerofier made
+once, before the call).  Builds the kernels, runs the call
 twice to warm up and a third time under torch.profiler.  Prints the card
 (nvidia-smi name and power limit), the wall time of the profiled call (host
 clock, synchronized), the device busy time (the sum of the durations of every
@@ -34,7 +37,11 @@ to the host); for the sumcheck prover, the table build (and within it the
 hypercube), the folds, the pointwise products, the table sums, the
 transcript (pushes, hashes, challenges and the round polynomials'
 interpolation on the host) and the rounds (the rest of the prove: the
-loop and its host reads of the sums).  Each device event is
+loop and its host reads of the sums); for the FastStark prove, the trace
+interpolation, the boundary quotients, the codewords and their Merkle trees,
+the symbolic AIR, the transition quotients, the combination codeword, FRI
+and the openings, with the long divisions (K17) and the Merkle trees' builds
+(host SHA3) as stages of their own inside them.  Each device event is
 put in the innermost stage whose range holds the host call that launched it
 (its CUDA runtime call, matched by correlation id), and each stage's host
 time is its ranges' time less the stages nested in them; the table gives per
@@ -76,6 +83,22 @@ def _path(name: str, n: int, seed: int, dev):
     from myzkp_tpu_torch.fields.fp import Fp
     from myzkp_tpu_torch.fields.spec import bn254_r_spec
 
+    if name == "stark":
+        from myzkp_tpu_torch.fields.spec import m128_spec
+        from myzkp_tpu_torch.ops.mpoly import MPoly
+        from myzkp_tpu_torch.stark import fast_stark
+
+        p, cycles, x0 = m128_spec().p, (n >> 4) - 8, 123456789
+        stark = fast_stark.initialize_fast_stark_m128(4, 2, 2, 1, cycles, 2, dev)
+        trace = [[x0]]
+        for _ in range(cycles - 1):
+            trace.append([trace[-1][0] ** 2 % p])
+        var = MPoly.variables(stark.spec, 3)
+        air, boundary = [var[1] ** 2 - var[2]], [(0, 0, x0), (cycles - 1, 0, trace[-1][0])]
+        pre = stark.preprocess()
+        return (lambda: stark.prove(trace, boundary, air, preprocessed=pre,
+                                    rng=random.Random(seed)),
+                f"FastStark prove, {cycles} cycles, FRI domain {stark.fri.domain_length}")
     spec = bn254_r_spec()
     if name == "sumcheck":
         from myzkp_tpu_torch.ops.mpoly import MPoly
@@ -136,6 +159,16 @@ STAGES = (
     ("transcript", "myzkp_tpu_torch.protocols.sumcheck_tpu", "sample_field"),
     ("transcript", "myzkp_tpu_torch.protocols.sumcheck_tpu", "_host_interpolate"),
     ("transcript", "myzkp_tpu_torch.utils.fiat_shamir", "FiatShamirTransformer.prover_fiat_shamir"),
+    ("trace interpolation", "myzkp_tpu_torch.stark.fast_stark", "FastStark._interpolate_trace"),
+    ("boundary quotients", "myzkp_tpu_torch.stark.stark", "Stark._boundary_quotients"),
+    ("codewords", "myzkp_tpu_torch.stark.stark", "Stark._commit_codeword"),
+    ("symbolic AIR", "myzkp_tpu_torch.stark.stark", "Stark._transition_polys"),
+    ("transition quotients", "myzkp_tpu_torch.stark.fast_stark", "FastStark._coset_divide"),
+    ("combination", "myzkp_tpu_torch.stark.stark", "Stark._combined_codeword"),
+    ("FRI", "myzkp_tpu_torch.stark.fri", "FRI.prove"),
+    ("openings", "myzkp_tpu_torch.stark.stark", "Stark._open"),
+    ("long division", "myzkp_tpu_torch.ops.poly", "long_division_cuda"),
+    ("merkle", "myzkp_tpu_torch.utils.merkle", "MerkleTree.__init__"),
 )
 
 
@@ -204,7 +237,7 @@ def stage_split(events, wall_ms: float) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("msm", "ntt", "shifted_h", "prove", "groth16",
-                                       "sumcheck"),
+                                       "sumcheck", "stark"),
                     default="msm")
     ap.add_argument("--log-n", type=int, default=20)
     ap.add_argument("--seed", type=int, default=7)

@@ -51,6 +51,12 @@ ops/ntt._stockham_axis, its passes in one graph (shifted h at m = 2^12: the
 batched 2^12-point INTT and 2^13-point coset NTT, R = 3, and the 2^13-point
 coset INTT; fast_multiply's 2^9-point transform), and each pass of the
 batched 2^13-point coset NTT.  The
+mont, leaf and ntt families also time the four-word (M128) instances that
+the STARK runs, with the same constants: K1 at (8, 2^20) and its chain on 1
+element (e = p - 2) and on 4,096 (alpha^-1); K6 at (1, 128, 8,192), the top
+leaf of the FastStark prove's 2^20-point coset NTTs; K5 over every Stockham
+transform one FastStark prove at 65,528 cycles runs (recorded from a prove
+first), summed with their counts.  The
 mixed variants (csrc/curve2.cu) are K10 at MYZKP_K10_UNROLL = 0 (the carry
 chains), 1, 2, 4, 8; each times K10 at 32,768 lanes with its mask on 1 lane
 in 32 and at 2^20 lanes without, and K7 on the first inputs with Q =
@@ -63,6 +69,7 @@ from __future__ import annotations
 import importlib
 import importlib.util
 import json
+import random
 import re
 import sys
 import time
@@ -73,6 +80,8 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
+from myzkp_tpu_torch.fields.spec import m128_spec
+from myzkp_tpu_torch.stark.rescue_constants import ALPHA_INV
 
 ADD_VARIANTS = {
     "tree": (),
@@ -103,9 +112,12 @@ FAMILIES = {"add": ADD_VARIANTS, "dbl": DBL_VARIANTS, "mont": MONT_VARIANTS,
 GROUP_KERNELS = ("padd_kernel", "padd_mixed_kernel", "padd_seg_level_kernel", "padd2_kernel",
                  "padd2_seg_level_kernel", "pdbl_kernel", "pdbl2_kernel")
 KERNELS = {"add": GROUP_KERNELS, "dbl": GROUP_KERNELS,
-           "mont": ("mont_mul_kernel", "mont_pow_kernel"),
-           "leaf": ("ntt_leaf_kernel<8>", "ntt_leaf_kernel<4>"),
-           "ntt": tuple(f"butterfly_kernel<{e}>" for e in (2, 4, 8, 16, 32)),
+           "mont": ("mont_mul_kernel", "mont_pow_kernel", "mont_mul_l8_kernel",
+                    "mont_pow_l8_kernel"),
+           "leaf": ("ntt_leaf_kernel<8>", "ntt_leaf_kernel<4>", "ntt_leaf_l8_kernel<8>",
+                    "ntt_leaf_l8_kernel<4>"),
+           "ntt": tuple(f"butterfly{w}_kernel<{e}>" for w in ("", "_l8")
+                        for e in (2, 4, 8, 16, 32)),
            "mixed": ("padd_mixed2_kernel", "padd2_kernel", "pdbl2_kernel",
                      "padd2_seg_level_kernel")}
 K2_WIDTHS = (1 << 15, 1 << 22)
@@ -116,6 +128,15 @@ CHAIN_SHAPES = tuple((pts, n, n == 255) for pts in (1, 16) for n in (16, 255))
 POW_WIDTHS = (1, 2, 16)  # the chain's elements: an inversion and a batch
 LEAF_SHAPE = (3, 128, 1 << 14)  # K6's row: a leaf level of the 2^21 coset NTT
 LEAF_STAGES = (1, 2, 3, 5, 7)
+# M128 (four words): K6 at the top leaf of the FastStark prove's 2^20-point
+# coset NTTs; K1 at a coset scaling (2^20 x 2^20); the chain on one element
+# (the inversion) and on hash_batch's S-box (2^12 elements, alpha^-1)
+LEAF_SHAPE_M128 = (1, 128, 1 << 13)
+K1_WIDTH_M128 = 1 << 20
+POW_WIDTHS_M128 = (1, 1 << 12)
+# the FastStark prove whose K5 transforms the ntt family times at M128: the
+# squaring AIR with a 2^16-row trace (a 2^20-point FRI domain)
+STARK_CYCLES = (1 << 16) - 8
 # (R, n, inverse) of the Stockham transforms: shifted h at m = 2^12 and
 # fast_multiply of 2^8-coefficient inputs; the second's passes are timed too
 K5_TRANSFORMS = cs.STOCKHAM_TRANSFORMS + cs.FAST_MUL_TRANSFORMS[:1]
@@ -238,6 +259,12 @@ def time_mont(variants, rng, dev, times) -> None:
     want_wide = limb.mont_mul_ref(rspec, xw, tab)
     want_pow = {k: limb.mont_pow_ref(qspec, x, e) for k, x in xs.items()}
     one = xs[1]
+    mspec = m128_spec()
+    a4, b4 = (m128_fe(rng, K1_WIDTH_M128, dev) for _ in range(2))
+    want4 = limb.mont_mul_ref(mspec, a4, b4)
+    e4 = {1: mspec.p - 2, 1 << 12: ALPHA_INV}
+    xs4 = {k: m128_fe(rng, k, dev) for k in POW_WIDTHS_M128}
+    want_pow4 = {k: limb.mont_pow_ref(mspec, x, e4[k]) for k, x in xs4.items()}
     for name, defines in variants.items():
         _ext.use_defines(defines)
         check(f"{name}: K1 (16, 8192)", [limb.mont_mul(qspec, a, b)], [want_mm])
@@ -256,6 +283,15 @@ def time_mont(variants, rng, dev, times) -> None:
         t["product_latency_us"] = (lat[1] - lat[0]) / 239 * 1e3
         line.append(f"one product on one warp {t['product_latency_us']:.4f} us "
                     f"(n = 16: {lat[0]:.4f} ms, n = 255: {lat[1]:.4f} ms)")
+        check(f"{name}: K1 at M128", [limb.mont_mul(mspec, a4, b4)], [want4])
+        t["k1_m128_2^20"] = cs.graph_time_ms(lambda: limb.mont_mul(mspec, a4, b4), 20)
+        line.append(f"M128: K1 (8, 2^20) {t['k1_m128_2^20']:.4f} ms")
+        for k, x in xs4.items():
+            check(f"{name}: M128 chain at {k}", [limb.mont_pow_cuda(mspec, x, e4[k])],
+                  [want_pow4[k]])
+            t[f"pow_m128_{k}"] = cs.graph_time_ms(lambda: limb.mont_pow_cuda(mspec, x, e4[k]), 5)
+            line.append(f"chain at {k} (e of {e4[k].bit_length()} bits) "
+                        f"{t[f'pow_m128_{k}']:.4f} ms")
         cs.log(f"# mont {name}: " + "; ".join(line))
 
 
@@ -270,13 +306,21 @@ def time_leaf(variants, rng, dev, times) -> None:
     x = cs.random_fe(rng, E * m * B, dev).reshape(16, E, m, B)
     tw = ntt._leaf_twiddles(spec, m, False, dev)
     wants = {s: nk.ntt_leaf_ref(spec, x, tw, s) for s in LEAF_STAGES}
+    mspec = m128_spec()
+    E4, m4, B4 = LEAF_SHAPE_M128
+    x4 = m128_fe(rng, E4 * m4 * B4, dev).reshape(8, E4, m4, B4)
+    tw4 = ntt._leaf_twiddles(mspec, m4, False, dev)
+    want4 = nk.ntt_leaf_ref(mspec, x4, tw4)
     for name, defines in variants.items():
         _ext.use_defines(defines)
         for s in LEAF_STAGES:
             check(f"{name}: K6 stages = {s}", [nk.ntt_leaf(spec, x, tw, s)], [wants[s]])
             times[name][f"k6_s{s}"] = cs.graph_time_ms(lambda: nk.ntt_leaf(spec, x, tw, s), 5)
+        check(f"{name}: K6 at M128", [nk.ntt_leaf(mspec, x4, tw4)], [want4])
+        times[name]["k6_m128"] = cs.graph_time_ms(lambda: nk.ntt_leaf(mspec, x4, tw4), 10)
         cs.log(f"# leaf {name} (E, m, B) = {LEAF_SHAPE}: " + ", ".join(
-            f"s = {s} {times[name][f'k6_s{s}']:.4f} ms" for s in LEAF_STAGES))
+            f"s = {s} {times[name][f'k6_s{s}']:.4f} ms" for s in LEAF_STAGES)
+            + f"; M128 {LEAF_SHAPE_M128}, all stages: {times[name]['k6_m128']:.4f} ms")
 
 
 def time_ntt(runs, parent, rng, dev, times) -> None:
@@ -289,6 +333,14 @@ def time_ntt(runs, parent, rng, dev, times) -> None:
     from myzkp_tpu_torch.ops import ntt
 
     spec = bn254_r_spec()
+    mspec = m128_spec()
+    m128 = {}  # (R, n, inverse) -> (input, the plain version's output, count a prove)
+    for (R, n, inv), count in prove_transforms(dev).items():
+        x4 = m128_fe(rng, R * n, dev).reshape(8, R, n, 1)
+        y = x4.reshape(8, R, 1, n, 1)
+        for s in range(n.bit_length() - 1):
+            y = nk.butterfly_ref(mspec, y, ntt._pass_twiddles(mspec, n, s, 1, inv, dev))
+        m128[(R, n, inv)] = (x4, y.reshape(x4.shape), count)
     xs = [cs.random_fe(rng, R * n, dev).reshape(16, R, n, 1) for R, n, _ in K5_TRANSFORMS]
     wants = []
     for x, (R, n, inv) in zip(xs, K5_TRANSFORMS):  # the one-stage plain chain
@@ -320,7 +372,51 @@ def time_ntt(runs, parent, rng, dev, times) -> None:
                 t[key] = cs.graph_time_ms(lambda: nk.butterfly(spec, y, tw, s), 100)
                 line.append(f"{key} {t[key]:.4f} ms")
                 y = nk.butterfly(spec, y, tw, s)
+            total = 0.0
+            for (R, n, inv), (x4, want4, count) in m128.items():
+                check(f"{name}: M128 K5 transform {(R, n, inv)}",
+                      [ntt._stockham_axis(mspec, x4, n, inv)], [want4])
+                total += count * cs.graph_time_ms(
+                    lambda: ntt._stockham_axis(mspec, x4, n, inv), 5)
+            t["k5_m128_prove"] = total
+            line.append(f"M128: the prove's {sum(c for *_, c in m128.values())} transforms "
+                        f"({len(m128)} shapes) {total:.4f} ms")
         cs.log(f"# ntt {name}: " + ", ".join(line))
+
+
+def m128_fe(rng, n: int, dev) -> torch.Tensor:
+    """n random canonical M128 elements, (8, n) limbs: the top limb below
+    p's, p = 1 + 407 * 2^119."""
+    limbs = rng.integers(0, 1 << 16, size=(8, n), dtype=np.int64)
+    limbs[7] = rng.integers(0, 0xCB80, size=n)
+    return torch.from_numpy(limbs.astype(np.int32)).to(dev)
+
+
+def prove_transforms(dev) -> dict:
+    """{(R, n, inverse): count} of the Stockham transforms (K5) of one
+    FastStark prove at STARK_CYCLES, recorded from ops/ntt._stockham_axis;
+    R counts every batch row (B is 1 on this path)."""
+    from myzkp_tpu_torch.ops import ntt
+    from myzkp_tpu_torch.stark import fast_stark
+
+    spec = m128_spec()
+    st = fast_stark.initialize_fast_stark_m128(4, 2, 2, 1, STARK_CYCLES, 2, dev)
+    trace, air, boundary = cs.squaring_air(spec, STARK_CYCLES)
+    pre = st.preprocess()
+    seen, axis = {}, ntt._stockham_axis
+
+    def recorded(sp, x, m, inverse):
+        if m > 1:
+            key = (x.numel() // (sp.L * m), m, inverse)
+            seen[key] = seen.get(key, 0) + 1
+        return axis(sp, x, m, inverse)
+
+    ntt._stockham_axis = recorded
+    try:
+        st.prove(trace, boundary, air, preprocessed=pre, rng=random.Random(cs.STARK_SEED))
+    finally:
+        ntt._stockham_axis = axis
+    return seen
 
 
 def time_mixed(runs, parent, rng, dev, times) -> None:
