@@ -198,21 +198,45 @@ Phases, one output line each (or more), in order:
                against their plain versions (K17 past 512 steps a row
                against a = q b + r), then the five four-word kernels and
                K17's BN254 instance timed beside their plain versions and
-               bounds (68 multiply-adds a 128-bit product).
+               bounds (68 multiply-adds a 128-bit product);
+ 14. das       the extension fields and the data-availability models
+               (fields/efield.py, codes/reedsolomon.py, das/): K1 and its
+               chain at two words (M64: mont_mul_l4, mont_pow_l4) on 2^20
+               pairs and elements after every pair of the two-word edges,
+               exact against their plain versions and the edges against the
+               host, then timed beside their bounds (18 multiply-adds a
+               64-bit product); the M64 cubic extension at 2^20 elements:
+               mul (two K1 launches), inv (384: a x inv(a) = 1 where a != 0,
+               inv(0) = 0) and pow_const, 64 of each equal to the host's
+               Python ints and a slice equal to the CPU plain versions;
+               BN254's Fq2 through the generic machinery at 2^20 equal to
+               the Karatsuba Fq2Ops.mul; Celestia at a 128 x 128 square
+               (256 x 256 extended: equal to the CPU parity-matrix encode, 4
+               rows and 4 columns to the object-level coder; 512 roots and
+               the data root; 16 samples verified, a tampered leaf
+               rejected); Avail over a 2^20-byte blob (131,072 rows, KZG of
+               degree 131,072 from a known s, 16 column commitments equal to
+               the host's [p(s)]G1, 8 samples verified, a sample against
+               another column's commitment rejected); EigenDA at 1,024
+               bytes (8 chunks of 512, 5 samples verified, a changed y
+               rejected); each stage timed, median of 3.
 The build phase prints ptxas's registers and spills of every kernel and the
 static SASS instruction counts (cuobjdump -sass) of the curve kernels.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object with one entry per kernel (its
 "launches" from the proves (for the four-word kernels and K17, phase
 13's first FastStark prove), "kzg_launches" from phase 11's runs,
-"sumcheck_launches" from phase 12's, "stark_launches" from phase 13's prove); the last
-line is {"ok": true, "device": {...}}.  Any failure exits nonzero before it.
+"sumcheck_launches" from phase 12's, "stark_launches" from phase 13's prove,
+"das_launches" from phase 14's runs; for the two-word kernels "launches" are
+phase 14's efield runs); the last line is {"ok": true, "device": {...}}.
+Any failure exits nonzero before it.
 Neither this script nor the port imports JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import json
 import math
@@ -239,13 +263,17 @@ MIX_WIDE = 1 << 22  # K9 at a fixed-base tree level's width (K2's timed shape)
 # (half the 128 float32 lanes behind the 67 TFLOP/s float32 peak), 132 SMs,
 # 1.98 GHz.  A 256-bit Montgomery product (CIOS over eight 32-bit words) is
 # 264 of them: 64 wide products a*b and 64 m*p at two each, plus 8 for m; a
-# 128-bit one (M128, four words) 68: 16 and 16 at two each, plus 4.
+# 128-bit one (M128, four words) 68: 16 and 16 at two each, plus 4; a 64-bit
+# one (M64, two words) 18: 4 and 4 at two each, plus 2.
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 132 * 64 * 1.98e9
 IMAD_PER_MONT = 264
 IMAD_PER_MONT4 = 68
+IMAD_PER_MONT2 = 18
 LIMB_BYTES = 64  # one element at the tensor interface: 16 int32 limbs
 LIMB_BYTES4 = 32  # an M128 element: 8 int32 limbs
+LIMB_BYTES2 = 16  # an M64 element: 4 int32 limbs
+VALUE_BYTES2 = 8  # the 64-bit value those limbs hold
 MSM_KERNELS = ("mont_mul", "mont_pow", "padd", "pdbl", "bucket_scan_rows", "padd_seg_level",
                "gather_planes", "scatter_rows")
 
@@ -336,7 +364,9 @@ def phase_device() -> None:
         f"torch {torch.__version__} (CUDA {torch.version.cuda}); nvcc {nvcc}")
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build the kernels and the host pairing; print registers, spills and
+    SASS counts, and return the SASS counts by kernel."""
     from myzkp_tpu_torch import _ext, native
 
     seconds = _ext.build()
@@ -351,8 +381,10 @@ def phase_build() -> None:
     for line in _ext.library_path().with_suffix(".log").read_text().splitlines():
         if any(k in line for k in ("entry function", "registers", "spill")):
             log(f"#   ptxas: {line.strip()}")
-    for kernel, counts in sass_counts(_ext.library_path()).items():
+    sass = sass_counts(_ext.library_path())
+    for kernel, counts in sass.items():
         log(f"#   sass {kernel}: {json.dumps(counts)}")
+    return sass
 
 
 # SASS opcode classes counted per kernel: the 32-bit multiply-adds and adds of
@@ -398,7 +430,7 @@ SASS_KERNELS = ("padd_seg_level_kernel", "padd2_seg_level_kernel", "padd_mixed_k
                 "pdbl_kernel", "mont_mul_kernel", "mont_pow_kernel", "ntt_leaf_kernel",
                 "butterfly_kernel", "mont_mul_l8_kernel", "mont_pow_l8_kernel",
                 "ntt_leaf_l8_kernel", "butterfly_l8_kernel", "long_division_kernel",
-                "long_division_l8_kernel")
+                "long_division_l8_kernel", "mont_mul_l4_kernel", "mont_pow_l4_kernel")
 
 
 def random_fe(rng: np.random.Generator, n: int, dev) -> torch.Tensor:
@@ -409,18 +441,19 @@ def random_fe(rng: np.random.Generator, n: int, dev) -> torch.Tensor:
 
 
 def word_edges(p: int, words: int = 8) -> list:
-    """The values below p whose 32-bit words (eight, or four for M128) are
-    each 0 or 0xFFFFFFFF, then p - 1, 1 and R mod p: the operands at the ends
-    of every carry chain of the Montgomery product.  Where p has no spare bit
-    (M128: p > R / 2) also values in [R / 2, p), whose sums and products
-    pass R: 2^127, 2^127 + 1, 2^127 + 2^96 - 1 and p - 2."""
+    """The values below p whose 32-bit words (eight, four for M128, two for
+    M64) are each 0 or 0xFFFFFFFF, then p - 1, 1 and R mod p: the operands at
+    the ends of every carry chain of the Montgomery product.  Where p has no
+    spare bit (M128, M64: p > R / 2) also values in [R / 2, p), whose sums
+    and products pass R: with w words, 2^(32w - 1), 2^(32w - 1) + 1,
+    2^(32w - 1) + 2^(32(w - 1)) - 1 and p - 2."""
     out = []
     for bits in range(1 << words):
         v = sum(0xFFFFFFFF << (32 * k) for k in range(words) if bits >> k & 1)
         if v < p:
             out.append(v)
     half = 1 << (32 * words - 1)
-    top = [half, half + 1, half + (1 << 96) - 1, p - 2] if p > half else []
+    top = [half, half + 1, half + (1 << (32 * (words - 1))) - 1, p - 2] if p > half else []
     return out + [p - 1, 1, (1 << (32 * words)) % p] + top
 
 
@@ -1107,6 +1140,13 @@ def counted(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, {k: v for k, v in _ext.launches.items() if v}
+
+
+def run_counted(counts: dict, secs: dict, name: str, fn):
+    """fn() through ``counted`` and ``timed``: its launch counts go to
+    counts[name], its seconds to secs[name]; returns its result."""
+    (out, counts[name]), secs[name] = timed(lambda: counted(fn))
+    return out
 
 
 def phase_ntt(dev, results: dict) -> None:
@@ -2419,9 +2459,7 @@ def phase_kzg(dev, results: dict) -> tuple:
     s = rng.randrange(1, R)
     counts, secs = {}, {}
 
-    def run(name: str, fn):
-        (out, counts[name]), secs[name] = timed(lambda: counted(fn))
-        return out
+    run = functools.partial(run_counted, counts, secs)
 
     # setup: the host powers of s and their limbs, then the whole setup
     _, secs["setup_host"] = timed(lambda: scalars_from_int(spec, kzg._powers_of_s(s, n + 1), dev))
@@ -2636,9 +2674,7 @@ def phase_sumcheck(dev, results: dict, pk, s: int) -> None:
     G1 = bn254.g1_generator()
     counts, secs = {}, {}
 
-    def run(name: str, fn):
-        (out, counts[name]), secs[name] = timed(lambda: counted(fn))
-        return out
+    run = functools.partial(run_counted, counts, secs)
 
     def rejects(name: str, fn, what: str):
         if run(name, fn):
@@ -2807,6 +2843,8 @@ def phase_bitcheck_m128(dev, results: dict) -> None:
     p, R = spec.p, 1 << 128
     rng = random.Random(SEED + 128)
     edges = word_edges(p, 4)
+    if edges[-4:] != [1 << 127, (1 << 127) + 1, (1 << 127) + (1 << 96) - 1, p - 2]:
+        raise AssertionError("word_edges(M128, 4): the edges past R / 2 changed")
     k = len(edges) ** 2
     n = 1 << LOG_N
     a = random_fe4(rng, n, dev, spec)
@@ -3128,6 +3166,367 @@ def phase_stark(dev, results: dict) -> None:
     log(f"# stark phase {secs['phase']:.1f} s")
 
 
+DAS_SEED = SEED + 140
+EFIELD_N = 1 << 20
+CELESTIA_K, CELESTIA_EXPANSION = 128, 2.0  # a 128 x 128 original square
+CELESTIA_SAMPLES = 16  # the CLI's base_num_sampling
+AVAIL_BYTES, AVAIL_CHUNK, AVAIL_EXPANSION, AVAIL_SAMPLES = 1 << 20, 8, 2.0, 8
+EIGENDA_BYTES, EIGENDA_EXPANSION, EIGENDA_OPERATORS, EIGENDA_SAMPLES = 1024, 4.0, 8, 5
+DAS_S = 0x2A9C41F75B3E0D6897C211F46E0B83D5  # the Avail key's toxic waste: the host checks
+
+
+def random_fe64(rng: np.random.Generator, n: int, dev) -> torch.Tensor:
+    """n canonical M64 limb columns (4, n): the top limb below 0xFFFF keeps
+    each value below 2^64 - 2^48 < p."""
+    limbs = rng.integers(0, 1 << 16, size=(4, n), dtype=np.int64)
+    limbs[3] = rng.integers(0, 0xFFFF, size=n)
+    return torch.from_numpy(limbs.astype(np.int32)).to(dev)
+
+
+def phase_bitcheck_m64(dev, results: dict) -> None:
+    """K1 and its chain at two words (M64) against their plain versions and
+    the host: K1 on 2^20 pairs, every pair of the two-word edges first; the
+    chain at 1, 2, 3, 16, 4,097 and 2^20 elements (the edges first) for
+    e = 0, 1, 2, p - 2 and a seeded 256-bit e."""
+    from myzkp_tpu_torch import _ext
+    from myzkp_tpu_torch.fields import limb
+    from myzkp_tpu_torch.fields.spec import m64_spec
+
+    spec = m64_spec()
+    p, R = spec.p, 1 << 64
+    rng = np.random.default_rng(SEED + 64)
+    edges = word_edges(p, 2)
+    k = len(edges) ** 2
+    n = 1 << LOG_N
+    a, b = random_fe64(rng, n, dev), random_fe64(rng, n, dev)
+    a[:, :k] = limb.from_int(spec, [x for x in edges for _ in edges], dev)
+    b[:, :k] = limb.from_int(spec, [y for _ in edges for y in edges], dev)
+    before = _ext.launches["mont_mul_l4"]
+    got = limb.mont_mul(spec, a, b)
+    if _ext.launches["mont_mul_l4"] != before + 1:
+        raise AssertionError("mont_mul (M64): not one launch of mont_mul_l4")
+    err = check_equal("mont_mul_l4", [got], [limb.mont_mul_ref(spec, a, b)])
+    rinv = pow(R, -1, p)
+    gi = limb.to_int(spec, got[:, :k])
+    if any(int(g) != x * y * rinv % p
+           for g, (x, y) in zip(gi, ((x, y) for x in edges for y in edges))):
+        raise AssertionError("mont_mul_l4: disagrees with the host on the word edges")
+    results["mont_mul_l4"]["max_abs_err"] = err
+    log(f"# bitcheck mont_mul_l4 (M64): 2^{LOG_N} pairs, the first {k} every pair of "
+        f"{len(edges)} word edges (each 32-bit word 0 or 0xFFFFFFFF below p; p - 1, 1, "
+        f"R mod p; 2^63, 2^63 + 1, 2^63 + 2^32 - 1, p - 2): exact, and the edge pairs == host")
+    err = 0
+    exps = (0, 1, 2, p - 2, int(rng.integers(1, 1 << 62)) << 194 | 12345)
+    for m in POW_SIZES + (n,):
+        x = random_fe64(rng, m, dev)
+        x[:, :min(m, len(edges))] = limb.from_int(spec, edges[:m], dev)
+        xs = [int(v) * rinv % p for v in limb.to_int(spec, x[:, :64])]
+        for e in exps:
+            before = _ext.launches["mont_pow_l4"]
+            got = limb.pow_const(spec, x, e)
+            if _ext.launches["mont_pow_l4"] != before + 1:
+                raise AssertionError("pow_const (M64): not one launch of the chain")
+            err = max(err, check_equal(f"mont_pow_l4 n = {m} e = {e}", [got],
+                                       [limb.mont_pow_ref(spec, x, e)]))
+            if any(int(g) != pow(v, e, p) * R % p
+                   for g, v in zip(limb.to_int(spec, got[:, :64]), xs)):
+                raise AssertionError(f"mont_pow_l4 n = {m} e = {e}: differs from the host")
+    results["mont_pow_l4"]["max_abs_err"] = err
+    log(f"# bitcheck mont_pow_l4 (M64): {POW_SIZES + (n,)} elements (the word edges first), "
+        f"e = 0, 1, 2, p - 2 and a seeded 256-bit e, one launch each: exact vs plain and the "
+        f"first 64 == host")
+
+
+def cubic_mul(x, y, p: int) -> list:
+    """The M64 cubic's product on the host: x^3 = x - 1, x^4 = x^2 - x."""
+    c = [0] * 5
+    for i in range(3):
+        for j in range(3):
+            c[i + j] += x[i] * y[j]
+    return [(c[0] - c[3]) % p, (c[1] + c[3] - c[4]) % p, (c[2] + c[4]) % p]
+
+
+def cubic_pow(x, e: int, p: int) -> list:
+    acc, base = [1, 0, 0], list(x)
+    while e:
+        if e & 1:
+            acc = cubic_mul(acc, base, p)
+        base = cubic_mul(base, base, p)
+        e >>= 1
+    return acc
+
+
+def das_efield(dev, smi: str, counts: dict, secs: dict) -> None:
+    """The M64 cubic at 2^20 elements (mul, inv, pow_const) and BN254's Fq2
+    through the generic machinery against the Karatsuba path."""
+    from myzkp_tpu_torch.curves import bn254
+    from myzkp_tpu_torch.fields import efield, limb
+
+    es = efield.m64_cubic()
+    p, n = es.base.p, EFIELD_N
+    rng = np.random.default_rng(DAS_SEED)
+    a = torch.stack([random_fe64(rng, n, dev) for _ in range(3)])
+    b = torch.stack([random_fe64(rng, n, dev) for _ in range(3)])
+    edges = word_edges(p, 2)  # edges[0] = 0: element 1 is zero too
+    a[:, :, 1:1 + len(edges)] = limb.from_int(es.base, [edges] * 3, dev).transpose(0, 1)
+    a[:, :, [0, n - 1]] = 0
+    e = int(rng.integers(1, 1 << 62)) << 128 | int(rng.integers(0, 1 << 62))
+
+    run = functools.partial(run_counted, counts, secs)
+
+    prod = run("efield_mul", lambda: efield.mul(es, a, b))
+    if counts["efield_mul"] != {"mont_mul_l4": 2}:
+        raise AssertionError(f"efield mul 2^20: launches {counts['efield_mul']}, not two of "
+                             f"mont_mul_l4")
+    ainv = run("efield_inv", lambda: efield.inv(es, a))
+    nbits = (p ** 3 - 2).bit_length()
+    if counts["efield_inv"] != {"mont_mul_l4": 2 * nbits}:
+        raise AssertionError(f"efield inv 2^20: launches {counts['efield_inv']}, not "
+                             f"{2 * nbits} of mont_mul_l4")
+    apow = run("efield_pow", lambda: efield.pow_const(es, a, e))
+    nz = ~efield.is_zero(es, a)
+    if not efield.eq(es, efield.mul(es, a, ainv), efield.one(es, (n,), dev))[nz].all():
+        raise AssertionError("efield inv 2^20: a * inv(a) != 1 where a != 0")
+    if ainv[:, :, ~nz].any() or nz[[0, 1, n - 1]].any():
+        raise AssertionError("efield inv 2^20: inv(0) != 0")
+    cpu = lambda t, m: t[:, :, :m].cpu()
+    for name, got, fn, m in (
+            ("mul", prod, lambda: efield.mul(es, cpu(a, 4096), cpu(b, 4096)), 4096),
+            ("inv", ainv, lambda: efield.inv(es, cpu(a, 256)), 256),
+            ("pow_const", apow, lambda: efield.pow_const(es, cpu(a, 256), e), 256)):
+        if not torch.equal(cpu(got, m), fn()):
+            raise AssertionError(f"efield {name}: the card's first {m} != the CPU plain "
+                                 f"versions'")
+    idx = [int(i) for i in rng.choice(n, 64, replace=False)] + [0, 1]
+    A, B = efield.to_int_coeffs(es, a[:, :, idx]), efield.to_int_coeffs(es, b[:, :, idx])
+    for name, got, want in (
+            ("mul", prod, lambda x, y: cubic_mul(x, y, p)),
+            ("pow_const", apow, lambda x, _: cubic_pow(x, e, p)),
+            ("inv", ainv, lambda x, _: cubic_pow(x, p ** 3 - 2, p))):
+        G = efield.to_int_coeffs(es, got[:, :, idx])
+        if any([int(v) for v in g] != want([int(v) for v in x], [int(v) for v in y])
+               for g, x, y in zip(G, A, B)):
+            raise AssertionError(f"efield {name}: a sampled element differs from the host")
+    ms = {"mul": median_ms(lambda: efield.mul(es, a, b), 3),
+          "inv": median_ms(lambda: efield.inv(es, a), 3),
+          "pow_const": median_ms(lambda: efield.pow_const(es, a, e), 3)}
+
+    fq, F2 = efield.bn254_fq2(), bn254.g2_ops()
+    qrng = np.random.default_rng(DAS_SEED + 1)
+    x0, x1, y0, y1 = (random_fe(qrng, n, dev) for _ in range(4))
+    X, Y = torch.stack([x0, x1]), torch.stack([y0, y1])
+    gen = run("fq2_generic", lambda: efield.mul(fq, X, Y))
+    kar = torch.stack(F2.mul((x0, x1), (y0, y1)))
+    if not torch.equal(gen, kar) or counts["fq2_generic"] != {"mont_mul": 2}:
+        raise AssertionError(f"bn254_fq2 mul 2^20: != Fq2Ops.mul, or launches "
+                             f"{counts['fq2_generic']} are not two of mont_mul")
+    ms["fq2_generic"] = median_ms(lambda: efield.mul(fq, X, Y), 3)
+    ms["fq2_karatsuba"] = median_ms(lambda: F2.mul((x0, x1), (y0, y1)), 3)
+    secs["efield_ms"] = ms
+    log(f"# das efield M64 cubic 2^{n.bit_length() - 1} ({smi}): mul 2 launches, inv "
+        f"{2 * nbits}, pow_const ({e.bit_length()} bits) "
+        f"{counts['efield_pow']['mont_mul_l4']}; a x inv(a) = 1 where a != 0, inv(0) = 0; "
+        f"66 sampled == host ints, the first 4,096 / 256 == CPU plain; "
+        f"Fq2 generic == Karatsuba at 2^{n.bit_length() - 1} (2 launches); median ms of 3: "
+        f"{json.dumps({k: round(v[0], 3) for k, v in ms.items()})}")
+
+
+def das_celestia(dev, smi: str, counts: dict, secs: dict) -> None:
+    """Celestia at a 128 x 128 original square (a 256 x 256 extended one)."""
+    from myzkp_tpu_torch.codes import reedsolomon as rs
+    from myzkp_tpu_torch.das.celestia import Celestia, EncodedDataCelestia
+    from myzkp_tpu_torch.das.utils import SamplePosition
+    from myzkp_tpu_torch.utils import merkle
+
+    k = CELESTIA_K
+    size = k * k
+    data = np.random.default_rng(DAS_SEED + 2).integers(0, 256, size, dtype=np.uint8).tobytes()
+    params = Celestia.setup(k, CELESTIA_EXPANSION, size, device=dev)
+    side = params.codeword_size
+
+    run = functools.partial(run_counted, counts, secs)
+
+    enc = run("celestia_encode", lambda: Celestia.encode(data, params))
+    sq = enc.cells
+    coder = rs.setup_rs2d(side, side, size)
+    cpu = rs.encode_rs2d_batch(torch.frombuffer(bytearray(data), dtype=torch.uint8), coder)
+    if sq.shape != (side, side) or not np.array_equal(sq, cpu.numpy()):
+        raise AssertionError("celestia: the card's square != the CPU parity-matrix encode")
+    d = side - k
+    pick = random.Random(DAS_SEED).sample(range(k), 4)
+    for r in pick:
+        if rs.encode_rs1d(data[r * k:(r + 1) * k], coder.row_coder) != sq[d + r].tolist():
+            raise AssertionError(f"celestia: row {d + r} != the object-level row coder")
+    for c in pick:
+        if rs.encode_rs1d(sq[d:, c].tolist(), coder.col_coder) != sq[:, c].tolist():
+            raise AssertionError(f"celestia: column {c} != the object-level column coder")
+    com = run("celestia_commit", lambda: Celestia.commit(enc, params))
+    if (len(com.row_roots), len(com.col_roots)) != (side, side) or \
+            com.data_root != merkle.commit(com.row_roots + com.col_roots):
+        raise AssertionError("celestia: the roots are not 2 x 256 under the data root")
+    positions = [SamplePosition(i // side, i % side, False) for i in range(CELESTIA_SAMPLES)]
+    rowpos = SamplePosition(3, side - 7, True)
+    ok = run("celestia_verify", lambda: [Celestia.verify(q, enc, com, params)
+                                         for q in positions + [rowpos]])
+    bad = EncodedDataCelestia(codewords=enc.codewords.clone(), data_size=size)
+    bad.codewords[0, 5] ^= 1
+    if not all(ok) or Celestia.verify(positions[5], bad, com, params):
+        raise AssertionError(f"celestia: samples {ok}, or a tampered leaf accepted")
+    ms = {"encode": median_ms(lambda: Celestia.encode(data, params), 3),
+          "commit": median_ms(lambda: Celestia.commit(enc, params), 3),
+          "verify_16": median_ms(lambda: [Celestia.verify(q, enc, com, params)
+                                          for q in positions], 3)}
+    secs["celestia_ms"] = ms
+    log(f"# das celestia {k} x {k} -> {side} x {side} ({smi}): == CPU parity-matrix encode, "
+        f"4 rows and 4 columns == object-level coder; {2 * side} roots + data root; "
+        f"{CELESTIA_SAMPLES} column samples and a row sample verified, a tampered leaf "
+        f"rejected; median ms of 3: {json.dumps({k: round(v[0], 3) for k, v in ms.items()})}")
+
+
+def das_avail(dev, smi: str, counts: dict, secs: dict) -> None:
+    """Avail over a 2^20-byte blob: chunk 8, expansion 2, KZG from a known s."""
+    from myzkp_tpu_torch.codes import reedsolomon as rs
+    from myzkp_tpu_torch.commit import kzg
+    from myzkp_tpu_torch.curves import bn254
+    from myzkp_tpu_torch.das.avail import Avail, CommitmentAvail, PublicParamsAvail
+    from myzkp_tpu_torch.das.utils import SamplePosition
+
+    R = bn254.R
+    data = np.random.default_rng(DAS_SEED + 3).integers(
+        0, 256, AVAIL_BYTES, dtype=np.uint8).tobytes()
+    rows = math.ceil(AVAIL_BYTES / AVAIL_CHUNK)
+
+    run = functools.partial(run_counted, counts, secs)
+
+    pk = run("avail_setup", lambda: kzg.setup(rows, s=DAS_S, device=dev))
+    params = PublicParamsAvail(AVAIL_EXPANSION, pk, AVAIL_CHUNK)
+    enc = run("avail_encode", lambda: Avail.encode(data, params))
+    width = AVAIL_CHUNK * math.ceil(AVAIL_EXPANSION)
+    cpu = rs.encode_rs1d_batch(torch.frombuffer(bytearray(data), dtype=torch.uint8).reshape(
+        rows, AVAIL_CHUNK), rs.setup_rs1d(width, AVAIL_CHUNK))
+    if tuple(enc.codewords.shape) != (rows, width) or not torch.equal(enc.codewords.cpu(), cpu):
+        raise AssertionError("avail: the card's codewords != the CPU parity-matrix encode")
+    com = run("avail_commit", lambda: Avail.commit(enc, params))
+    cols = cpu.numpy().T.astype(object)
+    if com.commitments != [bn254.g1_generator() * horner(list(c), DAS_S, R) for c in cols]:
+        raise AssertionError("avail: a column commitment != the host's [p(s)]G1")
+    positions = [SamplePosition(0, i, False) for i in range(AVAIL_SAMPLES)]
+    ok = run("avail_verify", lambda: [Avail.verify(q, enc, com, params) for q in positions])
+    other = CommitmentAvail(commitments=com.commitments[1:] + com.commitments[:1])
+    if not all(ok) or Avail.verify(positions[0], enc, other, params):
+        raise AssertionError(f"avail: samples {ok}, or another column's commitment accepted")
+    ms = {"encode": median_ms(lambda: Avail.encode(data, params), 3),
+          "commit": median_ms(lambda: Avail.commit(enc, params), 3),
+          "verify_8": median_ms(lambda: [Avail.verify(q, enc, com, params)
+                                         for q in positions], 3)}
+    secs["avail_ms"] = ms
+    log(f"# das avail {AVAIL_BYTES} bytes ({smi}): {rows} rows x {width}, == CPU encode; "
+        f"KZG degree {rows} in {secs['avail_setup']:.3f} s; {width} commitments == host [p(s)]G1; "
+        f"{AVAIL_SAMPLES} samples verified, another column's commitment rejected; median "
+        f"ms of 3: {json.dumps({k: round(v[0], 3) for k, v in ms.items()})}")
+
+
+def das_eigenda(dev, smi: str, counts: dict, secs: dict) -> None:
+    """EigenDA at the CLI's top size: 1,024 bytes, expansion 4, 8 chunks."""
+    from myzkp_tpu_torch.codes import reedsolomon as rs
+    from myzkp_tpu_torch.das.eigenda import CommitmentEigenDA, EigenDA
+    from myzkp_tpu_torch.das.utils import SamplePosition
+
+    data = np.random.default_rng(DAS_SEED + 4).integers(
+        0, 256, EIGENDA_BYTES, dtype=np.uint8).tobytes()
+    chunk = int(EIGENDA_BYTES * EIGENDA_EXPANSION / EIGENDA_OPERATORS)
+
+    run = functools.partial(run_counted, counts, secs)
+
+    params = run("eigenda_setup", lambda: EigenDA.setup(chunk, EIGENDA_EXPANSION,
+                                                        EIGENDA_BYTES, device=dev))
+    enc = run("eigenda_encode", lambda: EigenDA.encode(data, params))
+    n = int(EIGENDA_BYTES * EIGENDA_EXPANSION)
+    cpu = rs.encode_rs1d_batch(torch.frombuffer(bytearray(data), dtype=torch.uint8),
+                               rs.setup_rs1d(n, EIGENDA_BYTES))
+    if [c.numel() for c in enc.codewords] != [chunk] * EIGENDA_OPERATORS or \
+            not torch.equal(torch.cat(enc.codewords).cpu(), cpu):
+        raise AssertionError("eigenda: the card's chunks != the CPU parity-matrix encode")
+    com = run("eigenda_commit", lambda: EigenDA.commit(enc, params))
+    positions = [SamplePosition(0, i, False) for i in range(EIGENDA_SAMPLES)]
+    ok = run("eigenda_verify", lambda: [EigenDA.verify(q, enc, com, params) for q in positions])
+    y, w = com.chunk_proofs[0]
+    bad = CommitmentEigenDA(com.chunk_commitments, [(y + 1, w)] + com.chunk_proofs[1:], 0)
+    if not all(ok) or EigenDA.verify(positions[0], enc, bad, params):
+        raise AssertionError(f"eigenda: samples {ok}, or a changed y accepted")
+    ms = {"encode": median_ms(lambda: EigenDA.encode(data, params), 3),
+          "commit": median_ms(lambda: EigenDA.commit(enc, params), 3),
+          "verify_5": median_ms(lambda: [EigenDA.verify(q, enc, com, params)
+                                         for q in positions], 3)}
+    secs["eigenda_ms"] = ms
+    log(f"# das eigenda {EIGENDA_BYTES} bytes ({smi}): {n}-symbol codeword in "
+        f"{EIGENDA_OPERATORS} chunks of {chunk}, == CPU encode; {EIGENDA_SAMPLES} samples "
+        f"verified, a changed y rejected; median ms of 3: "
+        f"{json.dumps({k: round(v[0], 3) for k, v in ms.items()})}")
+
+
+def phase_das(dev, results: dict, sass: dict) -> None:
+    from myzkp_tpu_torch.fields import limb
+    from myzkp_tpu_torch.fields.spec import m64_spec
+
+    t_phase = time.perf_counter()
+    smi = card()
+    phase_bitcheck_m64(dev, results)
+    counts, secs = {}, {}
+    das_efield(dev, smi, counts, secs)
+    das_celestia(dev, smi, counts, secs)
+    das_avail(dev, smi, counts, secs)
+    das_eigenda(dev, smi, counts, secs)
+
+    spec = m64_spec()
+    rng = np.random.default_rng(DAS_SEED + 5)
+    n = 1 << LOG_N
+    x, y, z = (random_fe64(rng, n, dev) for _ in range(3))
+    e = spec.p - 2
+    time_cases({
+        "mont_mul_l4": (f"(4, 2^{LOG_N}) x (4, 2^{LOG_N})",
+                        lambda: limb.mont_mul(spec, x, y), lambda: limb.mont_mul_ref(spec, x, y),
+                        20, 3, bound(3 * LIMB_BYTES2 * n, n, IMAD_PER_MONT2)),
+        "mont_pow_l4": (f"2^{LOG_N} elements, e = p - 2: the base field's inversion",
+                        lambda: limb.pow_const(spec, z, e),
+                        lambda: limb.mont_pow_ref(spec, z, e), 3, 1,
+                        bound(2 * LIMB_BYTES2 * n, n * (e.bit_length() - 1 + bin(e).count("1")),
+                              IMAD_PER_MONT2)),
+    }, results)
+    # every bound counts the interface's bytes (an int32 a 16-bit limb);
+    # at two words the value's own 8 B give a bound half that
+    k1 = results["mont_mul_l4"]
+    value_ms = 3 * VALUE_BYTES2 * n / HBM_BYTES_PER_S * 1e3
+    log(f"# das K1 at two words ({smi}): {k1['ms']:.4f} ms; bytes bound at the interface's "
+        f"{LIMB_BYTES2} B an element {k1['bound_ms']:.4f} ms "
+        f"({100 * k1['bound_ms'] / k1['ms']:.1f}%), at the value's {VALUE_BYTES2} B "
+        f"{value_ms:.4f} ms ({100 * value_ms / k1['ms']:.1f}%)")
+    log(f"# das K1 at two words: SASS IMAD mont_mul_l4_kernel "
+        f"{sass.get('mont_mul_l4_kernel', {}).get('IMAD')}, mont_pow_l4_kernel "
+        f"{sass.get('mont_pow_l4_kernel', {}).get('IMAD')} (the bound counts "
+        f"{IMAD_PER_MONT2} a product)")
+
+    total = {}
+    for c in counts.values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    for k in results:
+        if not k.startswith("_"):
+            results[k]["das_launches"] = total.get(k, 0)
+    path = ("efield_mul", "efield_inv", "efield_pow")
+    for k in ("mont_mul_l4", "mont_pow_l4"):
+        results[k]["launches"] = sum(counts[r].get(k, 0) for r in path)
+    if results["mont_mul_l4"]["launches"] < 1:
+        raise AssertionError("das: mont_mul_l4 never launched on the efield path")
+    secs["phase"] = time.perf_counter() - t_phase
+    results["_das"] = {"card": smi, "seconds": {k: v for k, v in secs.items()
+                                                if not k.endswith("_ms")},
+                       "median_ms": {k: v for k, v in secs.items() if k.endswith("_ms")},
+                       "launches": counts, "mont_mul_l4_value_bound_ms": value_ms}
+    log(f"# das launches: {json.dumps(counts)}")
+    log(f"# das phase {secs['phase']:.1f} s")
+
+
 SOURCES = {
     "mont_mul": ("myzkp_tpu_torch/csrc/mont_mul.cu",
                  "myzkp_tpu/fields/limb_pallas.py:286"),
@@ -3175,6 +3574,11 @@ SOURCES = {
     # the reference's long division, a lax.scan on the device (ops/poly.py:229-261)
     "long_division_l8": ("myzkp_tpu_torch/csrc/poly.cu", "myzkp_tpu/ops/poly.py:230"),
     "long_division": ("myzkp_tpu_torch/csrc/poly.cu", "myzkp_tpu/ops/poly.py:230"),
+    # the two-word (M64) instances: K1 on the extension fields' path
+    "mont_mul_l4": ("myzkp_tpu_torch/csrc/mont_mul.cu",
+                    "myzkp_tpu/fields/limb_pallas.py:286"),
+    "mont_pow_l4": ("myzkp_tpu_torch/csrc/mont_mul.cu",
+                    "myzkp_tpu/fields/limb_pallas.py:286"),
 }
 
 
@@ -3182,7 +3586,7 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_device()
     dev = torch.device("cuda", 0)
-    phase_build()
+    sass = phase_build()
     results = {k: {} for k in SOURCES}
     phase_bitcheck(dev, results)
     phase_bitcheck_g2(dev, results)
@@ -3217,8 +3621,10 @@ def main() -> int:
     phase_sumcheck(dev, results, srs, s)
     del srs
     phase_stark(dev, results)
-    keys = ("launches", "kzg_launches", "sumcheck_launches", "stark_launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    phase_das(dev, results, sass)
+    keys = ("launches", "kzg_launches", "sumcheck_launches", "stark_launches",
+            "das_launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k][0],
                 "replaces": SOURCES[k][1], **{key: results[k][key] for key in keys}}
                for k in SOURCES]
@@ -3233,6 +3639,7 @@ def main() -> int:
     log(f"# kzg {json.dumps(results['_kzg'])}")
     log(f"# sumcheck {json.dumps(results['_sumcheck'])}")
     log(f"# stark {json.dumps(results['_stark'])}")
+    log(f"# das {json.dumps(results['_das'])}")
     log(f"# probe13 {json.dumps(results['_probe13'])}")
     log(f"# scan_parent_path {json.dumps(results['_scan_parent_path'])}")
     log(f"# rows {json.dumps(results['_rows'])}")

@@ -44,10 +44,12 @@ KERNELS = ("mont_mul", "mont_pow", "padd", "pdbl", "bucket_scan_rows", "butterfl
            "ntt_leaf", "padd2", "pdbl2", "padd_mixed", "padd_mixed2",
            "bucket_scan_rows2", "padd_seg_level", "padd2_seg_level", "gather_planes",
            "scatter_rows", "long_division", "mont_mul_l8", "mont_pow_l8", "butterfly_l8",
-           "ntt_leaf_l8", "long_division_l8")
+           "ntt_leaf_l8", "long_division_l8", "mont_mul_l4", "mont_pow_l4")
 # The kernels with an instance at each width: "<name>" at L = 16 limbs
 # (BN254's fields), "<name>_l8" at L = 8 (M128) (kernel_name).
 FIELD_KERNELS = ("mont_mul", "mont_pow", "butterfly", "ntt_leaf", "long_division")
+# The kernels with an instance at L = 4 (M64), "<name>_l4": K1 and its chain.
+L4_KERNELS = ("mont_mul", "mont_pow")
 
 # Launches of each kernel since the last reset_launches().  A wrapper adds one
 # where it launches its kernel (launch() below) and nowhere else.
@@ -75,6 +77,7 @@ _SIGNATURES = {
     "long_division": (_P,) * 6 + (_I64,) * 3 + (_P, _P),
 }
 _SIGNATURES.update({f"{k}_l8": _SIGNATURES[k] for k in FIELD_KERNELS})
+_SIGNATURES.update({f"{k}_l4": _SIGNATURES[k] for k in L4_KERNELS})
 
 _lib = None
 # -D definitions of the library that launches use (use_defines)
@@ -281,15 +284,16 @@ def _field_consts_type(words: int):
 
 
 # Limbs L -> the kernels' constants struct at N = L / 2 words.
-_FIELD_CONSTS = {16: _field_consts_type(8), 8: _field_consts_type(4)}
+_FIELD_CONSTS = {16: _field_consts_type(8), 8: _field_consts_type(4), 4: _field_consts_type(2)}
 
 
 def _check_width(spec: FieldSpec) -> None:
     """The kernels take L = 16 limbs (BN254's fields, p < 2^255: the
-    eight-word product keeps its sum in eight words) and L = 8 (M128: the
-    four-word product keeps a carry word, so any odd p < 2^128)."""
+    eight-word product keeps its sum in eight words), L = 8 (M128) and
+    L = 4 (M64): there the product keeps a carry word, so any odd p below
+    R = 2^128 or 2^64."""
     if spec.L not in _FIELD_CONSTS:
-        raise ValueError(f"the CUDA kernels take L = 16 or 8 limbs, not {spec.L}")
+        raise ValueError(f"the CUDA kernels take L = 16, 8 or 4 limbs, not {spec.L}")
     if spec.L == 16 and spec.p >> 255:
         raise ValueError("the CUDA kernels take p < 2^255 at L = 16")
 
@@ -309,9 +313,12 @@ def field_consts(spec: FieldSpec):
 
 def kernel_name(name: str, spec: FieldSpec) -> str:
     """The instance of a kernel of FIELD_KERNELS at ``spec``'s width:
-    ``name`` at L = 16, ``name_l8`` at L = 8; raises at any other L."""
+    ``name`` at L = 16, ``name_l8`` at L = 8, ``name_l4`` at L = 4 (the
+    kernels of L4_KERNELS only); raises at any other L."""
     _check_width(spec)
-    return name if spec.L == 16 else f"{name}_l8"
+    if spec.L == 4 and name not in L4_KERNELS:
+        raise ValueError(f"{name} has no instance at L = 4")
+    return {16: name, 8: f"{name}_l8", 4: f"{name}_l4"}[spec.L]
 
 
 class _Exponent(ctypes.Structure):

@@ -133,15 +133,22 @@ def commit_g2(pk: KZGPublicKey, p: Poly) -> PyPoint:
     return bn254.g2_points_to_host(_stack([pt]))[0]
 
 
-def open(pk: KZGPublicKey, p: Poly, u: int) -> tuple[int, PyPoint]:
-    """Evaluation proof at u: y = p(u), w = [(p - y) / (X - u)](s) G1.  The
-    quotient is one suffix scan of log2(n) levels; the witness one MSM."""
+def open_quotient(p: Poly, u: int) -> tuple[int, Poly]:
+    """y = p(u) and the quotient (p - y) / (X - u) that ``open`` commits to:
+    one suffix scan of log2(n) levels."""
     spec = p.spec
     u_fp = Fp.from_int(spec, u, p.device)
     y = p(u_fp)
     num = p.coef.at_set(0, p.coef[0] - y)
     q, _ = divide_by_roots(num, u_fp.reshape(1))
-    return y.item(), commit(pk, Poly(q))
+    return y.item(), Poly(q)
+
+
+def open(pk: KZGPublicKey, p: Poly, u: int) -> tuple[int, PyPoint]:
+    """Evaluation proof at u: y = p(u), w = [(p - y) / (X - u)](s) G1, the
+    witness one MSM."""
+    y, q = open_quotient(p, u)
+    return y, commit(pk, q)
 
 
 def verify(pk: KZGPublicKey, u: int, y: int, commitment: PyPoint,

@@ -1,4 +1,5 @@
-// In-kernel prime-field library: BN254's fields (256-bit R) and M128 (128-bit R).
+// In-kernel prime-field library: BN254's fields (256-bit R), M128 (128-bit R)
+// and M64 (64-bit R).
 //
 // CUDA counterpart of TileFp (myzkp_tpu/fields/tile_ops.py:28-182): add, sub,
 // neg, Montgomery multiply, select and the conditional subtract of p, as
@@ -10,11 +11,12 @@
 // so a warp reading one limb of 32 neighbouring elements reads 128 contiguous
 // bytes).  Inside a thread an element is repacked into N little-endian 32-bit
 // words: N = 8 for BN254 (L = 16 limbs, R = 2^256), N = 4 for M128 (L = 8,
-// R = 2^128).  R is the same in both layouts, so Montgomery form is unchanged
-// by the repack.  The types and the carry-chain helpers (FeN<N>,
-// FieldConstsN<N>, load_planes / store_planes, fe_add_cc, fe_sub_cc,
-// fe_mul_cc, fe_mul_sel) take the word count as a template parameter; Fe and
-// FieldConsts name the eight-word instances, which the curve kernels use.
+// R = 2^128), N = 2 for M64 (L = 4, R = 2^64).  R is the same in both
+// layouts, so Montgomery form is unchanged by the repack.  The types and the
+// carry-chain helpers (FeN<N>, FieldConstsN<N>, load_planes / store_planes,
+// fe_add_cc, fe_sub_cc, fe_mul_cc, fe_mul_sel) take the word count as a
+// template parameter; Fe and FieldConsts name the eight-word instances, which
+// the curve kernels use.
 //
 // Carries.  The TPU kernels keep 16-bit limbs and lazy uint32 columns (bound
 // 4L * 2^16, tile_ops.py:12-14).  With 32-bit words that bound no longer holds,
@@ -427,16 +429,16 @@ __device__ __forceinline__ Fe fe_mul_cc_spare(const Fe& a, const Fe& b,
 }
 
 // Montgomery product a * b * 2^(-32N) mod p on carry chains for p with no
-// spare bit (M128: p > 2^127 = R / 2).  There T < 2p can pass R, so the even
-// / odd split above, whose accumulators hold N words, does not apply.  CIOS
-// with the running sum T in N + 2 words t[0..N+1]: a row adds a * b_i (the
-// low halves of the products at positions 0..N-1, the high halves at 1..N,
-// two chains), then m p with m = t_0 n0 (two more chains), and shifts down
-// a word.  Inputs below p keep T < 2p after each row, so T fits in N words
+// spare bit (M128: p > 2^127 = R / 2; M64: p > 2^63).  There T < 2p can pass
+// R, so the even / odd split above, whose accumulators hold N words, does not
+// apply.  CIOS with the running sum T in N + 2 words t[0..N+1]: a row adds
+// a * b_i (the low halves of the products at positions 0..N-1, the high
+// halves at 1..N, two chains), then m p with m = t_0 n0 (two more chains),
+// and shifts down a word.  Inputs below p keep T < 2p after each row, so T fits in N words
 // and one bit (t[N]), and before the shift in N + 1 words and one bit
 // (t[N+1]); the chains' carries run into t[N] and t[N+1] and never past
 // them.  The result is T - p where t[N] is set or T >= p.  4 N + 7
-// instructions a row: about 100 a product at N = 4.
+// instructions a row: about 100 a product at N = 4, 30 at N = 2.
 template <int N>
 __device__ __forceinline__ FeN<N> fe_mul_cc_wide(const FeN<N>& a, const FeN<N>& b,
                                                  const FieldConstsN<N>& c) {
@@ -481,7 +483,7 @@ __device__ __forceinline__ FeN<N> fe_mul_cc_wide(const FeN<N>& a, const FeN<N>& 
 
 // The carry-chain product at N words: the even / odd accumulators at eight
 // words (BN254's fields, p < 2^255: _ext.field_consts checks it), the wide
-// CIOS at four (M128, p > 2^127).
+// CIOS at four (M128, p > 2^127) and two (M64, p > 2^63).
 template <int N>
 __device__ __forceinline__ FeN<N> fe_mul_cc(const FeN<N>& a, const FeN<N>& b,
                                             const FieldConstsN<N>& c) {
@@ -494,7 +496,7 @@ __device__ __forceinline__ FeN<N> fe_mul_cc(const FeN<N>& a, const FeN<N>& b,
 
 // The product a kernel is built on, by a -D constant: 0 the carry-chain
 // product above, U = 1, 2, 4, 8 fe_mul_u<U>.  fe_mul_u exists at eight words
-// only: the four-word instances run the carry chains at any MUL.
+// only: the four- and two-word instances run the carry chains at any MUL.
 template <int MUL, int N>
 __device__ __forceinline__ FeN<N> fe_mul_sel(const FeN<N>& a, const FeN<N>& b,
                                              const FieldConstsN<N>& c) {

@@ -1,7 +1,8 @@
 // K1: elementwise Montgomery multiply a * b * R^-1 mod p over (2N, n) limb
 // planes, and its chain: a^e for an exponent known on the host, in one launch.
-// Each at two widths: N = 8 words (BN254, mont_mul_kernel / mont_pow_kernel)
-// and N = 4 (M128, mont_mul_l8_kernel / mont_pow_l8_kernel), one templated
+// Each at three widths: N = 8 words (BN254, mont_mul_kernel /
+// mont_pow_kernel), N = 4 (M128, mont_mul_l8_kernel / mont_pow_l8_kernel)
+// and N = 2 (M64, mont_mul_l4_kernel / mont_pow_l4_kernel), one templated
 // body each.
 //
 // Replaces limb_pallas.mont_mul_pallas (myzkp_tpu/fields/limb_pallas.py:286,
@@ -40,6 +41,11 @@
 // m p_j at two each, and 4 for m), so K1 stays bound by device memory.  The
 // chain runs the Rescue-Prime S-box's alpha^-1 (127 bits) and the Fermat
 // inversion (128 bits) on the same lane pairs.
+//
+// At two words (M64 = 2^64 - 2^32 + 1, again above R / 2) an element moves
+// 48 bytes against 18 multiply-adds (4 a_j b_i and 4 m p_j at two each, and
+// 2 for m), on the same wide product: the Montgomery domain is R = 2^64 as
+// in the 16-bit-limb layout, so values cross the interface unchanged.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -58,6 +64,7 @@ using myzkp::FeN;
 using myzkp::FieldConsts;
 using myzkp::FieldConstsN;
 using FieldConsts4 = FieldConstsN<4>;
+using FieldConsts2 = FieldConstsN<2>;
 
 // An exponent known on the host: little-endian 32-bit words and its bit
 // length (0 <= nbits <= 256).  Mirrors _ext._Exponent.
@@ -122,6 +129,13 @@ __global__ void __launch_bounds__(MYZKP_K1_THREADS)
   mont_mul_body<4>(a, b, out, n, nb, reps, c);
 }
 
+__global__ void __launch_bounds__(MYZKP_K1_THREADS)
+    mont_mul_l4_kernel(const int32_t* __restrict__ a,
+                       const int32_t* __restrict__ b, int32_t* __restrict__ out,
+                       int64_t n, int64_t nb, int reps, FieldConsts2 c) {
+  mont_mul_body<2>(a, b, out, n, nb, reps, c);
+}
+
 // Word k of the exponent with k a runtime index, by selects (no local memory).
 __device__ __forceinline__ uint32_t exp_word(const Exponent& e, int k) {
   uint32_t w = 0;
@@ -172,6 +186,12 @@ __global__ void __launch_bounds__(kPowThreads)
   mont_pow_body<4>(a, out, n, e, c);
 }
 
+__global__ void __launch_bounds__(kPowThreads)
+    mont_pow_l4_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out,
+                       int64_t n, Exponent e, FieldConsts2 c) {
+  mont_pow_body<2>(a, out, n, e, c);
+}
+
 template <class Kernel, class Consts>
 int launch_mont_mul(Kernel kernel, const int32_t* a, const int32_t* b, int32_t* out,
                     int64_t n, int64_t nb, const Consts& consts, void* stream) {
@@ -198,8 +218,9 @@ int launch_mont_pow(Kernel kernel, const int32_t* a, int32_t* out, int64_t n,
 
 }  // namespace
 
-// out = a * b * R^-1 elementwise over (16, n) limb planes (BN254) or (8, n)
-// (M128, the _l8 entry points); b holds nb elements, nb dividing n.
+// out = a * b * R^-1 elementwise over (16, n) limb planes (BN254), (8, n)
+// (M128, the _l8 entry points) or (4, n) (M64, _l4); b holds nb elements, nb
+// dividing n.
 extern "C" int myzkp_mont_mul(const int32_t* a, const int32_t* b,
                               int32_t* out, int64_t n, int64_t nb,
                               const FieldConsts* consts, void* stream) {
@@ -212,7 +233,13 @@ extern "C" int myzkp_mont_mul_l8(const int32_t* a, const int32_t* b,
   return launch_mont_mul(mont_mul_l8_kernel, a, b, out, n, nb, *consts, stream);
 }
 
-// out = a^e elementwise over (16, n) or (8, n) limb planes.
+extern "C" int myzkp_mont_mul_l4(const int32_t* a, const int32_t* b,
+                                 int32_t* out, int64_t n, int64_t nb,
+                                 const FieldConsts2* consts, void* stream) {
+  return launch_mont_mul(mont_mul_l4_kernel, a, b, out, n, nb, *consts, stream);
+}
+
+// out = a^e elementwise over (16, n), (8, n) or (4, n) limb planes.
 extern "C" int myzkp_mont_pow(const int32_t* a, int32_t* out, int64_t n,
                               const Exponent* e, const FieldConsts* consts,
                               void* stream) {
@@ -223,6 +250,12 @@ extern "C" int myzkp_mont_pow_l8(const int32_t* a, int32_t* out, int64_t n,
                                  const Exponent* e, const FieldConsts4* consts,
                                  void* stream) {
   return launch_mont_pow(mont_pow_l8_kernel, a, out, n, e, *consts, stream);
+}
+
+extern "C" int myzkp_mont_pow_l4(const int32_t* a, int32_t* out, int64_t n,
+                                 const Exponent* e, const FieldConsts2* consts,
+                                 void* stream) {
+  return launch_mont_pow(mont_pow_l4_kernel, a, out, n, e, *consts, stream);
 }
 
 extern "C" const char* myzkp_error_string(int err) {

@@ -13,9 +13,12 @@ in a column, so the Montgomery product needs no lo/hi split.
 ``mont_mul_ref`` for CPU tensors (the rule of ``_ext.use_kernel``);
 ``pow_const`` (and so ``inv`` and ``batch_inv``'s inversion) is K1's chain
 ``mont_pow``, one launch, for CUDA tensors and ``mont_pow_ref`` for CPU ones.
-Both kernels come at L = 16 limbs (BN254) and L = 8 (M128: ``mont_mul_l8``,
-``mont_pow_l8``, ``_ext.kernel_name``); a CUDA tensor of any other field
-raises.
+Both kernels come at L = 16 limbs (BN254), L = 8 (M128: ``mont_mul_l8``,
+``mont_pow_l8``) and L = 4 (M64: ``mont_mul_l4``, ``mont_pow_l4``), picked by
+``_ext.kernel_name``; a CUDA tensor of any other field raises.  The plain
+versions hold at every L: at L = 4 the Montgomery sum T < 2p passes R = 2^64
+(M64 > R / 2), and ``_carry`` returns that bit as the carry-out that
+``_cond_sub_p`` takes.
 Add, sub and the rest were plain array code in the reference too and stay
 plain here.
 The constructors (``from_int``, ``const``, ``zeros``, ``one_mont``) make their

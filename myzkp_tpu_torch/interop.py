@@ -2,9 +2,9 @@
 
 The JAX package holds field elements as ``(L, *batch)`` uint32 arrays of
 16-bit limbs; the port holds the same integers as int32 tensors.  These
-functions move limb arrays, G1 and G2 point batches (3 or 6 coordinate
-arrays, in the order of ``weierstrass.leaves``), ``Fp`` / ``Poly`` values,
-``MPoly`` dicts, a KZG key's powers, a FastStark's preprocessed state and
+functions move limb arrays, extension-field batches, G1 and G2 point batches
+(3 or 6 coordinate arrays, in the order of ``weierstrass.leaves``), ``Fp`` /
+``Poly`` values, ``MPoly`` dicts, a KZG key's powers, a FastStark's preprocessed state and
 sparse circuits across, and read
 what the JAX side writes: the fixed-base
 tables (``curves/fixed_base.py``, keys ``l0..l2`` or ``l0..l5``), the bench's
@@ -48,6 +48,15 @@ def limbs_from_numpy(a, device=None) -> torch.Tensor:
 def limbs_to_numpy(t: torch.Tensor) -> np.ndarray:
     """int32 limb tensor -> uint32 numpy array, the JAX package's layout."""
     return t.detach().cpu().numpy().astype(np.uint32)
+
+
+def efield_from_numpy(es, arr, device=None) -> torch.Tensor:
+    """The JAX package's extension-field batch, a (k, L, *batch) uint32
+    array of Montgomery limbs, as the port's tensor (``fields/efield.py``)."""
+    a = np.asarray(arr)
+    if a.shape[:2] != (es.k, es.base.L):
+        raise ValueError(f"shape {a.shape}: expected (k, L) = {(es.k, es.base.L)} first")
+    return limbs_from_numpy(a, device)
 
 
 def point_from_numpy(arrays, device=None) -> Point:

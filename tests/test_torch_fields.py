@@ -168,8 +168,8 @@ def test_build_definitions_must_name_a_source_constant(defines, known):
 
 def test_port_imports_no_jax():
     """Importing every module of the port, those of the NTT, quotient,
-    Groth16, KZG / Gemini and sumcheck slices included, leaves jax and the
-    JAX package out of sys.modules."""
+    Groth16, KZG / Gemini, sumcheck, extension-field and DAS slices
+    included, leaves jax and the JAX package out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import myzkp_tpu_torch as m\n"
@@ -190,6 +190,8 @@ def test_port_imports_no_jax():
               "snark.groth16",  # Groth16 on the sparse QAP
               "commit.kzg", "commit.gemini",  # KZG and Gemini on ops.poly
               "utils.fiat_shamir", "stark.fri", "ops.mpoly",  # sumcheck
-              "protocols.sumcheck", "protocols.sumcheck_tpu"}
+              "protocols.sumcheck", "protocols.sumcheck_tpu",
+              "fields.efield", "codes.reedsolomon",  # extension fields, RS
+              "das.celestia", "das.avail", "das.eigenda", "das.cli"}  # DAS
     assert {f"myzkp_tpu_torch.{m}" for m in slices} <= loaded
     assert len(loaded) >= 24

@@ -75,19 +75,25 @@ def test_specs_and_roots_match_reference():
 
 
 def test_field_consts_take_both_widths():
-    """The kernels' constants at L = 8 (four words, p > R / 2 allowed) and
-    L = 16; any other width raises, M64 (L = 4) included."""
-    c = _ext.field_consts(SPEC)
-    assert sum(w << (32 * k) for k, w in enumerate(c.p)) == M128
-    assert sum(w << (32 * k) for k, w in enumerate(c.one)) == R % M128
-    assert (c.n0 * M128) % (1 << 32) == (1 << 32) - 1
+    """The kernels' constants at L = 8 and L = 4 (four and two words, p > R / 2
+    allowed: M128, M64) and L = 16; at L = 4 only K1 and its chain have an
+    instance; any other width raises, a toy prime (L = 1) included."""
+    for spec, p, words in ((SPEC, M128, 4), (tspec.m64_spec(), M64, 2)):
+        c = _ext.field_consts(spec)
+        assert len(c.p) == len(c.one) == words
+        assert sum(w << (32 * k) for k, w in enumerate(c.p)) == p
+        assert sum(w << (32 * k) for k, w in enumerate(c.one)) == (1 << (32 * words)) % p
+        assert (c.n0 * p) % (1 << 32) == (1 << 32) - 1
     assert _ext.kernel_name("mont_mul", SPEC) == "mont_mul_l8"
+    assert _ext.kernel_name("mont_mul", tspec.m64_spec()) == "mont_mul_l4"
+    assert _ext.kernel_name("mont_pow", tspec.m64_spec()) == "mont_pow_l4"
     assert _ext.kernel_name("ntt_leaf", tspec.bn254_r_spec()) == "ntt_leaf"
-    for spec in (tspec.m64_spec(), tspec.FieldSpec.make(17)):
-        with pytest.raises(ValueError):
-            _ext.field_consts(spec)
-        with pytest.raises(ValueError):
-            _ext.kernel_name("mont_mul", spec)
+    with pytest.raises(ValueError):
+        _ext.kernel_name("butterfly", tspec.m64_spec())
+    with pytest.raises(ValueError):
+        _ext.field_consts(tspec.FieldSpec.make(17))
+    with pytest.raises(ValueError):
+        _ext.kernel_name("mont_mul", tspec.FieldSpec.make(17))
 
 
 def test_mont_mul_ref_m128_matches_pallas_interpret():
