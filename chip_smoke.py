@@ -264,12 +264,17 @@ MIX_WIDE = 1 << 22  # K9 at a fixed-base tree level's width (K2's timed shape)
 # 1.98 GHz.  A 256-bit Montgomery product (CIOS over eight 32-bit words) is
 # 264 of them: 64 wide products a*b and 64 m*p at two each, plus 8 for m; a
 # 128-bit one (M128, four words) 68: 16 and 16 at two each, plus 4; a 64-bit
-# one (M64, two words) 18: 4 and 4 at two each, plus 2.
+# one (M64, two words) 18: 4 and 4 at two each, plus 2.  K17 sums its
+# products unreduced (csrc/poly.cu's WideSum): a product is the 2 N^2
+# multiply-adds of a b at N words, and one reduction of (N + 1) 2N serves a
+# sum of up to B = 64 of them: 32 + 40 / 64 at M128, 128 + 144 / 64 at BN254.
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 132 * 64 * 1.98e9
 IMAD_PER_MONT = 264
 IMAD_PER_MONT4 = 68
 IMAD_PER_MONT2 = 18
+IMAD_PER_DIV = 2 * 8 * 8 + 2 * 8 * 9 / 64
+IMAD_PER_DIV4 = 2 * 4 * 4 + 2 * 4 * 5 / 64
 LIMB_BYTES = 64  # one element at the tensor interface: 16 int32 limbs
 LIMB_BYTES4 = 32  # an M128 element: 8 int32 limbs
 LIMB_BYTES2 = 16  # an M64 element: 4 int32 limbs
@@ -325,7 +330,7 @@ def graph_time_ms(fn, reps: int) -> float:
     return ms
 
 
-def bound(nbytes: float, mont_products: float, imad: int = IMAD_PER_MONT) -> dict:
+def bound(nbytes: float, mont_products: float, imad: float = IMAD_PER_MONT) -> dict:
     """The least time the card could take: bytes at the memory rate against
     Montgomery products (``imad`` multiply-adds each) at the integer
     multiply rate, whichever is longer."""
@@ -409,9 +414,9 @@ def sass_counts(lib) -> dict:
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = next((k for k in SASS_KERNELS if k in m.group(1)), None)
-            arg = re.search(r"kernelILi(\d+)E", m.group(1))
-            if name and arg:  # a template instantiation: kernel<R>
-                name = f"{name}<{arg.group(1)}>"
+            arg = re.search(r"kernelILi(\d+)E(?:Lb(\d)E)?", m.group(1))
+            if name and arg:  # a template instantiation: kernel<R> or kernel<N,flag>
+                name = f"{name}<{','.join(g for g in arg.groups() if g is not None)}>"
             if name:
                 out[name] = dict.fromkeys(("total",) + SASS_CLASSES, 0)
             continue
@@ -429,8 +434,9 @@ SASS_KERNELS = ("padd_seg_level_kernel", "padd2_seg_level_kernel", "padd_mixed_k
                 "padd_mixed2_kernel", "padd2_kernel", "pdbl2_kernel", "padd_kernel",
                 "pdbl_kernel", "mont_mul_kernel", "mont_pow_kernel", "ntt_leaf_kernel",
                 "butterfly_kernel", "mont_mul_l8_kernel", "mont_pow_l8_kernel",
-                "ntt_leaf_l8_kernel", "butterfly_l8_kernel", "long_division_kernel",
-                "long_division_l8_kernel", "mont_mul_l4_kernel", "mont_pow_l4_kernel")
+                "ntt_leaf_l8_kernel", "butterfly_l8_kernel", "div_rows_kernel",
+                "div_chunks_kernel", "div_block_kernel", "mont_mul_l4_kernel",
+                "mont_pow_l4_kernel")
 
 
 def random_fe(rng: np.random.Generator, n: int, dev) -> torch.Tensor:
@@ -2232,9 +2238,18 @@ def phase_mixed_add(dev, results: dict) -> None:
         got = to_host(wst.point_map(lambda c: c[:, E:E + 64], out[k]))
         if got != [want(j) for j in range(E, E + 64)]:
             raise AssertionError(f"mixed add {k}: disagrees with the host group law")
+    # K9 at a ragged width (not a multiple of a block, a warp or a lane group)
+    nt = m - 5
+    Pr = wst.point_map(lambda c: c[:, :nt].contiguous(), P1)
+    qxr, qyr, hr = qx1[:, :nt].contiguous(), qy1[:, :nt].contiguous(), h[:nt].contiguous()
+    for hh in (None, hr):
+        err["padd_mixed"] = max(err["padd_mixed"], check_equal(
+            f"padd_mixed [{nt} lanes{', h' if hh is not None else ''}]",
+            list(ck.padd_mixed(spec, b31, Pr, qxr, qyr, hh)),
+            list(ck.padd_mixed_ref(spec, b31, Pr, qxr, qyr, hh))))
     for k in ("padd_mixed", "padd_mixed2"):
         results[k] = {"max_abs_err": err[k], "launches": counts[k]}
-    log(f"# mixed add: K9 at {m} lanes (with and without h) and {MIX_WIDE} points, "
+    log(f"# mixed add: K9 at {m} and {nt} lanes (with and without h) and {MIX_WIDE} points, "
         f"K10 at {m} lanes (with and without h), through weierstrass.padd_mixed(_sel); "
         f"P = O, P = lam Q, P = -Q, and {E1} / {E2} lanes of 0, 1, q-1, R mod q in every "
         f"c0 and c1: exact vs plain and vs the complete add K2 / K7 of (qx, qy, one); "
@@ -2807,6 +2822,36 @@ STARK_STAGES = (  # (owner module, attribute, stage): the prove's split
     ("fast_stark", "FastStark._open", "openings"),
 )
 DIV_DIRECT = 512  # K17 held to its plain loop up to this many steps a row
+# The (rows, na, bd) of K17's 17 launches in a FastStark prove over a
+# 2^20-point FRI domain: the remainder tree of the trace interpolation
+# (2^(16-k) rows of 2^(k+1) coefficients by nodes of degree 2^k, k = 15 ... 0)
+# and the boundary quotient (65,536 coefficients by a quadratic)
+STARK_DIV_SHAPES = tuple((1 << (16 - k), 1 << (k + 1), 1 << k)
+                         for k in range(15, -1, -1)) + ((1, 1 << 16, 2),)
+# K17 against its plain version across every edge of its launch plan
+# (csrc/div_plan.cuh) on the H100: (rows, na, bd, what); b broadcast where
+# rows are marked so, a zero leading coefficient on row 1 where marked
+DIV_EDGE_SHAPES = (
+    (3, 41, 1, "bd = 1, a thread a row"),
+    (4, 16, 8, "bd = 8, 8 steps, a thread a row"),
+    (2, 300, 1, "bd = 1, chunks, the last one partial"),
+    (1, 1000, 2, "the boundary quotient's bd, chunks"),
+    (2, 81, 8, "bd = 8, 73 steps: chunks"),
+    (5, 72, 9, "bd = 9: blocks, B - 1 steps, a grid of 2 blocks a row"),
+    (5, 73, 9, "B steps, bd < B"),
+    (5, 74, 9, "B + 1 steps: a block of one"),
+    (3, 171, 40, "2B + 3 steps"),
+    (80, 60, 20, "one block a row (80 rows)"),
+    (6, 200, 100, "na = 2 bd, a grid of 4, zero lead"),
+    (4, 150, 70, "b broadcast, zero lead, a grid of 4"),
+    (8, 1200, 600, "a grid of 16 blocks a row"),
+    (1, 4200, 2100, "a grid of 64 blocks"),
+    (3, 200000, 199950, "long rows, zero lead: at BN254 a grid of 64 blocks a row in two "
+                        "launches (2 + 1 rows)"),
+    (1, 1700000, 1699990, "a row past the blocks' shared memory: the window in global "
+                          "scratch"),
+)
+DIV_EDGE_RANDOM = 4099  # random values of a long edge shape, tiled to its length
 
 
 def random_fe4(rng: random.Random, n: int, dev, spec) -> torch.Tensor:
@@ -2904,6 +2949,56 @@ class recorder:
 
     def __exit__(self, *exc):
         setattr(self.owner, self.name, self.fn)
+
+
+def bitcheck_div_edges(dev, log_it: bool = True) -> int:
+    """K17 at DIV_EDGE_SHAPES, both instances (M128, BN254's r), against
+    long_division_ref bit for bit: the word edges lead a and b (past
+    DIV_EDGE_RANDOM values the random ones repeat), marked rows broadcast b
+    or zero its leading coefficient (q = 0, r = a's low bd).  With log_it
+    the plans must cover every regime: a thread a row, chunks, blocks at G =
+    1 and G >= 2, a grid in several launches, the window in global scratch."""
+    from myzkp_tpu_torch.fields import limb
+    from myzkp_tpu_torch.fields.spec import bn254_r_spec, m128_spec
+    from myzkp_tpu_torch.ops import poly
+
+    def values(spec, n, edges):
+        vals = edges + [rng.randrange(spec.p) for _ in range(min(n, DIV_EDGE_RANDOM))]
+        t = limb.from_int(spec, vals[:n], dev)
+        return t.repeat(1, -(-n // t.shape[1]))[:, :n].contiguous()
+
+    rng = random.Random(SEED + 133)
+    seen, err = set(), 0
+    for spec in (m128_spec(), bn254_r_spec()):
+        words = spec.L // 2
+        edges = word_edges(spec.p, words)
+        for rows, na, bd, what in DIV_EDGE_SHAPES:
+            a = values(spec, rows * na, edges).reshape(spec.L, rows, na)
+            brows = 1 if "broadcast" in what else rows
+            b = values(spec, brows * (bd + 1), edges).reshape(spec.L, brows, bd + 1)
+            if "zero lead" in what:
+                b[:, min(1, brows - 1), bd] = 0
+            if brows == 1:
+                b = b[:, 0]
+            plan = poly.long_division_plan(rows, na, bd, words, dev)
+            mode = plan["mode"]
+            if mode == "blocks":
+                seen.add("G = 1" if plan["p2"] == 1 else "G >= 2")
+                seen |= {"several launches"} if plan["per"] < rows else set()
+                seen |= {"global window"} if plan["global_window"] else set()
+            seen.add(mode)
+            err = max(err, check_equal(f"long_division L = {spec.L} {(rows, na, bd)}",
+                                       list(poly.long_division_cuda(spec, a, b, bd)),
+                                       list(poly.long_division_ref(spec, a, b, bd))))
+    if log_it:
+        want = {"rows", "chunks", "blocks", "G = 1", "G >= 2", "several launches",
+                "global window"}
+        if seen != want:
+            raise AssertionError(f"K17's edge shapes missed {sorted(want - seen)}")
+        log(f"# bitcheck long_division (M128 and BN254's r) at {len(DIV_EDGE_SHAPES)} "
+            f"regime edges ({'; '.join(f'{s[:3]}: {s[3]}' for s in DIV_EDGE_SHAPES)}), "
+            f"word edges leading a and b, regimes {sorted(seen)}: exact vs plain")
+    return err
 
 
 def bitcheck_stark_shapes(spec, k5, k6, k17, dev, results: dict) -> None:
@@ -3013,12 +3108,40 @@ def stark_cases(spec, k5, k6, k17, dev) -> dict:
                              f"of the prove",
                              lambda: poly.long_division_cuda(spec, da, db, bd),
                              lambda: poly.long_division_ref(spec, da, db, bd), 3, 1,
-                             bound(div_bytes, div_products, IMAD_PER_MONT4)),
+                             bound(div_bytes, div_products, IMAD_PER_DIV4)),
         "long_division": (f"(rows, na, bd) = {(rows, na, bd)} over F_r (on no path)",
                           lambda: poly.long_division_cuda(r_spec, ba, bb, bd),
                           lambda: poly.long_division_ref(r_spec, ba, bb, bd), 3, 1,
-                          bound(2 * div_bytes, div_products)),
+                          bound(2 * div_bytes, div_products, IMAD_PER_DIV)),
     }
+
+
+def time_div_shapes(spec, dev) -> dict:
+    """K17 (M128) at each of STARK_DIV_SHAPES on random inputs, with its plan,
+    time (graph_time_ms of the wrapper's launches, the leading coefficients'
+    inversion included) and bound: a and b read, q and r written, against
+    (na - bd)(bd + 1) products a row at IMAD_PER_DIV4; and the sums."""
+    from myzkp_tpu_torch.ops import poly
+
+    rng = random.Random(SEED + 134)
+    out, total, total_bound = {}, 0.0, 0.0
+    for rows, na, bd in STARK_DIV_SHAPES:
+        a = random_fe4(rng, rows * na, dev, spec).reshape(8, rows, na)
+        b = random_fe4(rng, rows * (bd + 1), dev, spec).reshape(8, rows, bd + 1)
+        ms = graph_time_ms(lambda: poly.long_division_cuda(spec, a, b, bd), 2)
+        bnd = bound(rows * (2 * na + 1) * LIMB_BYTES4, rows * (na - bd) * (bd + 1),
+                    IMAD_PER_DIV4)
+        plan = poly.long_division_plan(rows, na, bd, 4, dev)
+        out[f"{rows}x{na}x{bd}"] = {"ms": ms, "plan": plan, **bnd}
+        total += ms
+        total_bound += bnd["bound_ms"]
+        shape = ", ".join(str(plan[k]) for k in ("p1", "p2", "T", "S", "per"))
+        log(f"# time long_division_l8 {(rows, na, bd)} {plan['mode']} ({shape}): {ms:.4f} ms, "
+            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    log(f"# time long_division_l8 at the prove's {len(STARK_DIV_SHAPES)} shapes: sum "
+        f"{total:.4f} ms against a bound of {total_bound:.4f} ms")
+    out["sum_ms"], out["sum_bound_ms"] = total, total_bound
+    return out
 
 
 def rescue_exactness(dev) -> dict:
@@ -3151,9 +3274,16 @@ def phase_stark(dev, results: dict) -> None:
     log(f"# stark prove launches: {json.dumps(counts)}; K5 {counts['butterfly_l8']} "
         f"(under {K5_STARK_LAUNCHES})")
 
+    if set(k17.calls) != set(STARK_DIV_SHAPES):
+        raise AssertionError(f"FastStark prove: K17 at {sorted(k17.calls)}, not "
+                             f"STARK_DIV_SHAPES")
     bitcheck_stark_shapes(spec, k5.calls, k6.calls, k17.calls, dev, results)
-    results["long_division"]["max_abs_err"] = 0
+    err = bitcheck_div_edges(dev)
+    results["long_division"]["max_abs_err"] = err
+    results["long_division_l8"]["max_abs_err"] = max(
+        results["long_division_l8"]["max_abs_err"], err)
     time_cases(stark_cases(spec, k5.calls, k6.calls, k17.calls, dev), results)
+    k17_shapes = time_div_shapes(spec, dev)
     for k in results:
         if not k.startswith("_"):
             results[k]["stark_launches"] = counts.get(k, 0)
@@ -3162,7 +3292,7 @@ def phase_stark(dev, results: dict) -> None:
     secs["phase"] = time.perf_counter() - t_phase
     results["_stark"] = {"card": smi, "prove_median": med, "reps": reps, "seconds": secs,
                          "launches": counts, "hash_batch_ms": hb_ms,
-                         "hash_batch_reps_ms": hb_reps}
+                         "hash_batch_reps_ms": hb_reps, "k17_shapes": k17_shapes}
     log(f"# stark phase {secs['phase']:.1f} s")
 
 

@@ -24,6 +24,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -74,7 +75,8 @@ _SIGNATURES = {
     "padd2_seg_level": (_P,) * 16 + (_I64,) * 3 + (_P, _P),
     "gather_planes": (_P, _P, ctypes.c_int, _P, _I64, ctypes.c_int, ctypes.c_int, _P),
     "scatter_rows": (_P,) * 7 + (ctypes.c_int, _P, _I64, ctypes.c_int, ctypes.c_int, _P),
-    "long_division": (_P,) * 6 + (_I64,) * 3 + (_P, _P),
+    "long_division": (_P,) * 5 + (_I64,) * 3 + (_P, _P),
+    "long_division_plan": (_I64,) * 4 + (_P,),  # a query, not a kernel: launches nothing
 }
 _SIGNATURES.update({f"{k}_l8": _SIGNATURES[k] for k in FIELD_KERNELS})
 _SIGNATURES.update({f"{k}_l4": _SIGNATURES[k] for k in L4_KERNELS})
@@ -144,9 +146,18 @@ def defined(name: str, default: int) -> int:
 
 
 def _sources_text(src: Path) -> bytes:
-    """A source and every header, as one byte string."""
-    return src.read_bytes() + b"".join(
-        f.name.encode() + f.read_bytes() for f in sorted(CSRC.glob("*.cuh")))
+    """A source and every csrc header it includes, directly or through another
+    header, as one byte string: a definition that only another source's
+    header mentions does not rebuild this source."""
+    text = src.read_bytes()
+    headers, todo = set(), [text]
+    while todo:
+        for name in re.findall(rb'#include "([^"]+)"', todo.pop()):
+            f = CSRC / name.decode()
+            if f not in headers and f.exists():
+                headers.add(f)
+                todo.append(f.read_bytes())
+    return text + b"".join(f.name.encode() + f.read_bytes() for f in sorted(headers))
 
 
 def _mentioned(defines, text: bytes) -> tuple[str, ...]:

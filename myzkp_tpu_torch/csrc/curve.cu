@@ -22,10 +22,12 @@
 // the mask at the store: no divergent early exit.  Its cost is the code: the
 // 14 products fully unrolled are about 9,000 SASS instructions, which ran at
 // 1.7x K9's time for 1.1x its instructions, so its body unrolls 4 of each
-// product's 8 rows (kUnroll, field.cuh's fe_mul_u).  K9 runs one thread a
-// point with the whole formula in registers; the mixed add reads 5
-// coordinates instead of 6 and does 13 products; where its mask is set it
-// writes (qx, qy, R mod q) without reading P.
+// product's 8 rows (kUnroll, field.cuh's fe_mul_u).  K9 (the mixed add reads
+// 5 coordinates instead of 6 and does 13 products) runs on the carry chains
+// (group.cuh's FeC: fe_mul_cc, about 290 instructions a product against
+// fe_mul_u<8>'s 600), one thread a point with the whole formula in
+// registers (K10's lane pair and K3's lane quad ran slower: PERF.md, row 9).
+// Where its mask is set it writes (qx, qy, R mod q) without reading P.
 //
 // K3: the prover calls it on 1 to 16 points (Horner's and the window sums'
 // chains of c doublings, the ladders' 255 bases), one warp on one SM, where
@@ -191,6 +193,8 @@ __global__ void __launch_bounds__(128)
   if (store && x3 != nullptr) store_point(x3, y3, z3, n, i, p);
 }
 
+// K9: one thread a point, group.cuh's padd_mixed over FeC.  Where the mask
+// is set the output is (qx, qy, R mod q), and P is not read.
 __global__ void __launch_bounds__(128)
     padd_mixed_kernel(const int32_t* __restrict__ x1,
                       const int32_t* __restrict__ y1,
@@ -201,17 +205,20 @@ __global__ void __launch_bounds__(128)
                       const int32_t* __restrict__ b3, int32_t* __restrict__ x3,
                       int32_t* __restrict__ y3, int32_t* __restrict__ z3,
                       int64_t n, FieldConsts c) {
-  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  using myzkp::FeC;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Fe qxv = myzkp::load_planes(qx, n, i);
-  Fe qyv = myzkp::load_planes(qy, n, i);
+  const Fe qxv = myzkp::load_planes(qx, n, i);
+  const Fe qyv = myzkp::load_planes(qy, n, i);
   if (h != nullptr && h[i]) {
     store_point(x3, y3, z3, n, i, Pt{qxv, qyv, myzkp::fe_one(c)});
     return;
   }
-  Pt p = load_point(x1, y1, z1, n, i);
-  Fe b3v = myzkp::load_planes(b3, 1, 0);
-  store_point(x3, y3, z3, n, i, myzkp::padd_mixed(p, qxv, qyv, b3v, c));
+  const Pt p = load_point(x1, y1, z1, n, i);
+  const FeC b3v{myzkp::load_planes(b3, 1, 0)};
+  const myzkp::Point<FeC> out =
+      myzkp::padd_mixed(myzkp::Point<FeC>{{p.x}, {p.y}, {p.z}}, FeC{qxv}, FeC{qyv}, b3v, c);
+  store_point(x3, y3, z3, n, i, Pt{out.x.v, out.y.v, out.z.v});
 }
 
 constexpr int kThreads = 128;

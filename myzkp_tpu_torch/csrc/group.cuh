@@ -3,8 +3,9 @@
 // for step as myzkp_tpu/curves/weierstrass.py writes them (padd :49-83,
 // Algorithm 7; padd_mixed :113-132, Algorithm 8; pdbl :147-173, Algorithm 9),
 // as templates over the element type, so that one formula text serves both
-// groups as in the reference.  Shared by curve.cu (K2, K3, K9), curve2.cu (K7,
-// K8, K10) and bucket_scan.cu (K4 and its G2 instance).
+// groups and every product and add (Fe, FeU, FeC, Fe2, Fe2pU) as in the
+// reference.  Shared by curve.cu (K2, K3, K9), curve2.cu (K7, K8, K10) and
+// bucket_scan.cu (K4 and its G2 instance).
 #pragma once
 
 #include "fq2.cuh"
@@ -61,6 +62,22 @@ __device__ __forceinline__ FeU<U> sub(const FeU<U>& a, const FeU<U>& b, const Fi
 template <int U>
 __device__ __forceinline__ FeU<U> mul(const FeU<U>& a, const FeU<U>& b, const FieldConsts& c) {
   return FeU<U>{fe_mul_u<U>(a.v, b.v, c)};
+}
+
+// An F_q element on the carry chains (field.cuh): adds and subs by
+// fe_add_cc / fe_sub_cc, products by fe_mul_cc (CIOS on PTX carry flags).
+// K9 runs padd_mixed over it.
+struct FeC {
+  Fe v;
+};
+__device__ __forceinline__ FeC add(const FeC& a, const FeC& b, const FieldConsts& c) {
+  return FeC{fe_add_cc(a.v, b.v, c)};
+}
+__device__ __forceinline__ FeC sub(const FeC& a, const FeC& b, const FieldConsts& c) {
+  return FeC{fe_sub_cc(a.v, b.v, c)};
+}
+__device__ __forceinline__ FeC mul(const FeC& a, const FeC& b, const FieldConsts& c) {
+  return FeC{fe_mul_cc(a.v, b.v, c)};
 }
 
 template <class E>

@@ -10,13 +10,16 @@ sum; division by X - u is a suffix scan of log2(n) Hillis-Steele levels (one
 product and one add a level); division by prod_i (X - x_i) is one such scan
 per point.  The loop whose trip count grows with the number of points
 (``from_monomials``) stays a loop of vector steps.  The long division by a
-general divisor keeps the reference's na - bd steps, all in one launch of
-kernel K17 (csrc/poly.cu, ``long_division``) on the card; its plain version
-``long_division_ref`` runs them as a loop of vector steps.
+general divisor is one call of kernel K17 (csrc/poly.cu, ``long_division``)
+on the card, which takes a block of quotient coefficients a barrier, or runs a
+narrow divisor as a chunked recurrence (``long_division_plan``); its plain
+version ``long_division_ref`` runs the reference's na - bd steps as a loop of
+vector steps.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -249,10 +252,36 @@ def long_division_ref(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, bd: int
     return torch.stack(qs[::-1], dim=-1), rem[..., :bd]
 
 
+_K17_MODES = ("rows", "chunks", "blocks")
+
+
+def long_division_plan(rows: int, na: int, bd: int, words: int, device=None) -> dict:
+    """The launch plan K17 takes on ``device`` (default: the card) for rows
+    divisions of na coefficients by degree bd at ``words`` 32-bit words an
+    element, as csrc/div_plan.cuh's ``plan_division`` makes it from the
+    card's SM count and shared memory: ``mode`` ("rows": a thread a row;
+    "chunks": P chunks of Lc steps a row; "blocks": B coefficients a row
+    barrier on G blocks a row), ``p1`` (Lc or B), ``p2`` (P or G), ``T``,
+    ``S``, ``per`` (rows a launch), ``global_window``, ``smem`` and
+    ``scratch`` (bytes).  Launches nothing; raises where no plan exists."""
+    dev = _ext.resolve_device(device)
+    out = (ctypes.c_int64 * 9)()
+    with torch.cuda.device(dev):
+        err = _ext.library().myzkp_long_division_plan(rows, na, bd, words, out)
+    if err:
+        raise ValueError(f"K17 has no plan for {rows} rows of {na} coefficients at degree "
+                         f"{bd}, {words} words: CUDA error {err}")
+    keys = ("mode", "p1", "p2", "T", "S", "per", "global_window", "smem", "scratch")
+    plan = dict(zip(keys, out))
+    plan["mode"] = _K17_MODES[plan["mode"]]
+    return plan
+
+
 def long_division_cuda(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, bd: int):
     """Launch K17 (csrc/poly.cu, the instance of spec's width) on CUDA
     tensors, the contract of long_division_ref: the rows of a's batch dims in
-    one launch, b broadcast to them; the leading coefficients' inverses by
+    one call, b broadcast to them (the launcher plans its kernel and
+    launches: ``long_division_plan``); the leading coefficients' inverses by
     one launch of K1's chain (limb.inv)."""
     L, na = spec.L, a.shape[-1]
     if a.dtype != limb.I32 or b.dtype != limb.I32:
@@ -269,11 +298,10 @@ def long_division_cuda(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, bd: in
     lead = limb.inv(spec, b3[..., bd].contiguous())
     q = torch.empty((L, rows, na - bd), dtype=a.dtype, device=a.device)
     r = torch.empty((L, rows, bd), dtype=a.dtype, device=a.device)
-    work = torch.empty((rows, na, L // 2), dtype=a.dtype, device=a.device)  # the kernel's rem
     if rows:
         _ext.launch(_ext.kernel_name("long_division", spec), a.device, _ext.ptr(a3),
-                    _ext.ptr(b3), _ext.ptr(lead), _ext.ptr(q), _ext.ptr(r), _ext.ptr(work),
-                    rows, na, bd, _ext.consts_ptr(spec))
+                    _ext.ptr(b3), _ext.ptr(lead), _ext.ptr(q), _ext.ptr(r), rows, na, bd,
+                    _ext.consts_ptr(spec))
     return q.reshape((L,) + batch + (na - bd,)), r.reshape((L,) + batch + (bd,))
 
 

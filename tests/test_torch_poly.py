@@ -10,6 +10,11 @@ chain, K5).  The port evaluates and divides by log-depth formulations where
 the reference scans; the values are the same.
 """
 
+import ctypes
+import math
+import re
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +23,7 @@ from myzkp_tpu.fields.fp import Fp as JFp
 from myzkp_tpu.fields.spec import BN254_R, FieldSpec
 from myzkp_tpu.ops import ntt as jntt
 from myzkp_tpu.ops import poly as jpoly
-from myzkp_tpu_torch import interop
+from myzkp_tpu_torch import _ext, interop
 from myzkp_tpu_torch.commit import kzg
 from myzkp_tpu_torch.fields import spec as tspec
 from myzkp_tpu_torch.fields.fp import Fp
@@ -146,19 +151,188 @@ def _divisor(bd: int, seed: int, zero_lead: bool = False):
     return vals
 
 
-@pytest.mark.parametrize("bd,zero_lead", [(0, False), (1, False), (3, False), (5, False),
-                                          (2, True)])
-def test_poly_divmod_matches_reference(bd, zero_lead):
+def _k17_define(name: str) -> int:
+    """A design constant of K17 as csrc/div_plan.cuh defines it."""
+    text = (_ext.CSRC / "div_plan.cuh").read_text()
+    return int(re.search(rf"#define MYZKP_K17_{name} (\d+)", text).group(1))
+
+
+_B = _k17_define("B")  # K17's coefficients a barrier
+_NARROW = _k17_define("NARROW")  # bd at or below it: the recurrence kernels
+
+
+@pytest.mark.parametrize("bd,zero_lead,na,rows,bcast", [
+    pytest.param(0, False, 13, 0, False, id="0-False"),
+    pytest.param(1, False, 13, 0, False, id="1-False"),
+    pytest.param(3, False, 13, 0, False, id="3-False"),
+    pytest.param(5, False, 13, 0, False, id="5-False"),
+    pytest.param(2, True, 13, 0, False, id="2-True"),
+    # a miniature of each regime of K17 (csrc/div_plan.cuh)
+    pytest.param(1, False, 300, 0, False, id="bd1-chunks"),
+    pytest.param(2, False, 400, 2, False, id="bd2-chunks-rows"),
+    pytest.param(_NARROW + 1, False, _NARROW + _B, 0, False, id="steps-B-1"),
+    pytest.param(_NARROW + 1, False, _NARROW + 1 + _B, 0, False, id="steps-B"),
+    pytest.param(_NARROW + 1, False, _NARROW + 2 + _B, 0, False, id="steps-B+1"),
+    pytest.param(12, False, 12 + 2 * _B + 3, 0, False, id="steps-2B+3"),
+    pytest.param(40, False, 80, 0, False, id="na-2bd"),
+    pytest.param(12, False, 50, 3, True, id="rows-broadcast-b"),
+    pytest.param(12, True, 40, 3, False, id="rows-zero-lead"),
+])
+def test_poly_divmod_matches_reference(bd, zero_lead, na, rows, bcast):
     """Long division (and the scale at b_degree = 0), including a stated
     degree whose coefficient is 0: inv(0) = 0 gives q = 0 and r = a's low
-    coefficients, as the reference."""
-    ja, ta = _both(_ints((13,), 40 + bd))
-    jb, tb = _both(_divisor(bd, 50 + bd, zero_lead))
+    coefficients, as the reference; at a miniature of each of K17's regimes
+    (bd = 1, 2 with many more steps than B; B - 1, B, B + 1 and 2B + 3 steps;
+    na = 2 bd; rows dividing by one broadcast b or by their own, one of them
+    with a zero leading coefficient)."""
+    batch = (rows,) if rows else ()
+    ja, ta = _both(_ints(batch + (na,), 40 + bd + na))
+    if bcast:
+        vals = _divisor(bd, 50 + bd + na)[None]
+    else:
+        vals = np.stack([_divisor(bd, 50 + bd + na + i, zero_lead and i == rows // 2)
+                         for i in range(max(rows, 1))])
+        vals = vals if rows else vals[0]
+    jb, tb = _both(vals)
     (tq, tr), (jq, jr) = tpoly.poly_divmod(ta, tb, bd), jpoly.poly_divmod(ja, jb, bd)
     _same(tq, jq)
     _same(tr, jr)
     if zero_lead:
-        assert not tq.to_int().any()
+        assert not tq[rows // 2].to_int().any() if rows else not tq.to_int().any()
+
+
+_STARK_DIV_SHAPES = [(1 << (16 - k), 1 << (k + 1), 1 << k) for k in range(15, -1, -1)]
+_H100 = (132, 227 * 1024)  # SMs and shared bytes a block
+_PLAN_KEYS = ("mode", "p1", "p2", "T", "S", "per", "global_window", "smem", "scratch")
+_PLAN_SHIM = """
+#include "div_plan.cuh"
+extern "C" int plan(int64_t rows, int64_t na, int64_t bd, int64_t words, int64_t sms,
+                    int64_t smem, int64_t* out) {
+  myzkp_div::Plan p;
+  if (!myzkp_div::plan_division(rows, na, bd, words, sms, smem, &p)) return 1;
+  const int64_t v[9] = {p.mode, p.p1, p.p2, p.T, p.S, p.per, p.global_window, p.smem,
+                        p.scratch};
+  for (int k = 0; k < 9; ++k) out[k] = v[k];
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def k17_plan(tmp_path_factory):
+    """csrc/div_plan.cuh's plan_division, built by g++ (it is host C++):
+    plan(rows, na, bd, words, (sms, smem)) -> dict, or None where the launcher
+    would refuse the call."""
+    d = tmp_path_factory.mktemp("k17_plan")
+    (d / "shim.cpp").write_text(_PLAN_SHIM)
+    subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(_ext.CSRC),
+                    "-o", str(d / "plan.so"), str(d / "shim.cpp")], check=True)
+    lib = ctypes.CDLL(str(d / "plan.so"))
+    lib.plan.argtypes = (ctypes.c_int64,) * 6 + (ctypes.c_void_p,)
+
+    def plan(rows, na, bd, words, card=_H100):
+        out = (ctypes.c_int64 * 9)()
+        if lib.plan(rows, na, bd, words, *card, out):
+            return None
+        p = dict(zip(_PLAN_KEYS, out))
+        p["mode"] = ("rows", "chunks", "blocks")[p["mode"]]
+        return p
+    return plan
+
+
+def _check_plan(p, rows, na, bd, words, sms, smem):
+    """The limits the kernels need: a thread a row up to 64 narrow steps;
+    chunks that cover the steps, the last one nonempty, with their response
+    threads in one block and omega, delta and H in its shared memory; blocks
+    of B = min(B, steps) coefficients, T a power of two from 32 to 512, G x
+    T x S slots that hold the row, its shared memory within the card's
+    (the window's slice unless it lies in global scratch, which it does only
+    where no G up to the SMs fits it), a grid's rows x G blocks all resident."""
+    steps, elem = na - bd, 4 * words
+    assert p["smem"] <= smem
+    if bd <= _NARROW:
+        assert p["mode"] == ("rows" if steps <= 64 else "chunks") and p["per"] == rows
+        if p["mode"] == "rows":
+            assert p["T"] in (32, 128)
+            return
+        lc, P = p["p1"], p["p2"]
+        assert (P - 1) * lc < steps <= P * lc and P + bd <= 512 and lc >= 16
+        assert p["T"] == -(-(P + bd) // 32) * 32
+        assert p["smem"] == (2 * P * bd + bd * bd) * elem
+        return
+    B, G, T, S = p["p1"], p["p2"], p["T"], p["S"]
+    assert p["mode"] == "blocks" and B == min(_B, steps)
+    assert T & (T - 1) == 0 and 32 <= T <= 512 and G & (G - 1) == 0 and G <= sms
+    assert S * T * G >= na
+    fixed = 3 * _B + T // 32 * (32 + _B)
+    window = (S * T + fixed) * elem
+    assert p["smem"] == (fixed * elem if p["global_window"] else window)
+    assert bool(p["global_window"]) == (window > smem)
+    if p["global_window"]:
+        assert 2 * G > sms
+    if G == 1:
+        assert p["per"] == rows and p["scratch"] == p["global_window"] * rows * S * T * elem
+    else:
+        assert p["per"] == min(rows, sms // G)
+        assert p["scratch"] == p["per"] * (2 * _B * elem + 4 + p["global_window"] * G * S * T
+                                            * elem)
+
+
+@pytest.mark.parametrize("rows,na,bd", _STARK_DIV_SHAPES + [
+    (1, 1 << 16, 2), (3, 41, 1), (2, 300, 1), (1, 1000, 2), (2, 81, 8), (5, 72, 9),
+    (5, 74, 9), (3, 171, 40), (6, 200, 100), (8, 1200, 600), (1, 4200, 2100),
+    (200, 1 << 16, 1 << 15), (1, 5000, 4000)])
+@pytest.mark.parametrize("words", [4, 8])
+def test_division_plan_keeps_the_kernel_limits(k17_plan, rows, na, bd, words):
+    """K17's launch plan (csrc/div_plan.cuh, the launcher's own code) on the
+    H100 keeps every limit of the kernel it picks (_check_plan)."""
+    _check_plan(k17_plan(rows, na, bd, words), rows, na, bd, words, *_H100)
+
+
+@pytest.mark.parametrize("sms,smem,rows,na,bd,words,what", [
+    (132, 227 * 1024, 1, 300_000, 8, 8, "chunks whose omega and delta fill shared memory"),
+    (132, 227 * 1024, 1, 1 << 24, 2, 4, "chunks far longer than sqrt(steps)"),
+    (132, 227 * 1024, 3, 200_000, 199_950, 8, "a grid in two launches (2 + 1 rows)"),
+    (132, 227 * 1024, 1, 700_000, 699_990, 8, "the window in global scratch"),
+    (132, 227 * 1024, 1, 1_700_000, 1_699_990, 4, "the window in global scratch"),
+    (132, 227 * 1024, 2, 1 << 24, 1 << 23, 8, "the window in global scratch, two launches"),
+    (4, 65536, 3, 3000, 2900, 4, "a small card: a grid of 2 in two launches"),
+    (1, 65536, 2, 3000, 2900, 8, "one SM: one block a row, the window in global scratch"),
+    (132, 4096, 2, 3000, 8, 8, "little shared memory: chunks of 748 steps"),
+])
+def test_division_plan_fits_any_row(k17_plan, sms, smem, rows, na, bd, words, what):
+    """Rows past what the blocks' shared memory holds, divisors of every
+    width and cards of other sizes all get a plan within the limits, the
+    one the description names."""
+    p = k17_plan(rows, na, bd, words, (sms, smem))
+    _check_plan(p, rows, na, bd, words, sms, smem)
+    assert ("global scratch" in what) == bool(p["global_window"])
+    assert ("two launches" in what) == (p["per"] == -(-rows // 2) < rows)
+    if "chunks" in what:
+        assert p["mode"] == "chunks" and p["p1"] > math.isqrt(na - bd) + 1
+
+
+def test_division_plan_refuses_what_no_kernel_takes(k17_plan):
+    """Degenerate sizes, and a card too small for even the chunks' response
+    window, get no plan: the launcher raises."""
+    assert k17_plan(1, 10, 0, 4) is None and k17_plan(1, 10, 10, 4) is None
+    assert k17_plan(0, 10, 3, 4) is None
+    assert k17_plan(1, 1000, 8, 8, (132, 2048)) is None
+
+
+def test_division_plan_spreads_the_prove_over_the_card(k17_plan):
+    """At the prove's shapes the top levels of the remainder tree take most of
+    the card (rows x G of 128), the next level one block a row, the low
+    levels and the boundary quotient the recurrence kernels."""
+    plans = [k17_plan(*s, 4) for s in _STARK_DIV_SHAPES]
+    assert all(p["mode"] == "blocks" and p["p2"] > 1 for p in plans[:6])
+    assert (plans[6]["mode"], plans[6]["p1"], plans[6]["p2"]) == ("blocks", 64, 1)
+    assert [s[0] * p["p2"] for s, p in zip(_STARK_DIV_SHAPES[:7], plans)] == [128] * 6 + [128]
+    assert all(p["per"] == s[0] and not p["global_window"]
+               for s, p in zip(_STARK_DIV_SHAPES, plans))
+    assert [p["mode"] for p in plans[-4:]] == ["rows"] * 4
+    p = k17_plan(1, 1 << 16, 2, 4)
+    assert (p["mode"], p["p1"], p["p2"]) == ("chunks", 256, 256)
 
 
 def test_poly_divmod_pads_a_short_dividend():

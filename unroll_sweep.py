@@ -4,14 +4,15 @@ one GPU.
 
 Run from the repository root:
 
-    python3 unroll_sweep.py [add] [dbl] [mont] [leaf] [ntt] [mixed] [--parent DIR]
+    python3 unroll_sweep.py [add] [dbl] [mont] [leaf] [ntt] [mixed] [div] [--parent DIR]
 
-The arguments name the families of variants to build and time (all six if
+The arguments name the families of variants to build and time (all seven if
 none is given).  With --parent DIR (a checkout of an earlier commit, for
-example unpacked with `git archive` into an ignored directory), the ntt and
-mixed families also time DIR's package (its K5 and K10 through the same
-entry points, built from DIR's sources into DIR's own build directory),
-first and last, around this tree's variants: parent, variants, parent.
+example unpacked with `git archive` into an ignored directory), the ntt,
+mixed and div families also time DIR's package (its K5, K9, K10 and K17
+through the same entry points, built from DIR's sources into DIR's own build
+directory), first and last, around this tree's variants: parent, variants,
+parent.
 
 The constants are the rows of the Montgomery product unrolled in the code of
 K2 and the G1 level (MYZKP_K2_UNROLL, csrc/curve.cu), of the G2 lane pair's
@@ -57,10 +58,18 @@ element (e = p - 2) and on 4,096 (alpha^-1); K6 at (1, 128, 8,192), the top
 leaf of the FastStark prove's 2^20-point coset NTTs; K5 over every Stockham
 transform one FastStark prove at 65,528 cycles runs (recorded from a prove
 first), summed with their counts.  The
-mixed variants (csrc/curve2.cu) are K10 at MYZKP_K10_UNROLL = 0 (the carry
-chains), 1, 2, 4, 8; each times K10 at 32,768 lanes with its mask on 1 lane
-in 32 and at 2^20 lanes without, and K7 on the first inputs with Q =
-(qx, qy, one).  Every variant is held to the plain versions bit for bit.
+mixed variants are K10 (csrc/curve2.cu) at MYZKP_K10_UNROLL = 0 (the carry
+chains, the tree), 1, 2, 4, 8; each times K10 at 32,768 lanes with its mask
+on 1 lane in 32 and at 2^20 lanes without, K7 on the first inputs with Q =
+(qx, qy, one), and K9 (csrc/curve.cu, the same in every variant) at
+4,194,304 points and at 32,768 lanes with its mask on 1 in 32.  The div
+variants (csrc/poly.cu) are K17 at other design constants (MYZKP_K17_B
+coefficients a barrier, MYZKP_K17_THREADS, the narrow threshold
+MYZKP_K17_NARROW); each times K17 at the 17 shapes of a FastStark prove over
+a 2^20-point FRI domain (chip_smoke.STARK_DIV_SHAPES) and their sum, each
+shape held bit for bit to the parent's kernel (else to a = q b + r), and
+holds K17 to its plain version at chip_smoke's regime edges at both
+widths.  Every variant is held to the plain versions bit for bit.
 The last line is a JSON object of every time.
 """
 
@@ -106,9 +115,16 @@ NTT_VARIANTS = {"tree": ()} | {
     f"k5_r{r}_mul{u}": (f"MYZKP_K5_RADIX={r}", f"MYZKP_K5_MUL={u}")
     for r in (2, 4, 8, 16, 32) for u in (0, 8)}
 MIXED_VARIANTS = {"tree": ()} | {
-    f"k10_unroll{u}": (f"MYZKP_K10_UNROLL={u}",) for u in (0, 1, 2, 4, 8)}
+    f"k10_unroll{u}": (f"MYZKP_K10_UNROLL={u}",) for u in (1, 2, 4, 8)}
+DIV_VARIANTS = {"tree": ()} | {
+    "k17_b32": ("MYZKP_K17_B=32",),
+    "k17_b128": ("MYZKP_K17_B=128",),
+    "k17_t256": ("MYZKP_K17_THREADS=256",),
+    "k17_narrow4": ("MYZKP_K17_NARROW=4",),
+}
 FAMILIES = {"add": ADD_VARIANTS, "dbl": DBL_VARIANTS, "mont": MONT_VARIANTS,
-            "leaf": LEAF_VARIANTS, "ntt": NTT_VARIANTS, "mixed": MIXED_VARIANTS}
+            "leaf": LEAF_VARIANTS, "ntt": NTT_VARIANTS, "mixed": MIXED_VARIANTS,
+            "div": DIV_VARIANTS}
 GROUP_KERNELS = ("padd_kernel", "padd_mixed_kernel", "padd_seg_level_kernel", "padd2_kernel",
                  "padd2_seg_level_kernel", "pdbl_kernel", "pdbl2_kernel")
 KERNELS = {"add": GROUP_KERNELS, "dbl": GROUP_KERNELS,
@@ -119,7 +135,10 @@ KERNELS = {"add": GROUP_KERNELS, "dbl": GROUP_KERNELS,
            "ntt": tuple(f"butterfly{w}_kernel<{e}>" for w in ("", "_l8")
                         for e in (2, 4, 8, 16, 32)),
            "mixed": ("padd_mixed2_kernel", "padd2_kernel", "pdbl2_kernel",
-                     "padd2_seg_level_kernel")}
+                     "padd2_seg_level_kernel", "padd_mixed_kernel"),
+           "div": tuple(k for n in (4, 8) for k in (
+               f"div_rows_kernel<{n}>", f"div_chunks_kernel<{n}>", f"div_block_kernel<{n},0>",
+               f"div_block_kernel<{n},1>"))}
 K2_WIDTHS = (1 << 15, 1 << 22)
 LANES = 1 << 15
 # (points, n, steps) of the chains: a Horner window and a ladder's bases, on
@@ -142,6 +161,7 @@ STARK_CYCLES = (1 << 16) - 8
 K5_TRANSFORMS = cs.STOCKHAM_TRANSFORMS + cs.FAST_MUL_TRANSFORMS[:1]
 K5_PASSES = K5_TRANSFORMS[1]
 MIXED_WIDTHS = (LANES, 1 << 20)  # K10 with the mask on 1 lane in 32, and without
+K9_WIDTHS = (1 << 22, LANES)  # K9 without the mask, and with it on 1 lane in 32
 
 
 def check(name: str, got, want) -> None:
@@ -180,7 +200,8 @@ def main(argv: list[str]) -> int:
     if parent_dir is not None:
         load_parent(parent_dir)
         parent = {k: importlib.import_module(f"parent_port.{k}") for k in
-                  ("_ext", "ops.ntt", "fields.spec", "curves.bn254", "curves.curve_kernels")}
+                  ("_ext", "ops.ntt", "ops.poly", "fields.spec", "curves.bn254",
+                   "curves.curve_kernels")}
         todo.append(lambda: parent["_ext"].build(()))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max(len(todo), 1)) as pool:
@@ -191,7 +212,8 @@ def main(argv: list[str]) -> int:
             print_build(f"{fam} {name}", _ext.library_path(defines), KERNELS[fam])
     if parent is not None:
         print_build("parent", parent["_ext"].library_path(()),
-                    GROUP_KERNELS + ("padd_mixed2_kernel", "butterfly_kernel"))
+                    GROUP_KERNELS + ("padd_mixed2_kernel", "butterfly_kernel",
+                                     "long_division_kernel", "long_division_l8_kernel"))
 
     dev = torch.device("cuda", 0)
     spec = bn254.q_spec()
@@ -214,6 +236,8 @@ def main(argv: list[str]) -> int:
         time_ntt(runs("ntt"), parent, rng, dev, times)
     if "mixed" in families:
         time_mixed(runs("mixed"), parent, rng, dev, times)
+    if "div" in families:
+        time_div(runs("div"), parent, rng, dev, times)
     _ext.use_defines(())
     cs.log(json.dumps({"sweep_ms": times}))
     return 0
@@ -221,14 +245,15 @@ def main(argv: list[str]) -> int:
 
 def print_build(label: str, lib, kernels) -> None:
     """ptxas's registers and spills and the SASS counts of kernels in lib
-    (a template instantiation named kernel<N>)."""
+    (a template instantiation named kernel<N> or kernel<N,flag>)."""
     fn = None
     for line in lib.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            arg = re.search(r"kernelILi(\d+)E", m.group(1))
+            arg = re.search(r"kernelILi(\d+)E(?:Lb(\d)E)?", m.group(1))
             name = next((k for k in kernels if k.split("<")[0] in m.group(1)), None)
-            fn = name and (f"{name.split('<')[0]}<{arg.group(1)}>" if arg else name)
+            args = arg and ",".join(g for g in arg.groups() if g is not None)
+            fn = name and (f"{name.split('<')[0]}<{args}>" if arg else name)
             fn = fn if fn in kernels else None
         elif fn and ("registers" in line or "spill" in line):
             cs.log(f"# {label} ptxas {fn}: {line.split(':', 1)[-1].strip()}")
@@ -437,14 +462,27 @@ def time_mixed(runs, parent, rng, dev, times) -> None:
     _, P, q, _, _ = cases[0]
     one = tuple(c.contiguous() for c in bn254.g2_ops().one((LANES,), dev))
     want7 = ck._leaves2(ck.padd2_ref(spec, b32, P, (*q, one), h))
+    b31 = bn254.g1_b3((), dev)
+    k9 = []
+    for n in K9_WIDTHS:
+        P1, q1 = tuple(cs.random_fe(rng, n, dev) for _ in range(3)), (
+            cs.random_fe(rng, n, dev), cs.random_fe(rng, n, dev))
+        h1 = h if n == LANES else None
+        k9.append((n, P1, q1, h1, ck.padd_mixed_ref(spec, b31, P1, *q1, h1)))
     for name, defines in runs:
         if name.startswith("parent"):
             mod = parent["curves.curve_kernels"]
             sp, b = parent["curves.bn254"].q_spec(), parent["curves.bn254"].g2_b3((), dev)
+            b1 = parent["curves.bn254"].g1_b3((), dev)
         else:
             _ext.use_defines(defines)
-            mod, sp, b = ck, spec, b32
+            mod, sp, b, b1 = ck, spec, b32, b31
         t, line = times[name], []
+        for n, P1, q1, h1, want in k9:
+            check(f"{name}: K9 at {n}", mod.padd_mixed(sp, b1, P1, *q1, h1), want)
+            t[f"k9_{n}"] = cs.graph_time_ms(lambda: mod.padd_mixed(sp, b1, P1, *q1, h1),
+                                            20 if n == LANES else 5)
+            line.append(f"K9 at {n}{' (mask)' if h1 is not None else ''} {t[f'k9_{n}']:.4f} ms")
         for n, P, q, hn, want in cases:
             check(f"{name}: K10 at {n}", ck._leaves2(mod.padd_mixed2(sp, b, P, *q, hn)), want)
             t[f"k10_{n}"] = cs.graph_time_ms(lambda: mod.padd_mixed2(sp, b, P, *q, hn),
@@ -456,6 +494,48 @@ def time_mixed(runs, parent, rng, dev, times) -> None:
         t["k7"] = cs.graph_time_ms(lambda: mod.padd2(sp, b, P, (*q, one), h), 20)
         line.append(f"K7 on the same inputs {t['k7']:.4f} ms")
         cs.log(f"# mixed {name}: " + ", ".join(line))
+
+
+def time_div(runs, parent, rng, dev, times) -> None:
+    """K17's variants (and the parent's K17) at the prove's 17 shapes, each
+    shape's (q, r) held to the parent's (else, for the first run, to a = q b
+    + r), the time of each shape (graph replay, two launches) and the sum;
+    each of this tree's variants also held to the plain version at
+    chip_smoke's regime edges, both widths.  A run named parent* goes
+    through the parent's modules."""
+    from myzkp_tpu_torch import _ext
+    from myzkp_tpu_torch.fields.fp import Fp
+    from myzkp_tpu_torch.ops import ntt, poly
+
+    mspec = m128_spec()
+    cases = [(shape, m128_fe(rng, shape[0] * shape[1], dev).reshape(8, *shape[:2]),
+              m128_fe(rng, shape[0] * (shape[2] + 1), dev).reshape(8, shape[0], shape[2] + 1))
+             for shape in cs.STARK_DIV_SHAPES]
+    wants = {}
+    for name, defines in runs:
+        if name.startswith("parent"):
+            mod, sp = parent["ops.poly"], parent["fields.spec"].m128_spec()
+        else:
+            _ext.use_defines(defines)
+            mod, sp = poly, mspec
+            cs.bitcheck_div_edges(dev, log_it=False)
+        t, total = times[name], 0.0
+        for (rows, na, bd), a, b in cases:
+            got = mod.long_division_cuda(sp, a, b, bd)
+            if (rows, na, bd) not in wants:
+                q, r = got
+                back = ntt.fast_multiply(Fp(mspec, q), Fp(mspec, b)) + Fp(mspec, r).pad_to(na)
+                if not torch.equal(back.mont, a):
+                    raise AssertionError(f"{name}: K17 {(rows, na, bd)}: a != q b + r")
+                wants[(rows, na, bd)] = got
+            check(f"{name}: K17 {(rows, na, bd)}", got, wants[(rows, na, bd)])
+            ms = cs.graph_time_ms(lambda: mod.long_division_cuda(sp, a, b, bd), 2)
+            t[f"k17_{rows}x{na}x{bd}"] = ms
+            total += ms
+        t["k17_sum"] = total
+        cs.log(f"# div {name}: " + ", ".join(
+            f"{shape} {t[f'k17_{shape[0]}x{shape[1]}x{shape[2]}']:.4f}"
+            for shape in cs.STARK_DIV_SHAPES) + f" ms; sum {total:.4f} ms")
 
 
 def time_adds(variants, spec, b3, b32, rng, dev, times) -> None:
