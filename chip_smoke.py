@@ -220,6 +220,29 @@ Phases, one output line each (or more), in order:
                another column's commitment rejected); EigenDA at 1,024
                bytes (8 chunks of 512, 5 samples verified, a changed y
                rejected); each stage timed, median of 3.
+ 15. dense     the dense R1CS / QAP (arith/r1cs.py, arith/qap.py) under
+               Pinocchio and Groth16, the host GT pairing and the tutorials,
+               and utils/ and the entry points, each stage in the port's
+               StageMetrics (its report printed): square_chain(2^12)
+               densified into three (4096, 4098) matrices, the root-of-unity
+               QAP: Pinocchio and Groth16 (1 public input) keys equal to the
+               sparse QAP's batch for batch and proofs point for point under
+               the same seeds, accepted, a wrong witness rejected, the proves'
+               launch counts, medians of 3 and peak memory; square_chain(2^9)
+               on the natural domain: Pinocchio accepted, a wrong witness
+               rejected, K17 launched in the prove at (1, 1023, 512) and that
+               call exact against long_division_ref, h(s) t(s) = ell(s) r(s) -
+               o(s) on the host; both domains at m = 2^4 on the card and on
+               the CPU plain versions, keys and proofs equal; the C++ pairing
+               equal to optimal_ate_pairing_ref and bilinear; both tutorial
+               ladders as tests/test_tutorial_protocols.py expects; the 2^12
+               keys saved and reloaded prove the same proof; msm_resumable
+               over 2^20 points in chunks of 2^18 stopped after 2 and resumed
+               equal to msm, its file removed; metrics.trace around a prove
+               writes a trace; python -m myzkp_tpu_torch.snark.cli 12 and
+               python -m myzkp_tpu_torch.protocols.sumcheck_cli (8 variables)
+               exit 0, snark.cli --mesh 4 is refused; K17 at (1, 1023, 512)
+               timed beside its plain version and bound.
 The build phase prints ptxas's registers and spills of every kernel and the
 static SASS instruction counts (cuobjdump -sass) of the curve kernels.
 Each path's launch counts are set to 0 just before it and read just after.
@@ -227,8 +250,10 @@ The line before the last is a JSON object with one entry per kernel (its
 "launches" from the proves (for the four-word kernels and K17, phase
 13's first FastStark prove), "kzg_launches" from phase 11's runs,
 "sumcheck_launches" from phase 12's, "stark_launches" from phase 13's prove,
-"das_launches" from phase 14's runs; for the two-word kernels "launches" are
-phase 14's efield runs); the last line is {"ok": true, "device": {...}}.
+"das_launches" from phase 14's runs, "dense_launches" from phase 15's three
+dense proves; for the two-word kernels "launches" are phase 14's efield runs,
+for K17's BN254 instance phase 15's natural-domain prove); the last line is
+{"ok": true, "device": {...}}.
 Any failure exits nonzero before it.
 Neither this script nor the port imports JAX.
 """
@@ -2641,17 +2666,11 @@ K1_SUMCHECK_LAUNCHES = 2000  # K1 + its chain in a table prove (a loop an elemen
 
 
 def demo_factors(spec, num_vars: int) -> list:
-    """The demo's factors: random multilinear MPolys of SC_TERMS terms."""
-    from myzkp_tpu_torch.ops.mpoly import MPoly
+    """The demo's factors (``protocols/sumcheck_cli.py``): SC_FACTORS random
+    multilinear MPolys of SC_TERMS terms from random.Random(SC_SEED)."""
+    from myzkp_tpu_torch.protocols import sumcheck_cli
 
-    rng = random.Random(SC_SEED)
-    out = []
-    for _ in range(SC_FACTORS):
-        d = {}
-        for _ in range(SC_TERMS):
-            d[tuple(rng.randint(0, 1) for _ in range(num_vars))] = rng.randrange(spec.p)
-        out.append(MPoly(spec, d))
-    return out
+    return sumcheck_cli.demo_factors(spec, num_vars, random.Random(SC_SEED))
 
 
 class split_timer:
@@ -3052,10 +3071,9 @@ def stark_cases(spec, k5, k6, k17, dev) -> dict:
     the coset scaling (2^20 x 2^20); the chain on hash_batch's S-box (2^20
     elements, alpha^-1); K5 at the prove's widest pass; K6 at the top leaf of
     the 2^20-point coset NTT; K17 at a remainder-tree level whose plain loop
-    fits the run (the largest at most DIV_DIRECT steps), and its BN254
-    instance on the same shape."""
+    fits the run (the largest at most DIV_DIRECT steps).  K17's BN254
+    instance is timed in phase 15, at its path's shape."""
     from myzkp_tpu_torch.fields import limb, ntt_kernels as nk
-    from myzkp_tpu_torch.fields.spec import bn254_r_spec
     from myzkp_tpu_torch.ops import ntt, poly
     from myzkp_tpu_torch.stark import rescue_constants
 
@@ -3075,10 +3093,6 @@ def stark_cases(spec, k5, k6, k17, dev) -> dict:
     rows, na, bd = max((k for k in k17 if k[1] - k[2] <= DIV_DIRECT), key=lambda k: k[2])
     xa, xb = random_fe4(rng, rows * na, dev, spec), random_fe4(rng, rows * (bd + 1), dev, spec)
     da, db = xa.reshape(8, rows, na), xb.reshape(8, rows, bd + 1)
-    r_spec = bn254_r_spec()
-    ba = random_fe(np.random.default_rng(SEED + 131), rows * na, dev).reshape(16, rows, na)
-    bb = random_fe(np.random.default_rng(SEED + 132), rows * (bd + 1), dev).reshape(
-        16, rows, bd + 1)
     div_bytes = rows * (na + bd + 1 + na) * B4  # a, b in; q, r out
     div_products = rows * (na - bd) * (bd + 1)
     return {
@@ -3109,10 +3123,6 @@ def stark_cases(spec, k5, k6, k17, dev) -> dict:
                              lambda: poly.long_division_cuda(spec, da, db, bd),
                              lambda: poly.long_division_ref(spec, da, db, bd), 3, 1,
                              bound(div_bytes, div_products, IMAD_PER_DIV4)),
-        "long_division": (f"(rows, na, bd) = {(rows, na, bd)} over F_r (on no path)",
-                          lambda: poly.long_division_cuda(r_spec, ba, bb, bd),
-                          lambda: poly.long_division_ref(r_spec, ba, bb, bd), 3, 1,
-                          bound(2 * div_bytes, div_products, IMAD_PER_DIV)),
     }
 
 
@@ -3657,6 +3667,423 @@ def phase_das(dev, results: dict, sass: dict) -> None:
     log(f"# das phase {secs['phase']:.1f} s")
 
 
+# Phase 15: the dense R1CS / QAP under Pinocchio and Groth16, the host GT
+# pairing and the tutorial ladders, and serialize, checkpoint, metrics and
+# the two module entry points.
+LOG_M_ROU, LOG_M_NAT = 12, 9  # the dense QAP: root-of-unity and natural domains
+DENSE_SEED = SEED + 150
+NAT_DIV = (1, 2 * (1 << LOG_M_NAT) - 1, 1 << LOG_M_NAT)  # h = (ell r - o) / t: K17's shape
+LOG_CKPT, LOG_CKPT_CHUNK = 20, 18  # msm_resumable over 2^20 points in chunks of 2^18
+SNARK_CLI_LOG_M, SUMCHECK_CLI_VARS = 12, 8
+DENSE_PROVE_KERNELS = ("mont_mul", "mont_pow", "padd", "pdbl", "bucket_scan_rows", "butterfly",
+                       "padd2", "pdbl2", "bucket_scan_rows2", "gather_planes", "scatter_rows")
+
+
+def densify(mat):
+    """A sparse matrix (unique entries) as the dense (m, d) Fp on its device."""
+    from myzkp_tpu_torch.fields import limb
+    from myzkp_tpu_torch.fields.fp import Fp
+
+    spec = mat.vals.spec
+    out = limb.zeros(spec, mat.shape, mat.rows.device)
+    out[:, mat.rows, mat.cols] = mat.vals.mont
+    return Fp(spec, out)
+
+
+def dense_case(spec, m: int, domain: str, dev):
+    """square_chain(m) as a dense QAP over ``domain``, its sparse QAP and the
+    assignment."""
+    from myzkp_tpu_torch.arith import sparse
+    from myzkp_tpu_torch.arith.qap import QAP
+    from myzkp_tpu_torch.arith.r1cs import R1CS
+
+    r1cs, asg = sparse.square_chain(spec, m, device=dev)
+    dense = R1CS(*(densify(x) for x in (r1cs.left, r1cs.right, r1cs.out)))
+    if not dense.is_satisfied(asg):
+        raise AssertionError(f"dense square_chain(2^{m.bit_length() - 1}): not satisfied")
+    return QAP.from_r1cs(dense, domain), sparse.SparseQAP(r1cs), asg
+
+
+def same_keys(a, b) -> bool:
+    """Two keys (dataclasses of device point batches, host points, ints)
+    equal field for field, the device batches limb for limb."""
+    from myzkp_tpu_torch.curves import weierstrass as wst
+
+    for f, x in vars(a).items():
+        y = getattr(b, f)
+        if isinstance(x, wst.Point):
+            if not all(torch.equal(s, t) for s, t in zip(wst.leaves(x), wst.leaves(y))):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def launch_line(name: str, counts: dict) -> None:
+    log(f"# dense {name} launches: {json.dumps(counts)}")
+    missing = [k for k in DENSE_PROVE_KERNELS if counts.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"dense {name}: {missing} never launched: {counts}")
+
+
+def dense_rou(dev, spec, smi: str, out: dict) -> tuple:
+    """Pinocchio and Groth16 on the dense root-of-unity QAP of
+    square_chain(2^12), keys and proofs against the sparse QAP's."""
+    from myzkp_tpu_torch.snark import groth16 as g16
+    from myzkp_tpu_torch.snark import pinocchio as pin
+    from myzkp_tpu_torch.utils.metrics import METRICS
+
+    m = 1 << LOG_M_ROU
+    torch.cuda.reset_peak_memory_stats()
+    with METRICS.stage("rou: circuit, densify, QAP", torch.empty(0, device=dev)):
+        qap, sqap, asg = dense_case(spec, m, "rou", dev)
+    bad = _wrong_witness(asg, m // 2)
+    rng = lambda k: random.Random(DENSE_SEED + k)
+    with METRICS.stage("rou: pinocchio setup", asg.mont):
+        (pk, vk), setup_s = timed(lambda: pin.setup(qap, rng(0)))
+    spk, svk = pin.setup(sqap, rng(0))
+    if vk != svk or not same_keys(pk, spk):
+        raise AssertionError("dense rou 2^12: Pinocchio keys differ from the sparse QAP's")
+    torch.cuda.reset_peak_memory_stats()
+    with METRICS.stage("rou: pinocchio prove", asg.mont):
+        proof, counts = counted(lambda: pin.prove(asg, pk, qap, rng(1)))
+    peak_prove = torch.cuda.max_memory_allocated()
+    launch_line("rou pinocchio prove", counts)
+    if proof != pin.prove(asg, spk, sqap, rng(1)):
+        raise AssertionError("dense rou 2^12: the proof differs from the sparse QAP's")
+    with METRICS.stage("rou: pinocchio verify"):
+        ok = pin.verify(proof, vk)
+    if not ok or pin.verify(pin.prove(bad, pk, qap, rng(1)), vk):
+        raise AssertionError("dense rou 2^12: Pinocchio accepted a wrong witness or "
+                             "rejected the witness")
+    med, reps = median_ms(lambda: pin.prove(asg, pk, qap, rng(1)), 3)
+    smed, sreps = median_ms(lambda: pin.prove(asg, spk, sqap, rng(1)), 3)
+    with METRICS.stage("rou: groth16 setup", asg.mont):
+        gpk, gvk = g16.setup(qap, 1, rng(2))
+    sgpk, sgvk = g16.setup(sqap, 1, rng(2))
+    if not (same_keys(gpk, sgpk) and same_keys(gvk, sgvk)):
+        raise AssertionError("dense rou 2^12: Groth16 keys differ from the sparse QAP's")
+    with METRICS.stage("rou: groth16 prove", asg.mont):
+        gproof, gcounts = counted(lambda: g16.prove(asg, gpk, qap, rng(3)))
+    launch_line("rou groth16 prove", gcounts)
+    if gproof != g16.prove(asg, sgpk, sqap, rng(3)):
+        raise AssertionError("dense rou 2^12: the Groth16 proof differs from the sparse QAP's")
+    gmed, greps = median_ms(lambda: g16.prove(asg, gpk, qap, rng(3)), 3)
+    if not g16.verify(gproof, gvk, [1]) or g16.verify(g16.prove(bad, gpk, qap, rng(3)),
+                                                     gvk, [1]):
+        raise AssertionError("dense rou 2^12: Groth16 accepted a wrong witness or "
+                             "rejected the witness")
+    peak = torch.cuda.max_memory_allocated()
+    out["rou"] = {"pinocchio_setup_s": setup_s, "pinocchio_prove_ms": med,
+                  "pinocchio_prove_reps_ms": reps, "sparse_prove_ms": smed,
+                  "sparse_prove_reps_ms": sreps, "groth16_prove_ms": gmed,
+                  "groth16_prove_reps_ms": greps, "peak_prove_bytes": peak_prove,
+                  "peak_bytes": peak, "pinocchio_launches": counts,
+                  "groth16_launches": gcounts}
+    log(f"# dense rou m = 2^{LOG_M_ROU} ({smi}): d = {qap.d}, three ({m}, {qap.d}) matrices; "
+        f"Pinocchio and Groth16 (1 public input) keys equal to the sparse QAP's batch for "
+        f"batch and proofs point for point, same seeds; both accepted, a wrong witness "
+        f"rejected by both; Pinocchio setup {setup_s:.3f} s, prove median {med:.2f} ms of "
+        f"{[round(t, 2) for t in reps]} (the sparse QAP's {smed:.2f} ms of "
+        f"{[round(t, 2) for t in sreps]}); Groth16 prove median {gmed:.2f} ms of "
+        f"{[round(t, 2) for t in greps]}; peak memory {peak_prove / 2**30:.3f} GiB in the "
+        f"prove, {peak / 2**30:.3f} GiB from the dense matrices on")
+    return qap, pk, vk, asg, counts, gcounts
+
+
+def dense_natural(dev, spec, smi: str, results: dict, out: dict) -> dict:
+    """Pinocchio on the dense natural-domain QAP of square_chain(2^9): K17
+    divides h = (ell r - o) / t in the prove, held bit for bit against its
+    plain version at that call; h t = ell r - o at a random s on the host."""
+    from myzkp_tpu_torch.ops import poly
+    from myzkp_tpu_torch.snark import pinocchio as pin
+    from myzkp_tpu_torch.utils.metrics import METRICS
+
+    m = 1 << LOG_M_NAT
+    torch.cuda.reset_peak_memory_stats()
+    with METRICS.stage("natural: circuit, densify, QAP", torch.empty(0, device=dev)):
+        (qap, _, asg), qap_s = timed(lambda: dense_case(spec, m, "natural", dev))
+    peak_qap = torch.cuda.max_memory_allocated()
+    rng = lambda k: random.Random(DENSE_SEED + 10 + k)
+    with METRICS.stage("natural: pinocchio setup", asg.mont):
+        (pk, vk), setup_s = timed(lambda: pin.setup(qap, rng(0)))
+    with recorder(poly, "long_division_cuda",
+                  lambda _, a, b, bd: (math.prod(a.shape[1:-1]), a.shape[-1], bd)) as k17:
+        with METRICS.stage("natural: pinocchio prove", asg.mont):
+            (proof, counts), prove_s = timed(lambda: counted(
+                lambda: pin.prove(asg, pk, qap, rng(1))))
+    launch_line("natural pinocchio prove", counts)
+    if counts.get("long_division", 0) < 1 or set(k17.calls) != {NAT_DIV}:
+        raise AssertionError(f"dense natural 2^{LOG_M_NAT}: K17 at {sorted(k17.calls)}, "
+                             f"{counts.get('long_division', 0)} launches; expected {NAT_DIV}")
+    (_, a, b, bd), _ = k17.calls[NAT_DIV]
+    err = check_equal(f"long_division {NAT_DIV} (the prove's h)",
+                      list(poly.long_division_cuda(spec, a, b, bd)),
+                      list(poly.long_division_ref(spec, a, b, bd)))
+    results["long_division"]["max_abs_err"] = max(results["long_division"]["max_abs_err"], err)
+    with METRICS.stage("natural: pinocchio verify"):
+        ok = pin.verify(proof, vk)
+    if not ok or pin.verify(pin.prove(_wrong_witness(asg, m // 2), pk, qap, rng(1)), vk):
+        raise AssertionError(f"dense natural 2^{LOG_M_NAT}: Pinocchio accepted a wrong "
+                             f"witness or rejected the witness")
+    # h(s) t(s) = ell(s) r(s) - o(s) on the host, by Horner
+    p = spec.p
+    s = random.Random(DENSE_SEED + 19).randrange(p)
+    ev = lambda poly_: horner([int(c) for c in poly_.to_int()], s, p)
+    ell, r, o = (ev(x) for x in qap.combine(asg))
+    h, t = ev(qap.h_poly(asg)), ev(poly.Poly(qap.t))
+    if h * t % p != (ell * r - o) % p:
+        raise AssertionError(f"dense natural 2^{LOG_M_NAT}: h(s) t(s) != ell(s) r(s) - o(s)")
+    out["natural"] = {"qap_s": qap_s, "peak_qap_bytes": peak_qap, "setup_s": setup_s,
+                      "prove_s": prove_s, "launches": counts}
+    log(f"# dense natural m = 2^{LOG_M_NAT} ({smi}): QAP (three batched Lagrange "
+        f"interpolations) {qap_s:.3f} s, peak {peak_qap / 2**30:.2f} GiB; setup {setup_s:.3f} "
+        f"s; prove {prove_s:.3f} s with K17 {counts['long_division']} launch at {NAT_DIV}, "
+        f"exact vs long_division_ref on the prove's inputs; accepted, a wrong witness "
+        f"rejected; h(s) t(s) = ell(s) r(s) - o(s) on the host at a random s")
+    return counts
+
+
+def dense_card_vs_cpu(dev, spec) -> None:
+    """Setup and prove at m = 2^4 in both domains, on the card and on the CPU
+    plain versions from the same seeds: keys and proofs equal."""
+    from myzkp_tpu_torch.snark import pinocchio as pin
+    from myzkp_tpu_torch.utils.metrics import METRICS
+
+    for domain in ("rou", "natural"):
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            with METRICS.stage(f"2^{LOG_M_CMP} {domain} on {d.type}: setup + prove"):
+                qap, _, asg = dense_case(spec, 1 << LOG_M_CMP, domain, d)
+                pk, vk = pin.setup(qap, random.Random(DENSE_SEED + 20))
+                runs.append((pin.prove(asg, pk, qap, random.Random(DENSE_SEED + 21)), vk))
+        if runs[0] != runs[1] or not pin.verify(*runs[0]):
+            raise AssertionError(f"dense {domain} 2^{LOG_M_CMP}: the card's key or proof "
+                                 f"differs from the CPU's, or was rejected")
+    log(f"# dense m = 2^{LOG_M_CMP}, both domains: the card's verification key and proof "
+        f"equal the CPU plain versions' point for point, same seeds; accepted")
+
+
+def tutorials_and_pairing() -> None:
+    """The GT pairing against its pure-Python loop and bilinear; the two
+    tutorial ladders' protocols and attacks as tests/test_tutorial_protocols.py
+    expects them (host only)."""
+    from myzkp_tpu_torch.curves import bn254
+    from myzkp_tpu_torch.protocols import tutorial_single_poly as tsp
+    from myzkp_tpu_torch.protocols import tutorial_snark as ts
+    from myzkp_tpu_torch.utils import hostpoly as hp
+
+    R = bn254.R
+    rng = random.Random(DENSE_SEED + 30)
+    a, b = rng.randrange(1, R), rng.randrange(1, R)
+    P, Q = bn254.g1_generator() * a, bn254.g2_generator() * b
+    e, native_s = timed(lambda: bn254.optimal_ate_pairing(P, Q))
+    ref, ref_s = timed(lambda: bn254.optimal_ate_pairing_ref(P, Q))
+    if e != ref:
+        raise AssertionError("optimal_ate_pairing differs from optimal_ate_pairing_ref")
+    if e != bn254.optimal_ate_pairing(bn254.g1_generator(), bn254.g2_generator()) ** (a * b):
+        raise AssertionError("e([a]P, [b]Q) != e(P, Q)^(ab)")
+    log(f"# pairing: the C++ engine's e([a]P, [b]Q) == the pure-Python loop's "
+        f"({native_s * 1e3:.1f} ms against {ref_s:.3f} s), == e(P, Q)^(ab)")
+
+    roots = [1, 2, 3, 4, 5]
+    pR, tR = hp.from_monomials([1, 2, 3], R), hp.from_monomials([1, 2], R)
+    pS, tS = tsp.signed_from_monomials([1, 2, 3]), tsp.signed_from_monomials([1, 2])
+    vf2, vf3 = tsp.Verifier2(tR, R, rng=random.Random(0)), tsp.Verifier3(tS, R, 5,
+                                                                         rng=random.Random(0))
+    pk6, vk6 = tsp.setup6(tR, 3, rng=random.Random(0))
+    expect = {
+        "p1 naive": tsp.naive_protocol(
+            tsp.Prover1(hp.from_monomials(roots, 31), hp.from_monomials(roots[:3], 31), 31),
+            tsp.Verifier1(roots[:3], 31)),
+        "p2 honest": tsp.schwartz_zippel_protocol(tsp.Prover2(pR, tR, R), vf2),
+        "p2 attack": tsp.malicious_schwartz_zippel_protocol(
+            tsp.MaliciousProver2(tR, R, rng=random.Random(1)), vf2),
+        "p3 honest": tsp.discrete_log_protocol(tsp.Prover3(pS, tS, R), vf3),
+        "p3 attack": tsp.malicious_discrete_log_protocol(
+            tsp.MaliciousProver3(tS, R, rng=random.Random(1)), vf3),
+        "p4": tsp.knowledge_of_exponent_protocol(
+            tsp.Prover4(pS, tS, R), tsp.Verifier4(tS, R, 5, rng=random.Random(0))),
+        "p5": tsp.zk_protocol(tsp.Prover5(pS, tS, R, rng=random.Random(2)),
+                              tsp.Verifier5(tS, R, 5, rng=random.Random(3))),
+        "p6": tsp.verify6(tsp.prove6(pR, tR, pk6, rng=random.Random(1)), vk6),
+    }
+    left = [[0, 0, 1, 0, 0, 0, 0, 0], [0, 0, 0, 0, 1, 0, 0, 0], [0, 0, 0, 0, 0, 0, 1, 0]]
+    right = [[0, 0, 0, 1, 0, 0, 0, 0], [0, 0, 0, 0, 0, 1, 0, 0], [0, 0, 0, 0, 0, 0, 0, 1]]
+    outm = [[0, 0, 0, 0, 0, 0, 1, 0], [0, 0, 0, 0, 0, 0, 0, 1], [0, 1, 0, 0, 0, 0, 0, 0]]
+    wit, wrong = [1, 210, 2, 3, 5, 7, 6, 35], [1, 210, 2, 3, 5, 7, 6, 36]
+    v_ell, v_r, v_o = wit, [1] * 8, [1, 6, 0, 0, 0, 0, 2, 5]
+    q = ts.HostQAP.from_r1cs(left, right, outm)
+    attack = lambda pk: ts.inconsistent_variable_attack(pk, q, v_ell, v_r, v_o)
+    pk1, vk1 = ts.setup1(q, rng=random.Random(7))
+    pk2, vk2 = ts.setup2(q, rng=random.Random(5))
+    pk3, vk3 = ts.setup3(q, rng=random.Random(6))
+    r8 = random.Random(8)
+    pk4, vk4 = ts.setup4(q, rng=r8)
+    pk5, vk5 = ts.setup5(q, rng=r8)
+    expect.update({
+        "snark p1 honest": ts.verify1(ts.prove1(pk1, q, wit), vk1),
+        "snark p1 wrong witness": not ts.verify1(ts.prove1(pk1, q, wrong), vk1),
+        "snark p2 honest": ts.verify2(ts.prove2(pk2, q, wit), vk2),
+        "snark p2 wrong witness": not ts.verify2(ts.prove2(pk2, q, wrong), vk2),
+        "snark p2 attack succeeds": ts.verify2(attack(pk2), vk2),
+        "snark p3 honest": ts.verify3(ts.prove3(pk3, q, wit), vk3),
+        "snark p3 attack fails": not ts.verify3(attack(pk3), vk3),
+        "snark p4 honest": ts.verify4(ts.prove4(pk4, q, wit), vk4),
+        "snark p5 honest": ts.verify5(ts.prove5(pk5, q, wit), vk5),
+        "snark p5 attack fails": not ts.verify5(attack(pk5), vk5),
+    })
+    failed = [k for k, v in expect.items() if not v]
+    if failed:
+        raise AssertionError(f"tutorial ladders: {failed} not as the reference's tests expect")
+    log(f"# tutorials: {len(expect)} checks of both ladders as tests/test_tutorial_protocols.py "
+        f"expects them (honest accepted, wrong witnesses rejected, the P2 attacks succeed, "
+        f"the P3 / P5 checksums catch theirs)")
+
+
+def utilities(dev, spec, smi: str, rou: tuple, out: dict) -> None:
+    """serialize, checkpoint, metrics.trace and the two module entry points."""
+    import os
+    import tempfile
+
+    from myzkp_tpu_torch.curves import bn254, fixed_base, msm
+    from myzkp_tpu_torch.curves import weierstrass as wst
+    from myzkp_tpu_torch.fields import limb
+    from myzkp_tpu_torch.fields.fp import Fp
+    from myzkp_tpu_torch.snark import cli as snark_cli
+    from myzkp_tpu_torch.snark import pinocchio as pin
+    from myzkp_tpu_torch.utils import checkpoint, serialize
+    from myzkp_tpu_torch.utils.metrics import METRICS, trace
+
+    qap, pk, vk, asg = rou[:4]
+    rng = lambda: random.Random(DENSE_SEED + 40)
+    with tempfile.TemporaryDirectory() as tmp:
+        with METRICS.stage("serialize: save and load the dense keys"):
+            serialize.save_pinocchio_pk(os.path.join(tmp, "pk.npz"), pk)
+            serialize.save_pinocchio_vk(os.path.join(tmp, "vk.json"), vk)
+            pk2 = serialize.load_pinocchio_pk(os.path.join(tmp, "pk.npz"), dev)
+            vk2 = serialize.load_pinocchio_vk(os.path.join(tmp, "vk.json"))
+        if vk2 != vk or not same_keys(pk2, pk) or \
+                pin.prove(asg, pk2, qap, rng()) != pin.prove(asg, pk, qap, rng()):
+            raise AssertionError("serialize: the reloaded dense keys differ or prove otherwise")
+
+        n, chunk = 1 << LOG_CKPT, 1 << LOG_CKPT_CHUNK
+        gen = torch.Generator(device=dev).manual_seed(DENSE_SEED + 41)
+        r_spec = bn254.r_spec()
+        scalars = lambda: limb.from_mont(r_spec, Fp.random(r_spec, gen, (n,), dev).mont)
+        pts, ks = fixed_base.fixed_base_multi("g1", scalars()), scalars()
+        F, b3 = bn254.g1_ops(), bn254.g1_b3((), dev)
+        path = os.path.join(tmp, "msm.npz")
+        saves, save = [], checkpoint._save_state
+
+        class Stopped(Exception):
+            """The stand-in for a job killed after its second chunk."""
+
+        def stop_after_two(p, i, acc):
+            save(p, i, acc)
+            saves.append(i)
+            if len(saves) == 2:
+                raise Stopped
+
+        checkpoint._save_state = stop_after_two
+        try:
+            checkpoint.msm_resumable(F, b3, pts, ks, path, chunk=chunk)
+            raise AssertionError("msm_resumable: the stop after 2 chunks did not happen")
+        except Stopped:
+            pass
+        finally:
+            checkpoint._save_state = save
+        if saves != [1, 2] or not os.path.exists(path):
+            raise AssertionError(f"msm_resumable: saves {saves}, checkpoint present "
+                                 f"{os.path.exists(path)}")
+        with METRICS.stage("checkpoint: resume 2 of 4 chunks", ks):
+            got = checkpoint.msm_resumable(F, b3, pts, ks, path, chunk=chunk)
+        with METRICS.stage("checkpoint: msm of the whole set", ks):
+            want = msm.msm(F, b3, pts, ks)
+        both = bn254.g1_points_to_host(wst.point_map(lambda a, b: torch.stack([a, b], 1),
+                                                     got, want))
+        if both[0] != both[1] or os.path.exists(path):
+            raise AssertionError("msm_resumable: the resumed sum differs from msm, or the "
+                                 "checkpoint file stayed")
+
+        with trace(os.path.join(tmp, "trace")):
+            pin.prove(asg, pk, qap, rng())
+        size = os.path.getsize(os.path.join(tmp, "trace", "trace.json"))
+        if not size:
+            raise AssertionError("metrics.trace: the trace file is empty")
+    log(f"# utilities ({smi}): the 2^{LOG_M_ROU} dense keys saved and reloaded prove the same "
+        f"proof; msm_resumable over 2^{LOG_CKPT} points in chunks of 2^{LOG_CKPT_CHUNK}, "
+        f"stopped after 2 and resumed, == msm, its file removed; metrics.trace around a "
+        f"dense prove wrote {size} bytes")
+
+    for argv, env in ((["myzkp_tpu_torch.snark.cli", str(SNARK_CLI_LOG_M)], {}),
+                      (["myzkp_tpu_torch.protocols.sumcheck_cli"],
+                       {"SUMCHECK_VARS": str(SUMCHECK_CLI_VARS)})):
+        with METRICS.stage(f"python -m {argv[0]}"):
+            res = subprocess.run([sys.executable, "-m", *argv], capture_output=True,
+                                 text=True, env={**os.environ, **env}, timeout=300,
+                                 cwd=os.path.dirname(os.path.abspath(__file__)))
+        if res.returncode:
+            raise AssertionError(f"python -m {' '.join(argv)}: exit {res.returncode}\n"
+                                 f"{res.stdout}{res.stderr[-3000:]}")
+        log(f"# python -m {' '.join(argv)} {env or ''}: exit 0: "
+            f"{' | '.join(res.stdout.strip().splitlines())}")
+    try:
+        snark_cli.main(["--mesh", "4", str(SNARK_CLI_LOG_M)])
+        raise AssertionError("snark.cli --mesh 4 ran")
+    except SystemExit as exc:
+        if exc.code != 2:
+            raise AssertionError(f"snark.cli --mesh 4: exit {exc.code}, expected 2") from exc
+    log("# snark.cli --mesh 4: refused (exit 2, parallel/mesh.py is not ported)")
+
+
+def phase_dense(dev, results: dict) -> None:
+    from myzkp_tpu_torch.curves import bn254
+    from myzkp_tpu_torch.ops import poly
+    from myzkp_tpu_torch.utils.metrics import METRICS, reset_metrics
+
+    t_phase = time.perf_counter()
+    smi = card()
+    spec = bn254.r_spec()
+    reset_metrics()
+    out = {"card": smi}
+    rou = dense_rou(dev, spec, smi, out)
+    nat_counts = dense_natural(dev, spec, smi, results, out)
+    dense_card_vs_cpu(dev, spec)
+    with METRICS.stage("pairing and tutorials (host)"):
+        tutorials_and_pairing()
+    utilities(dev, spec, smi, rou, out)
+
+    rows, na, bd = NAT_DIV
+    rng = np.random.default_rng(DENSE_SEED + 50)
+    a = random_fe(rng, rows * na, dev).reshape(16, rows, na)
+    b = random_fe(rng, rows * (bd + 1), dev).reshape(16, rows, bd + 1)
+    time_cases({"long_division": (
+        f"(rows, na, bd) = {NAT_DIV}: h = (ell r - o) / t of the natural-domain prove",
+        lambda: poly.long_division_cuda(spec, a, b, bd),
+        lambda: poly.long_division_ref(spec, a, b, bd), 3, 1,
+        bound(rows * (2 * na + 1) * LIMB_BYTES, rows * (na - bd) * (bd + 1),
+              IMAD_PER_DIV))}, results)
+    results["long_division"]["launches"] = nat_counts["long_division"]
+    plan = poly.long_division_plan(rows, na, bd, 8, dev)
+    out["k17_plan"] = plan
+    log(f"# long_division {NAT_DIV} plan: {json.dumps(plan)}")
+    total = {}
+    for c in (rou[4], rou[5], nat_counts):
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    for k in results:
+        if not k.startswith("_"):
+            results[k]["dense_launches"] = total.get(k, 0)
+    out["seconds"] = dict(METRICS.seconds)
+    out["phase_s"] = time.perf_counter() - t_phase
+    results["_dense"] = out
+    log(f"# dense stages ({smi}):")
+    for line in METRICS.report().splitlines():
+        log(f"#   {line}")
+    log(f"# dense phase {out['phase_s']:.1f} s")
+
+
 SOURCES = {
     "mont_mul": ("myzkp_tpu_torch/csrc/mont_mul.cu",
                  "myzkp_tpu/fields/limb_pallas.py:286"),
@@ -3752,8 +4179,9 @@ def main() -> int:
     del srs
     phase_stark(dev, results)
     phase_das(dev, results, sass)
+    phase_dense(dev, results)
     keys = ("launches", "kzg_launches", "sumcheck_launches", "stark_launches",
-            "das_launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "das_launches", "dense_launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k][0],
                 "replaces": SOURCES[k][1], **{key: results[k][key] for key in keys}}
@@ -3770,6 +4198,7 @@ def main() -> int:
     log(f"# sumcheck {json.dumps(results['_sumcheck'])}")
     log(f"# stark {json.dumps(results['_stark'])}")
     log(f"# das {json.dumps(results['_das'])}")
+    log(f"# dense {json.dumps(results['_dense'])}")
     log(f"# probe13 {json.dumps(results['_probe13'])}")
     log(f"# scan_parent_path {json.dumps(results['_scan_parent_path'])}")
     log(f"# rows {json.dumps(results['_rows'])}")

@@ -119,14 +119,7 @@ class SparseQAP:
         return tuple(Poly(coef[k]) for k in range(3))
 
     def quotient(self, coef: Fp) -> Fp:
-        """(2m,) coefficients of h = (ell r - o) / t from ell, r, o's (3, m):
-        one batched coset NTT on g <w_2m> with g = w_4m, the pointwise
-        division by t's two alternating coset values, one coset INTT."""
-        spec, m = self.spec, self.m
-        g = _ntt.nth_root_of_unity(spec.p, 4 * m)
-        lro = _ntt.coset_evaluate(coef, g, 2 * m)
-        num = lro[0] * lro[1] - lro[2]
-        return _ntt.coset_interpolate(num * _t_coset_inv(spec, m, g, num.device), g)
+        return rou_quotient(coef)
 
     def h_poly(self, assignment: Fp) -> Poly:
         return Poly(self.quotient(self.combine_batched(assignment))[:self.m + 1])
@@ -151,6 +144,18 @@ class SparseQAP:
         spec = self.spec
         t_s = Fp.from_int(spec, (pow(s, self.m, spec.p) - 1) % spec.p, lam.device)
         return ell, r, o, t_s
+
+
+def rou_quotient(coef: Fp) -> Fp:
+    """(2m,) coefficients of h = (ell r - o) / t, t = X^m - 1, from ell, r,
+    o's (3, m) coefficients: one batched coset NTT on g <w_2m> with g = w_4m,
+    the pointwise division by t's two alternating coset values, one coset
+    INTT."""
+    spec, m = coef.spec, coef.shape[-1]
+    g = _ntt.nth_root_of_unity(spec.p, 4 * m)
+    lro = _ntt.coset_evaluate(coef, g, 2 * m)
+    num = lro[0] * lro[1] - lro[2]
+    return _ntt.coset_interpolate(num * _t_coset_inv(spec, m, g, num.device), g)
 
 
 def _t_coset_inv(spec: FieldSpec, m: int, g: int, device) -> Fp:

@@ -1,9 +1,13 @@
 """BN254 on the device: field specs, curve constants, the host <-> device
-point conversions for G1 and G2, and the verifier's pairing check.
+point conversions for G1 and G2; and on the host, GT = F_q12, the optimal
+ate pairing and the verifier's pairing check.
 
-Counterpart of ``myzkp_tpu/curves/bn254.py:123-154, 179-304``.  The host side
-(generators, affine group law, F_q2) is ``fields/host.py``; the pairing runs
-on the host in the port's copy of the C++ engine (``native/``).
+Counterpart of ``myzkp_tpu/curves/bn254.py:65-176, 179-304``.  The host side
+(generators, affine group law, F_q2, the generic extension field and the
+Miller loop) is ``fields/host.py``; the pairing runs on the host in the
+port's copy of the C++ engine (``native/``), which raises if it cannot be
+built or loaded.  ``optimal_ate_pairing_ref`` is the pure-Python loop the
+tests hold that engine to.
 """
 
 from __future__ import annotations
@@ -15,12 +19,18 @@ import torch
 from .. import _ext, native
 from ..fields import limb
 from ..fields.host import (  # noqa: F401
-    B2, Fq, Fq2, PyPoint, Q, R, curve_g1, curve_g2, g1_generator, g2_generator)
+    B2, Fq, Fq2, PyCurve, PyExt, PyExtField, PyPoint, Q, R, curve_g1, curve_g2,
+    g1_generator, g2_generator, get_lambda, miller)
 from ..fields.spec import FieldSpec
 from . import weierstrass as wst
 from .field_ops import FpOps, Fq2Ops
 
 B1 = 3  # G1: y^2 = x^3 + 3
+ATE_LOOP_COUNT = 29793968203157093288
+# GT's field: F_q12 = F_q[w] / (w^12 - 18 w^6 + 82), and the curve over it
+# that G1 embeds in and G2 untwists onto
+Fq12 = PyExtField(Fq, [82] + [0] * 5 + [-18] + [0] * 5 + [1])
+curve_g12 = PyCurve(Fq12([0]), Fq12([3]))
 
 
 @functools.lru_cache(maxsize=1)
@@ -143,3 +153,50 @@ def pairing_product_is_one(pairs) -> bool:
     engine of ``native/``).  A verifier equality e(A, B) == e(C, D) is
     e(A, B) * e(-C, D) == 1."""
     return native.multi_pairing_coeffs(pairs) == [1] + [0] * 11
+
+
+def cast_g1_to_g12(p: PyPoint) -> PyPoint:
+    """A G1 point on the F_q12 curve."""
+    if p.inf:
+        return curve_g12.infinity()
+    return curve_g12.point(Fq12([int(p.x)]), Fq12([int(p.y)]))
+
+
+def twist_g2_to_g12(p: PyPoint) -> PyPoint:
+    """A G2 point untwisted onto the F_q12 curve: with F_q2 embedded by
+    u = w^6 - 9, (c0, c1) maps to (c0 - 9 c1) + c1 w^6; x then takes w^2 and
+    y w^3."""
+    if p.inf:
+        return curve_g12.infinity()
+
+    def embed(e) -> PyExt:
+        c0, c1 = e.c[0].v, e.c[1].v
+        coeffs = [0] * 12
+        coeffs[0], coeffs[6] = (c0 - 9 * c1) % Q, c1
+        return Fq12(coeffs)
+
+    w = Fq12([0, 1])
+    return curve_g12.point(embed(p.x) * w ** 2, embed(p.y) * w ** 3)
+
+
+def optimal_ate_pairing(p_g1: PyPoint, q_g2: PyPoint) -> PyExt:
+    """e(P, Q) in F_q12, by the C++ engine (``native.pairing_coeffs``)."""
+    return Fq12(native.pairing_coeffs(p_g1, q_g2))
+
+
+def optimal_ate_pairing_ref(p_g1: PyPoint, q_g2: PyPoint) -> PyExt:
+    """e(P, Q) by the pure-Python Miller loop: the loop over
+    ATE_LOOP_COUNT, the two Frobenius line steps, the final exponentiation
+    by (q^12 - 1) / r.  The plain version the tests hold the engine to."""
+    p, q = cast_g1_to_g12(p_g1), twist_g2_to_g12(q_g2)
+    if p.inf or q.inf:
+        return Fq12([1])
+    f = Fq12([1])
+    if p != q:
+        f, r = miller(q, p, ATE_LOOP_COUNT)
+        q1 = curve_g12.point(q.x ** Q, q.y ** Q)
+        nq2 = curve_g12.point(q1.x ** Q, -(q1.y ** Q))
+        f = f * get_lambda(r, q1, p)
+        r = r + q1
+        f = f * get_lambda(r, nq2, p)
+    return f ** ((Q ** 12 - 1) // R)

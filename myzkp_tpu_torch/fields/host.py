@@ -1,12 +1,14 @@
-"""Host golden model: F_q, F_q2 and BN254 G1 / G2 affine arithmetic on
-Python ints.
+"""Host golden model: F_q, F_q2, the generic extension field and BN254 G1 /
+G2 affine arithmetic on Python ints, and the Miller loop.
 
 The same group law as ``myzkp_tpu/fields/python_field.py`` (``PyField``,
-``PyCurve``, ``PyPoint``) restricted to what G1 and G2 need, with F_q2 =
-F_q[u]/(u^2 + 1) as a class of its own (the reference's generic ``PyExt`` of
-degree 2), and the BN254 constants of ``myzkp_tpu/curves/bn254.py:43-82``.
-Every device result of the port is checked against this model; it imports
-neither torch nor JAX.
+``PyCurve``, ``PyPoint``), with F_q2 = F_q[u]/(u^2 + 1) as a class of its own
+for G2, the generic extension field F_p[x]/(m(x)) (``PyExtField``, ``PyExt``,
+:134-328; BN254's F_q12 in ``curves/bn254.py``), the Miller loop, its line
+function and the Weil and Tate pairings built on it (:405-479), and
+the BN254 constants of ``myzkp_tpu/curves/bn254.py:43-82``.  Every device
+result of the port is checked against this model; it imports neither torch
+nor JAX.
 """
 
 from __future__ import annotations
@@ -57,6 +59,9 @@ class PyFp:
     def __neg__(self):
         return PyFp(self.f, -self.v)
 
+    def __pow__(self, e: int):
+        return PyFp(self.f, pow(self.v, int(e), self.f.p))
+
     def inv(self):
         return PyFp(self.f, pow(self.v, -1, self.f.p))
 
@@ -73,6 +78,166 @@ class PyFp:
 
     def __int__(self):
         return self.v
+
+
+class PyExtField:
+    """F_p[x]/(m(x)), m normalized to monic; elements are ``PyExt`` with a
+    tuple of deg PyFp coefficients, low first."""
+
+    def __init__(self, base: PyField, modulus_coeffs):
+        self.base = base
+        inv_lead = pow(modulus_coeffs[-1] % base.p, -1, base.p)
+        self.mod = [c * inv_lead % base.p for c in modulus_coeffs]
+        self.deg = len(self.mod) - 1
+
+    def __call__(self, coeffs) -> "PyExt":
+        if isinstance(coeffs, PyExt):
+            return coeffs
+        if isinstance(coeffs, (int, PyFp)):
+            coeffs = [coeffs]
+        ints = [c.v if isinstance(c, PyFp) else int(c) for c in coeffs]
+        return PyExt(self, tuple(self._reduce(ints)))
+
+    def _reduce(self, ints) -> list:
+        """A low-first coefficient list reduced by the monic modulus."""
+        p = self.base.p
+        cs = [c % p for c in ints]
+        while len(cs) > self.deg:
+            lead = cs.pop()
+            if lead:
+                k = len(cs) - self.deg  # x^len(cs) = x^k x^deg
+                for i in range(self.deg):
+                    cs[k + i] = (cs[k + i] - lead * self.mod[i]) % p
+        cs += [0] * (self.deg - len(cs))
+        return [self.base(c) for c in cs]
+
+    def one(self) -> "PyExt":
+        return self([1])
+
+    def __eq__(self, o):
+        return isinstance(o, PyExtField) and o.base == self.base and o.mod == self.mod
+
+    def __hash__(self):
+        return hash(("PyExtField", self.base.p, tuple(self.mod)))
+
+
+class PyExt:
+    __slots__ = ("ef", "c")
+
+    def __init__(self, ef: PyExtField, coeffs):
+        self.ef = ef
+        self.c = tuple(coeffs)
+
+    def _c2(self, o):
+        if isinstance(o, PyExt):
+            return o
+        if isinstance(o, (int, PyFp)):
+            return self.ef([o])
+        return NotImplemented
+
+    def __add__(self, o):
+        o = self._c2(o)
+        return PyExt(self.ef, tuple(a + b for a, b in zip(self.c, o.c)))
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        o = self._c2(o)
+        return PyExt(self.ef, tuple(a - b for a, b in zip(self.c, o.c)))
+
+    def __rsub__(self, o):
+        return self._c2(o) - self
+
+    def __neg__(self):
+        return PyExt(self.ef, tuple(-a for a in self.c))
+
+    def __mul__(self, o):
+        o = self._c2(o)
+        prod = [0] * (2 * self.ef.deg - 1)
+        for i, a in enumerate(self.c):
+            if a.v:
+                for j, b in enumerate(o.c):
+                    prod[i + j] += a.v * b.v
+        return PyExt(self.ef, tuple(self.ef._reduce(prod)))
+
+    __rmul__ = __mul__
+
+    def __pow__(self, e: int):
+        e = int(e)
+        if e < 0:
+            return self.inv() ** (-e)
+        result, base = self.ef.one(), self
+        while e:
+            if e & 1:
+                result = result * base
+            base = base * base
+            e >>= 1
+        return result
+
+    def inv(self):
+        """By the extended Euclid over F_p[x]; raises on zero."""
+        p = self.ef.base.p
+        g, s = _poly_ext_euclid([c.v for c in self.c], list(self.ef.mod), p)
+        if _poly_deg(g, p) != 0:
+            raise ZeroDivisionError("not invertible")
+        c_inv = pow(g[0], -1, p)
+        return PyExt(self.ef, tuple(self.ef._reduce([v * c_inv % p for v in s])))
+
+    def __truediv__(self, o):
+        return self * self._c2(o).inv()
+
+    def __eq__(self, o):
+        if isinstance(o, int):
+            return self == self.ef([o])
+        return isinstance(o, PyExt) and o.ef == self.ef and o.c == self.c
+
+    def __hash__(self):
+        return hash((self.ef.base.p, tuple(v.v for v in self.c)))
+
+    def __repr__(self):
+        return f"Ext{[v.v for v in self.c]}"
+
+
+def _poly_deg(a, p) -> int:
+    for i in range(len(a) - 1, -1, -1):
+        if a[i] % p:
+            return i
+    return -1
+
+
+def _poly_divmod(a, b, p):
+    """Long division of low-first int coefficient lists over F_p."""
+    a = [x % p for x in a]
+    db = _poly_deg(b, p)
+    if db < 0:
+        raise ZeroDivisionError("division by the zero polynomial")
+    inv_lead = pow(b[db], -1, p)
+    q = [0] * max(1, len(a) - db)
+    while _poly_deg(a, p) >= db:
+        da = _poly_deg(a, p)
+        c = a[da] * inv_lead % p
+        q[da - db] = c
+        for i in range(db + 1):
+            a[da - db + i] = (a[da - db + i] - c * b[i]) % p
+    return q, a
+
+
+def _poly_ext_euclid(a, b, p):
+    """(g, s) with s a = g (mod b), g = gcd(a, b), over F_p[x]."""
+    r0, r1 = [x % p for x in a], [x % p for x in b]
+    s0, s1 = [1], [0]
+    while _poly_deg(r1, p) >= 0:
+        q, r = _poly_divmod(r0, r1, p)
+        r0, r1 = r1, r
+        qs1 = [0] * (len(q) + len(s1))
+        for i, qq in enumerate(q):
+            if qq:
+                for j, ss in enumerate(s1):
+                    qs1[i + j] = (qs1[i + j] + qq * ss) % p
+        n = max(len(s0), len(qs1))
+        s0, s1 = s1, [((s0[i] if i < len(s0) else 0) - (qs1[i] if i < len(qs1) else 0)) % p
+                      for i in range(n)]
+    return r0, s0
 
 
 @dataclass(frozen=True)
@@ -141,6 +306,75 @@ class PyPoint:
 
     def __repr__(self):
         return "O" if self.inf else f"({self.x}, {self.y})"
+
+
+def line_slope(p: PyPoint, q: PyPoint):
+    """The chord's (or the tangent's, at P = Q) slope."""
+    if p.x == q.x and p.y == q.y:
+        return (3 * p.x * p.x + p.curve.a) / (2 * p.y)
+    return (q.y - p.y) / (q.x - p.x)
+
+
+def get_lambda(p: PyPoint, q: PyPoint, r: PyPoint):
+    """The Miller line function: the line through P and Q over the vertical
+    through P + Q, evaluated at R; one where a point is at infinity."""
+    if p.inf or q.inf or r.inf:
+        for pt in (p, q, r):
+            if not pt.inf:
+                return pt.x ** 0
+        raise ValueError("all points at infinity")
+    if (p == q and p.y == 0) or (p != q and p.x == q.x):
+        return r.x - p.x
+    slope = line_slope(p, q)
+    numerator = (r.y - p.y) - slope * (r.x - p.x)
+    denominator = r.x + p.x + q.x - slope * slope
+    return numerator / denominator
+
+
+def miller(p: PyPoint, q: PyPoint, m: int):
+    """(f_{m,P}(Q), [m]P) by the Miller loop over m's bits."""
+    if p.inf or q.inf:
+        return None, p.curve.infinity()
+    if p == q:
+        return p.x ** 0, p
+    f, t = p.x ** 0, p
+    for bit in bin(int(m))[3:]:
+        f = f * f * get_lambda(t, t, q)
+        t = t + t
+        if bit == "1":
+            f = f * get_lambda(t, p, q)
+            t = t + p
+    return f, t
+
+
+def weil_pairing(p: PyPoint, q: PyPoint, m: int, s: PyPoint):
+    """e(P, Q) by Weil reciprocity with the auxiliary point S."""
+    if p.inf or q.inf:
+        return s.x ** 0
+    fp_qs, _ = miller(p, q + s, m)
+    fp_s, _ = miller(p, s, m)
+    fq_ps, _ = miller(q, p + (-s), m)
+    fq_s, _ = miller(q, -s, m)
+    return (fp_qs / fp_s) / (fq_ps / fq_s)
+
+
+def tate_pairing(p: PyPoint, q: PyPoint, ell: int, k: int, field_order: int):
+    """The reduced Tate pairing f_{ell,P}(Q)^((field_order^k - 1) / ell)."""
+    if p.inf or q.inf:
+        return None
+    f, _ = miller(p, q, ell)
+    return f ** ((field_order ** k - 1) // ell)
+
+
+def general_tate_pairing(p: PyPoint, q: PyPoint, ell: int, k: int, field_order: int,
+                         s: PyPoint):
+    """The Tate pairing with the auxiliary point S: f_P(Q + S) / f_P(S),
+    reduced."""
+    if p.inf or q.inf:
+        return None
+    fp_qs, _ = miller(p, q + s, ell)
+    fp_s, _ = miller(p, s, ell)
+    return (fp_qs / fp_s) ** ((field_order ** k - 1) // ell)
 
 
 Q = BN254_Q  # base field modulus

@@ -10,8 +10,8 @@ what the JAX side writes: the fixed-base
 tables (``curves/fixed_base.py``, keys ``l0..l2`` or ``l0..l5``), the bench's
 MSM point table (``bench.py``, keys ``x, y, z``), any proving key written
 by ``utils/serialize.save_point_batches`` (``load_key``: Pinocchio's,
-Groth16's) and the Pinocchio verification key, and a Groth16 verifying key
-from host ints and its ``g1_k_pub`` arrays.  The
+Groth16's, through the port's ``utils/serialize``), and a Groth16 verifying
+key from host ints and its ``g1_k_pub`` arrays.  The
 port's own fixed-base cache is written in the same format.  Every loader makes
 its tensors on the card unless ``device`` names another device.
 """
@@ -19,16 +19,16 @@ its tensors on the card unless ``device`` names another device.
 from __future__ import annotations
 
 import dataclasses
-import json
 import os
 
 import numpy as np
 import torch
 
 from . import _ext
+from .arith.qap import QAP
+from .arith.r1cs import R1CS
 from .arith.sparse import SparseMatrix, SparseR1CS
 from .curves.weierstrass import Point, from_leaves, leaves
-from .fields.host import Fq, Fq2, curve_g1, curve_g2
 from .fields.fp import Fp
 from .fields.spec import FieldSpec
 from .ops.mpoly import MPoly
@@ -148,45 +148,29 @@ def sparse_r1cs_from_numpy(spec: FieldSpec, mats, device=None) -> SparseR1CS:
                         for m in mats))
 
 
+def r1cs_from_numpy(spec: FieldSpec, left, right, out, device=None) -> R1CS:
+    """A dense R1CS from the JAX ``R1CS``'s three (L, m, d) Montgomery limb
+    arrays (``left.mont``, ``right.mont``, ``out.mont``)."""
+    return R1CS(*(fp_from_numpy(spec, mat, device) for mat in (left, right, out)))
+
+
+def qap_from_numpy(spec: FieldSpec, ell, r, o, t, m: int, d: int, device=None) -> QAP:
+    """A dense QAP from the JAX ``QAP``'s (L, d, m) coefficient arrays ell,
+    r, o and its (L, m + 1) target t, all Montgomery limbs."""
+    return QAP(*(fp_from_numpy(spec, a, device) for a in (ell, r, o, t)), m, d)
+
+
 def load_key(path, cls, device=None):
     """A key dataclass ``cls`` (``snark.pinocchio.PinocchioProofKey``,
-    ``snark.groth16.Groth16ProvingKey``) from what the JAX package's
+    ``snark.groth16.Groth16ProvingKey``) from what either package's
     ``utils/serialize.save_point_batches`` writes (``save_pinocchio_pk``
-    included): each point field from keys ``pt:<field>:n`` and
-    ``pt:<field>:<i>`` (3 or 6 coordinate arrays per point batch), each other
-    field an int from ``arr:<field>``."""
-    out = {}
-    with np.load(path) as data:
-        for f in dataclasses.fields(cls):
-            if f"pt:{f.name}:n" in data.files:
-                n = int(data[f"pt:{f.name}:n"])
-                out[f.name] = point_from_numpy(
-                    [data[f"pt:{f.name}:{i}"] for i in range(n)], device)
-            else:
-                out[f.name] = int(data[f"arr:{f.name}"])
-    return cls(**out)
+    included), read by the port's ``serialize.load_point_batches``: each
+    point field a point batch, each other field an int."""
+    from .utils import serialize  # serialize imports this module
 
-
-def _host_point(v):
-    """One JSON entry of ``serialize.save_pinocchio_vk``: [group, coords]."""
-    grp, coords = v
-    curve = curve_g2 if grp == "g2" else curve_g1
-    if coords is None:
-        return curve.infinity()
-    x, y = coords
-    if grp == "g2":
-        return curve.point(Fq2([int(c) for c in x]), Fq2([int(c) for c in y]))
-    return curve.point(Fq(int(x)), Fq(int(y)))
-
-
-def load_pinocchio_vk(path):
-    """A verification key saved by ``serialize.save_pinocchio_vk`` (JSON of
-    host points) -> ``snark.pinocchio.PinocchioVerificationKey``."""
-    from .snark.pinocchio import PinocchioVerificationKey  # pinocchio imports this module
-
-    with open(path) as fh:
-        data = json.load(fh)
-    return PinocchioVerificationKey(**{k: _host_point(v) for k, v in data.items()})
+    data = serialize.load_point_batches(path, device)
+    return cls(**{f.name: data[f.name] if isinstance(data[f.name], Point)
+                  else int(data[f.name]) for f in dataclasses.fields(cls)})
 
 
 def groth16_vk_from_host(points: dict, g1_k_pub, device=None):
@@ -195,7 +179,8 @@ def groth16_vk_from_host(points: dict, g1_k_pub, device=None):
     form ([group, coords]); ``g1_k_pub`` is the 3 coordinate limb arrays of
     the (num_public,) batch -> ``snark.groth16.Groth16VerifyingKey``."""
     from .snark.groth16 import Groth16VerifyingKey  # groth16 imports this module
+    from .utils.serialize import host_point_from_json
 
     k_pub = point_from_numpy(g1_k_pub, device)
-    return Groth16VerifyingKey(**{k: _host_point(v) for k, v in points.items()},
+    return Groth16VerifyingKey(**{k: host_point_from_json(v) for k, v in points.items()},
                                g1_k_pub=k_pub, num_public=k_pub.x.shape[1])

@@ -1,5 +1,5 @@
-"""Host libraries in C++, bound with ctypes: the verifier's BN254
-multi-pairing and the Merkle tree's SHA3-256 levels.
+"""Host libraries in C++, bound with ctypes: the BN254 pairing and the
+verifier's multi-pairing, and the Merkle tree's SHA3-256 levels.
 
 ``bn254.cpp``, ``gen_constants.py`` and ``keccak.cpp`` are the port's copies
 of the JAX package's engine (``myzkp_tpu/native/``).  At first use each
@@ -88,6 +88,8 @@ def library() -> ctypes.CDLL:
         lib.bn254_multi_pairing.argtypes = (ctypes.c_int, u64p, intp, u64p,
                                             intp, u64p)
         lib.bn254_multi_pairing.restype = None
+        lib.bn254_pairing.argtypes = (u64p, ctypes.c_int, u64p, ctypes.c_int, u64p)
+        lib.bn254_pairing.restype = None
         _lib = lib
     return _lib
 
@@ -96,9 +98,10 @@ def _u64x4(x: int) -> list:
     return [(x >> (64 * i)) & ((1 << 64) - 1) for i in range(4)]
 
 
-def multi_pairing_coeffs(pairs) -> list:
-    """prod_i e(P_i, Q_i) for host (G1, G2) PyPoint pairs, one shared final
-    exponentiation -> the 12 poly-basis F_q coefficients as ints."""
+def _pack(pairs) -> tuple:
+    """Host (G1, G2) PyPoint pairs -> the C entries' standard-form u64
+    coordinate arrays (8 words a G1 point, 16 a G2 point) and infinity
+    flags."""
     n = len(pairs)
     g1 = (ctypes.c_uint64 * (8 * n))()
     g2 = (ctypes.c_uint64 * (16 * n))()
@@ -110,10 +113,30 @@ def multi_pairing_coeffs(pairs) -> list:
         if not q.inf:
             g2[16 * k:16 * (k + 1)] = [w for c in (*q.x.c, *q.y.c)
                                        for w in _u64x4(c.v)]
-    out = (ctypes.c_uint64 * 48)()
-    library().bn254_multi_pairing(n, g1, inf1, g2, inf2, out)
+    return g1, inf1, g2, inf2
+
+
+def _fq12_ints(out) -> list:
     return [sum(int(out[4 * i + j]) << (64 * j) for j in range(4))
             for i in range(12)]
+
+
+def pairing_coeffs(p_g1, q_g2) -> list:
+    """e(P, Q) for a host G1 and G2 PyPoint -> the 12 poly-basis F_q
+    coefficients (F_q[w] / (w^12 - 18 w^6 + 82)) as ints."""
+    g1, inf1, g2, inf2 = _pack([(p_g1, q_g2)])
+    out = (ctypes.c_uint64 * 48)()
+    library().bn254_pairing(g1, inf1[0], g2, inf2[0], out)
+    return _fq12_ints(out)
+
+
+def multi_pairing_coeffs(pairs) -> list:
+    """prod_i e(P_i, Q_i) for host (G1, G2) PyPoint pairs, one shared final
+    exponentiation -> the 12 poly-basis F_q coefficients as ints."""
+    g1, inf1, g2, inf2 = _pack(pairs)
+    out = (ctypes.c_uint64 * 48)()
+    library().bn254_multi_pairing(len(pairs), g1, inf1, g2, inf2, out)
+    return _fq12_ints(out)
 
 
 def keccak_library() -> ctypes.CDLL:

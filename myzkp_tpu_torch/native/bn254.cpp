@@ -1,7 +1,8 @@
 // Host BN254 pairing engine for the verifier: 4x64-bit Montgomery Fq, the
 // Fq2/Fq6/Fq12 tower and the optimal ate pairing.  A copy of the JAX
 // package's engine (myzkp_tpu/native/src/bn254.cpp), kept so that the port
-// imports nothing of that package; only the multi-pairing is exported.  Same
+// imports nothing of that package; the single pairing and the multi-pairing
+// are exported.  Same
 // Miller loop shape (generic affine points on E(Fq12), normalized line
 // function `get_lambda`) and final exponent (q^12-1)/r, decomposed as
 // (q^6-1)(q^2+1) * (q^4-q^2+1)/r.  This is host code, built with g++, not a
@@ -534,6 +535,18 @@ static inline Fq12 ate_miller(const Pt &p, const Pt &q) {
 }
 
 extern "C" {
+
+// e(P, Q).  g1: 8 u64 (x, y), g2: 16 u64 (x0, x1, y0, y1), out: 48 u64
+// poly-basis coefficients; all standard-form little-endian limbs.
+void bn254_pairing(const uint64_t *g1, int g1_inf, const uint64_t *g2,
+                   int g2_inf, uint64_t *out) {
+  Pt p = embed_g1(g1, g1_inf);
+  Pt q = embed_g2(g2, g2_inf);
+  Fq12 f = final_exp(ate_miller(p, q));
+  Fq coeffs[12];
+  tower_to_poly(f, coeffs);
+  for (int i = 0; i < 12; ++i) fq_to_limbs(coeffs[i], out + 4 * i);
+}
 
 // prod_i e(P_i, Q_i) with a single shared final exponentiation.  g1s: 8 u64
 // (x, y) per point, g2s: 16 u64 (x0, x1, y0, y1), out: 48 u64 poly-basis

@@ -1,11 +1,13 @@
-"""Groth16 zk-SNARK over the sparse QAP: setup, prove and verify.
+"""Groth16 zk-SNARK over the sparse or the dense QAP: setup, prove and
+verify.
 
 Counterpart of ``myzkp_tpu/snark/groth16.py`` (setup :67-125, prove
-:153-225, verify :228-243), duck-typed on ``arith/sparse.SparseQAP`` as the
-reference is.  The proving and verifying keys are one fixed-base batch per
-group (3m + 4 G1 points, m + 3 G2 points); the prover is four G1 MSMs and one
-G2 MSM over the assignment and h, with the [r]/[s]/[rs] delta shifts on the
-same ``msm_many`` calls, then one ladder for [s]A and [r]B1; the verifier's
+:153-225 with the dense QAP's h :138-150, verify :228-243), on
+``arith/sparse.SparseQAP`` or ``arith/qap.QAP`` as the reference is.  The
+proving and verifying keys are one fixed-base batch per group (3m + 4 G1
+points, m + 3 G2 points); the prover is four G1 MSMs and one G2 MSM over the
+assignment and h, with the [r]/[s]/[rs] delta shifts on the same
+``msm_many`` calls, then one ladder for [s]A and [r]B1; the verifier's
 product of four pairings runs on the host (``native/``).  Randomness is drawn
 from ``rng`` in the reference's order, so the same seeded ``random.Random``
 and the same key give the reference's proof, point for point.
@@ -19,6 +21,7 @@ from __future__ import annotations
 import random as _random
 from dataclasses import dataclass
 
+from ..arith.qap import QAP
 from ..arith.sparse import SparseQAP
 from ..curves import bn254, msm as _msm, weierstrass as wst
 from ..fields.fp import Fp
@@ -58,7 +61,7 @@ class Groth16Proof:
     c: PyPoint  # G1
 
 
-def setup(qap: SparseQAP, num_public: int, rng=None
+def setup(qap: SparseQAP | QAP, num_public: int, rng=None
           ) -> tuple[Groth16ProvingKey, Groth16VerifyingKey]:
     """Trusted setup with toxic waste alpha, beta, gamma, delta, x (drawn
     from ``rng`` in that order).  The G1 scalars are [alpha, beta, delta] ||
@@ -108,24 +111,38 @@ def setup(qap: SparseQAP, num_public: int, rng=None
     return pk, vk
 
 
-def prove(assignment: Fp, pk: Groth16ProvingKey, qap: SparseQAP,
+def _uvh(qap: SparseQAP | QAP, assignment: Fp) -> tuple:
+    """u and v's (m,) coefficients, and h = (u v - w) / t's first m - 1
+    (zero-padded): one batched INTT and the quotient stage for the sparse
+    QAP; ``QAP.combine`` and ``QAP.h_poly`` for the dense one."""
+    m = qap.m
+    if isinstance(qap, QAP):
+        u, v, _ = (poly.coef for poly in qap.combine(assignment))
+        h = qap.h_poly(assignment).coef.pad_to(m - 1)
+    else:
+        coef = qap.combine_batched(assignment)  # (3, m): u, v, w
+        u, v, h = coef[0], coef[1], qap.quotient(coef)
+    return u, v, h[:m - 1]
+
+
+def prove(assignment: Fp, pk: Groth16ProvingKey, qap: SparseQAP | QAP,
           rng=None) -> Groth16Proof:
     """A = alpha + u(x) + r delta;  B = beta + v(x) + s delta;
     C = (sum_priv a_i K_i + h(x) t(x))/delta + s A + r B1 - r s delta,
     with r, s drawn from ``rng`` in that order.
 
     u, v, w come from one batched INTT and h = (u v - w) / t from the
-    quotient stage (its first m - 1 coefficients: deg h <= m - 2 for a
-    satisfying witness).  Each group's MSMs and its delta shifts go through
+    quotient stage (sparse QAP), or from ``QAP.combine`` and ``QAP.h_poly``
+    (dense QAP); h is taken as its first m - 1 coefficients, zero-padded
+    (deg h <= m - 2 for a satisfying witness).  Each group's MSMs and its delta shifts go through
     one ``msm_many`` call; [s]A and [r]B1 share one more ladder."""
     rng = rng or _random
     R = bn254.R
     r_rand, s_rand = rng.randrange(1, R), rng.randrange(1, R)
     dev = assignment.device
     npub = pk.num_public
-    coef = qap.combine_batched(assignment)  # (3, m): u, v, w
-    h_std = _std(qap.quotient(coef)[:qap.m - 1])
-    u_std, v_std = _std(coef[0]), _std(coef[1])
+    u, v, h = _uvh(qap, assignment)
+    u_std, v_std, h_std = _std(u), _std(v), _std(h)
     a_priv = _std(assignment)[:, npub:]
     sc = lambda k: _msm.scalars_from_int(bn254.r_spec(), [k], dev)
 

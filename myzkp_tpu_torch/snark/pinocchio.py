@@ -1,11 +1,14 @@
-"""Pinocchio zk-SNARK over the sparse QAP: setup, prove and verify.
+"""Pinocchio zk-SNARK over the sparse or the dense QAP: setup, prove and
+verify.
 
 Counterpart of ``myzkp_tpu/snark/pinocchio.py`` (setup :115-202, prove
 :546-610, verify :613-634, and the quotient stage ``get_shifted_h`` with the
-semantics of ``_jitted_shifted_h_rou`` :332-388).  Every proving-key vector is
-one fixed-base batch per group (``curves/fixed_base``), every prover
-accumulation a Pippenger MSM (``curves/msm``), and h comes from the QAP's NTT
-pipeline; the verifier's twelve pairings run on the host (``native/``).
+semantics of ``_jitted_shifted_h_rou`` :332-388 and the dense branch
+:407-418).  Every proving-key vector is one fixed-base batch per group
+(``curves/fixed_base``), every prover accumulation a Pippenger MSM
+(``curves/msm``), and h comes from the QAP's quotient (the NTT pipeline, or
+the long division on the dense QAP's natural domain); the verifier's twelve
+pairings run on the host (``native/``).
 Randomness is drawn from ``rng`` in the reference's order, so the same seeded
 ``random.Random`` and the same key give the reference's proof, point for
 point.
@@ -18,6 +21,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..arith.qap import QAP
 from ..arith.sparse import SparseQAP
 from ..curves import bn254, fixed_base, msm as _msm, weierstrass as wst
 from ..fields import limb
@@ -100,7 +104,7 @@ def _single(pt: wst.Point) -> wst.Point:
     return wst.point_map(lambda a: a[:, 0], pt)
 
 
-def setup(qap: SparseQAP, rng=None) -> tuple[PinocchioProofKey, PinocchioVerificationKey]:
+def setup(qap: SparseQAP | QAP, rng=None) -> tuple[PinocchioProofKey, PinocchioVerificationKey]:
     """Toxic waste s, alpha_{ell,r,o}, beta, eta, rho_{ell,r} (rho_o =
     rho_ell rho_r) from ``rng``; the key's G1 points are one fixed-base batch
     and its G2 points another (5d + m + 10 and 2d + 7 points)."""
@@ -183,21 +187,32 @@ def setup(qap: SparseQAP, rng=None) -> tuple[PinocchioProofKey, PinocchioVerific
     return pk, vk
 
 
-def get_shifted_h(qap: SparseQAP, assignment: Fp, d_ell: int, d_r: int,
+def get_shifted_h(qap: SparseQAP | QAP, assignment: Fp, d_ell: int, d_r: int,
                   d_o: int) -> Poly:
     """The m + 1 coefficients of H = h + ell d_r + r d_ell + t d_ell d_r - d_o.
 
-    ell, r, o interpolate the constraint evaluations over the m-point domain
-    (one batched INTT), h = (ell r - o) / t with t = X^m - 1
-    (``SparseQAP.quotient``: a batched coset NTT at 2m, the division, a
-    coset INTT), and t d_ell d_r - d_o is two coefficient corrections:
-    -(d_ell d_r + d_o) at 0 and +d_ell d_r at m."""
+    For the sparse QAP, ell, r, o interpolate the constraint evaluations
+    over the m-point domain (one batched INTT), h = (ell r - o) / t with
+    t = X^m - 1 (``SparseQAP.quotient``: a batched coset NTT at 2m, the
+    division, a coset INTT), and t d_ell d_r - d_o is two coefficient
+    corrections: -(d_ell d_r + d_o) at 0 and +d_ell d_r at m.  For the dense
+    QAP (either domain), h is ``QAP.h_poly`` and ell, r, o ``QAP.combine``,
+    and t d_ell d_r - d_o is t's coefficients scaled, less d_o at 0, as the
+    reference's dense branch computes them."""
     spec, m = qap.spec, qap.m
     p, dev = spec.p, assignment.device
     scalar = lambda x: Fp.from_int(spec, x % p, dev)
+    n1 = m + 1
+    if isinstance(qap, QAP):
+        h = qap.h_poly(assignment)
+        ell, r, _ = qap.combine(assignment)
+        return (h.pad_to(n1)
+                + ell.scale_const(scalar(d_r)).pad_to(n1)
+                + r.scale_const(scalar(d_ell)).pad_to(n1)
+                + Poly(qap.t).scale_const(scalar(d_ell * d_r)).pad_to(n1)
+                - Poly(scalar(d_o).reshape(1)).pad_to(n1))
     coef = qap.combine_batched(assignment)
     ell, r = Poly(coef[0]), Poly(coef[1])
-    n1 = m + 1
     drdl, d_o_ = scalar(d_ell * d_r), scalar(d_o)
     corr = limb.zeros(spec, (n1,), dev)
     corr[:, 0] = limb.neg(spec, limb.add(spec, drdl.mont, d_o_.mont))
@@ -213,7 +228,7 @@ def _stack(pts) -> wst.Point:
     return wst.point_map(lambda *cs: torch.stack(cs, dim=1), *pts)
 
 
-def prove(assignment: Fp, pk: PinocchioProofKey, qap: SparseQAP,
+def prove(assignment: Fp, pk: PinocchioProofKey, qap: SparseQAP | QAP,
           rng=None) -> PinocchioProof:
     """The 8-element proof: six G1 and two G2 MSMs over the assignment, the
     shifted h and its commitment, and the delta_{ell,r,o} shifts (drawn from

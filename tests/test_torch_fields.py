@@ -168,8 +168,9 @@ def test_build_definitions_must_name_a_source_constant(defines, known):
 
 def test_port_imports_no_jax():
     """Importing every module of the port, those of the NTT, quotient,
-    Groth16, KZG / Gemini, sumcheck, extension-field and DAS slices
-    included, leaves jax and the JAX package out of sys.modules."""
+    Groth16, KZG / Gemini, sumcheck, extension-field, DAS and dense-QAP /
+    tutorial / utility slices included, leaves jax and the JAX package out
+    of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import myzkp_tpu_torch as m\n"
@@ -192,6 +193,10 @@ def test_port_imports_no_jax():
               "utils.fiat_shamir", "stark.fri", "ops.mpoly",  # sumcheck
               "protocols.sumcheck", "protocols.sumcheck_tpu",
               "fields.efield", "codes.reedsolomon",  # extension fields, RS
-              "das.celestia", "das.avail", "das.eigenda", "das.cli"}  # DAS
+              "das.celestia", "das.avail", "das.eigenda", "das.cli",  # DAS
+              "arith.r1cs", "arith.qap", "utils.hostpoly",  # dense algebra, tutorials
+              "protocols.tutorial_single_poly", "protocols.tutorial_snark",
+              "utils.serialize", "utils.checkpoint", "utils.metrics",  # utilities
+              "snark.cli", "protocols.sumcheck_cli"}
     assert {f"myzkp_tpu_torch.{m}" for m in slices} <= loaded
-    assert len(loaded) >= 24
+    assert len(loaded) >= 34

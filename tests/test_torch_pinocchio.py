@@ -36,6 +36,7 @@ from myzkp_tpu_torch.curves import bn254 as tbn
 from myzkp_tpu_torch.curves import weierstrass as tw
 from myzkp_tpu_torch.ops import ntt as tntt
 from myzkp_tpu_torch.snark import pinocchio as tpin
+from myzkp_tpu_torch.utils import serialize as tserialize
 
 DEV = torch.device("cpu")  # the port's constructors default to the card
 # one intra-op thread: the test processes (pytest-xdist) already share
@@ -129,13 +130,14 @@ from myzkp_tpu_torch.arith import sparse
 from myzkp_tpu_torch.curves import bn254
 from myzkp_tpu_torch.fields.fp import Fp
 from myzkp_tpu_torch.snark import pinocchio as pin
+from myzkp_tpu_torch.utils import serialize
 
 m, seed, keys = int(sys.argv[1]), int(sys.argv[2]), Path(sys.argv[3])
 cpu = torch.device("cpu")
 r1cs, asg = sparse.square_chain(bn254.r_spec(), m, device=cpu)
 qap = sparse.SparseQAP(r1cs)
 pk = interop.load_key(keys / "pk.npz", pin.PinocchioProofKey, cpu)
-vk = interop.load_pinocchio_vk(keys / "vk.json")
+vk = serialize.load_pinocchio_vk(keys / "vk.json")
 good = pin.prove(asg, pk, qap, rng=random.Random(seed + 1))
 own_pk, own_vk = pin.setup(qap, rng=random.Random(seed))
 mont = asg.mont.clone()
@@ -218,7 +220,7 @@ def test_interop_loads_the_reference_keys(reference):
         got = [interop.limbs_to_numpy(a) for a in tw.leaves(getattr(pk, f))]
         want = _jax_leaves(getattr(jpk, f))
         assert len(got) == len(want) and all((g == w).all() for g, w in zip(got, want)), f
-    vk = interop.load_pinocchio_vk(keys / "vk.json")
+    vk = tserialize.load_pinocchio_vk(keys / "vk.json")
     assert {f: _ints(v) for f, v in vars(vk).items()} == \
         {f: _ints(v) for f, v in vars(jvk).items()}
 
@@ -233,7 +235,7 @@ def test_prove_matches_the_host_golden(port_alone):
 def test_both_verifiers_accept_the_port_proof(port_alone, reference):
     proof = _port_proof(port_alone["proof"])
     assert port_alone["accepted"] is True
-    assert tpin.verify(proof, interop.load_pinocchio_vk(reference[4] / "vk.json"))
+    assert tpin.verify(proof, tserialize.load_pinocchio_vk(reference[4] / "vk.json"))
     assert jpin.verify(_reference_proof(proof), reference[3])
 
 
@@ -256,4 +258,4 @@ def test_prove_matches_reference(reference, port_alone):
     assert {f: _ints(getattr(proof, f)) for f in PROOF_FIELDS} == \
         {f: _ints(getattr(want, f)) for f in PROOF_FIELDS}
     port_view = _port_proof({f: _ints(getattr(want, f)) for f in PROOF_FIELDS})
-    assert tpin.verify(port_view, interop.load_pinocchio_vk(keys / "vk.json"))
+    assert tpin.verify(port_view, tserialize.load_pinocchio_vk(keys / "vk.json"))
