@@ -241,8 +241,24 @@ Phases, one output line each (or more), in order:
                equal to msm, its file removed; metrics.trace around a prove
                writes a trace; python -m myzkp_tpu_torch.snark.cli 12 and
                python -m myzkp_tpu_torch.protocols.sumcheck_cli (8 variables)
-               exit 0, snark.cli --mesh 4 is refused; K17 at (1, 1023, 512)
-               timed beside its plain version and bound.
+               exit 0, and snark.cli 12 --mesh 2 (two ranks sharing the
+               card), snark.cli --g2 naive is refused; K17 at (1, 1023, 512)
+               timed beside its plain version and bound;
+ 16. mesh      parallel/mesh.py: 4 ranks spawned by run_ranks share the card
+               (gloo, each collective staged through pinned host memory);
+               each runs square_chain(2^20)'s Pinocchio and Groth16 setups
+               (one seed each, a group's key freed before the next), the mesh
+               proves (launch counts and collective bytes set to 0 just
+               before and read just after; seconds and peak memory per rank),
+               verifies them, and rank 0 holds every rank's proof equal point
+               for point to its single-rank prove of the same key and seed;
+               then dist_ntt at 2^20 == ntt, dist_msm over 2^20 G1 points ==
+               msm and at c = 14 over 2^16, dist_fold_into_half and
+               dist_table_sum over a 2^20 F_r table, dist_fri_fold (two
+               rounds) and dist_merkle_tree (root and paths) over a
+               2^20-point M128 codeword == fold_codeword and MerkleTree; and
+               the mesh Pinocchio prove once at D = 1 on NCCL.  Four ranks on
+               one card give no scaling figure.
 The build phase prints ptxas's registers and spills of every kernel and the
 static SASS instruction counts (cuobjdump -sass) of the curve kernels.
 Each path's launch counts are set to 0 just before it and read just after.
@@ -251,7 +267,8 @@ The line before the last is a JSON object with one entry per kernel (its
 13's first FastStark prove), "kzg_launches" from phase 11's runs,
 "sumcheck_launches" from phase 12's, "stark_launches" from phase 13's prove,
 "das_launches" from phase 14's runs, "dense_launches" from phase 15's three
-dense proves; for the two-word kernels "launches" are phase 14's efield runs,
+dense proves, "mesh_launches" and "mesh_g16_launches" from rank 0's mesh
+Pinocchio and Groth16 proves in phase 16; for the two-word kernels "launches" are phase 14's efield runs,
 for K17's BN254 instance phase 15's natural-domain prove); the last line is
 {"ok": true, "device": {...}}.
 Any failure exits nonzero before it.
@@ -261,6 +278,7 @@ Neither this script nor the port imports JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import itertools
 import json
@@ -4017,6 +4035,7 @@ def utilities(dev, spec, smi: str, rou: tuple, out: dict) -> None:
         f"dense prove wrote {size} bytes")
 
     for argv, env in ((["myzkp_tpu_torch.snark.cli", str(SNARK_CLI_LOG_M)], {}),
+                      (["myzkp_tpu_torch.snark.cli", str(SNARK_CLI_LOG_M), "--mesh", "2"], {}),
                       (["myzkp_tpu_torch.protocols.sumcheck_cli"],
                        {"SUMCHECK_VARS": str(SUMCHECK_CLI_VARS)})):
         with METRICS.stage(f"python -m {argv[0]}"):
@@ -4029,12 +4048,12 @@ def utilities(dev, spec, smi: str, rou: tuple, out: dict) -> None:
         log(f"# python -m {' '.join(argv)} {env or ''}: exit 0: "
             f"{' | '.join(res.stdout.strip().splitlines())}")
     try:
-        snark_cli.main(["--mesh", "4", str(SNARK_CLI_LOG_M)])
-        raise AssertionError("snark.cli --mesh 4 ran")
+        snark_cli.main(["--g2", "naive", str(SNARK_CLI_LOG_M)])
+        raise AssertionError("snark.cli --g2 naive ran")
     except SystemExit as exc:
         if exc.code != 2:
-            raise AssertionError(f"snark.cli --mesh 4: exit {exc.code}, expected 2") from exc
-    log("# snark.cli --mesh 4: refused (exit 2, parallel/mesh.py is not ported)")
+            raise AssertionError(f"snark.cli --g2 naive: exit {exc.code}, expected 2") from exc
+    log("# snark.cli --g2 naive: refused (exit 2, the chunked naive G2 ladder is TPU-only)")
 
 
 def phase_dense(dev, results: dict) -> None:
@@ -4082,6 +4101,401 @@ def phase_dense(dev, results: dict) -> None:
     for line in METRICS.report().splitlines():
         log(f"#   {line}")
     log(f"# dense phase {out['phase_s']:.1f} s")
+
+
+MESH_SEED = SEED + 160
+MESH_RANKS = 4  # ranks sharing the one card (gloo, staged through host memory)
+LOG_M_MESH = 20  # square_chain(2^20): m >= D^2 = 16
+# (log2 m, NTT, MSM, MSM at c = 14, sumcheck table, M128 codeword): phase 16's sizes
+MESH_LOGS = (LOG_M_MESH, 20, 20, LOG_N_C14, 20, 20)
+MESH_TIMEOUT = 600  # seconds a rank waits in a collective before it fails
+MERKLE_OPENS = (0, 1, (1 << 19) + 7, (1 << 20) - 1)
+# the kernels each mesh prove must launch on every rank: Pinocchio's quotient
+# runs dist_ntt's 1024-point transforms (K5), Groth16's runs on every rank (K6)
+MESH_MSM_KERNELS = ("mont_mul", "mont_pow", "padd", "pdbl", "bucket_scan_rows", "padd2", "pdbl2",
+                    "bucket_scan_rows2", "padd_seg_level", "padd2_seg_level", "gather_planes",
+                    "scatter_rows")
+MESH_NEED = {"pinocchio": MESH_MSM_KERNELS + ("butterfly",),
+             "groth16": MESH_MSM_KERNELS + ("ntt_leaf",)}
+
+
+def mesh_wrappers() -> list:
+    """(owner, wrapper, plain version) of every kernel the mesh path calls;
+    each plain version takes its wrapper's arguments (K4's G2 instance
+    shares K4's)."""
+    from myzkp_tpu_torch.curves import curve_kernels as ck
+    from myzkp_tpu_torch.fields import limb, ntt_kernels as nk
+
+    curve = ("padd", "pdbl", "padd2", "pdbl2", "padd_mixed", "padd_mixed2", "padd_seg_level",
+             "padd2_seg_level", "bucket_scan_rows", "gather_planes", "scatter_rows")
+    return ([(limb, "mont_mul", limb.mont_mul_ref), (limb, "pow_const", limb.mont_pow_ref),
+             (nk, "butterfly", nk.butterfly_ref), (nk, "ntt_leaf", nk.ntt_leaf_ref),
+             (ck, "bucket_scan_rows2", ck.bucket_scan_rows_ref)]
+            + [(ck, k, getattr(ck, k + "_ref")) for k in curve])
+
+
+def arg_key(x):
+    """Shapes, dtypes and host values of nested arguments (a FieldSpec by
+    its modulus)."""
+    if torch.is_tensor(x):
+        return tuple(x.shape), str(x.dtype)
+    if isinstance(x, (tuple, list)):
+        return tuple(arg_key(y) for y in x)
+    if isinstance(x, dict):
+        return tuple(sorted((k, arg_key(v)) for k, v in x.items()))
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return x
+    return getattr(x, "p", type(x).__name__)
+
+
+def copy_args(x):
+    """Nested arguments with every tensor copied (layout kept)."""
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*map(copy_args, x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(copy_args(y) for y in x)
+    if isinstance(x, dict):
+        return {k: copy_args(v) for k, v in x.items()}
+    return x
+
+
+def arg_tensors(x) -> list:
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, (tuple, list, dict)):
+        return [t for e in (x.values() if isinstance(x, dict) else x) for t in arg_tensors(e)]
+    return []
+
+
+class kernel_calls:
+    """Within the block, every call of a ``mesh_wrappers`` wrapper that
+    launches a kernel counts its launches by kernel, and the first call of
+    each (wrapper, argument shapes) keeps a copy of its arguments, made
+    before the call (K4 and K16 write into theirs).  ``check`` then runs
+    each kept call through the wrapper and its plain version on the card."""
+
+    def __init__(self):
+        self.calls, self.launched, self.saved = {}, {}, []
+
+    def __enter__(self):
+        from myzkp_tpu_torch import _ext
+
+        for owner, name, ref in mesh_wrappers():
+            fn = getattr(owner, name)
+
+            def wrapped(*a, _fn=fn, _ref=ref, _name=name, **k):
+                key = (_name, arg_key(a), arg_key(k))
+                kept = None if key in self.calls else copy_args((a, k))
+                before = dict(_ext.launches)
+                out = _fn(*a, **k)
+                ran = {n: c - before[n] for n, c in _ext.launches.items() if c > before[n]}
+                for n, c in ran.items():
+                    self.launched[n] = self.launched.get(n, 0) + c
+                if ran and kept is not None:
+                    self.calls[key] = (sorted(ran), _fn, _ref, kept)
+                return out
+
+            self.saved.append((owner, name, fn))
+            setattr(owner, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+    def check(self, what: str, launches: dict, seen: set) -> dict:
+        """Every launch of the block went through a wrapper (``launches``,
+        the block's counts, equal to the wrappers' own); each kept call not
+        in ``seen`` (keys checked before, updated) held bit-exact against
+        its plain version.  {kernel: [shapes checked, max abs err, rows
+        left out as K16's shared targets]}."""
+        want = {k: v for k, v in launches.items() if v}
+        if self.launched != want:
+            raise AssertionError(f"{what}: launches outside the recorded wrappers: "
+                                 f"{want} against {self.launched}")
+        out = {k: [0, 0, 0] for k in want}
+        for key, (kernels, fn, ref, (a, k)) in self.calls.items():
+            if key in seen:
+                continue
+            seen.add(key)
+            a1, k1 = copy_args((a, k))
+            a2, k2 = copy_args((a, k))
+            got, exp = fn(*a1, **k1), ref(*a2, **k2)
+            shared = 0
+            tgt = (a[2] if len(a) > 2 else k.get("tgt")) if key[0] == "scatter_rows" else None
+            if tgt is not None:
+                # K16's contract: a row two points target holds 16-byte pieces
+                # of either, in no set order (the MSM merge's dummy slots);
+                # every other row must agree
+                many = torch.bincount(tgt.long(), minlength=a[1].shape[0]) > 1
+                shared = int(many.sum())
+                a1[1][many] = 0
+                a2[1][many] = 0
+            err = check_equal(f"{what}: {'+'.join(kernels)} at {key[1]}",
+                              arg_tensors(got) + arg_tensors((a1, k1)),
+                              arg_tensors(exp) + arg_tensors((a2, k2)))
+            for n in kernels:
+                out[n][0] += 1
+                out[n][1] = max(out[n][1], err)
+                out[n][2] += shared
+        self.calls.clear()
+        return out
+
+
+def host_ints(p) -> tuple | None:
+    """A host point as ints (None for infinity): picklable across ranks."""
+    if p.inf:
+        return None
+    return tuple(tuple(int(c) for c in v.c) if hasattr(v, "c") else int(v) for v in (p.x, p.y))
+
+
+def random_m128(rng: np.random.Generator, n: int, dev) -> torch.Tensor:
+    """n random canonical M128 limb columns (top limb kept below p's)."""
+    from myzkp_tpu_torch.fields.spec import M128
+
+    limbs = rng.integers(0, 1 << 16, size=(8, n), dtype=np.int64)
+    limbs[7] = rng.integers(0, M128 >> 112, size=n)
+    return torch.from_numpy(limbs.astype(np.int32)).to(dev)
+
+
+def mesh_prove(mesh, name: str, fn) -> tuple:
+    """fn() (a mesh prove) on every rank from a barrier, with the launch
+    counts and collective traffic set to 0 just before it and read just
+    after: (its result, {seconds, peak MiB, launches, traffic})."""
+    import torch.distributed as dist
+    from myzkp_tpu_torch import _ext
+    from myzkp_tpu_torch.parallel import mesh as pm
+
+    dist.barrier(group=mesh.get_group("shard"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launches()
+    pm.reset_traffic()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    stats = {"s": time.perf_counter() - t0,
+             "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+             "launches": {k: v for k, v in _ext.launches.items() if v},
+             "traffic": {k: dict(v) for k, v in pm.traffic.items()}}
+    missing = [k for k in MESH_NEED[name] if not stats["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"mesh {name} prove: {missing} never launched: {stats['launches']}")
+    return out, stats
+
+
+def mesh_snark(mesh, name: str, log_m: int, seed: int, checked: set) -> dict:
+    """Setup (every rank, one seed), the mesh prove timed, its proof
+    verified on every rank and equal on every rank to rank 0's single-rank
+    prove of the same key and seed; the prove once more with rank 0's
+    kernel calls held to their plain versions (``kernel_calls``; the keys
+    in ``checked`` skipped); the key is freed before returning."""
+    import torch.distributed as dist
+    from myzkp_tpu_torch import _ext
+    from myzkp_tpu_torch.curves import bn254
+    from myzkp_tpu_torch.parallel import mesh as pm
+    from myzkp_tpu_torch.snark import groth16, pinocchio
+
+    spec = bn254.r_spec()
+    qap, asg = _square_chain_case(spec, 1 << log_m, pm.mesh_device(mesh))
+    t0 = time.perf_counter()
+    if name == "pinocchio":
+        pk, vk = pinocchio.setup(qap, random.Random(seed))
+        prove = lambda mesh_: pinocchio.prove(asg, pk, qap, random.Random(seed + 1), mesh=mesh_)
+        verify = lambda pr: pinocchio.verify(pr, vk)
+        points = lambda pr: [getattr(pr, f.name) for f in dataclasses.fields(pr)]
+    else:
+        pk, vk = groth16.setup(qap, NPUB_G16, random.Random(seed))
+        public = [int(v) for v in asg[:NPUB_G16].to_int()]
+        prove = lambda mesh_: groth16.prove(asg, pk, qap, random.Random(seed + 1), mesh=mesh_)
+        verify = lambda pr: groth16.verify(pr, vk, public)
+        points = lambda pr: [pr.a, pr.b, pr.c]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    proof, stats = mesh_prove(mesh, name, lambda: prove(mesh))
+    stats["setup_s"] = setup_s
+    if not verify(proof):
+        raise AssertionError(f"mesh {name} 2^{log_m}: verify rejected the proof")
+    # the same prove again, untimed, with rank 0's kernel calls recorded:
+    # each kernel held to its plain version at every shape the path gave it
+    zero = mesh.get_local_rank("shard") == 0
+    _ext.reset_launches()
+    with kernel_calls() if zero else contextlib.nullcontext() as rec:
+        again = prove(mesh)
+    if zero:
+        stats["plain_check"] = rec.check(f"mesh {name} 2^{log_m}", dict(_ext.launches),
+                                         checked)
+        del rec
+    if [host_ints(p) for p in points(again)] != [host_ints(p) for p in points(proof)]:
+        raise AssertionError(f"mesh {name} 2^{log_m}: a second prove differs")
+    mine = [host_ints(p) for p in points(proof)]
+    single = ([host_ints(p) for p in points(prove(None))]
+              if mesh.get_local_rank("shard") == 0 else None)
+    every = [None] * mesh.size()
+    dist.all_gather_object(every, mine, group=mesh.get_group("shard"))
+    if single is not None and any(e != single for e in every):
+        raise AssertionError(f"mesh {name} 2^{log_m}: a rank's proof differs from the "
+                             f"single-rank prove")
+    del pk, vk, qap, asg, proof
+    torch.cuda.empty_cache()
+    return stats
+
+
+def mesh_kernels(mesh, logs: tuple) -> dict:
+    """dist_ntt, dist_msm (default window and c = 14), the sumcheck tables,
+    dist_fri_fold and dist_merkle_tree on every rank, each held on rank 0
+    to its single-rank function; returns the seconds of each on this rank."""
+    from myzkp_tpu_torch.curves import bn254, fixed_base, msm
+    from myzkp_tpu_torch.curves import weierstrass as wst
+    from myzkp_tpu_torch.fields import limb
+    from myzkp_tpu_torch.fields.fp import Fp
+    from myzkp_tpu_torch.fields.spec import m128_spec
+    from myzkp_tpu_torch.ops import ntt
+    from myzkp_tpu_torch.parallel import mesh as pm
+    from myzkp_tpu_torch.protocols import sumcheck_tpu
+    from myzkp_tpu_torch.stark import fri
+    from myzkp_tpu_torch.utils import merkle
+
+    _, log_ntt, log_msm, log_c14, log_table, log_fri = logs
+    dev = pm.mesh_device(mesh)
+    zero = mesh.get_local_rank("shard") == 0
+    rng = np.random.default_rng(MESH_SEED + 2)  # the same inputs on every rank
+    spec = bn254.r_spec()
+    secs = {}
+
+    def check(name: str, got, want_fn) -> None:
+        if zero and not torch.equal(got, want_fn()):
+            raise AssertionError(f"{name}: differs from the single-rank function")
+
+    def run(name: str, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    a = random_fe(rng, 1 << log_ntt, dev)
+    blk, (n1, n2) = run("dist_ntt", lambda: pm.dist_ntt(spec, pm.ntt_block(a, mesh), mesh))
+    check(f"dist_ntt 2^{log_ntt}", pm.dist_ntt_to_natural(spec, blk, n1, n2, mesh),
+          lambda: ntt.ntt(Fp(spec, a)).mont)
+
+    F, b3 = bn254.g1_ops(), bn254.g1_b3((), dev)
+    pts = fixed_base.fixed_base_multi("g1", random_fe(rng, 1 << log_msm, dev))
+    ks = random_fe(rng, 1 << log_msm, dev)
+    affine = lambda p: bn254.g1_points_to_host(wst.point_map(lambda c: c[:, None], p))[0]
+    for name, n, kw in (("dist_msm", 1 << log_msm, {}), ("dist_msm c=14", 1 << log_c14,
+                                                         {"c": 14})):
+        sub = wst.point_map(lambda c: pm.shard(c[:, :n], mesh).contiguous(), pts)
+        res = run(name, lambda: pm.dist_msm(F, b3, sub, pm.shard(ks[:, :n], mesh).contiguous(),
+                                            mesh, **kw))
+        if zero and affine(res) != affine(msm.msm(F, b3, wst.point_map(lambda c: c[:, :n], pts),
+                                                  ks[:, :n].contiguous(), **kw)):
+            raise AssertionError(f"{name} 2^{n.bit_length() - 1}: differs from msm")
+    del pts, ks
+
+    table = limb.to_mont(spec, random_fe(rng, 1 << log_table, dev))
+    r = limb.to_mont(spec, random_fe(rng, 1, dev))[:, 0]
+    blk = pm.shard(table, mesh)
+    fold = run("dist_fold_into_half", lambda: pm.dist_fold_into_half(spec, blk, mesh, r))
+    check(f"dist_fold_into_half 2^{log_table}", pm.gather(fold, mesh),
+          lambda: sumcheck_tpu.fold_into_half(Fp(spec, table), Fp(spec, r[:, None])).mont)
+    total = run("dist_table_sum", lambda: pm.dist_table_sum(spec, blk, mesh))
+    check(f"dist_table_sum 2^{log_table}", total,
+          lambda: sumcheck_tpu.table_sum(Fp(spec, table)).mont)
+
+    s4, n = m128_spec(), 1 << log_fri
+    cw = limb.to_mont(s4, random_m128(rng, n, dev))
+    omega, offset = ntt.nth_root_of_unity(s4.p, n), 7
+    alphas = [int(x) for x in rng.integers(1, 1 << 62, size=2)]
+    f1 = run("dist_fri_fold", lambda: pm.dist_fri_fold(s4, pm.shard(cw, mesh), mesh, alphas[0],
+                                                      offset, omega))
+    f2 = pm.dist_fri_fold(s4, f1, mesh, alphas[1], offset ** 2 % s4.p, omega ** 2 % s4.p)
+    one = fri.fold_codeword(s4, cw, alphas[0], offset, omega)
+    check(f"dist_fri_fold 2^{log_fri}", pm.gather(f1, mesh), lambda: one)
+    check(f"dist_fri_fold 2^{log_fri}, round 2", pm.gather(f2, mesh),
+          lambda: fri.fold_codeword(s4, one, alphas[1], offset ** 2 % s4.p, omega ** 2 % s4.p))
+    std = limb.from_mont(s4, cw)
+    tree = run("dist_merkle_tree", lambda: pm.dist_merkle_tree(s4, pm.shard(std, mesh), mesh))
+    paths = [tree.open(i) for i in MERKLE_OPENS if i < n]
+    if zero:
+        mono = merkle.MerkleTree(limb.to_bytes_batch(s4, std))
+        if tree.root != mono.root or paths != [mono.open(i) for i in MERKLE_OPENS if i < n]:
+            raise AssertionError(f"dist_merkle_tree 2^{log_fri}: root or a path differs")
+    return secs
+
+
+def mesh_rank(mesh, logs: tuple) -> list:
+    """One rank of phase 16: the Pinocchio and Groth16 mesh proves (each
+    group's key freed before the next), then the dist_* kernels' checks;
+    every rank's figures, gathered on rank 0."""
+    import torch.distributed as dist
+
+    checked = set()
+    stats = {"pinocchio": mesh_snark(mesh, "pinocchio", logs[0], MESH_SEED, checked),
+             "groth16": mesh_snark(mesh, "groth16", logs[0], MESH_SEED + 10, checked),
+             "dist_s": mesh_kernels(mesh, logs), "rank": mesh.get_local_rank("shard"),
+             "backend": str(dist.get_backend())}
+    every = [None] * mesh.size()
+    dist.all_gather_object(every, stats, group=mesh.get_group("shard"))
+    return every
+
+
+def mesh_rank_nccl(mesh, log_m: int) -> dict:
+    """The D = 1 world: the mesh Pinocchio prove through NCCL's branch of
+    the collectives."""
+    import torch.distributed as dist
+
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"the one-rank world runs {dist.get_backend()}, not nccl")
+    return mesh_snark(mesh, "pinocchio", log_m, MESH_SEED + 20, set())
+
+
+def phase_mesh(dev, results: dict) -> None:
+    """Phase 16: the mesh over 4 ranks sharing the card (gloo, staged), and
+    once at D = 1 on NCCL."""
+    from myzkp_tpu_torch.parallel import mesh as pm
+
+    t_phase = time.perf_counter()
+    smi = card()
+    every = pm.run_ranks(mesh_rank, MESH_RANKS, MESH_LOGS, timeout=MESH_TIMEOUT)
+    nccl = pm.run_ranks(mesh_rank_nccl, 1, LOG_M_MESH, timeout=MESH_TIMEOUT)
+    log(f"# mesh ({smi}): {MESH_RANKS} ranks share one card, backend {every[0]['backend']}; "
+        f"four ranks on one card give no scaling figure: they take turns on its SMs")
+    for st in every:
+        for name in ("pinocchio", "groth16"):
+            s = st[name]
+            log(f"# mesh rank {st['rank']} {name} 2^{LOG_M_MESH}: setup {s['setup_s']:.3f} s, "
+                f"mesh prove {s['s']:.3f} s, peak {s['peak_mib']:.1f} MiB; launches "
+                f"{json.dumps(s['launches'])}; sent {json.dumps(s['traffic'])}")
+        log(f"# mesh rank {st['rank']} dist_* seconds: "
+            f"{json.dumps({k: round(v, 4) for k, v in st['dist_s'].items()})}")
+    log(f"# mesh D = 1 (nccl) pinocchio 2^{LOG_M_MESH}: setup {nccl['setup_s']:.3f} s, mesh "
+        f"prove {nccl['s']:.3f} s, peak {nccl['peak_mib']:.1f} MiB, sent "
+        f"{json.dumps(nccl['traffic'])}; equal to the single-rank prove, accepted")
+    runs = ((f"{MESH_RANKS} ranks pinocchio", every[0]["pinocchio"]),
+            (f"{MESH_RANKS} ranks groth16", every[0]["groth16"]), ("D = 1 pinocchio", nccl))
+    for what, st in runs:
+        log(f"# mesh {what} 2^{LOG_M_MESH}, rank 0's kernels against their plain versions "
+            f"at every shape the prove gave them (shapes of an earlier run not again), "
+            f"bit-exact: {json.dumps({k: v[0] for k, v in st['plain_check'].items()})}; "
+            f"scatter_rows' rows two points target (the merge's dummy slots, no set "
+            f"content) left out: {st['plain_check'].get('scatter_rows', [0, 0, 0])[2]}")
+        for k, (_, err, _) in st["plain_check"].items():
+            results[k]["max_abs_err"] = max(results[k].get("max_abs_err", 0), err)
+    log(f"# mesh: every proof equal to the single-rank prove on every rank and accepted; "
+        f"dist_ntt, dist_msm (c = 14 too), the sumcheck tables, dist_fri_fold (two rounds) "
+        f"and dist_merkle_tree (root, {len(MERKLE_OPENS)} paths) equal to their single-rank "
+        f"functions")
+    for k in results:
+        if not k.startswith("_"):
+            for name, key in (("pinocchio", "mesh_launches"), ("groth16", "mesh_g16_launches")):
+                results[k][key] = every[0][name]["launches"].get(k, 0)
+    out = {"card": smi, "ranks": every, "nccl": nccl, "phase_s": time.perf_counter() - t_phase}
+    results["_mesh"] = out
+    log(f"# mesh phase {out['phase_s']:.1f} s")
 
 
 SOURCES = {
@@ -4180,9 +4594,10 @@ def main() -> int:
     phase_stark(dev, results)
     phase_das(dev, results, sass)
     phase_dense(dev, results)
+    phase_mesh(dev, results)
     keys = ("launches", "kzg_launches", "sumcheck_launches", "stark_launches",
-            "das_launches", "dense_launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "das_launches", "dense_launches", "mesh_launches", "mesh_g16_launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k][0],
                 "replaces": SOURCES[k][1], **{key: results[k][key] for key in keys}}
                for k in SOURCES]
@@ -4199,6 +4614,7 @@ def main() -> int:
     log(f"# stark {json.dumps(results['_stark'])}")
     log(f"# das {json.dumps(results['_das'])}")
     log(f"# dense {json.dumps(results['_dense'])}")
+    log(f"# mesh {json.dumps(results['_mesh'])}")
     log(f"# probe13 {json.dumps(results['_probe13'])}")
     log(f"# scan_parent_path {json.dumps(results['_scan_parent_path'])}")
     log(f"# rows {json.dumps(results['_rows'])}")

@@ -108,11 +108,15 @@ class SparseQAP:
         return Fp.from_int(spec, [spec.p - 1] + [0] * (self.m - 1) + [1],
                            self.r1cs.left.rows.device)
 
+    def evaluations(self, assignment: Fp) -> Fp:
+        """The (3, m) constraint evaluations u, v, w: the three
+        matrix-vector products, stacked."""
+        return Fp(self.spec, torch.stack([x.mont for x in self.r1cs.matvecs(assignment)], dim=1))
+
     def combine_batched(self, assignment: Fp) -> Fp:
         """Coefficients (3, m) of the combined polynomials ell, r, o: one
         batched INTT of the three matrix-vector products."""
-        uvw = torch.stack([x.mont for x in self.r1cs.matvecs(assignment)], dim=1)
-        return _ntt.intt(Fp(self.spec, uvw))
+        return _ntt.intt(self.evaluations(assignment))
 
     def combine(self, assignment: Fp):
         coef = self.combine_batched(assignment)
@@ -146,16 +150,40 @@ class SparseQAP:
         return ell, r, o, t_s
 
 
-def rou_quotient(coef: Fp) -> Fp:
+def rou_quotient(coef: Fp, transform=_ntt.transform) -> Fp:
     """(2m,) coefficients of h = (ell r - o) / t, t = X^m - 1, from ell, r,
     o's (3, m) coefficients: one batched coset NTT on g <w_2m> with g = w_4m,
     the pointwise division by t's two alternating coset values, one coset
-    INTT."""
+    INTT.  ``transform``: ``ops/ntt.transform``, or a mesh's."""
     spec, m = coef.spec, coef.shape[-1]
     g = _ntt.nth_root_of_unity(spec.p, 4 * m)
-    lro = _ntt.coset_evaluate(coef, g, 2 * m)
+    lro = _ntt.coset_evaluate(coef, g, 2 * m, transform)
     num = lro[0] * lro[1] - lro[2]
-    return _ntt.coset_interpolate(num * _t_coset_inv(spec, m, g, num.device), g)
+    return _ntt.coset_interpolate(num * _t_coset_inv(spec, m, g, num.device), g, transform)
+
+
+def shifted_h_rou(uvw: Fp, d_ell: int, d_r: int, d_o: int, transform=_ntt.transform) -> Poly:
+    """The m + 1 coefficients of H = h + ell d_r + r d_ell + t d_ell d_r - d_o
+    over the m-point root-of-unity domain (t = X^m - 1), from the (3, m)
+    constraint evaluations u, v, w: ell, r, o interpolate them (one batched
+    inverse transform), h = (ell r - o) / t (``rou_quotient``), and
+    t d_ell d_r - d_o is two coefficient corrections: -(d_ell d_r + d_o) at
+    0 and +d_ell d_r at m.  ``transform``: ``ops/ntt.transform``, or a
+    mesh's (``parallel/mesh.transform_over``)."""
+    spec, m = uvw.spec, uvw.shape[-1]
+    p, dev = spec.p, uvw.device
+    scalar = lambda x: Fp.from_int(spec, x % p, dev)
+    n1 = m + 1
+    coef = transform(uvw, True)
+    ell, r = Poly(coef[0]), Poly(coef[1])
+    drdl, d_o_ = scalar(d_ell * d_r), scalar(d_o)
+    corr = limb.zeros(spec, (n1,), dev)
+    corr[:, 0] = limb.neg(spec, limb.add(spec, drdl.mont, d_o_.mont))
+    corr[:, m] = drdl.mont
+    return (Poly(rou_quotient(coef, transform)[:n1])
+            + ell.scale_const(scalar(d_r)).pad_to(n1)
+            + r.scale_const(scalar(d_ell)).pad_to(n1)
+            + Poly(Fp(spec, corr)))
 
 
 def _t_coset_inv(spec: FieldSpec, m: int, g: int, device) -> Fp:

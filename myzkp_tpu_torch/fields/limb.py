@@ -68,6 +68,15 @@ def to_int(spec: FieldSpec, a: torch.Tensor) -> np.ndarray:
     return out.reshape(tuple(a.shape[1:]))
 
 
+def to_bytes_batch(spec: FieldSpec, a: torch.Tensor) -> list:
+    """Canonical standard-domain limbs (L, n) -> n little-endian byte
+    strings of 2L bytes (Merkle leaves)."""
+    arr = a.detach().cpu().numpy().reshape(spec.L, -1)
+    raw = np.ascontiguousarray(arr.T.astype("<u2")).tobytes()
+    w = 2 * spec.L
+    return [raw[i:i + w] for i in range(0, len(raw), w)]
+
+
 def _limb_column(limbs, ndim: int, device, dtype=I32) -> torch.Tensor:
     col = torch.tensor(limbs, dtype=dtype, device=_ext.resolve_device(device))
     return col.reshape((len(limbs),) + (1,) * ndim)

@@ -306,19 +306,26 @@ def geometric_series(spec: FieldSpec, c: int, n: int, device=None) -> Fp:
     return Fp(spec, _geometric_mont(spec, c, n, _ext.resolve_device(device)))
 
 
-def coset_evaluate(a: Fp, offset: int, n: int) -> Fp:
+def transform(a: Fp, inverse: bool) -> Fp:
+    """``intt(a)`` or ``ntt(a)``: the default ``transform`` argument of the
+    functions below, which a mesh replaces by its distributed NTT
+    (``parallel/mesh.transform_over``)."""
+    return intt(a) if inverse else ntt(a)
+
+
+def coset_evaluate(a: Fp, offset: int, n: int, transform=transform) -> Fp:
     """Evaluations of the polynomial a on the coset offset * <w_n>."""
     spec = a.spec
     a = a.pad_to(n)
     offs = _geometric_mont(spec, offset, n, a.device)
-    return ntt(Fp(spec, limb.mont_mul(spec, a.mont, offs)))
+    return transform(Fp(spec, limb.mont_mul(spec, a.mont, offs)), False)
 
 
-def coset_interpolate(evals: Fp, offset: int) -> Fp:
+def coset_interpolate(evals: Fp, offset: int, transform=transform) -> Fp:
     """Inverse of coset_evaluate: coefficients from coset evaluations."""
     spec = evals.spec
     n = evals.shape[-1]
-    coeffs = intt(evals)
+    coeffs = transform(evals, True)
     offs = _geometric_mont(spec, pow(offset, -1, spec.p), n, evals.device)
     return Fp(spec, limb.mont_mul(spec, coeffs.mont, offs))
 

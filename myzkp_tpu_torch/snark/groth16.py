@@ -27,7 +27,7 @@ from ..curves import bn254, msm as _msm, weierstrass as wst
 from ..fields.fp import Fp
 from ..fields.host import PyPoint
 from ..ops import ntt as _ntt
-from .pinocchio import _cat, _g_multi, _single, _split, _stack, _std
+from .pinocchio import _cat, _g_multi, _mesh_axis, _msms, _single, _split, _stack, _std
 
 
 @dataclass
@@ -126,7 +126,7 @@ def _uvh(qap: SparseQAP | QAP, assignment: Fp) -> tuple:
 
 
 def prove(assignment: Fp, pk: Groth16ProvingKey, qap: SparseQAP | QAP,
-          rng=None) -> Groth16Proof:
+          rng=None, mesh=None) -> Groth16Proof:
     """A = alpha + u(x) + r delta;  B = beta + v(x) + s delta;
     C = (sum_priv a_i K_i + h(x) t(x))/delta + s A + r B1 - r s delta,
     with r, s drawn from ``rng`` in that order.
@@ -135,7 +135,15 @@ def prove(assignment: Fp, pk: Groth16ProvingKey, qap: SparseQAP | QAP,
     quotient stage (sparse QAP), or from ``QAP.combine`` and ``QAP.h_poly``
     (dense QAP); h is taken as its first m - 1 coefficients, zero-padded
     (deg h <= m - 2 for a satisfying witness).  Each group's MSMs and its delta shifts go through
-    one ``msm_many`` call; [s]A and [r]B1 share one more ladder."""
+    one ``msm_many`` call; [s]A and [r]B1 share one more ladder.
+
+    With ``mesh`` (a 1-D ``parallel/mesh`` mesh; called on every rank with
+    the same whole inputs and ``rng`` state) the five MSMs over the
+    assignment and h run split over its ranks (``pinocchio._msms``)
+    and the rest on every rank: the same proof on each, for either QAP and
+    any m."""
+    if mesh is not None:
+        _mesh_axis(mesh)
     rng = rng or _random
     R = bn254.R
     r_rand, s_rand = rng.randrange(1, R), rng.randrange(1, R)
@@ -148,12 +156,11 @@ def prove(assignment: Fp, pk: Groth16ProvingKey, qap: SparseQAP | QAP,
 
     F1, b31 = bn254.g1_ops(), bn254.g1_b3((), dev)
     F2, b32 = bn254.g2_ops(), bn254.g2_b3((), dev)
-    u_x, v_x1, c_priv, c_ht, r_dl, s_dl, rs_dl = _msm.msm_many(F1, b31, [
+    u_x, v_x1, c_priv, c_ht, r_dl, s_dl, rs_dl = _msms(F1, b31, [
         (pk.g1_xj, u_std), (pk.g1_xj, v_std), (pk.g1_k_priv, a_priv),
-        (pk.g1_ht, h_std), (pk.g1_delta, sc(r_rand)), (pk.g1_delta, sc(s_rand)),
-        (pk.g1_delta, sc(r_rand * s_rand % R))])
-    v_x2, s_dl2 = _msm.msm_many(F2, b32, [(pk.g2_xj, v_std),
-                                          (pk.g2_delta, sc(s_rand))])
+        (pk.g1_ht, h_std)], [(pk.g1_delta, sc(r_rand)), (pk.g1_delta, sc(s_rand)),
+                             (pk.g1_delta, sc(r_rand * s_rand % R))], mesh)
+    v_x2, s_dl2 = _msms(F2, b32, [(pk.g2_xj, v_std)], [(pk.g2_delta, sc(s_rand))], mesh)
 
     add1 = lambda a, b: wst.padd(F1, b31, a, b)
     A = add1(add1(u_x, _single(pk.g1_alpha)), r_dl)

@@ -2,13 +2,15 @@
 verify.
 
 Counterpart of ``myzkp_tpu/snark/pinocchio.py`` (setup :115-202, prove
-:546-610, verify :613-634, and the quotient stage ``get_shifted_h`` with the
+:546-610, verify :613-634, the quotient stage ``get_shifted_h`` with the
 semantics of ``_jitted_shifted_h_rou`` :332-388 and the dense branch
-:407-418).  Every proving-key vector is one fixed-base batch per group
-(``curves/fixed_base``), every prover accumulation a Pippenger MSM
-(``curves/msm``), and h comes from the QAP's quotient (the NTT pipeline, or
-the long division on the dense QAP's natural domain); the verifier's twelve
-pairings run on the host (``native/``).
+:407-418, and the mesh prover ``prove_mesh`` :441-544).  Every proving-key
+vector is one fixed-base batch per group (``curves/fixed_base``), every
+prover accumulation a Pippenger MSM (``curves/msm``), and h comes from the
+QAP's quotient (the NTT pipeline, or the long division on the dense QAP's
+natural domain); the verifier's twelve pairings run on the host
+(``native/``).  With a mesh (``parallel/mesh``), the MSMs and the quotient
+stage's transforms are split over its ranks.
 Randomness is drawn from ``rng`` in the reference's order, so the same seeded
 ``random.Random`` and the same key give the reference's proof, point for
 point.
@@ -22,13 +24,14 @@ from dataclasses import dataclass
 import torch
 
 from ..arith.qap import QAP
-from ..arith.sparse import SparseQAP
+from ..arith.sparse import SparseQAP, shifted_h_rou
 from ..curves import bn254, fixed_base, msm as _msm, weierstrass as wst
 from ..fields import limb
 from ..fields.fp import Fp
 from ..fields.host import PyPoint
 from ..ops import ntt as _ntt
 from ..ops.poly import Poly
+from ..parallel import mesh as pm
 
 
 @dataclass
@@ -188,39 +191,31 @@ def setup(qap: SparseQAP | QAP, rng=None) -> tuple[PinocchioProofKey, PinocchioV
 
 
 def get_shifted_h(qap: SparseQAP | QAP, assignment: Fp, d_ell: int, d_r: int,
-                  d_o: int) -> Poly:
+                  d_o: int, transform=_ntt.transform) -> Poly:
     """The m + 1 coefficients of H = h + ell d_r + r d_ell + t d_ell d_r - d_o.
 
-    For the sparse QAP, ell, r, o interpolate the constraint evaluations
-    over the m-point domain (one batched INTT), h = (ell r - o) / t with
-    t = X^m - 1 (``SparseQAP.quotient``: a batched coset NTT at 2m, the
-    division, a coset INTT), and t d_ell d_r - d_o is two coefficient
-    corrections: -(d_ell d_r + d_o) at 0 and +d_ell d_r at m.  For the dense
-    QAP (either domain), h is ``QAP.h_poly`` and ell, r, o ``QAP.combine``,
-    and t d_ell d_r - d_o is t's coefficients scaled, less d_o at 0, as the
-    reference's dense branch computes them."""
+    For the sparse QAP, ``arith/sparse.shifted_h_rou`` of the constraint
+    evaluations: ell, r, o interpolate them over the m-point domain, h =
+    (ell r - o) / t with t = X^m - 1, each transform a ``transform`` (a
+    mesh's splits them over its ranks).  For the dense QAP (either domain),
+    h is ``QAP.h_poly`` and ell, r, o ``QAP.combine``, and t d_ell d_r - d_o
+    is t's coefficients scaled, less d_o at 0, as the reference's dense
+    branch computes them; it takes no other transform."""
+    if isinstance(qap, SparseQAP):
+        return shifted_h_rou(qap.evaluations(assignment), d_ell, d_r, d_o, transform)
+    if transform is not _ntt.transform:
+        raise ValueError("the dense QAP's quotient runs on one rank: it takes no transform")
     spec, m = qap.spec, qap.m
     p, dev = spec.p, assignment.device
     scalar = lambda x: Fp.from_int(spec, x % p, dev)
     n1 = m + 1
-    if isinstance(qap, QAP):
-        h = qap.h_poly(assignment)
-        ell, r, _ = qap.combine(assignment)
-        return (h.pad_to(n1)
-                + ell.scale_const(scalar(d_r)).pad_to(n1)
-                + r.scale_const(scalar(d_ell)).pad_to(n1)
-                + Poly(qap.t).scale_const(scalar(d_ell * d_r)).pad_to(n1)
-                - Poly(scalar(d_o).reshape(1)).pad_to(n1))
-    coef = qap.combine_batched(assignment)
-    ell, r = Poly(coef[0]), Poly(coef[1])
-    drdl, d_o_ = scalar(d_ell * d_r), scalar(d_o)
-    corr = limb.zeros(spec, (n1,), dev)
-    corr[:, 0] = limb.neg(spec, limb.add(spec, drdl.mont, d_o_.mont))
-    corr[:, m] = drdl.mont
-    return (Poly(qap.quotient(coef)[:n1])
+    h = qap.h_poly(assignment)
+    ell, r, _ = qap.combine(assignment)
+    return (h.pad_to(n1)
             + ell.scale_const(scalar(d_r)).pad_to(n1)
             + r.scale_const(scalar(d_ell)).pad_to(n1)
-            + Poly(Fp(spec, corr)))
+            + Poly(qap.t).scale_const(scalar(d_ell * d_r)).pad_to(n1)
+            - Poly(scalar(d_o).reshape(1)).pad_to(n1))
 
 
 def _stack(pts) -> wst.Point:
@@ -228,35 +223,97 @@ def _stack(pts) -> wst.Point:
     return wst.point_map(lambda *cs: torch.stack(cs, dim=1), *pts)
 
 
-def prove(assignment: Fp, pk: PinocchioProofKey, qap: SparseQAP | QAP,
-          rng=None) -> PinocchioProof:
+def _mesh_axis(mesh) -> str:
+    """The one axis of a mesh prover's mesh."""
+    if mesh.ndim != 1:
+        raise ValueError(f"the mesh provers take a 1-D mesh, not axes {mesh.mesh_dim_names}")
+    return mesh.mesh_dim_names[0]
+
+
+def _rank_block(pts: wst.Point, s, mesh, axis: str) -> tuple:
+    """This rank's block of an MSM over (n,) points padded to a multiple of
+    the mesh size with the first point and zero scalars (their terms are
+    infinity; the reference's ``_dist_msm_pad``); only a block past the end
+    gets padding."""
+    n, D = s.shape[1], mesh.size()
+    b = -(-n // D)
+    r = mesh.get_local_rank(axis)
+    lo, hi = min(r * b, n), min((r + 1) * b, n)
+    pad = b - (hi - lo)
+    blk = wst.point_map(lambda a: torch.cat([a[:, lo:hi], a[:, :1].expand(-1, pad)], dim=1),
+                        pts)
+    return blk, torch.nn.functional.pad(s[:, lo:hi], (0, pad))
+
+
+def _msms(F, b3, jobs, shifts, mesh) -> list:
+    """The MSMs of the whole (points, scalars) ``jobs`` then of ``shifts``
+    (one point each: the delta shifts) in one group, the results in that
+    order: one ``msm_many`` call; with a mesh, ``parallel/mesh.dist_msm_many``
+    of each job's rank block (``_rank_block``), the shifts whole on every
+    rank."""
+    if mesh is None:
+        return _msm.msm_many(F, b3, list(jobs) + list(shifts))
+    axis = _mesh_axis(mesh)
+    return pm.dist_msm_many(F, b3, [_rank_block(p, s, mesh, axis) for p, s in jobs], mesh,
+                            axis, shifts)
+
+
+def prove(assignment: Fp, pk: PinocchioProofKey, qap: SparseQAP | QAP, rng=None,
+          mesh=None) -> PinocchioProof:
     """The 8-element proof: six G1 and two G2 MSMs over the assignment, the
     shifted h and its commitment, and the delta_{ell,r,o} shifts (drawn from
-    ``rng`` in that order)."""
+    ``rng`` in that order).  With ``mesh``: ``prove_mesh``."""
+    if mesh is not None:
+        return prove_mesh(assignment, pk, qap, mesh, rng)
+    return _prove(assignment, pk, qap, rng, None)
+
+
+def prove_mesh(assignment: Fp, pk: PinocchioProofKey, qap: SparseQAP, mesh,
+               rng=None) -> PinocchioProof:
+    """The proof with its work split over the ranks of a 1-D mesh
+    (``parallel/mesh``), called on every rank with the same whole inputs
+    and the same ``rng`` state: the eight MSMs run data-parallel
+    (``_msms``; the delta shifts stay on each rank's ladder), and the
+    quotient stage's transforms run as ``dist_ntt`` / ``dist_intt``
+    (``get_shifted_h`` with ``parallel/mesh.transform_over``).  Every rank returns the proof of the
+    single-rank ``prove``, point for point.  Raises ValueError for a dense
+    QAP, or m < D^2 (the four-step split)."""
+    if not isinstance(qap, SparseQAP):
+        raise ValueError(f"the mesh prover takes a SparseQAP (the root-of-unity domain, "
+                         f"t = X^m - 1), not {type(qap).__name__}")
+    _mesh_axis(mesh)
+    D = mesh.size()
+    if qap.m < D * D:
+        raise ValueError(f"m = {qap.m} < D^2 = {D * D}: the quotient's four-step "
+                         f"transforms over {D} ranks need m >= D^2")
+    return _prove(assignment, pk, qap, rng, mesh)
+
+
+def _prove(assignment: Fp, pk: PinocchioProofKey, qap: SparseQAP | QAP, rng,
+           mesh) -> PinocchioProof:
     rng = rng or _random
     R = bn254.R
     d_ell, d_r, d_o = (rng.randrange(1, R) for _ in range(3))
     dev = assignment.device
     a_std = _std(assignment)
-    h = get_shifted_h(qap, assignment, d_ell, d_r, d_o)
+    transform = _ntt.transform if mesh is None else pm.transform_over(mesh, _mesh_axis(mesh))
+    h_std = _std(get_shifted_h(qap, assignment, d_ell, d_r, d_o, transform).coef)
     delta = lambda x: _msm.scalars_from_int(bn254.r_spec(), [x], dev)
 
-    # each group's MSMs and its delta shifts [delta] ts in one msm_many call:
-    # the shifts (one point each) share one double-and-add ladder
+    # each group's MSMs and its delta shifts [delta] ts in one call: the
+    # shifts (one point each) share one double-and-add ladder
     F1, b31 = bn254.g1_ops(), bn254.g1_b3((), dev)
     (ell, o, ell_p, o_p, g1_h, z, sh_ell, sh_o, sh_ell_p, sh_o_p, sh_ell_b,
-     sh_r_b, sh_o_b) = _msm.msm_many(F1, b31, [
+     sh_r_b, sh_o_b) = _msms(F1, b31, [
         (pk.g1_ell_i, a_std), (pk.g1_o_i, a_std), (pk.g1_alpha_ell_i, a_std),
-        (pk.g1_alpha_o_i, a_std), (pk.g1_sj, _std(h.coef)),
-        (pk.g1_checksum, a_std),
+        (pk.g1_alpha_o_i, a_std), (pk.g1_sj, h_std), (pk.g1_checksum, a_std)], [
         (pk.g1_ell_ts, delta(d_ell)), (pk.g1_o_ts, delta(d_o)),
         (pk.g1_ell_alpha_ts, delta(d_ell)), (pk.g1_o_alpha_ts, delta(d_o)),
         (pk.g1_ell_beta_ts, delta(d_ell)), (pk.g1_r_beta_ts, delta(d_r)),
-        (pk.g1_o_beta_ts, delta(d_o))])
+        (pk.g1_o_beta_ts, delta(d_o))], mesh)
     F2, b32 = bn254.g2_ops(), bn254.g2_b3((), dev)
-    r, r_p, sh_r, sh_r_p = _msm.msm_many(F2, b32, [
-        (pk.g2_r_i, a_std), (pk.g2_alpha_r_i, a_std),
-        (pk.g2_r_ts, delta(d_r)), (pk.g2_r_alpha_ts, delta(d_r))])
+    r, r_p, sh_r, sh_r_p = _msms(F2, b32, [(pk.g2_r_i, a_std), (pk.g2_alpha_r_i, a_std)], [
+        (pk.g2_r_ts, delta(d_r)), (pk.g2_r_alpha_ts, delta(d_r))], mesh)
 
     add1 = lambda a, b: wst.padd(F1, b31, a, b)
     # z = <checksum, a> + d_ell ell_beta_ts + d_r r_beta_ts + d_o o_beta_ts

@@ -76,11 +76,7 @@ def sample_field(spec: FieldSpec, data: bytes) -> int:
 
 def codeword_bytes(cw: Fp) -> list:
     """Codeword -> its elements' canonical little-endian bytes (2L each)."""
-    L = cw.spec.L
-    std = limb.from_mont(cw.spec, cw.mont).reshape(L, -1).cpu().numpy()
-    raw = np.ascontiguousarray(std.astype("<u2").T).tobytes()
-    w = 2 * L
-    return [raw[i:i + w] for i in range(0, len(raw), w)]
+    return limb.to_bytes_batch(cw.spec, limb.from_mont(cw.spec, cw.mont))
 
 
 def codeword_from_bytes(spec: FieldSpec, bs: list, device=None) -> Fp:

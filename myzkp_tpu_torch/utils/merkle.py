@@ -59,7 +59,8 @@ class DistMerkleTree:
     """Merkle tree built as ``n_shards`` independent subtrees over contiguous
     power-of-two chunks of the leaves, plus a top tree over their roots (the
     layout of a codeword sharded over devices).  The root and every path are
-    the monolithic tree's."""
+    the monolithic tree's.  ``subtrees`` maps a shard to its subtree: every
+    shard here, a rank's own on a mesh (``parallel/mesh.MeshMerkleTree``)."""
 
     def __init__(self, leaves: list, n_shards: int, parallel: bool = True):
         n = len(leaves)
@@ -67,17 +68,24 @@ class DistMerkleTree:
         _check_count(n_shards)
         if n % n_shards:
             raise ValueError(f"{n_shards} shards do not divide {n} leaves")
-        self.n = n
-        self.n_shards = n_shards
-        self.shard_size = n // n_shards
-        chunks = [leaves[i * self.shard_size:(i + 1) * self.shard_size]
-                  for i in range(n_shards)]
+        size = n // n_shards
+        chunks = [leaves[i * size:(i + 1) * size] for i in range(n_shards)]
         if parallel and n_shards > 1:
             with ThreadPoolExecutor(max_workers=min(n_shards, 8)) as ex:
-                self.subtrees = list(ex.map(MerkleTree, chunks))
+                subtrees = list(ex.map(MerkleTree, chunks))
         else:
-            self.subtrees = [MerkleTree(c) for c in chunks]
-        self.top = MerkleTree([t.root for t in self.subtrees])
+            subtrees = [MerkleTree(c) for c in chunks]
+        self._join(dict(enumerate(subtrees)), [t.root for t in subtrees])
+
+    def _join(self, subtrees: dict, roots: list) -> None:
+        """The subtrees at hand, by shard, and the top tree over every
+        shard's subtree root."""
+        _check_count(len(roots))
+        self.subtrees = subtrees
+        self.n_shards = len(roots)
+        self.shard_size = len(next(iter(subtrees.values())).leaves)
+        self.n = self.n_shards * self.shard_size
+        self.top = MerkleTree(list(roots))
 
     @property
     def root(self) -> bytes:

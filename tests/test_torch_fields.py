@@ -168,9 +168,9 @@ def test_build_definitions_must_name_a_source_constant(defines, known):
 
 def test_port_imports_no_jax():
     """Importing every module of the port, those of the NTT, quotient,
-    Groth16, KZG / Gemini, sumcheck, extension-field, DAS and dense-QAP /
-    tutorial / utility slices included, leaves jax and the JAX package out
-    of sys.modules."""
+    Groth16, KZG / Gemini, sumcheck, extension-field, DAS, dense-QAP /
+    tutorial / utility and mesh slices included, leaves jax and the JAX
+    package out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import myzkp_tpu_torch as m\n"
@@ -197,6 +197,7 @@ def test_port_imports_no_jax():
               "arith.r1cs", "arith.qap", "utils.hostpoly",  # dense algebra, tutorials
               "protocols.tutorial_single_poly", "protocols.tutorial_snark",
               "utils.serialize", "utils.checkpoint", "utils.metrics",  # utilities
-              "snark.cli", "protocols.sumcheck_cli"}
+              "snark.cli", "protocols.sumcheck_cli",
+              "parallel.mesh"}  # the mesh
     assert {f"myzkp_tpu_torch.{m}" for m in slices} <= loaded
     assert len(loaded) >= 34

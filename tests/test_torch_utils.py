@@ -7,12 +7,16 @@ host points; ``utils/checkpoint.msm_resumable`` stopped after two of three
 chunks resumes to the host's sum and removes its file (tests/test_curves.py's
 crash-and-resume test); ``StageMetrics`` as in tests/test_fields.py; and
 ``snark.cli`` / ``protocols.sumcheck_cli`` run to exit 0 on the CPU at tiny
-sizes, while ``--mesh`` and ``--g2 naive`` are refused.  On the CPU the port
+sizes, ``snark.cli --mesh 2`` over two gloo ranks (spawned, and under
+torchrun), while ``--g2 naive`` is refused.  On the CPU the port
 runs its kernels' plain versions.
 """
 
 import dataclasses
+import pathlib
 import random
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -33,6 +37,7 @@ from myzkp_tpu_torch.utils import checkpoint as ckpt
 from myzkp_tpu_torch.utils import serialize
 from myzkp_tpu_torch.utils.metrics import StageMetrics
 
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 DEV = torch.device("cpu")  # the port's constructors default to the card
 # one intra-op thread: the test processes (pytest-xdist) already share
 # the cores, and spinning pool threads slow small int64 batches badly
@@ -168,11 +173,29 @@ def test_stage_metrics():
 def test_snark_cli(capsys):
     assert snark_cli.main(["1", "--g2", "pippenger", "--device", "cpu"]) == 0
     assert capsys.readouterr().out.startswith("m=2^1: circuit ")
-    for bad in (["--mesh", "4"], ["--g2", "naive"]):
-        with pytest.raises(SystemExit) as exc:
-            snark_cli.main(bad + ["1", "--device", "cpu"])
-        assert exc.value.code == 2
-        assert "not ported" in capsys.readouterr().err
+    # the mesh prover over two spawned ranks (m = 4 >= D^2): the backend and
+    # the mesh's shape are printed, and the proof verifies on every rank
+    assert snark_cli.main(["2", "--mesh", "2", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "mesh: 2 ranks on the CPU, backend gloo" in out
+    assert "m=2^2 (mesh=(2,)): circuit " in out
+    with pytest.raises(SystemExit) as exc:
+        snark_cli.main(["--g2", "naive", "1", "--device", "cpu"])
+    assert exc.value.code == 2
+    assert "not ported" in capsys.readouterr().err
+
+
+def test_snark_cli_under_torchrun():
+    """Under torchrun (RANK and WORLD_SIZE set) the mesh prover spawns
+    nothing: the two ranks come from the launcher, the host's first rank
+    builds the libraries while the other waits, and only rank 0 prints."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "2", "-m", "myzkp_tpu_torch.snark.cli", "2", "--mesh", "2", "--device", "cpu"]
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.count("mesh: 2 ranks on the CPU, backend gloo") == 1
+    results = [ln for ln in out.stdout.splitlines() if ln.startswith("m=")]
+    assert len(results) == 1 and results[0].startswith("m=2^2 (mesh=(2,)): circuit ")
 
 
 def test_sumcheck_cli(capsys, monkeypatch):
