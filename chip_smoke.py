@@ -259,6 +259,23 @@ Phases, one output line each (or more), in order:
                2^20-point M128 codeword == fold_codeword and MerkleTree; and
                the mesh Pinocchio prove once at D = 1 on NCCL.  Four ranks on
                one card give no scaling figure.
+ 17. surface   the last of the JAX package's surface, driven once with the
+               launch counts set to 0 just before and read just after: K5's
+               pair form (ntt_kernels.butterfly_pair, the TPU kernel's own
+               DIF / DIT contract) at L = 16, 8 and 4 on 2^20 pairs, every
+               pair of the word edges and 0 first, exact against its plain
+               version on the card in both modes, the edges and a sample
+               against the host, each timed by graph replay beside its plain
+               version and its bytes bound; msm_pippenger on unsigned digits
+               over 2^20 G1 points at c = 16 equal to the signed MSM and the
+               host golden, every kernel call of it held to its plain version
+               at its own shapes (kernel_calls, as phase 16), both timed
+               (median of 3); unsigned at c = 14 over 2^16 G1 (also with a
+               caller's G = 3) and G2 points and c = 1 over 5 points against
+               the host; scalar_mul_const over 2^15 G1 points with a 254-bit
+               e and pow_dyn over 2^20 F_r elements with 256-bit exponents,
+               samples against the host; the GT helpers (gt_mul_coeffs,
+               gt_pow_coeffs, gt_inv_coeffs) against bilinearity.
 The build phase prints ptxas's registers and spills of every kernel and the
 static SASS instruction counts (cuobjdump -sass) of the curve kernels.
 Each path's launch counts are set to 0 just before it and read just after.
@@ -268,8 +285,11 @@ The line before the last is a JSON object with one entry per kernel (its
 "sumcheck_launches" from phase 12's, "stark_launches" from phase 13's prove,
 "das_launches" from phase 14's runs, "dense_launches" from phase 15's three
 dense proves, "mesh_launches" and "mesh_g16_launches" from rank 0's mesh
-Pinocchio and Groth16 proves in phase 16; for the two-word kernels "launches" are phase 14's efield runs,
-for K17's BN254 instance phase 15's natural-domain prove); the last line is
+Pinocchio and Groth16 proves in phase 16, "surface_launches" from phase 17's
+driven run; for the two-word kernels "launches" are phase 14's efield runs,
+for K17's BN254 instance phase 15's natural-domain prove; K5's pair form is
+on no path, its "launches" read from phase 8's Pinocchio prove like the
+other BN254 kernels'); the last line is
 {"ok": true, "device": {...}}.
 Any failure exits nonzero before it.
 Neither this script nor the port imports JAX.
@@ -2107,6 +2127,9 @@ def phase_pinocchio(dev, results: dict) -> None:
                              "prove_launches": prove_counts}
     for k in ("padd2", "pdbl2", "bucket_scan_rows2", "padd2_seg_level"):
         results[k]["launches"] = prove_counts[k]
+    # K5's pair form is on no prover's path: its count is read from this prove
+    for k, *_ in PAIR_WIDTHS:
+        results[k]["launches"] = prove_counts.get(k, 0)
     log(f"# pinocchio m = 2^{LOG_M_PIN}: circuit {build_s:.3f} s; setup {setup_s:.3f} s; "
         f"prove first {first_s:.3f} s, median {med:.2f} ms of {[round(t, 2) for t in ts]}; "
         f"verify {verify_s:.3f} s (host): accepted; a wrong witness (one x_k "
@@ -4498,6 +4521,246 @@ def phase_mesh(dev, results: dict) -> None:
     log(f"# mesh phase {out['phase_s']:.1f} s")
 
 
+SURFACE_SEED = SEED + 170
+LOG_PAIRS = 20  # the pair butterfly's pairs at each width
+LOG_SMC = 15  # scalar_mul_const's G1 points
+LOG_POW_DYN = 20  # pow_dyn's F_r elements
+C_UNSIGNED = 16  # the unsigned MSM's window at 2^20: the signed path's default there
+POW_DYN_BITS = 256
+HOST_SAMPLE = 64  # outputs of a wide call held to the host's ints
+# (kernel, the field's spec function in fields/spec.py, words, bytes an element
+# at the interface, multiply-adds a product)
+PAIR_WIDTHS = (("butterfly_pair", "bn254_r_spec", 8, LIMB_BYTES, IMAD_PER_MONT),
+               ("butterfly_pair_l8", "m128_spec", 4, LIMB_BYTES4, IMAD_PER_MONT4),
+               ("butterfly_pair_l4", "m64_spec", 2, LIMB_BYTES2, IMAD_PER_MONT2))
+# the kernels the counted run must launch: the pair form at each width, the
+# G1 and G2 Pippenger kernels (unsigned digits), K1 (pow_dyn)
+SURFACE_NEED = tuple(k for k, *_ in PAIR_WIDTHS) + MSM_KERNELS[2:] + (
+    "mont_mul", "padd2", "pdbl2", "bucket_scan_rows2", "padd2_seg_level")
+
+
+def random_below(rng: np.random.Generator, p: int, L: int, n: int, dev) -> torch.Tensor:
+    """n canonical limb columns (L, n) below p: random limbs, the top one
+    kept below p's."""
+    limbs = rng.integers(0, 1 << 16, size=(L, n), dtype=np.int64)
+    limbs[L - 1] = rng.integers(0, p >> (16 * (L - 1)), size=n)
+    return torch.from_numpy(limbs.astype(np.int32)).to(dev)
+
+
+def pair_inputs(spec, words: int, rng, dev) -> tuple:
+    """u, v, tw over 2^LOG_PAIRS pairs: every pair of word_edges first (with
+    0), each with an edge twiddle, then random values."""
+    from myzkp_tpu_torch.fields import limb
+
+    edges = word_edges(spec.p, words) + [0]
+    k = len(edges) ** 2
+    n = 1 << LOG_PAIRS
+    u, v, tw = (random_below(rng, spec.p, spec.L, n, dev) for _ in range(3))
+    u[:, :k] = limb.from_int(spec, [x for x in edges for _ in edges], dev)
+    v[:, :k] = limb.from_int(spec, [y for _ in edges for y in edges], dev)
+    tw[:, :k] = limb.from_int(spec, [edges[int(i)] for i in rng.integers(0, len(edges), k)],
+                              dev)
+    return u, v, tw, k
+
+
+def host_butterfly(p: int, L: int, u: int, v: int, w: int, dit: bool) -> tuple:
+    rinv = pow(1 << (16 * L), -1, p)
+    if dit:
+        t = v * w * rinv % p
+        return (u + t) % p, (u - t) % p
+    return (u + v) % p, (u - v) * w * rinv % p
+
+
+def check_pairs(spec, u, v, tw, dit: bool, out, k: int, rng) -> int:
+    """The pair butterfly's (su, sv) exact against its plain version on the
+    card, and the edge pairs plus a random sample against the host."""
+    from myzkp_tpu_torch.fields import limb, ntt_kernels as nk
+
+    err = check_equal(f"butterfly_pair L = {spec.L} {'dit' if dit else 'dif'}",
+                      out, nk.butterfly_pair_ref(spec, u, v, tw, dit))
+    idx = torch.cat([torch.arange(k), torch.from_numpy(
+        rng.integers(k, u.shape[1], HOST_SAMPLE))]).to(u.device)
+    ints = [limb.to_int(spec, x[:, idx]) for x in (u, v, tw, *out)]
+    for a, b, w, su, sv in zip(*ints):
+        if (int(su), int(sv)) != host_butterfly(spec.p, spec.L, int(a), int(b), int(w), dit):
+            raise AssertionError(f"butterfly_pair L = {spec.L}: differs from the host")
+    return err
+
+
+def surface_msms(dev) -> dict:
+    """The inputs of phase 17's MSMs: 2^LOG_N G1 points [m_i]G and scalars
+    k_i (a zero and duplicates), 2^LOG_N_C14 G2 points, and the goldens."""
+    from myzkp_tpu_torch.curves import bn254, fixed_base, msm
+
+    n, n14 = 1 << LOG_N, 1 << LOG_N_C14
+    rng = random.Random(SURFACE_SEED)
+    ms = [rng.randrange(1, bn254.R) for _ in range(n)]
+    ks = [rng.randrange(0, bn254.R) for _ in range(n)]
+    ks[0], ks[1], ks[2], ks[3] = 0, 5, 5, bn254.R - 1
+    rspec = bn254.r_spec()
+    m_limbs, k_limbs = (msm.scalars_from_int(rspec, x, dev) for x in (ms, ks))
+    dot = lambda a, b: sum(x * y for x, y in zip(a, b)) % bn254.R
+    return {"g1": fixed_base.fixed_base_multi("g1", m_limbs),
+            "g2": fixed_base.fixed_base_multi("g2", m_limbs[:, :n14].contiguous()),
+            "k": k_limbs, "k14": k_limbs[:, :n14].contiguous(), "ms": ms, "ks": ks,
+            "exp": bn254.g1_generator() * dot(ks, ms),
+            "exp14": dot(ks[:n14], ms[:n14])}
+
+
+def phase_surface(dev, results: dict) -> None:
+    """Phase 17: the last of the JAX package's surface on the card (K5's pair
+    form, unsigned-digit Pippenger with a caller's G, scalar_mul_const,
+    pow_dyn, the GT helpers), each driven once with the launch counts set to
+    0 just before and read just after, then checked and timed."""
+    from myzkp_tpu_torch import _ext, native
+    from myzkp_tpu_torch.curves import bn254, msm
+    from myzkp_tpu_torch.curves import weierstrass as wst
+    from myzkp_tpu_torch.fields import limb, ntt_kernels as nk
+    from myzkp_tpu_torch.fields import spec as fspec
+
+    t_phase = time.perf_counter()
+    smi = card()
+    rng = np.random.default_rng(SURFACE_SEED)
+    specs = {k: getattr(fspec, fn)() for k, fn, *_ in PAIR_WIDTHS}
+    pairs = {k: pair_inputs(specs[k], words, rng, dev) for k, _, words, *_ in PAIR_WIDTHS}
+    inp = surface_msms(dev)
+    F1, b31 = bn254.g1_ops(), bn254.g1_b3((), dev)
+    F2, b32 = bn254.g2_ops(), bn254.g2_b3((), dev)
+    g14 = wst.point_map(lambda a: a[:, :1 << LOG_N_C14].contiguous(), inp["g1"])
+    few = wst.point_map(lambda a: a[:, :5].contiguous(), inp["g1"])
+    smc_pts = wst.point_map(lambda a: a[:, :1 << LOG_SMC].contiguous(), inp["g1"])
+    e254 = (1 << 253) | int.from_bytes(rng.bytes(32), "little") % (1 << 253)
+    rspec = bn254.r_spec()
+    x_pow = random_below(rng, rspec.p, 16, 1 << LOG_POW_DYN, dev)
+    e_bits = torch.from_numpy(rng.integers(0, 2, size=(POW_DYN_BITS, 1 << LOG_POW_DYN),
+                                           dtype=np.uint8)).to(dev)
+    x_mont = limb.to_mont(rspec, x_pow)
+
+    def drive() -> dict:
+        out = {k: (nk.butterfly_pair(specs[k], *pairs[k][:3], False),
+                   nk.butterfly_pair(specs[k], *pairs[k][:3], True)) for k in specs}
+        out["msm"] = msm.msm_pippenger(F1, b31, inp["g1"], inp["k"], c=C_UNSIGNED,
+                                       signed=False)
+        out["c14_g1"] = msm.msm_pippenger(F1, b31, g14, inp["k14"], c=14, signed=False)
+        out["c14_g2"] = msm.msm_pippenger(F2, b32, inp["g2"], inp["k14"], c=14, signed=False)
+        out["c14_g1_G"] = msm.msm_pippenger(F1, b31, g14, inp["k14"], c=14, G=3,
+                                            signed=False)
+        out["c1"] = msm.msm_pippenger(F1, b31, few, inp["k"][:, :5].contiguous(), c=1)
+        out["smc"] = wst.scalar_mul_const(F1, b31, smc_pts, e254)
+        out["pow"] = limb.pow_dyn(rspec, x_mont, e_bits)
+        return out
+
+    (out, counts), drive_s = timed(lambda: counted(drive))
+    missing = [k for k in SURFACE_NEED if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"surface: {missing} never launched: {counts}")
+    log(f"# surface ({smi}): the driven run {drive_s:.3f} s (first calls), launches "
+        f"{json.dumps(counts)}")
+
+    # K5's pair form at each width: exact, host sample, timed beside its bound
+    for k, _, words, nbytes, imad in PAIR_WIDTHS:
+        spec, (u, v, tw, ke) = specs[k], pairs[k]
+        n = u.shape[1]
+        res = results[k]
+        res["max_abs_err"] = 0
+        ms = {}
+        for dit in (False, True):
+            err = check_pairs(spec, u, v, tw, dit, out[k][dit], ke, rng)
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            ms[dit] = (graph_time_ms(lambda: nk.butterfly_pair(spec, u, v, tw, dit), 20),
+                       cuda_time_ms(lambda: nk.butterfly_pair_ref(spec, u, v, tw, dit), 3))
+        bnd = bound(5 * nbytes * n, n, imad)
+        res.update(ms=max(m for m, _ in ms.values()), plain_ms=max(p for _, p in ms.values()),
+                   library_ms=None, **bnd)
+        log(f"# surface {k} (L = {spec.L}) over 2^{LOG_PAIRS} pairs, the first {ke} every "
+            f"pair of {words}-word edges and 0: exact against the plain version in both "
+            f"modes, the edges and {HOST_SAMPLE} random == host; DIF {ms[False][0]:.4f} ms, "
+            f"DIT {ms[True][0]:.4f} ms (graph replay), plain {ms[False][1]:.4f} / "
+            f"{ms[True][1]:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+
+    # the unsigned MSMs against the host, the signed MSM, and each other
+    to_host1 = lambda p: bn254.g1_points_to_host(wst.point_map(lambda a: a[:, None], p))[0]
+    to_host2 = lambda p: bn254.g2_points_to_host(wst.point_map(lambda a: a[:, None], p))[0]
+    signed = msm.msm_pippenger(F1, b31, inp["g1"], inp["k"], c=C_UNSIGNED)
+    g1, g2 = bn254.g1_generator(), bn254.g2_generator()
+    checks = {"msm": (to_host1(out["msm"]), inp["exp"]),
+              "signed": (to_host1(signed), inp["exp"]),
+              "c14_g1": (to_host1(out["c14_g1"]), g1 * inp["exp14"]),
+              "c14_g1_G": (to_host1(out["c14_g1_G"]), g1 * inp["exp14"]),
+              "c14_g2": (to_host2(out["c14_g2"]), g2 * inp["exp14"]),
+              "c1": (to_host1(out["c1"]), g1 * (sum(k * m for k, m in zip(
+                  inp["ks"][:5], inp["ms"][:5])) % bn254.R))}
+    bad = [name for name, (got, want) in checks.items() if got != want]
+    if bad:
+        raise AssertionError(f"surface: unsigned MSMs differ from the host: {bad}")
+    log(f"# surface msm_pippenger(signed=False): 2^{LOG_N} G1 at c = {C_UNSIGNED} == the "
+        f"signed MSM == host [sum k_i m_i mod r]G; c = 14 over 2^{LOG_N_C14} G1 (and with "
+        f"G = 3) and G2 == host; c = 1 over 5 points == host")
+
+    # every kernel call of the unsigned MSM held to its plain version at its shapes
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    with kernel_calls() as calls:
+        msm.msm_pippenger(F1, b31, inp["g1"], inp["k"], c=C_UNSIGNED, signed=False)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _ext.launches.items() if v}
+    plain = calls.check("surface unsigned msm", launched, set())
+    for k, (_, err, _) in plain.items():
+        results[k]["max_abs_err"] = max(results[k].get("max_abs_err", 0), err)
+    log(f"# surface unsigned msm 2^{LOG_N}: every kernel call held to its plain version "
+        f"at its own shapes, bit-exact: {json.dumps({k: v[0] for k, v in plain.items()})}; "
+        f"scatter_rows' rows two points target left out: "
+        f"{plain.get('scatter_rows', [0, 0, 0])[2]}")
+
+    med_u, ts_u = median_ms(lambda: msm.msm_pippenger(F1, b31, inp["g1"], inp["k"],
+                                                      c=C_UNSIGNED, signed=False), 3)
+    med_s, ts_s = median_ms(lambda: msm.msm_pippenger(F1, b31, inp["g1"], inp["k"],
+                                                      c=C_UNSIGNED), 3)
+    log(f"# surface msm 2^{LOG_N} c = {C_UNSIGNED} ({smi}): unsigned median {med_u:.2f} ms of "
+        f"{[round(t, 2) for t in ts_u]}, signed {med_s:.2f} ms of {[round(t, 2) for t in ts_s]}")
+
+    # scalar_mul_const and pow_dyn against the host on a sample
+    idx = sorted(set(rng.integers(0, 1 << LOG_SMC, HOST_SAMPLE).tolist()) | {0})
+    got = bn254.g1_points_to_host(wst.point_map(lambda a: a[:, idx], out["smc"]))
+    if got != [g1 * (inp["ms"][i] * e254 % bn254.R) for i in idx]:
+        raise AssertionError("surface: scalar_mul_const differs from the host")
+    idx = torch.from_numpy(rng.integers(0, 1 << LOG_POW_DYN, HOST_SAMPLE)).to(dev)
+    xs = limb.to_int(rspec, x_pow[:, idx])
+    ys = limb.to_int(rspec, limb.from_mont(rspec, out["pow"][:, idx]))
+    bits = e_bits[:, idx].cpu().numpy()
+    es = [sum(int(b) << i for i, b in enumerate(bits[:, j])) for j in range(HOST_SAMPLE)]
+    if [int(y) for y in ys] != [pow(int(x), e, rspec.p) for x, e in zip(xs, es)]:
+        raise AssertionError("surface: pow_dyn differs from the host")
+    smc_ms, _ = median_ms(lambda: wst.scalar_mul_const(F1, b31, smc_pts, e254), 3)
+    pow_ms, _ = median_ms(lambda: limb.pow_dyn(rspec, x_mont, e_bits), 3)
+    log(f"# surface scalar_mul_const over 2^{LOG_SMC} G1 points, a 254-bit e: "
+        f"{len(idx)} sampled == host, median {smc_ms:.2f} ms; pow_dyn over 2^{LOG_POW_DYN} "
+        f"F_r elements, {POW_DYN_BITS}-bit exponents: {HOST_SAMPLE} sampled == pow(x, e, r), "
+        f"median {pow_ms:.2f} ms")
+
+    # the GT helpers: bilinearity and inverses
+    a, b = (int(rng.integers(1, 1 << 62)) for _ in range(2))
+    e = native.pairing_coeffs(g1, g2)
+    one = [1] + [0] * 11
+    ok = (native.pairing_coeffs(g1 * a, g2 * b) == native.gt_pow_coeffs(e, a * b)
+          and native.gt_mul_coeffs(native.gt_pow_coeffs(e, a), native.gt_pow_coeffs(e, -a)) == one
+          and native.gt_inv_coeffs(e) == native.gt_pow_coeffs(e, -1)
+          and native.gt_pow_coeffs(e, 0) == one)
+    if not ok:
+        raise AssertionError("surface: the GT helpers break bilinearity or inverses")
+    log("# surface GT: e(aP, bQ) == e(P, Q)^(ab); e^a e^-a == 1; inv(e) == e^-1")
+    for k in results:
+        if not k.startswith("_"):
+            results[k]["surface_launches"] = counts.get(k, 0)
+    results["_surface"] = {"card": smi, "drive_s": drive_s, "launches": counts,
+                           "msm_unsigned_ms": med_u, "msm_signed_ms": med_s,
+                           "msm_unsigned_reps": ts_u, "msm_signed_reps": ts_s,
+                           "scalar_mul_const_ms": smc_ms, "pow_dyn_ms": pow_ms,
+                           "plain_check": plain,
+                           "phase_s": time.perf_counter() - t_phase}
+    log(f"# surface phase {results['_surface']['phase_s']:.1f} s")
+
+
 SOURCES = {
     "mont_mul": ("myzkp_tpu_torch/csrc/mont_mul.cu",
                  "myzkp_tpu/fields/limb_pallas.py:286"),
@@ -4550,6 +4813,10 @@ SOURCES = {
                     "myzkp_tpu/fields/limb_pallas.py:286"),
     "mont_pow_l4": ("myzkp_tpu_torch/csrc/mont_mul.cu",
                     "myzkp_tpu/fields/limb_pallas.py:286"),
+    # K5's pair form: butterfly_pallas's own contract (DIF and DIT), each width
+    "butterfly_pair": ("myzkp_tpu_torch/csrc/ntt.cu", "myzkp_tpu/fields/limb_pallas.py:76"),
+    "butterfly_pair_l8": ("myzkp_tpu_torch/csrc/ntt.cu", "myzkp_tpu/fields/limb_pallas.py:76"),
+    "butterfly_pair_l4": ("myzkp_tpu_torch/csrc/ntt.cu", "myzkp_tpu/fields/limb_pallas.py:76"),
 }
 
 
@@ -4595,9 +4862,10 @@ def main() -> int:
     phase_das(dev, results, sass)
     phase_dense(dev, results)
     phase_mesh(dev, results)
+    phase_surface(dev, results)
     keys = ("launches", "kzg_launches", "sumcheck_launches", "stark_launches",
             "das_launches", "dense_launches", "mesh_launches", "mesh_g16_launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "surface_launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k][0],
                 "replaces": SOURCES[k][1], **{key: results[k][key] for key in keys}}
                for k in SOURCES]
@@ -4615,6 +4883,7 @@ def main() -> int:
     log(f"# das {json.dumps(results['_das'])}")
     log(f"# dense {json.dumps(results['_dense'])}")
     log(f"# mesh {json.dumps(results['_mesh'])}")
+    log(f"# surface {json.dumps(results['_surface'])}")
     log(f"# probe13 {json.dumps(results['_probe13'])}")
     log(f"# scan_parent_path {json.dumps(results['_scan_parent_path'])}")
     log(f"# rows {json.dumps(results['_rows'])}")

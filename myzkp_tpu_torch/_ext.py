@@ -45,12 +45,15 @@ KERNELS = ("mont_mul", "mont_pow", "padd", "pdbl", "bucket_scan_rows", "butterfl
            "ntt_leaf", "padd2", "pdbl2", "padd_mixed", "padd_mixed2",
            "bucket_scan_rows2", "padd_seg_level", "padd2_seg_level", "gather_planes",
            "scatter_rows", "long_division", "mont_mul_l8", "mont_pow_l8", "butterfly_l8",
-           "ntt_leaf_l8", "long_division_l8", "mont_mul_l4", "mont_pow_l4")
+           "ntt_leaf_l8", "long_division_l8", "mont_mul_l4", "mont_pow_l4",
+           "butterfly_pair", "butterfly_pair_l8", "butterfly_pair_l4")
 # The kernels with an instance at each width: "<name>" at L = 16 limbs
 # (BN254's fields), "<name>_l8" at L = 8 (M128) (kernel_name).
-FIELD_KERNELS = ("mont_mul", "mont_pow", "butterfly", "ntt_leaf", "long_division")
-# The kernels with an instance at L = 4 (M64), "<name>_l4": K1 and its chain.
-L4_KERNELS = ("mont_mul", "mont_pow")
+FIELD_KERNELS = ("mont_mul", "mont_pow", "butterfly", "ntt_leaf", "long_division",
+                 "butterfly_pair")
+# The kernels with an instance at L = 4 (M64), "<name>_l4": K1, its chain and
+# K5's pair form.
+L4_KERNELS = ("mont_mul", "mont_pow", "butterfly_pair")
 
 # Launches of each kernel since the last reset_launches().  A wrapper adds one
 # where it launches its kernel (launch() below) and nowhere else.
@@ -76,6 +79,7 @@ _SIGNATURES = {
     "gather_planes": (_P, _P, ctypes.c_int, _P, _I64, ctypes.c_int, ctypes.c_int, _P),
     "scatter_rows": (_P,) * 7 + (ctypes.c_int, _P, _I64, ctypes.c_int, ctypes.c_int, _P),
     "long_division": (_P,) * 5 + (_I64,) * 3 + (_P, _P),
+    "butterfly_pair": (_P,) * 5 + (_I64, ctypes.c_int, _P, _P),
     "long_division_plan": (_I64,) * 4 + (_P,),  # a query, not a kernel: launches nothing
 }
 _SIGNATURES.update({f"{k}_l8": _SIGNATURES[k] for k in FIELD_KERNELS})

@@ -143,7 +143,7 @@ class ReedSolomon:
         """Systematic: codeword = m(X) X^d - (m X^d mod g); the message
         occupies the TOP coefficients."""
         assert len(message) <= self.k
-        zero = _zero_like(self.g)
+        zero = GF_ZERO_OF(self.g)
         shifted = [zero] * self.d + list(message)
         gpoly = self.generator_polynomial()
         rem = _poly_mod(shifted, gpoly)
@@ -154,7 +154,7 @@ class ReedSolomon:
         pts = self.evaluation_points(self.n)
         out = []
         for j in range(self.d):
-            s = _zero_like(self.g)
+            s = GF_ZERO_OF(self.g)
             for i, r in enumerate(received):
                 s = s + r * (pts[i] ** j)
             out.append(s)
@@ -162,7 +162,7 @@ class ReedSolomon:
 
     def _berlekamp_massey(self, syndromes: list):
         one = self.g ** 0
-        zero = _zero_like(self.g)
+        zero = GF_ZERO_OF(self.g)
         sigma = [one]
         bb = [one]
         el, m, b = 0, 1, one
@@ -192,7 +192,7 @@ class ReedSolomon:
 
     def _find_error_locations(self, sigma: list):
         pts = self.evaluation_points(self.n)
-        zero = _zero_like(self.g)
+        zero = GF_ZERO_OF(self.g)
         out = []
         for i, pt in enumerate(pts):
             if _poly_eval(sigma, pt.inv()) == zero:
@@ -202,7 +202,7 @@ class ReedSolomon:
     def correct_errors(self, received: list):
         """The corrected word, or None where the decoder fails."""
         assert len(received) <= self.n
-        zero = _zero_like(self.g)
+        zero = GF_ZERO_OF(self.g)
         syndromes = self.compute_syndromes(received)
         if all(s == zero for s in syndromes):
             return list(received)
@@ -238,14 +238,15 @@ class ReedSolomon:
 
 # small helpers over generic field objects --------------------------------
 
-def _zero_like(g):
+def GF_ZERO_OF(g):
+    """The zero of g's field (g - g), for any field element g."""
     return g - g
 
 
 def _int_embed(n: int, g):
     """n * 1 in the field of g (char-2 fields collapse to parity)."""
     one = g ** 0
-    acc = _zero_like(g)
+    acc = GF_ZERO_OF(g)
     for _ in range(n % 2 if isinstance(g, GF256) else n):
         acc = acc + one
     return acc
@@ -253,7 +254,7 @@ def _int_embed(n: int, g):
 
 def _mul_linear(coeffs: list, root):
     """coeffs(X) * (X - root)."""
-    zero = _zero_like(root)
+    zero = GF_ZERO_OF(root)
     out = [zero] * (len(coeffs) + 1)
     for i, c in enumerate(coeffs):
         out[i + 1] = out[i + 1] + c
@@ -269,7 +270,7 @@ def _poly_degree(a: list, zero) -> int:
 
 
 def _poly_eval(a: list, x):
-    acc = _zero_like(x)
+    acc = GF_ZERO_OF(x)
     for c in reversed(a):
         acc = acc * x + c
     return acc
@@ -285,7 +286,7 @@ def _poly_mul(a: list, b: list, zero):
 
 def _poly_mod(a: list, b: list):
     """a mod b for monic-leading b (generic field objects)."""
-    zero = _zero_like(b[-1])
+    zero = GF_ZERO_OF(b[-1])
     a = list(a)
     db = _poly_degree(b, zero)
     lead_inv = b[db].inv()
@@ -314,7 +315,7 @@ class ReedSolomon2D:
 
     def _matrix(self, data: list):
         size = math.isqrt(len(data) - 1) + 1 if data else 0
-        zero = _zero_like(self.g)
+        zero = GF_ZERO_OF(self.g)
         m = [[zero] * size for _ in range(size)]
         for i, v in enumerate(data):
             m[i // size][i % size] = v
@@ -347,7 +348,7 @@ class ReedSolomon2D:
                 return None
             row_dec.append(d)
         size = self.size
-        zero = _zero_like(self.g)
+        zero = GF_ZERO_OF(self.g)
         flat = [zero] * (size * size)
         for i, row in enumerate(row_dec):
             for j, v in enumerate(row):

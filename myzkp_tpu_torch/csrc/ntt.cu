@@ -10,9 +10,10 @@
 // (fields/ntt_kernels.py) limb for limb.
 //
 // K5 replaces limb_pallas.butterfly_pallas (myzkp_tpu/fields/limb_pallas.py:76,
-// body _make_butterfly_kernel :54), DIF mode; DIT has no caller.  The TPU
+// body _make_butterfly_kernel :54) on the NTT's path, DIF mode.  The TPU
 // kernel ran one stage a launch on u, v and a twiddle broadcast to u's shape,
-// each sliced and copied out by the caller.  This one reads the stage input
+// each sliced and copied out by the caller; its own contract, both modes on
+// elementwise triples, is K5's pair form below.  This one reads the stage input
 // in place and runs `stages` (1 to log2 MYZKP_K5_RADIX) consecutive stages a
 // launch in registers: after the pass's first stage the pair (t, t + E/2) of
 // the E elements x[k, j + t h'] (t < E, h' = c / E) lands in blocks k and
@@ -79,7 +80,7 @@
 //   in plain order the skip diverges: PERF.md).
 //   The ragged edge of B is masked; nothing is padded.
 //
-// Both kernels come at two widths from one templated body each: N = 8 words
+// K5 and K6 come at two widths from one templated body each: N = 8 words
 // (BN254: butterfly_kernel, ntt_leaf_kernel) and N = 4 (M128, the STARK's
 // field: butterfly_l8_kernel, ntt_leaf_l8_kernel, entry points with _l8).
 // At four words an element is 32 bytes each way and a product about 100
@@ -455,7 +456,81 @@ int leaf(const int32_t* x, const int32_t* tw, int32_t* out, int64_t E, int m,
   return launch_leaf<kRadix, N>(x, tw, out, E, logm, stages, B, consts, s);
 }
 
+// K5's pair form: butterfly_pallas's own contract, one radix-2 butterfly on
+// elementwise triples (u, v, tw) of (2N, n) limb planes, DIF (u + v, (u - v)
+// tw) or DIT (u + v tw, u - v tw), the mode a template parameter.  No path
+// calls it (the NTT runs K5's Stockham passes); it is the port's counterpart
+// of the TPU kernel's interface.  Bound on the H100: device memory, five
+// elements of 4N int32 limbs a butterfly (three read, two written: 320 bytes
+// at N = 8) against one product (264 multiply-adds at N = 8, 68 at N = 4, 18
+// at N = 2).  Design: one element a thread, blocks of 256, a warp's loads
+// and stores along n (whole 128-byte lines of each limb plane), the product
+// on the carry chains of fe_mul_cc (fe_mul_cc_wide at N = 4 and 2) and the
+// add and subtract on fe_add_cc / fe_sub_cc; every value canonical, so the
+// result equals the plain version's limb for limb.
+constexpr int kPairThreads = 256;
+
+template <int N, bool DIT>
+__global__ void __launch_bounds__(kPairThreads)
+    butterfly_pair_kernel(const int32_t* __restrict__ u, const int32_t* __restrict__ v,
+                          const int32_t* __restrict__ tw, int32_t* __restrict__ su,
+                          int32_t* __restrict__ sv, int64_t n, FieldConstsN<N> c) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kPairThreads + threadIdx.x;
+  if (i >= n) return;
+  const FeN<N> a = myzkp::load_planes<N>(u, n, i);
+  const FeN<N> b = myzkp::load_planes<N>(v, n, i);
+  const FeN<N> w = myzkp::load_planes<N>(tw, n, i);
+  if constexpr (DIT) {
+    const FeN<N> t = myzkp::fe_mul_cc(b, w, c);
+    myzkp::store_planes(su, n, i, myzkp::fe_add_cc(a, t, c));
+    myzkp::store_planes(sv, n, i, myzkp::fe_sub_cc(a, t, c));
+  } else {
+    myzkp::store_planes(su, n, i, myzkp::fe_add_cc(a, b, c));
+    myzkp::store_planes(sv, n, i, myzkp::fe_mul_cc(myzkp::fe_sub_cc(a, b, c), w, c));
+  }
+}
+
+template <int N>
+int butterfly_pair(const int32_t* u, const int32_t* v, const int32_t* tw, int32_t* su,
+                   int32_t* sv, int64_t n, int dit, const FieldConstsN<N>& consts,
+                   void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto blocks = static_cast<unsigned>((n + kPairThreads - 1) / kPairThreads);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dit)
+    butterfly_pair_kernel<N, true><<<blocks, kPairThreads, 0, s>>>(u, v, tw, su, sv, n,
+                                                                   consts);
+  else
+    butterfly_pair_kernel<N, false><<<blocks, kPairThreads, 0, s>>>(u, v, tw, su, sv, n,
+                                                                    consts);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// (su, sv) = (u + v, (u - v) tw) (dit = 0) or (u + v tw, u - v tw) (dit = 1)
+// elementwise over (2N, n) limb planes: 2N = 16 (BN254), 8 (M128, _l8) or 4
+// (M64, _l4).
+extern "C" int myzkp_butterfly_pair(const int32_t* u, const int32_t* v,
+                                    const int32_t* tw, int32_t* su, int32_t* sv,
+                                    int64_t n, int dit, const FieldConsts* consts,
+                                    void* stream) {
+  return butterfly_pair(u, v, tw, su, sv, n, dit, *consts, stream);
+}
+
+extern "C" int myzkp_butterfly_pair_l8(const int32_t* u, const int32_t* v,
+                                       const int32_t* tw, int32_t* su, int32_t* sv,
+                                       int64_t n, int dit, const FieldConstsN<4>* consts,
+                                       void* stream) {
+  return butterfly_pair(u, v, tw, su, sv, n, dit, *consts, stream);
+}
+
+extern "C" int myzkp_butterfly_pair_l4(const int32_t* u, const int32_t* v,
+                                       const int32_t* tw, int32_t* su, int32_t* sv,
+                                       int64_t n, int dit, const FieldConstsN<2>* consts,
+                                       void* stream) {
+  return butterfly_pair(u, v, tw, su, sv, n, dit, *consts, stream);
+}
 
 // x (2N, R, Bk, c, B) -> out (2N, R, 2^stages Bk, c / 2^stages, B), 2N = 16
 // limbs (BN254) or 8 (M128, the _l8 entry point); tw (2N, c - c / 2^stages):

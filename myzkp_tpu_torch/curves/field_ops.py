@@ -9,6 +9,8 @@ tensors on the card unless ``device`` names another device.
 
 from __future__ import annotations
 
+import torch
+
 from ..fields import limb
 from ..fields.spec import FieldSpec
 
@@ -54,12 +56,32 @@ class FpOps:
     def eq(self, a, b):
         return limb.eq(self.spec, a, b)
 
+    def inv(self, a):
+        """Fermat inverse elementwise (inv(0) = 0): K1's chain on the card."""
+        return limb.inv(self.spec, a)
+
     def batch_inv(self, a, axis=-1):
         """Batch inversion along batch axis ``axis`` (limb axis excluded)."""
         return limb.batch_inv(self.spec, a, axis=axis + 1 if axis >= 0 else axis)
 
     def batch_shape(self, a):
         return tuple(a.shape[1:])
+
+    def stack(self, elems, axis=0):
+        """Stack elements along a new batch axis ``axis``."""
+        return torch.stack(elems, dim=axis + 1 if axis >= 0 else axis)
+
+    def index(self, a, idx):
+        """a[idx] over the batch axes (the limb axis kept)."""
+        if not isinstance(idx, tuple):
+            idx = (idx,)
+        return a[(slice(None),) + idx]
+
+    def take(self, a, indices, axis=0):
+        """The elements at ``indices`` along batch axis ``axis``."""
+        idx = torch.as_tensor(indices, device=a.device)
+        return torch.index_select(a, axis + 1, idx.reshape(-1)).reshape(
+            a.shape[:axis + 1] + idx.shape + a.shape[axis + 2:])
 
 
 class Fq2Ops:
@@ -118,6 +140,13 @@ class Fq2Ops:
     def eq(self, a, b):
         return self.base.eq(a[0], b[0]) & self.base.eq(a[1], b[1])
 
+    def inv(self, a):
+        """(a0 - a1 u) / (a0^2 + a1^2), the norm inverted by the base field's
+        ``inv`` (K1's chain on the card); inv(0) = 0."""
+        f = self.base
+        ninv = f.inv(f.add(f.sqr(a[0]), f.sqr(a[1])))
+        return (f.mul(a[0], ninv), f.neg(f.mul(a[1], ninv)))
+
     def batch_inv(self, a, axis=-1):
         """(a0 - a1 u) / (a0^2 + a1^2), one base batch inversion of the norms."""
         f = self.base
@@ -126,3 +155,13 @@ class Fq2Ops:
 
     def batch_shape(self, a):
         return tuple(a[0].shape[1:])
+
+    def stack(self, elems, axis=0):
+        b = self.base
+        return (b.stack([e[0] for e in elems], axis), b.stack([e[1] for e in elems], axis))
+
+    def index(self, a, idx):
+        return (self.base.index(a[0], idx), self.base.index(a[1], idx))
+
+    def take(self, a, indices, axis=0):
+        return (self.base.take(a[0], indices, axis), self.base.take(a[1], indices, axis))

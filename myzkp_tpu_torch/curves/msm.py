@@ -1,4 +1,5 @@
-"""Multi-scalar multiplication: signed-digit Pippenger over G1 and G2.
+"""Multi-scalar multiplication: Pippenger over G1 and G2, signed digits by
+default.
 
 Counterpart of ``myzkp_tpu/curves/msm.py``.  The points go once into a
 row-major table (K16); per group of windows: one stable sort of the window
@@ -99,13 +100,16 @@ _SORT_GATHER_W = 1.6
 _NARROW_W = 1.0
 
 
-def default_window(n: int) -> int:
+def default_window(n: int, signed: bool = True) -> int:
     """Bucket window size minimising the modelled work in EC-add units
-    (signed digits: 2^(c-1) + 1 buckets per window)."""
+    (signed digits: 2^(c-1) + 1 buckets per window; unsigned: 2^c)."""
     best_c, best_cost = 4, None
     for c in range(4, 20):
         W = -(-256 // c)
-        bsum = _bucket_sum_cost(c - 1) + (c - 1) + 1
+        if signed:
+            bsum = _bucket_sum_cost(c - 1) + (c - 1) + 1
+        else:
+            bsum = _bucket_sum_cost(c)
         cost = W * (n * (1 + _SORT_GATHER_W) + _NARROW_W * bsum + 24 * c)
         if best_cost is None or cost < best_cost:
             best_c, best_cost = c, cost
@@ -303,24 +307,32 @@ def _group_size(n_pad: int, W: int, slots: int = 0) -> int:
 
 
 def msm_pippenger(F, b3, points: Point, s_limbs, c: int | None = None,
-                  K: int | None = None) -> Point:
+                  K: int | None = None, G: int | None = None,
+                  signed: bool = True) -> Point:
     """sum_i [s_i] P_i.  points: (n,) batch; s_limbs: (L, n) int32 standard
     domain.  Returns one (unbatched) projective point.
 
-    Signed digits lie in [-2^(c-1), 2^(c-1)]; negative ones enter the scan
-    negated, which halves the buckets.  The points go into one row-major
-    table; the W = ceil(256 / c) windows go in groups of G (sized by
-    _group_size) through one stable sort and one K-step bucket scan each
-    (G * n / K lanes), which reads that table by index."""
+    With ``signed`` (the default) digits lie in [-2^(c-1), 2^(c-1)] and
+    negative ones enter the scan negated, which halves the buckets; unsigned
+    digits lie in [0, 2^c) over 2^c buckets (bucket 0 dropped), and c < 2
+    always runs unsigned.  The points go into one row-major table; the W =
+    ceil(256 / c) windows go in groups of G (``_group_size`` unless the
+    caller gives G, capped at W) through one stable sort and one K-step
+    bucket scan each (G * n / K lanes), which reads that table by index."""
     n = s_limbs.shape[1]
     if c is None:
-        c = default_window(n)
-    if not 2 <= c <= 31:
-        raise ValueError(f"window {c} outside [2, 31]")
-    half = 1 << (c - 1)
-    num_buckets = half + 1
+        c = default_window(n, signed)
+    if not 1 <= c <= 31:
+        raise ValueError(f"window {c} outside [1, 31]")
+    if c < 2:
+        signed = False
+    num_buckets = (1 << (c - 1)) + 1 if signed else 1 << c
     W = -(-16 * s_limbs.shape[0] // c)
-    G = _group_size(n, W, num_buckets + 1)
+    if G is None:
+        G = _group_size(n, W, num_buckets + 1)
+    if G < 1:
+        raise ValueError(f"G = {G}: a group holds at least one window")
+    G = min(G, W)
     if K is None:
         # per-step width G * n / K of ~2^15 lanes: a smaller K costs more
         # lane-merge adds, a larger one narrows each scan step
@@ -334,21 +346,26 @@ def msm_pippenger(F, b3, points: Point, s_limbs, c: int | None = None,
         s_limbs = torch.nn.functional.pad(s_limbs, (0, pad))
 
     rows, _ = _rows_of_point(points)
-    d_sorted, v_sorted = _sorted_digits(s_limbs, c, -(-W // G) * G)
+    d_sorted, v_sorted = _sorted_digits(s_limbs, c, -(-W // G) * G, signed)
     groups = [_bucket_accumulate(F, b3, rows, v_sorted[g:g + G],
                                  d_sorted[g:g + G], num_buckets, K)
               for g in range(0, d_sorted.shape[0], G)]
     buckets = point_map(lambda *cs: torch.cat(cs, dim=1), *groups)
-    return _horner(F, b3, _window_sums(F, b3, buckets, c), c)
+    return _horner(F, b3, _window_sums(F, b3, buckets, c, signed), c)
 
 
-def _sorted_digits(s_limbs, c: int, W_pad: int):
-    """Each window's signed-digit magnitudes sorted (stably) with their
-    packed (index << 1 | negate) values: two (W_pad, n) int32 tensors; the
-    windows past the scalars' W are zero-digit fillers at the MSB end, whose
-    sums are infinity."""
+def _sorted_digits(s_limbs, c: int, W_pad: int, signed: bool = True):
+    """Each window's digits (signed-digit magnitudes, or the unsigned digits
+    with the negate bit never set) sorted (stably) with their packed (index
+    << 1 | negate) values: two (W_pad, n) int32 tensors; the windows past
+    the scalars' W are zero-digit fillers at the MSB end, whose sums are
+    infinity."""
     n = s_limbs.shape[1]
-    digits, dneg = signed_digits(scalar_digits(s_limbs, c), c)  # (W, n)
+    digits = scalar_digits(s_limbs, c)  # (W, n)
+    if signed:
+        digits, dneg = signed_digits(digits, c)
+    else:
+        dneg = torch.zeros_like(digits, dtype=torch.bool)
     W = digits.shape[0]
     if W_pad != W:
         digits = torch.nn.functional.pad(digits, (0, 0, 0, W_pad - W))
@@ -359,10 +376,13 @@ def _sorted_digits(s_limbs, c: int, W_pad: int):
     return d_sorted, vals.gather(1, order)
 
 
-def _window_sums(F, b3, buckets: Point, c: int) -> Point:
-    """S_w = sum_b b * B_b per window from a (W_pad, 2^(c-1) + 1) bucket
-    batch.  Magnitudes span [0, half]: the power-of-two weighted sum covers
-    [1, half - 1] and the top bucket adds half * B_half."""
+def _window_sums(F, b3, buckets: Point, c: int, signed: bool = True) -> Point:
+    """S_w = sum_b b * B_b per window.  Unsigned: the weighted sum over the
+    (W_pad, 2^c) bucket batch.  Signed: magnitudes span [0, half] of a
+    (W_pad, 2^(c-1) + 1) batch; the power-of-two weighted sum covers [1,
+    half - 1] and the top bucket adds half * B_half."""
+    if not signed:
+        return _weighted_bucket_sum(F, b3, buckets, c)  # (W_pad,)
     half = 1 << (c - 1)
     main = point_map(lambda a: a[..., :half], buckets)
     top = point_map(lambda a: a[..., half], buckets)
@@ -417,7 +437,8 @@ def msm_naive(F, b3, points: Point, s_limbs) -> Point:
 
 def msm(F, b3, points: Point, s_limbs, **kw) -> Point:
     """sum_i [s_i] P_i: the double-and-add ladder below _PIPPENGER_MIN_N
-    points unless Pippenger's c or K is given, else msm_pippenger."""
+    points unless an argument of msm_pippenger (c, K, G, signed) is given,
+    else msm_pippenger with those arguments."""
     if kw:
         return msm_pippenger(F, b3, points, s_limbs, **kw)
     return msm_many(F, b3, [(points, s_limbs)])[0]

@@ -153,6 +153,21 @@ def scalar_mul_bits(F, b3, p: Point, bits) -> Point:
     return acc
 
 
+def scalar_mul_const(F, b3, p: Point, e: int) -> Point:
+    """[e]P for a host int e >= 0, the same e for every point: infinity for
+    e = 0, else the LSB-first ladder of ``scalar_mul_bits`` over e's bits."""
+    if e < 0:
+        raise ValueError(f"scalar_mul_const takes e >= 0, not {e}")
+    bshape = F.batch_shape(p.x)
+    dev = leaves(p)[0].device
+    if e == 0:
+        return infinity(F, bshape, dev)
+    bits = torch.tensor([(e >> i) & 1 for i in range(e.bit_length())], dtype=torch.int32,
+                        device=dev)
+    return scalar_mul_bits(F, b3, p, bits.reshape((-1,) + (1,) * len(bshape)).expand(
+        (-1,) + bshape))
+
+
 def tree_sum(F, b3, p: Point, axis: int = 0) -> Point:
     """EC sum of a point batch along a batch axis by halving: each level adds
     the top half onto the bottom half in one kernel launch, 2n adds in all.

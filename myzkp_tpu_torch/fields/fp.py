@@ -13,9 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import _ext
 from . import limb
-from .spec import W, FieldSpec
+from .spec import FieldSpec
 
 
 class Fp:
@@ -57,12 +56,7 @@ class Fp:
         limbs x = lo + hi * R in [0, R^2) give lo + hi * R mod p (lo and hi
         reduced below p by conditional subtractions, hi * R by to_mont).
         The limbs are drawn on the generator's device."""
-        shape = (2 * spec.L,) + tuple(batch_shape)
-        wide = torch.randint(0, 1 << W, shape, generator=gen, device=gen.device,
-                             dtype=limb.I32).to(_ext.resolve_device(device))
-        lo, hi = limb.reduce_below_p(spec, wide[:spec.L]), limb.reduce_below_p(
-            spec, wide[spec.L:])
-        return cls(spec, limb.to_mont(spec, limb.add(spec, lo, limb.to_mont(spec, hi))))
+        return cls(spec, limb.to_mont(spec, limb.random(spec, gen, batch_shape, device)))
 
     # -- host round trip -----------------------------------------------------------
     def to_int(self):

@@ -13,6 +13,7 @@ nor JAX.
 
 from __future__ import annotations
 
+import random as _random
 from dataclasses import dataclass
 
 from .spec import BN254_Q, BN254_R
@@ -26,6 +27,21 @@ class PyField:
 
     def __call__(self, v) -> "PyFp":
         return PyFp(self, int(v) % self.p)
+
+    def zero(self) -> "PyFp":
+        return self(0)
+
+    def one(self) -> "PyFp":
+        return self(1)
+
+    def random(self, rng: _random.Random | None = None) -> "PyFp":
+        """A uniform element from ``rng`` (the ``random`` module's own
+        generator when None)."""
+        return self((rng or _random).randrange(self.p))
+
+    def sample(self, data: bytes) -> "PyFp":
+        """Bytes to an element: big-endian ``int.from_bytes`` mod p."""
+        return self(int.from_bytes(data, "big"))
 
     def __eq__(self, other):
         return isinstance(other, PyField) and other.p == self.p
@@ -73,6 +89,9 @@ class PyFp:
             return self.v == o % self.f.p
         return isinstance(o, PyFp) and o.f == self.f and o.v == self.v
 
+    def is_zero(self) -> bool:
+        return self.v == 0
+
     def __repr__(self):
         return f"{self.v}"
 
@@ -111,8 +130,21 @@ class PyExtField:
         cs += [0] * (self.deg - len(cs))
         return [self.base(c) for c in cs]
 
+    def zero(self) -> "PyExt":
+        return self([0])
+
     def one(self) -> "PyExt":
         return self([1])
+
+    def x(self) -> "PyExt":
+        """The generator x of F_p[x]/(m(x))."""
+        return self([0, 1])
+
+    def random(self, rng: _random.Random | None = None) -> "PyExt":
+        """deg uniform coefficients from ``rng`` (the ``random`` module's
+        own generator when None)."""
+        rng = rng or _random
+        return self([rng.randrange(self.base.p) for _ in range(self.deg)])
 
     def __eq__(self, o):
         return isinstance(o, PyExtField) and o.base == self.base and o.mod == self.mod
@@ -194,6 +226,9 @@ class PyExt:
     def __hash__(self):
         return hash((self.ef.base.p, tuple(v.v for v in self.c)))
 
+    def is_zero(self) -> bool:
+        return all(v.v == 0 for v in self.c)
+
     def __repr__(self):
         return f"Ext{[v.v for v in self.c]}"
 
@@ -252,6 +287,10 @@ class PyCurve:
 
     def infinity(self) -> "PyPoint":
         return PyPoint(self, None, None, True)
+
+    def contains(self, x, y) -> bool:
+        """Whether (x, y) lies on y^2 = x^3 + a x + b."""
+        return y * y == x * x * x + self.a * x + self.b
 
 
 class PyPoint:

@@ -77,6 +77,14 @@ def to_bytes_batch(spec: FieldSpec, a: torch.Tensor) -> list:
     return [raw[i:i + w] for i in range(0, len(raw), w)]
 
 
+def from_bytes(spec: FieldSpec, bs: list, device=None) -> torch.Tensor:
+    """Inverse of ``to_bytes_batch``: n strings of 2L little-endian bytes ->
+    (L, n) limbs on ``device`` (the card unless the caller names one)."""
+    arr = np.frombuffer(b"".join(bs), dtype="<u2").reshape(len(bs), spec.L)
+    out = torch.from_numpy(np.ascontiguousarray(arr.T).astype(np.int32))
+    return out.to(_ext.resolve_device(device))
+
+
 def _limb_column(limbs, ndim: int, device, dtype=I32) -> torch.Tensor:
     col = torch.tensor(limbs, dtype=dtype, device=_ext.resolve_device(device))
     return col.reshape((len(limbs),) + (1,) * ndim)
@@ -372,6 +380,20 @@ def inv(spec: FieldSpec, a):
     return pow_const(spec, a, spec.p - 2)
 
 
+def pow_dyn(spec: FieldSpec, a, e_bits):
+    """a^e elementwise for exponents given as bits (Montgomery in and out):
+    ``e_bits`` (nbits, *batch) of 0 / 1, LSB first, broadcast against a's
+    batch.  LSB-first square-and-multiply: each bit takes one product acc *
+    base, kept where the bit is set by a select, and one squaring of the base
+    (two K1 launches on the card).  No bits give 1."""
+    acc = one_mont(spec, tuple(a.shape[1:]), a.device)
+    base = a
+    for bit in e_bits:
+        acc = select(bit > 0, mont_mul(spec, acc, base), acc)
+        base = mont_sqr(spec, base)
+    return acc.contiguous()
+
+
 def _prefix_mul(spec: FieldSpec, x, dim: int):
     """Inclusive prefix product along a batch dim (Hillis-Steele, log2 n
     full-width products)."""
@@ -437,3 +459,20 @@ def segment_sum_mod(spec: FieldSpec, vals, seg_ids, num_segments: int):
     r2 = _limb_column(spec.r2_limbs, 1, dev)
     return add(spec, mont_mul(spec, canon.int(), r_mod_p),
                mont_mul(spec, c.int(), r2))
+
+
+# ---------------------------------------------------------------------------
+# Sampling
+# ---------------------------------------------------------------------------
+
+def random(spec: FieldSpec, gen: torch.Generator, batch_shape=(), device=None):
+    """Near-uniform elements (standard domain), as the reference samples
+    them: 2L random 16-bit limbs x = lo + hi * R in [0, R^2) give lo + hi * R
+    mod p (lo and hi reduced below p by conditional subtractions, hi * R by
+    to_mont).  The limbs are drawn from ``gen`` on its device; the result
+    goes to ``device`` (the card unless the caller names one)."""
+    shape = (2 * spec.L,) + tuple(batch_shape)
+    wide = torch.randint(0, 1 << W, shape, generator=gen, device=gen.device,
+                         dtype=I32).to(_ext.resolve_device(device))
+    lo, hi = reduce_below_p(spec, wide[:spec.L]), reduce_below_p(spec, wide[spec.L:])
+    return add(spec, lo, to_mont(spec, hi))

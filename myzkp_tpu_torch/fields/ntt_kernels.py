@@ -1,12 +1,15 @@
 """NTT kernels K5 (up to log2 r consecutive radix-2 Stockham stages, r =
-``k5_radix()``) and K6 (a whole NTT of length m <= 128 along one axis), each
-beside its plain PyTorch version.
+``k5_radix()``), K5's pair form (one butterfly on elementwise triples, DIF
+or DIT) and K6 (a whole NTT of length m <= 128 along one axis), each beside
+its plain PyTorch version.
 
-Counterparts of ``butterfly_pallas`` (DIF) and ``ntt_leaf_pallas`` in
-``myzkp_tpu/fields/limb_pallas.py``.  The wrappers (``butterfly``,
-``ntt_leaf``) launch the CUDA kernel (csrc/ntt.cu; its instance at L = 16
-limbs, or ``butterfly_l8`` / ``ntt_leaf_l8`` at L = 8 for M128) for CUDA
-tensors and run the plain version (``*_ref``, int64 inside) for CPU
+Counterparts of ``butterfly_pallas`` and ``ntt_leaf_pallas`` in
+``myzkp_tpu/fields/limb_pallas.py``: the NTT's path runs K5's Stockham passes
+(DIF); ``butterfly_pair`` keeps the TPU kernel's own contract in both modes.
+The wrappers (``butterfly``, ``butterfly_pair``, ``ntt_leaf``) launch the
+CUDA kernel (csrc/ntt.cu; its instance at L = 16 limbs, ``*_l8`` at L = 8
+for M128, and for the pair form ``butterfly_pair_l4`` at L = 4 for M64) for
+CUDA tensors and run the plain version (``*_ref``, int64 inside) for CPU
 tensors.
 
 A stage, as ``ops/ntt.py`` runs it: x (L, R, Bk, 2h, B) splits its third axis
@@ -69,6 +72,19 @@ def butterfly_ref(spec: FieldSpec, x, tw, stages: int = 1):
     return y.int()
 
 
+def butterfly_pair_ref(spec: FieldSpec, u, v, tw, dit: bool):
+    """Plain version of K5's pair form: (u + v, (u - v) tw) (DIF) or
+    (u + v tw, u - v tw) (DIT) elementwise."""
+    u, v, tw = u.long(), v.long(), tw.long()
+    if dit:
+        t = limb._mont_mul64(spec, v, tw)
+        su, sv = limb._add64(spec, u, t), limb._sub64(spec, u, t)
+    else:
+        su = limb._add64(spec, u, v)
+        sv = limb._mont_mul64(spec, limb._sub64(spec, u, v), tw)
+    return su.int(), sv.int()
+
+
 def _leaf_stages(m: int, stages) -> int:
     log_m = m.bit_length() - 1
     s = log_m if stages is None else stages
@@ -110,6 +126,28 @@ def butterfly(spec: FieldSpec, x, tw, stages: int = 1):
         _ext.launch(_ext.kernel_name("butterfly", spec), x.device, _ext.ptr(x), _ext.ptr(tw),
                     _ext.ptr(out), R, Bk, c, B, stages, _ext.consts_ptr(spec))
     return out
+
+
+def butterfly_pair(spec: FieldSpec, u, v, tw, dit: bool):
+    """K5's pair form, ``butterfly_pallas``'s contract: one radix-2
+    butterfly on elementwise triples of Montgomery limb tensors u, v, tw of
+    one shape (L, *batch), int32; returns (su, sv): (u + v, (u - v) tw)
+    (DIF) or (u + v tw, u - v tw) (DIT)."""
+    if not (u.shape == v.shape == tw.shape and u.dim() >= 1 and u.shape[0] == spec.L):
+        raise ValueError(f"butterfly inputs of shapes {tuple(u.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(tw.shape)}: one shape (L = {spec.L}, *batch)")
+    if not _ext.use_kernel(u, v, tw):
+        return butterfly_pair_ref(spec, u, v, tw, dit)
+    u, v, tw = u.contiguous(), v.contiguous(), tw.contiguous()
+    for t, name in ((u, "u"), (v, "v"), (tw, "tw")):
+        _ext.require(t, name, I32)
+    su, sv = torch.empty_like(u), torch.empty_like(u)
+    n = u.numel() // spec.L
+    if n:
+        _ext.launch(_ext.kernel_name("butterfly_pair", spec), u.device, _ext.ptr(u),
+                    _ext.ptr(v), _ext.ptr(tw), _ext.ptr(su), _ext.ptr(sv), n, int(dit),
+                    _ext.consts_ptr(spec))
+    return su, sv
 
 
 def ntt_leaf(spec: FieldSpec, x, tw, stages=None):

@@ -1,5 +1,6 @@
 """Host libraries in C++, bound with ctypes: the BN254 pairing and the
-verifier's multi-pairing, and the Merkle tree's SHA3-256 levels.
+verifier's multi-pairing, products, powers and inverses in GT, and the
+Merkle tree's SHA3-256 levels.
 
 ``bn254.cpp``, ``gen_constants.py`` and ``keccak.cpp`` are the port's copies
 of the JAX package's engine (``myzkp_tpu/native/``).  At first use each
@@ -90,6 +91,12 @@ def library() -> ctypes.CDLL:
         lib.bn254_multi_pairing.restype = None
         lib.bn254_pairing.argtypes = (u64p, ctypes.c_int, u64p, ctypes.c_int, u64p)
         lib.bn254_pairing.restype = None
+        lib.bn254_gt_mul.argtypes = (u64p, u64p, u64p)
+        lib.bn254_gt_pow.argtypes = (u64p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
+                                     u64p)
+        lib.bn254_gt_inv.argtypes = (u64p, u64p)
+        for fn in (lib.bn254_gt_mul, lib.bn254_gt_pow, lib.bn254_gt_inv):
+            fn.restype = None
         _lib = lib
     return _lib
 
@@ -137,6 +144,41 @@ def multi_pairing_coeffs(pairs) -> list:
     out = (ctypes.c_uint64 * 48)()
     library().bn254_multi_pairing(len(pairs), g1, inf1, g2, inf2, out)
     return _fq12_ints(out)
+
+
+def _gt(coeffs):
+    """12 poly-basis F_q coefficient ints -> the C entries' 48-u64 blob."""
+    a = (ctypes.c_uint64 * 48)()
+    a[:] = [w for c in coeffs for w in _u64x4(int(c))]
+    return a
+
+
+def gt_mul_coeffs(a: list, b: list) -> list:
+    """a * b in GT, each as the 12 poly-basis F_q coefficients
+    (F_q[w] / (w^12 - 18 w^6 + 82)) as ints."""
+    out = (ctypes.c_uint64 * 48)()
+    library().bn254_gt_mul(_gt(a), _gt(b), out)
+    return _fq12_ints(out)
+
+
+def gt_inv_coeffs(coeffs: list) -> list:
+    """The inverse in GT of the 12 poly-basis coefficient ints."""
+    out = (ctypes.c_uint64 * 48)()
+    library().bn254_gt_inv(_gt(coeffs), out)
+    return _fq12_ints(out)
+
+
+def gt_pow_coeffs(coeffs: list, e: int) -> list:
+    """coeffs^e in GT on the 12 poly-basis coefficient ints, for any int e:
+    e = 0 gives 1, a negative e the inverse of coeffs^|e|."""
+    if e == 0:
+        return [1] + [0] * 11
+    bits = [int(b) for b in bin(abs(e))[2:]]  # MSB first
+    out = (ctypes.c_uint64 * 48)()
+    library().bn254_gt_pow(_gt(coeffs), (ctypes.c_uint8 * len(bits))(*bits), len(bits),
+                           out)
+    res = _fq12_ints(out)
+    return gt_inv_coeffs(res) if e < 0 else res
 
 
 def keccak_library() -> ctypes.CDLL:

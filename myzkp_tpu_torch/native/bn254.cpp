@@ -492,6 +492,32 @@ static inline void tower_to_poly(const Fq12 &a, Fq out[12]) {
   }
 }
 
+// The inverse of tower_to_poly: x_j = p_j + 9 p_{j+6}, y_j = p_{j+6}.
+static inline Fq12 poly_to_tower(const Fq in[12]) {
+  Fq nine;
+  memcpy(nine.v, MONT_NINE, sizeof(nine.v));
+  Fq12 a = fq12_zero();
+  Fq2 *slots[6] = {&a.c0.c0, &a.c1.c0, &a.c0.c1,
+                   &a.c1.c1, &a.c0.c2, &a.c1.c2};
+  for (int j = 0; j < 6; ++j) {
+    slots[j]->c1 = in[j + 6];
+    slots[j]->c0 = fq_add(in[j], fq_mul(nine, in[j + 6]));
+  }
+  return a;
+}
+
+static inline Fq12 gt_from_limbs(const uint64_t *a) {
+  Fq c[12];
+  for (int i = 0; i < 12; ++i) c[i] = fq_from_limbs(a + 4 * i);
+  return poly_to_tower(c);
+}
+
+static inline void gt_to_limbs(const Fq12 &r, uint64_t *out) {
+  Fq c[12];
+  tower_to_poly(r, c);
+  for (int i = 0; i < 12; ++i) fq_to_limbs(c[i], out + 4 * i);
+}
+
 // ---------------------------------------------------------------------------
 // Pairing entry points
 // ---------------------------------------------------------------------------
@@ -564,6 +590,21 @@ void bn254_multi_pairing(int n, const uint64_t *g1s, const int *g1_infs,
   Fq coeffs[12];
   tower_to_poly(f, coeffs);
   for (int i = 0; i < 12; ++i) fq_to_limbs(coeffs[i], out + 4 * i);
+}
+
+// GT (poly-basis F_q12) helpers: a, b, out are 48-u64 standard-form blobs.
+void bn254_gt_mul(const uint64_t *a, const uint64_t *b, uint64_t *out) {
+  gt_to_limbs(fq12_mul(gt_from_limbs(a), gt_from_limbs(b)), out);
+}
+
+// e: nbits MSB-first bits.
+void bn254_gt_pow(const uint64_t *a, const uint8_t *bits, int nbits,
+                  uint64_t *out) {
+  gt_to_limbs(fq12_pow_bits(gt_from_limbs(a), bits, nbits), out);
+}
+
+void bn254_gt_inv(const uint64_t *a, uint64_t *out) {
+  gt_to_limbs(fq12_inv(gt_from_limbs(a)), out);
 }
 
 }  // extern "C"
