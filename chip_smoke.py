@@ -33,7 +33,12 @@ Phases, one output line each (or more), in order:
                (the same edges), K1's chain mont_pow over F_q and F_r at 1,
                2, 3, 16 and 4,097 elements (0, 1, p - 1, R mod p among
                them) for e = 0, 1, 2, 3, p - 2 and a seeded 256-bit e,
-               against mont_pow_ref and the host's pow(x, e, p), K1 with
+               against mont_pow_ref and the host's pow(x, e, p); both forms
+               of the chain at all three widths (mont_pow, mont_pow_l8,
+               mont_pow_l4): n at the launcher's edge (the lane pair) and
+               one past it (the window form), the word edges first, for
+               e = 0, 1, 2, 3, alpha, alpha^-1, p - 2 and 2^256 - 1,
+               against mont_pow_ref and the host; K1 with
                an operand broadcast as the paths broadcast it (the 1/n
                constant, coset offsets against (3, n), the four-step level
                table against E = 3, to_mont / from_mont columns), K5
@@ -99,7 +104,10 @@ Phases, one output line each (or more), in order:
                four-step level-twiddle pass over 3 x 2^21 elements (the
                quotient's shape) and at (16, 8192) (a setup to_mont), and
                its chain at 2 elements with e = q - 2 (the proof's
-               inversion; also with CUDA events around the calls);
+               inversion; also with CUDA events around the calls), and one
+               product's latency on one warp (the lane pair on one element
+               at 256 bits less at 17, over 239): the inversion's depth
+               bound, and K17's at BN254 in phase 15;
   7. g2 msm    fixed-base setup of 2^20 G2 points [m_i]G2, then the 2^20 G2
                Pippenger MSM (one launch of K4's G2 instance per window
                group) against 2^20 scalars with a zero and duplicates,
@@ -187,7 +195,8 @@ Phases, one output line each (or more), in order:
                CPU plain versions with the same seed, the proofs equal byte
                for byte, accepted, and a false output rejected on the card;
                hash_batch over 2^20 inputs (64 sampled outputs equal the host
-               hash; timed); FastStark on the JAX package's squaring AIR at
+               hash; timed; its 108 chain launches counted, in the window
+               form); FastStark on the JAX package's squaring AIR at
                65,528 cycles over a 2^20-point FRI domain: preprocess, three
                proves from random.Random(7) (equal, each split by stage:
                trace interpolation, boundary quotients, codewords + Merkle,
@@ -195,10 +204,14 @@ Phases, one output line each (or more), in order:
                openings), verify accepting, a false boundary's proof
                rejected, the first prove's launches (K5 gated under 5,940);
                K5, K6 and K17 at every shape that prove launched them at
-               against their plain versions (K17 past 512 steps a row
+               against their plain versions (K6 also at ragged B, B not a
+               multiple of 4, small m and its first stages only, forward,
+               inverse and random tables; K17 past 512 steps a row
                against a = q b + r), then the five four-word kernels and
                K17's BN254 instance timed beside their plain versions and
-               bounds (68 multiply-adds a 128-bit product);
+               bounds (68 multiply-adds a 128-bit product; the chain's bound
+               counts its window schedule's products); K6 and K17 timed at
+               each shape of the prove and summed over its launches;
  14. das       the extension fields and the data-availability models
                (fields/efield.py, codes/reedsolomon.py, das/): K1 and its
                chain at two words (M64: mont_mul_l4, mont_pow_l4) on 2^20
@@ -243,7 +256,9 @@ Phases, one output line each (or more), in order:
                python -m myzkp_tpu_torch.protocols.sumcheck_cli (8 variables)
                exit 0, and snark.cli 12 --mesh 2 (two ranks sharing the
                card), snark.cli --g2 naive is refused; K17 at (1, 1023, 512)
-               timed beside its plain version and bound;
+               timed beside its plain version, its operations bound and its
+               depth bound (511 quotient coefficients one after another, one
+               product's latency each);
  16. mesh      parallel/mesh.py: 4 ranks spawned by run_ranks share the card
                (gloo, each collective staged through pinned host memory);
                each runs square_chain(2^20)'s Pinocchio and Groth16 setups
@@ -477,8 +492,8 @@ def sass_counts(lib) -> dict:
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = next((k for k in SASS_KERNELS if k in m.group(1)), None)
-            arg = re.search(r"kernelILi(\d+)E(?:Lb(\d)E)?", m.group(1))
-            if name and arg:  # a template instantiation: kernel<R> or kernel<N,flag>
+            arg = re.search(r"kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?", m.group(1))
+            if name and arg:  # a template instantiation: kernel<R>, kernel<R,T> or kernel<N,flag>
                 name = f"{name}<{','.join(g for g in arg.groups() if g is not None)}>"
             if name:
                 out[name] = dict.fromkeys(("total",) + SASS_CLASSES, 0)
@@ -499,7 +514,8 @@ SASS_KERNELS = ("padd_seg_level_kernel", "padd2_seg_level_kernel", "padd_mixed_k
                 "butterfly_kernel", "mont_mul_l8_kernel", "mont_pow_l8_kernel",
                 "ntt_leaf_l8_kernel", "butterfly_l8_kernel", "div_rows_kernel",
                 "div_chunks_kernel", "div_block_kernel", "mont_mul_l4_kernel",
-                "mont_pow_l4_kernel")
+                "mont_pow_l4_kernel", "mont_pow_wide_kernel", "mont_pow_wide_l8_kernel",
+                "mont_pow_wide_l4_kernel")
 
 
 def random_fe(rng: np.random.Generator, n: int, dev) -> torch.Tensor:
@@ -1111,6 +1127,79 @@ def phase_bitcheck_pow(dev, results: dict) -> None:
         f"seeded 256-bit e, one launch each: exact vs plain and == host pow(x, e, p)")
 
 
+def chain_products(e: int, L: int) -> int:
+    """Montgomery products an element of K1's chain at exponent e, L limbs:
+    the window schedule's table, squarings and window products
+    (_ext.window_schedule), the fewest the port's chain needs; the lane
+    pair's extra products (one a bit on its acc lane, set or not) are its
+    chosen extra work for depth, as K7's pair is."""
+    from myzkp_tpu_torch import _ext
+
+    return _ext.schedule_products(_ext.window_schedule(e, _ext.POW_TABLE[L]))
+
+
+def pow_edge(dev) -> int:
+    """The most elements K1's chain runs on the lane pair on this card (the
+    launcher's own plan, limb.mont_pow_form, bisected); one more runs in the
+    window form."""
+    from myzkp_tpu_torch.fields import limb
+
+    lo, hi = 1, 1 << 30
+    if limb.mont_pow_form(lo, dev) != "pair" or limb.mont_pow_form(hi, dev) != "wide":
+        raise AssertionError("mont_pow_form: no lane pair at 1 element or no window form at 2^30")
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if limb.mont_pow_form(mid, dev) == "pair" else (lo, mid)
+    return lo
+
+
+def chain_exponents(p: int) -> tuple:
+    """The chain's exponents at every width: 0, 1, 2, 3, alpha, alpha^-1
+    (Rescue-Prime's S-boxes), p - 2 and 2^256 - 1."""
+    from myzkp_tpu_torch.stark import rescue_constants as rc
+
+    return (0, 1, 2, 3, rc.ALPHA, rc.ALPHA_INV, p - 2, (1 << 256) - 1)
+
+
+def phase_bitcheck_chain_forms(dev, results: dict) -> None:
+    """K1's chain in both of its forms at all three widths: n at the
+    launcher's edge (the lane pair) and one past it (the window form), the
+    word edges first, each exponent of chain_exponents one launch, exact
+    against mont_pow_ref and the edges against the host's pow(x, e, p)."""
+    from myzkp_tpu_torch import _ext
+    from myzkp_tpu_torch.fields import limb
+    from myzkp_tpu_torch.fields.spec import bn254_q_spec, m64_spec, m128_spec
+
+    edge = pow_edge(dev)
+    rng = random.Random(SEED + 20)
+    for spec, name in ((bn254_q_spec(), "mont_pow"), (m128_spec(), "mont_pow_l8"),
+                       (m64_spec(), "mont_pow_l4")):
+        p, words = spec.p, spec.L // 2
+        R = 1 << (32 * words)
+        rinv = pow(R, -1, p)
+        edges = word_edges(p, words)
+        err = 0
+        for n in (edge, edge + 1):
+            a = limb.from_int(spec, edges + [rng.randrange(p) for _ in range(n - len(edges))],
+                              dev).contiguous()
+            xs = [x * rinv % p for x in edges]
+            for e in chain_exponents(p):
+                before = _ext.launches[name]
+                got = limb.pow_const(spec, a, e)
+                if _ext.launches[name] != before + 1:
+                    raise AssertionError(f"pow_const: not one launch of {name}")
+                err = max(err, check_equal(f"{name} n = {n} e = {e}", [got],
+                                           [limb.mont_pow_ref(spec, a, e)]))
+                host = limb.to_int(spec, got[:, :len(edges)])
+                if any(int(g) != pow(x, e, p) * R % p for g, x in zip(host, xs)):
+                    raise AssertionError(f"{name} n = {n} e = {e}: differs from the host")
+        results[name]["max_abs_err"] = max(results[name].get("max_abs_err", 0), err)
+    log(f"# bitcheck chain forms: mont_pow, mont_pow_l8, mont_pow_l4 at n = {edge} "
+        f"({limb.mont_pow_form(edge, dev)}) and {edge + 1} "
+        f"({limb.mont_pow_form(edge + 1, dev)}), the word edges first, e = 0, 1, 2, 3, alpha, "
+        f"alpha^-1, p - 2, 2^256 - 1, one launch each: exact vs plain and the edges == host")
+
+
 def bitcheck_broadcast(spec, rng, dev, results: dict) -> None:
     """K1 with one operand broadcast along leading batch axes, read in place
     with a period, at the broadcasts of the paths (F_r, the 2^21-point
@@ -1391,7 +1480,7 @@ def time_k1(dev, results: dict | None) -> dict:
     tab = ntt.fourstep_tables(rspec, n, False, dev)[0].reshape(16, m1, m2, 1)
     e = qspec.p - 2
     a2 = random_fe(rng, 2, dev)
-    products = 2 * (e.bit_length() - 1 + bin(e).count("1"))
+    products = 2 * chain_products(e, 16)
     cases = {
         "setup": ("mont_mul", "(16, 8192): a setup to_mont",
                   lambda: limb.mont_mul(qspec, a, b), lambda: limb.mont_mul_ref(qspec, a, b),
@@ -1413,6 +1502,16 @@ def time_k1(dev, results: dict | None) -> dict:
         f"{out['inversion_events_ms']:.4f} ms a call (CUDA events around the calls)")
     if not hasattr(limb, "mont_pow_ref"):
         del cases["chain"]
+    if hasattr(limb, "mont_pow_form"):
+        # one product's latency: the lane pair on one element is one product
+        # deep a bit, at 256 bits less at 17, over 239
+        one = a2[:, :1].contiguous()
+        lat = [graph_time_ms(lambda: limb.pow_const(qspec, one, 1 << k), 5) for k in (16, 255)]
+        out["product_latency_us"] = (lat[1] - lat[0]) / 239 * 1e3
+        out["chain_depth_bound_ms"] = e.bit_length() * out["product_latency_us"] * 1e-3
+        log(f"# time one product's latency on one warp (the lane pair on one element, "
+            f"2^255 less 2^16, over 239): {out['product_latency_us']:.4f} us; the inversion's "
+            f"depth bound {e.bit_length()} x that = {out['chain_depth_bound_ms']:.4f} ms")
     for key, (name, what, kern, plain, reps, preps, bnd) in cases.items():
         res = {name: {"max_abs_err": 0}}
         time_cases({name: (what, kern, plain, reps, preps, bnd)}, res)
@@ -1422,6 +1521,8 @@ def time_k1(dev, results: dict | None) -> dict:
                                                res[name]["max_abs_err"])
             results[name].update({k: res[name][k] for k in ("ms", "plain_ms", "bound_ms",
                                                             "bound_by", "library_ms")})
+    if results is not None and "chain_depth_bound_ms" in out:
+        results["mont_pow"]["depth_bound_ms"] = out["chain_depth_bound_ms"]
     log(f"# k1 {json.dumps(out)}")
     return out
 
@@ -2984,7 +3085,7 @@ def phase_bitcheck_m128(dev, results: dict) -> None:
             if any(int(g) != pow(x, e, p) * R % p
                    for g, x in zip(limb.to_int(spec, got), xs)):
                 raise AssertionError(f"mont_pow_l8 n = {n} e = {e}: differs from the host")
-    results["mont_pow_l8"]["max_abs_err"] = err
+    results["mont_pow_l8"]["max_abs_err"] = max(results["mont_pow_l8"].get("max_abs_err", 0), err)
     log(f"# bitcheck mont_pow_l8 (M128): {POW_SIZES} elements (word edges among them), "
         f"e = 0, 1, 2, p - 2, alpha^-1, one launch each: exact vs plain and == host")
 
@@ -2992,16 +3093,18 @@ def phase_bitcheck_m128(dev, results: dict) -> None:
 class recorder:
     """Within the block, each call of owner.name is also recorded: its
     arguments (tensors kept) under key(*args), the first call of each key
-    only."""
+    only, and the calls of each key counted."""
 
     def __init__(self, owner, name: str, key):
-        self.owner, self.name, self.key, self.calls = owner, name, key, {}
+        self.owner, self.name, self.key, self.calls, self.counts = owner, name, key, {}, {}
 
     def __enter__(self):
         fn = self.fn = getattr(self.owner, self.name)
 
         def wrapped(*a, **k):
-            self.calls.setdefault(self.key(*a, **k), (a, k))
+            key = self.key(*a, **k)
+            self.calls.setdefault(key, (a, k))
+            self.counts[key] = self.counts.get(key, 0) + 1
             return fn(*a, **k)
 
         setattr(self.owner, self.name, wrapped)
@@ -3061,6 +3164,32 @@ def bitcheck_div_edges(dev, log_it: bool = True) -> int:
     return err
 
 
+# K6 at M128 past the prove's shapes: (E, m, B, stages or None for all): a
+# ragged B at both block sizes, B not a multiple of 4 (4-byte copies: at 256
+# threads too), small m on 128 threads, the first stages only
+LEAF8_EDGES = ((2, 128, 3000, None), (1, 128, 8195, None), (1, 128, 1001, None),
+               (3, 64, 37, None), (2, 16, 4099, None), (5, 8, 10, None), (4, 4, 123, None),
+               (3, 2, 77, None), (2, 128, 3000, 3), (1, 32, 515, 2))
+
+
+def bitcheck_leaf8_edges(spec, rng, dev) -> int:
+    """K6 (M128) at LEAF8_EDGES, forward and inverse tables and one random
+    table (rows not starting with 1), against its plain version."""
+    from myzkp_tpu_torch.fields import ntt_kernels as nk
+    from myzkp_tpu_torch.ops import ntt
+
+    err = 0
+    for E, m, B, st in LEAF8_EDGES:
+        x = random_fe4(rng, E * m * B, dev, spec).reshape(8, E, m, B)
+        tables = [ntt._leaf_twiddles(spec, m, inv, dev) for inv in (False, True)]
+        tables.append(random_fe4(rng, m - 1, dev, spec))
+        for tw in tables:
+            err = max(err, check_equal(f"ntt_leaf_l8 {(E, m, B)} stages {st}",
+                                       [nk.ntt_leaf(spec, x, tw, st)],
+                                       [nk.ntt_leaf_ref(spec, x, tw, st)]))
+    return err
+
+
 def bitcheck_stark_shapes(spec, k5, k6, k17, dev, results: dict) -> None:
     """K5, K6 and K17 at every shape the full-width prove launched them at
     (random inputs of each shape, the path's own tables), against their
@@ -3079,7 +3208,7 @@ def bitcheck_stark_shapes(spec, k5, k6, k17, dev, results: dict) -> None:
         err5 = max(err5, check_equal(f"butterfly_l8 {shape} s = {s}",
                                      [nk.butterfly(spec, y, tw, s)],
                                      [nk.butterfly_ref(spec, y, tw, s)]))
-    for shape, ((_, _, tw, *_), _) in k6.items():
+    for (shape, _), ((_, _, tw, *_), _) in k6.items():
         y = rand(shape)
         err6 = max(err6, check_equal(f"ntt_leaf_l8 {shape}", [nk.ntt_leaf(spec, y, tw)],
                                      [nk.ntt_leaf_ref(spec, y, tw)]))
@@ -3095,12 +3224,15 @@ def bitcheck_stark_shapes(spec, k5, k6, k17, dev, results: dict) -> None:
             if not torch.equal(back.mont, a):
                 raise AssertionError(f"long_division_l8 {(rows, na, bd)}: a != q b + r")
             identity.append((rows, na, bd))
+    err6 = max(err6, bitcheck_leaf8_edges(spec, rng, dev))
     results["butterfly_l8"]["max_abs_err"] = err5
     results["ntt_leaf_l8"]["max_abs_err"] = err6
     results["long_division_l8"]["max_abs_err"] = err17
     log(f"# bitcheck butterfly_l8 (M128) at the {len(k5)} (shape, stages) of the prove: "
         f"exact vs plain")
-    log(f"# bitcheck ntt_leaf_l8 (M128) at the {len(k6)} shapes of the prove: exact vs plain")
+    log(f"# bitcheck ntt_leaf_l8 (M128) at the {len(k6)} (shape, table) pairs of the prove "
+        f"and at {len(LEAF8_EDGES)} edge shapes (E, m, B, stages) {LEAF8_EDGES}, forward, "
+        f"inverse and a random table: exact vs plain")
     log(f"# bitcheck long_division_l8 (M128) at the {len(k17)} (rows, na, bd) of the prove: "
         f"exact vs plain up to {DIV_DIRECT} steps a row; a == q b + r exactly at "
         f"{identity}")
@@ -3128,7 +3260,7 @@ def stark_cases(spec, k5, k6, k17, dev) -> dict:
     x5 = random_fe4(rng, math.prod(shape5[1:]), dev, spec).reshape(shape5)
     _, R5, Bk5, c5, b5 = shape5
     m5 = Bk5 * c5
-    shape6, ((_, _, tw6, *_), _) = max(k6.items(), key=lambda kv: math.prod(kv[0]))
+    (shape6, _), ((_, _, tw6, *_), _) = max(k6.items(), key=lambda kv: math.prod(kv[0][0]))
     x6 = random_fe4(rng, math.prod(shape6[1:]), dev, spec).reshape(shape6)
     _, E6, m6, B6 = shape6
     rows, na, bd = max((k for k in k17 if k[1] - k[2] <= DIV_DIRECT), key=lambda k: k[2])
@@ -3145,8 +3277,7 @@ def stark_cases(spec, k5, k6, k17, dev) -> dict:
                         f"hash_batch's inverse S-box",
                         lambda: limb.pow_const(spec, sbox, e),
                         lambda: limb.mont_pow_ref(spec, sbox, e), 3, 1,
-                        bound(2 * B4 * HASH_BATCH,
-                              HASH_BATCH * (e.bit_length() - 1 + bin(e).count("1")),
+                        bound(2 * B4 * HASH_BATCH, HASH_BATCH * chain_products(e, 8),
                               IMAD_PER_MONT4)),
         "butterfly_l8": (f"{tuple(shape5)}, stages = {s5}: the prove's widest K5 pass",
                          lambda: nk.butterfly(spec, x5, tw5, s5),
@@ -3195,6 +3326,36 @@ def time_div_shapes(spec, dev) -> dict:
     return out
 
 
+def time_leaf_shapes(spec, k6, counts: dict, dev) -> dict:
+    """K6 (M128) at each (shape, table) one FastStark prove launched it at,
+    on random inputs: time (graph_time_ms) and bytes bound (each element
+    read and written once, the table read), and the sums over the prove's
+    launches (each shape's time times its count)."""
+    from myzkp_tpu_torch.fields import ntt_kernels as nk
+    from myzkp_tpu_torch.ops import ntt
+
+    rng = random.Random(SEED + 135)
+    out, total, total_bound = {}, 0.0, 0.0
+    for key, ((_, _, tw, *_), _) in sorted(k6.items(), key=lambda kv: -math.prod(kv[0][0])):
+        shape = key[0]
+        _, E, m, B = shape
+        x = random_fe4(rng, E * m * B, dev, spec).reshape(shape)
+        ms = graph_time_ms(lambda: nk.ntt_leaf(spec, x, tw), 10)
+        bnd = bound(2 * LIMB_BYTES4 * E * m * B + (m - 1) * LIMB_BYTES4,
+                    E * B * leaf_products(m), IMAD_PER_MONT4)
+        inverse = not torch.equal(tw, ntt._leaf_twiddles(spec, m, False, tw.device))
+        n = counts[key]
+        out[f"{E}x{m}x{B}{'i' if inverse else ''}"] = {"ms": ms, "launches": n, **bnd}
+        total += n * ms
+        total_bound += n * bnd["bound_ms"]
+    log(f"# time ntt_leaf_l8 by shape (E x m x B, i: inverse): " + ", ".join(
+        f"{k} {v['ms']:.4f} ms x {v['launches']}" for k, v in out.items()))
+    log(f"# time ntt_leaf_l8 at the prove's {sum(v['launches'] for v in out.values())} launches "
+        f"({len(out)} shapes): sum {total:.4f} ms against a bound of {total_bound:.4f} ms")
+    out["sum_ms"], out["sum_bound_ms"] = total, total_bound
+    return out
+
+
 def rescue_exactness(dev) -> dict:
     """Rescue-Prime (m = 2, 27 rounds, 28 cycles) through Stark and
     FastStark, on the card and on the CPU plain versions from the same
@@ -3238,7 +3399,7 @@ def phase_stark(dev, results: dict) -> None:
     import importlib
 
     from myzkp_tpu_torch import _ext
-    from myzkp_tpu_torch.fields import ntt_kernels as nk
+    from myzkp_tpu_torch.fields import limb, ntt_kernels as nk
     from myzkp_tpu_torch.fields.fp import Fp
     from myzkp_tpu_torch.fields.spec import m128_spec
     from myzkp_tpu_torch.ops import poly
@@ -3259,7 +3420,13 @@ def phase_stark(dev, results: dict) -> None:
     rng = random.Random(SEED + 131)
     inputs = [rng.randrange(p) for _ in range(HASH_BATCH)]
     x = Fp.from_int(spec, inputs, dev)
+    before = dict(_ext.launches)
     hashed, sec = timed(lambda: rp.hash_batch(x))
+    hb_launches = {k: v - before[k] for k, v in _ext.launches.items() if v != before[k]}
+    if hb_launches.get("mont_pow_l8") != 2 * rp.n * rp.m:
+        raise AssertionError(f"hash_batch: {hb_launches} launches, not {2 * rp.n * rp.m} of "
+                             f"the chain (x^alpha and x^(alpha^-1) a state element a round)")
+    results["mont_pow_l8"]["hash_batch_launches"] = hb_launches["mont_pow_l8"]
     picks = rng.sample(range(HASH_BATCH), 64)
     got = Fp(spec, hashed.mont[:, picks]).to_int()
     if [int(g) for g in got] != [rp.hash(inputs[i]) for i in picks]:
@@ -3267,7 +3434,8 @@ def phase_stark(dev, results: dict) -> None:
     hb_ms, hb_reps = median_ms(lambda: rp.hash_batch(x), 3)
     secs["hash_batch_first"] = sec
     log(f"# stark hash_batch 2^{LOG_N} ({smi}): 64 sampled outputs == host hash; median "
-        f"{hb_ms:.3f} ms of {[round(t, 3) for t in hb_reps]}")
+        f"{hb_ms:.3f} ms of {[round(t, 3) for t in hb_reps]}; launches {json.dumps(hb_launches)} "
+        f"(the chain in the {limb.mont_pow_form(HASH_BATCH, dev)} form)")
 
     st = fast_stark.initialize_fast_stark_m128(*STARK_PARAMS, device=dev)
     trace, air, boundary = squaring_air(spec, STARK_CYCLES)
@@ -3284,7 +3452,7 @@ def phase_stark(dev, results: dict) -> None:
                 k5 = stack.enter_context(recorder(
                     nk, "butterfly", lambda _, x, tw, s=1: (tuple(x.shape), s)))
                 k6 = stack.enter_context(recorder(
-                    nk, "ntt_leaf", lambda _, x, tw, s=None: tuple(x.shape)))
+                    nk, "ntt_leaf", lambda _, x, tw, s=None: (tuple(x.shape), tw.data_ptr())))
                 k17 = stack.enter_context(recorder(
                     poly, "long_division_cuda",
                     lambda _, a, b, bd: (math.prod(a.shape[1:-1]), a.shape[-1], bd)))
@@ -3335,6 +3503,7 @@ def phase_stark(dev, results: dict) -> None:
         results["long_division_l8"]["max_abs_err"], err)
     time_cases(stark_cases(spec, k5.calls, k6.calls, k17.calls, dev), results)
     k17_shapes = time_div_shapes(spec, dev)
+    k6_shapes = time_leaf_shapes(spec, k6.calls, k6.counts, dev)
     for k in results:
         if not k.startswith("_"):
             results[k]["stark_launches"] = counts.get(k, 0)
@@ -3343,7 +3512,8 @@ def phase_stark(dev, results: dict) -> None:
     secs["phase"] = time.perf_counter() - t_phase
     results["_stark"] = {"card": smi, "prove_median": med, "reps": reps, "seconds": secs,
                          "launches": counts, "hash_batch_ms": hb_ms,
-                         "hash_batch_reps_ms": hb_reps, "k17_shapes": k17_shapes}
+                         "hash_batch_reps_ms": hb_reps, "hash_batch_launches": hb_launches,
+                         "k17_shapes": k17_shapes, "k6_shapes": k6_shapes}
     log(f"# stark phase {secs['phase']:.1f} s")
 
 
@@ -3412,7 +3582,7 @@ def phase_bitcheck_m64(dev, results: dict) -> None:
             if any(int(g) != pow(v, e, p) * R % p
                    for g, v in zip(limb.to_int(spec, got[:, :64]), xs)):
                 raise AssertionError(f"mont_pow_l4 n = {m} e = {e}: differs from the host")
-    results["mont_pow_l4"]["max_abs_err"] = err
+    results["mont_pow_l4"]["max_abs_err"] = max(results["mont_pow_l4"].get("max_abs_err", 0), err)
     log(f"# bitcheck mont_pow_l4 (M64): {POW_SIZES + (n,)} elements (the word edges first), "
         f"e = 0, 1, 2, p - 2 and a seeded 256-bit e, one launch each: exact vs plain and the "
         f"first 64 == host")
@@ -3671,8 +3841,7 @@ def phase_das(dev, results: dict, sass: dict) -> None:
         "mont_pow_l4": (f"2^{LOG_N} elements, e = p - 2: the base field's inversion",
                         lambda: limb.pow_const(spec, z, e),
                         lambda: limb.mont_pow_ref(spec, z, e), 3, 1,
-                        bound(2 * LIMB_BYTES2 * n, n * (e.bit_length() - 1 + bin(e).count("1")),
-                              IMAD_PER_MONT2)),
+                        bound(2 * LIMB_BYTES2 * n, n * chain_products(e, 4), IMAD_PER_MONT2)),
     }, results)
     # every bound counts the interface's bytes (an int32 a 16-bit limb);
     # at two words the value's own 8 B give a bound half that
@@ -4107,6 +4276,16 @@ def phase_dense(dev, results: dict) -> None:
         bound(rows * (2 * na + 1) * LIMB_BYTES, rows * (na - bd) * (bd + 1),
               IMAD_PER_DIV))}, results)
     results["long_division"]["launches"] = nat_counts["long_division"]
+    # the quotient's na - bd coefficients are solved one after another, each
+    # at least one product deep: the depth bound at one product's latency
+    lat = results["_k1"]["product_latency_us"]
+    depth = (na - bd) * lat * 1e-3
+    results["long_division"]["depth_bound_ms"] = depth
+    log(f"# long_division {NAT_DIV}: depth bound {na - bd} x one product's latency "
+        f"{lat:.4f} us = {depth:.4f} ms (ops bound "
+        f"{results['long_division']['bound_ms']:.4f} ms); kernel "
+        f"{results['long_division']['ms']:.4f} ms: {100 * depth / results['long_division']['ms']:.1f}% "
+        f"of the depth bound")
     plan = poly.long_division_plan(rows, na, bd, 8, dev)
     out["k17_plan"] = plan
     log(f"# long_division {NAT_DIV} plan: {json.dumps(plan)}")
@@ -4833,6 +5012,7 @@ def main() -> int:
     phase_bitcheck_chains(dev, results)
     phase_bitcheck_fr(dev, results)
     phase_bitcheck_pow(dev, results)
+    phase_bitcheck_chain_forms(dev, results)
     phase_slice(dev, results)
     results["_chains"] = time_chains(dev, results)
     phase_ntt(dev, results)
@@ -4866,8 +5046,10 @@ def main() -> int:
     keys = ("launches", "kzg_launches", "sumcheck_launches", "stark_launches",
             "das_launches", "dense_launches", "mesh_launches", "mesh_g16_launches",
             "surface_launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = ("depth_bound_ms", "hash_batch_launches")  # where a kernel has them
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k][0],
-                "replaces": SOURCES[k][1], **{key: results[k][key] for key in keys}}
+                "replaces": SOURCES[k][1], **{key: results[k][key] for key in keys},
+                **{key: results[k][key] for key in extra if key in results[k]}}
                for k in SOURCES]
     log(f"# msm {json.dumps(results['_msm'])}")
     log(f"# ntt {json.dumps(results['_ntt'])}")

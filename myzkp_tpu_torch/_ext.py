@@ -81,6 +81,7 @@ _SIGNATURES = {
     "long_division": (_P,) * 5 + (_I64,) * 3 + (_P, _P),
     "butterfly_pair": (_P,) * 5 + (_I64, ctypes.c_int, _P, _P),
     "long_division_plan": (_I64,) * 4 + (_P,),  # a query, not a kernel: launches nothing
+    "mont_pow_plan": (_I64, _P),  # a query, not a kernel: launches nothing
 }
 _SIGNATURES.update({f"{k}_l8": _SIGNATURES[k] for k in FIELD_KERNELS})
 _SIGNATURES.update({f"{k}_l4": _SIGNATURES[k] for k in L4_KERNELS})
@@ -336,24 +337,91 @@ def kernel_name(name: str, spec: FieldSpec) -> str:
     return {16: name, 8: f"{name}_l8", 4: f"{name}_l4"}[spec.L]
 
 
+# csrc/mont_mul.cu: kMaxWindows, and kTable<N> (the odd powers the window
+# form keeps) by limb count L = 2N
+MAX_WINDOWS = 128
+POW_TABLE = {16: 4, 8: 8, 4: 8}
+
+
 class _Exponent(ctypes.Structure):
     # mirrors struct Exponent in csrc/mont_mul.cu
-    _fields_ = [("w", ctypes.c_uint32 * 8), ("nbits", ctypes.c_int32)]
+    _fields_ = [("w", ctypes.c_uint32 * 8), ("nbits", ctypes.c_int32),
+                ("table", ctypes.c_int32), ("windows", ctypes.c_int32), ("tail", ctypes.c_int32),
+                ("step", ctypes.c_uint16 * MAX_WINDOWS)]
 
 
 def exponent_words(e: int) -> tuple[tuple[int, ...], int]:
-    """A host exponent 0 <= e < 2^256 as the chain kernel takes it: eight
+    """A host exponent 0 <= e < 2^256 as the lane-pair chain takes it: eight
     little-endian 32-bit words and the bit length."""
     if not 0 <= e < 1 << 256:
         raise ValueError("the exponent must lie in [0, 2^256)")
     return tuple((e >> (32 * k)) & 0xFFFFFFFF for k in range(8)), e.bit_length()
 
 
-def exponent(e: int) -> _Exponent:
+def sliding_windows(e: int, w: int) -> tuple[list[tuple[int, int]], int]:
+    """e > 0 cut MSB first into windows of at most w bits, each ending in a
+    set bit: ([(squarings before the window, its odd value v)], the
+    squarings after the last).  The first window has no squarings before
+    it: the accumulator starts at x^v.  e = sum over windows of v
+    2^(its low bit)."""
+    out, hi, prev = [], e.bit_length() - 1, None
+    while hi >= 0:
+        if not e >> hi & 1:
+            hi -= 1
+            continue
+        lo = max(hi - w + 1, 0)
+        while not e >> lo & 1:
+            lo += 1
+        out.append((0 if prev is None else prev - lo, (e >> lo) & ((1 << (hi - lo + 1)) - 1)))
+        prev, hi = lo, lo - 1
+    return out, prev
+
+
+def window_schedule(e: int, table_max: int) -> tuple[int, list[tuple[int, int]], int]:
+    """The window form's schedule of 0 <= e < 2^256 with at most
+    ``table_max`` odd powers: (table, [(squarings, d)], tail), the power of
+    window k being x^(2 d + 1), table = 1 + the largest d.  Of the widths w
+    whose digits fit the table and whose windows fit MAX_WINDOWS, the one
+    that runs the fewest products (``schedule_products``); e = 0 has no
+    windows."""
+    exponent_words(e)
+    if e == 0:
+        return 1, [], 0
+    best = None
+    w = 1
+    while 1 << (w - 1) <= table_max:
+        wins, tail = sliding_windows(e, w)
+        sched = (max(v for _, v in wins) // 2 + 1, [(s, v // 2) for s, v in wins], tail)
+        if len(wins) <= MAX_WINDOWS and (best is None or
+                                         schedule_products(sched) < schedule_products(best)):
+            best = sched
+        w += 1
+    return best
+
+
+def schedule_products(sched) -> int:
+    """Montgomery products of a schedule: the table's (x^2 and a product a
+    further power), every squaring, a product a window after the first."""
+    table, steps, tail = sched
+    return ((table if table > 1 else 0) + sum(s for s, _ in steps) + tail
+            + max(len(steps) - 1, 0))
+
+
+@functools.lru_cache(maxsize=1024)
+def exponent(e: int, L: int = 16) -> _Exponent:
+    """e as the chain kernel at L limbs takes it: its bits (the lane pair)
+    and its window schedule (the window form, POW_TABLE[L] odd powers).
+    Cached (the recoding takes about 0.3 ms of host time at 254 bits, and a
+    path raises to the same few exponents again and again); read-only: a
+    launch copies it into the kernel's argument."""
     words, nbits = exponent_words(e)
+    table, steps, tail = window_schedule(e, POW_TABLE[L])
     x = _Exponent()
     x.w[:] = words
     x.nbits = nbits
+    x.table, x.windows, x.tail = table, len(steps), tail
+    for k, (s, d) in enumerate(steps):
+        x.step[k] = s << 8 | d
     return x
 
 

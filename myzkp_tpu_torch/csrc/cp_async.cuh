@@ -1,6 +1,7 @@
 // Asynchronous 16-byte copies from device memory into shared memory
 // (cp.async, sm_80 and later), as the bucket scan (bucket_scan.cu) stages its
-// point rows and K14 (rows.cu) its gathered rows.  A copy is issued by one
+// point rows, K14 (rows.cu) its gathered rows and K6's four-word instance
+// (ntt.cu) its next tile.  A copy is issued by one
 // thread, lands without passing through its registers, and is waited for by
 // groups: commit closes a group, wait<k> returns once at most k of this
 // thread's groups are in flight.  A host rehearsal (g++, MYZKP_HOST_REHEARSAL
@@ -22,6 +23,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
+// A 4-byte copy (cp.async.ca: the sizes below 16 go through L1), for rows
+// whose 16-byte pieces do not line up.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -32,6 +40,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 #else
 inline void cp_async16(void* dst, const void* src) { std::memcpy(dst, src, 16); }
+inline void cp_async4(void* dst, const void* src) { std::memcpy(dst, src, 4); }
 inline void cp_async_commit() {}
 template <int kPending>
 inline void cp_async_wait() {}

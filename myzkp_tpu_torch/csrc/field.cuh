@@ -428,45 +428,59 @@ __device__ __forceinline__ Fe fe_mul_cc_spare(const Fe& a, const Fe& b,
   return fe_select(keep, r, d);
 }
 
+// t += a * bi over t[0..N+1]: the products of even j in one chain and of
+// odd j in another, each product's low and high halves side by side
+// (positions j and j + 1), as fe_mul_cc_spare adds them, so that ptxas fuses
+// each pair into one IMAD.WIDE.U32(.X).  With the low halves in one chain
+// and the high halves in another, ptxas left IMAD, IMAD.HI and carry adds:
+// on the H100, K1's chain over 2^20 M128 elements took 1.35 ms against
+// 1.00, K6's top leaf 0.0534 against 0.0479 (unroll_sweep.py pow / leaf8,
+// PERF.md).
+template <int N>
+__device__ __forceinline__ void wide_row(uint32_t (&t)[N + 2], const FeN<N>& a, uint32_t bi) {
+  t[0] = cc::mad_lo_cc(a.w[0], bi, t[0]);
+  t[1] = cc::madc_hi_cc(a.w[0], bi, t[1]);
+#pragma unroll
+  for (int j = 2; j < N; j += 2) {
+    t[j] = cc::madc_lo_cc(a.w[j], bi, t[j]);
+    t[j + 1] = cc::madc_hi_cc(a.w[j], bi, t[j + 1]);
+  }
+  t[N] = cc::addc_cc(t[N], 0);
+  t[N + 1] = cc::addc(t[N + 1], 0);
+  t[1] = cc::mad_lo_cc(a.w[1], bi, t[1]);
+  t[2] = cc::madc_hi_cc(a.w[1], bi, t[2]);
+#pragma unroll
+  for (int j = 3; j < N; j += 2) {
+    t[j] = cc::madc_lo_cc(a.w[j], bi, t[j]);
+    t[j + 1] = cc::madc_hi_cc(a.w[j], bi, t[j + 1]);
+  }
+  t[N + 1] = cc::addc(t[N + 1], 0);
+}
+
 // Montgomery product a * b * 2^(-32N) mod p on carry chains for p with no
 // spare bit (M128: p > 2^127 = R / 2; M64: p > 2^63).  There T < 2p can pass
-// R, so the even / odd split above, whose accumulators hold N words, does not
+// R, so the even / odd accumulators above, which hold N words each, do not
 // apply.  CIOS with the running sum T in N + 2 words t[0..N+1]: a row adds
-// a * b_i (the low halves of the products at positions 0..N-1, the high
-// halves at 1..N, two chains), then m p with m = t_0 n0 (two more chains),
-// and shifts down a word.  Inputs below p keep T < 2p after each row, so T fits in N words
-// and one bit (t[N]), and before the shift in N + 1 words and one bit
-// (t[N+1]); the chains' carries run into t[N] and t[N+1] and never past
-// them.  The result is T - p where t[N] is set or T >= p.  4 N + 7
-// instructions a row: about 100 a product at N = 4, 30 at N = 2.
+// a * b_i (wide_row: two chains), then m p with m = t_0 n0 (two more), and
+// shifts down a word.  Inputs below p keep T < 2p after each row, so T
+// fits in N words and one bit (t[N]), and before the shift in N + 1 words
+// and one bit (t[N+1]); the chains' carries run into t[N] and t[N+1] and
+// never past them.  The result is T - p where t[N] is set or T >= p.  4 N +
+// 7 PTX instructions a row: about 100 a product at N = 4, 30 at N = 2.
 template <int N>
 __device__ __forceinline__ FeN<N> fe_mul_cc_wide(const FeN<N>& a, const FeN<N>& b,
                                                  const FieldConstsN<N>& c) {
+  static_assert(N % 2 == 0, "an even word count");
   uint32_t t[N + 2];
 #pragma unroll
   for (int k = 0; k < N + 2; ++k) t[k] = 0;
+  FeN<N> p;
+#pragma unroll
+  for (int k = 0; k < N; ++k) p.w[k] = c.p[k];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    const uint32_t bi = b.w[i];
-    t[0] = cc::mad_lo_cc(a.w[0], bi, t[0]);
-#pragma unroll
-    for (int j = 1; j < N; ++j) t[j] = cc::madc_lo_cc(a.w[j], bi, t[j]);
-    t[N] = cc::addc_cc(t[N], 0);
-    t[N + 1] = cc::addc(t[N + 1], 0);
-    t[1] = cc::mad_hi_cc(a.w[0], bi, t[1]);
-#pragma unroll
-    for (int j = 1; j < N; ++j) t[j + 1] = cc::madc_hi_cc(a.w[j], bi, t[j + 1]);
-    t[N + 1] = cc::addc(t[N + 1], 0);
-    const uint32_t m = t[0] * c.n0;
-    t[0] = cc::mad_lo_cc(m, c.p[0], t[0]);  // 0, and its carry
-#pragma unroll
-    for (int j = 1; j < N; ++j) t[j] = cc::madc_lo_cc(m, c.p[j], t[j]);
-    t[N] = cc::addc_cc(t[N], 0);
-    t[N + 1] = cc::addc(t[N + 1], 0);
-    t[1] = cc::mad_hi_cc(m, c.p[0], t[1]);
-#pragma unroll
-    for (int j = 1; j < N; ++j) t[j + 1] = cc::madc_hi_cc(m, c.p[j], t[j + 1]);
-    t[N + 1] = cc::addc(t[N + 1], 0);
+    wide_row(t, a, b.w[i]);
+    wide_row(t, p, t[0] * c.n0);  // t[0] becomes 0
 #pragma unroll
     for (int k = 0; k <= N; ++k) t[k] = t[k + 1];
     t[N + 1] = 0;

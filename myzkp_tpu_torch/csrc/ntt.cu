@@ -80,15 +80,21 @@
 //   in plain order the skip diverges: PERF.md).
 //   The ragged edge of B is masked; nothing is padded.
 //
-// K5 and K6 come at two widths from one templated body each: N = 8 words
-// (BN254: butterfly_kernel, ntt_leaf_kernel) and N = 4 (M128, the STARK's
-// field: butterfly_l8_kernel, ntt_leaf_l8_kernel, entry points with _l8).
-// At four words an element is 32 bytes each way and a product about 100
-// instructions (field.cuh: fe_mul_cc_wide) against eight words' 290, so the
-// K5 shuffles and registers halve; the radix and K6's columns are the same
-// constants at both widths (unroll_sweep.py ntt / leaf time both; PERF.md).
+// K5 comes at two widths from one templated body: N = 8 words (BN254:
+// butterfly_kernel) and N = 4 (M128, the STARK's field: butterfly_l8_kernel,
+// entry points with _l8), with the same radix (unroll_sweep.py ntt times
+// both).  At four words an element is 32 bytes each way and a product about
+// 100 instructions (field.cuh: fe_mul_cc_wide) against eight words' 290, so
+// the K5 shuffles and registers halve.  K6 has a design at each width:
+// BN254's below (ntt_leaf_kernel, one tile a block, bound by its products),
+// and M128's (ntt_leaf_l8_kernel, after it: a persistent grid that loads the
+// next tile while the stages run, bound by device memory), with constants of
+// their own (unroll_sweep.py leaf / leaf8).
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
+#include "cp_async.cuh"
 #include "field.cuh"
 
 using myzkp::FeN;
@@ -396,15 +402,205 @@ __global__ void __launch_bounds__(leaf_threads(R))
   ntt_leaf_body<R, 8>(x, tw, out, tiles, logm, stages, B, plane, c);
 }
 
-template <int R>
-__global__ void __launch_bounds__(leaf_threads(R))
-    ntt_leaf_l8_kernel(const int32_t* __restrict__ x,
-                       const int32_t* __restrict__ tw, int32_t* __restrict__ out,
-                       int64_t tiles, int logm, int stages, int64_t B,
-                       int64_t plane, FieldConstsN<4> c) {
-  ntt_leaf_body<R, 4>(x, tw, out, tiles, logm, stages, B, plane, c);
+#ifndef MYZKP_K6_L8_SMALL
+#define MYZKP_K6_L8_SMALL 2
+#endif
+
+// K6 at four words (M128).  Bound: device memory, 32 B an element each way
+// (the top leaf of the prove's 2^20-point transforms, (1, 128, 8192): 0.0200
+// ms), against 68 multiply-adds a product.  BN254's design above, one tile a
+// block in one wave, ran every block's loads, then its stages, then its
+// stores in lockstep: on the H100, 30 us of memory phases alone (its first
+// stage only) against 25 us for a copy of the input, then 25 us more of
+// stages (0.0557 ms, 36%; unroll_sweep.py leaf8).  Design: a persistent grid of
+// the blocks that fit the card (the occupancy query), each walking the
+// tiles blockIdx.x, blockIdx.x + gridDim.x, ...; once a tile's raw limb
+// planes are in registers, the next tile's are on their way into shared
+// memory with cp.async (16-byte pieces where B and the pointer allow, else
+// 4-byte) while this tile's stages run.  A block is T threads of R = 8
+// elements (R = m below 8), so a tile is T R elements whatever m: C = T R /
+// m columns of B (16 at m = 128 and T = 256: 64 B of each limb plane a
+// row).  Shared memory: the twiddles, one tile of raw limb planes (32 B an
+// element) and one exchange area of packed words (16 B an element), 98 KB
+// at T = 256: two blocks an SM.  T = 256 where the leaf has at least
+// MYZKP_K6_L8_SMALL such tiles an SM (the top leaves), else T = 128: the
+// prove's small leaves (2^16-2^17 elements, about 10 us each, mostly
+// latency) run faster on twice the blocks of half the tile.  The stages are
+// BN254's (three in registers a pass, the groups bit-reversed after the
+// first pass, the rows folded onto distinct banks), with C a run-time value.
+constexpr int kL8Small = MYZKP_K6_L8_SMALL;
+
+// Shared words of a block of T threads: the twiddles (4 word planes of
+// kMaxLeaf), a tile of 8 int32 limb planes and an exchange area of 4 word
+// planes.
+__host__ __device__ constexpr int leaf_l8_smem_words(int R, int T) {
+  return 4 * kMaxLeaf + 12 * T * R;
 }
 
+template <int R, int T>
+__global__ void __launch_bounds__(T)
+    ntt_leaf_l8_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ tw,
+                       int32_t* __restrict__ out, int64_t tiles_e, int64_t tiles, int logm,
+                       int stages, int64_t B, int64_t plane, int vec, FieldConstsN<4> c) {
+  constexpr int N = 4, K = __builtin_ctz(R);
+  constexpr int n_el = T * R;  // elements a tile
+  extern __shared__ uint32_t sm[];
+  uint32_t* const smt = sm;  // word k of twiddle t at smt[k * kMaxLeaf + t]
+  uint32_t* const raw = sm + N * kMaxLeaf;  // limb k of (row, col) at [(k m + row) C + col]
+  uint32_t* const smx = raw + 2 * N * n_el;  // word k of (row, col) at [k n_el + srow C + col]
+  const int m = 1 << logm;
+  const int lc = __builtin_ctz(T) + K - logm;  // log2 C
+  const int C = 1 << lc;
+  const int wbits = lc < 5 ? 5 - lc : 0;  // thread groups a warp spans: 2^wbits
+  const int col = threadIdx.x & (C - 1), g0 = threadIdx.x >> lc, gbits = logm - K;
+  const int g_rev = gbits > 0 ? static_cast<int>(__brev(g0) >> (32 - gbits)) : g0;
+  auto srow = [&](int row) {
+    const int s = logm - wbits;
+    return wbits == 0 || s < wbits ? row : row ^ ((row >> s) & ((1 << wbits) - 1));
+  };
+  // the raw limb planes of tile t into raw[]: a thread's pieces in turn
+  auto fetch = [&](int64_t t) {
+    const int64_t col0 = (t % tiles_e) << lc;
+    const int64_t base = (t / tiles_e) * m * B + col0;
+    const int64_t cols = min(int64_t{C}, B - col0);
+    if (vec) {  // 16-byte pieces: B and x line up
+      for (int q = threadIdx.x; q < 2 * N * n_el / 4; q += T) {
+        const int kr = q >> (lc - 2), c4 = (q & ((C >> 2) - 1)) << 2;
+        if (c4 < cols)
+          myzkp::cp_async16(raw + (kr << lc) + c4,
+                            x + (kr >> logm) * plane + base + (kr & (m - 1)) * B + c4);
+      }
+    } else {
+      for (int q = threadIdx.x; q < 2 * N * n_el; q += T) {
+        const int kr = q >> lc, cc = q & (C - 1);
+        if (cc < cols)
+          myzkp::cp_async4(raw + q, x + (kr >> logm) * plane + base + (kr & (m - 1)) * B + cc);
+      }
+    }
+    myzkp::cp_async_commit();
+  };
+
+  for (int t = threadIdx.x; t < m - 1; t += T)
+    smem_store(smt, kMaxLeaf, t, myzkp::load_planes<N>(tw, m - 1, t));
+  int64_t tile = blockIdx.x;
+  if (tile < tiles) fetch(tile);
+  unsigned unit = 0;
+  const int last = logm - stages;
+  for (; tile < tiles; tile += gridDim.x) {
+    myzkp::cp_async_wait<0>();  // this thread's pieces of the tile have landed
+    __syncthreads();            // and every thread's (and the twiddles)
+    if (tile == blockIdx.x) {
+      // bit b: the stage row of half-width 2^b starts with 1, so its j = 0
+      // products are skipped
+      for (int b = 0; b < logm; ++b) {
+        bool one = true;
+#pragma unroll
+        for (int k = 0; k < N; ++k) one &= smt[k * kMaxLeaf + m - (2 << b)] == c.one[k];
+        unit |= static_cast<unsigned>(one) << b;
+      }
+    }
+    const int64_t col0 = (tile % tiles_e) << lc;
+    const int64_t base = (tile / tiles_e) * m * B + col0;
+    const bool live = col0 + col < B;
+    int lo = logm - K, g = g0;
+    FeN<N> v[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = leaf_pos<R>(g, i, lo);
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        v[i].w[k] = raw[((2 * k * m + row) << lc) + col] |
+                    (raw[(((2 * k + 1) * m + row) << lc) + col] << 16);
+    }
+    // every raw read done (and every exchange read of the last tile): the
+    // next tile's pieces go out
+    __syncthreads();
+    if (tile + gridDim.x < tiles) fetch(tile + gridDim.x);
+    // bits logm - 1 .. last are the stages to run; bits >= top are done
+    int top = logm;
+    for (;;) {
+#pragma unroll
+      for (int t = K - 1; t >= 0; --t) {
+        const int b = lo + t;
+        if (b >= top || b < last) continue;
+        const int h = 1 << b, off = m - 2 * h;  // this stage's row of tw
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          if (i & (1 << t)) continue;
+          const int i2 = i | (1 << t);
+          const int j = leaf_pos<R>(g, i, lo) & (h - 1);
+          const FeN<N> u = v[i], w = v[i2];
+          v[i] = myzkp::fe_add_cc(u, w, c);
+          const FeN<N> d = myzkp::fe_sub_cc(u, w, c);
+          v[i2] = j == 0 && (unit >> b & 1u)
+                      ? d
+                      : myzkp::fe_mul_cc(d, smem_load<N>(smt, kMaxLeaf, off + j), c);
+        }
+      }
+      top = lo;
+      if (top <= last) break;
+      // the next pass: write this pass's elements, read the next one's
+      if (lo + K < logm) __syncthreads();  // every read of the last exchange done
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        smem_store(smx, n_el, (srow(leaf_pos<R>(g, i, lo)) << lc) + col, v[i]);
+      __syncthreads();
+      lo = max(lo - K, 0);
+      g = g_rev;
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        v[i] = smem_load<N>(smx, n_el, (srow(leaf_pos<R>(g, i, lo)) << lc) + col);
+    }
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int pos = leaf_pos<R>(g, i, lo);
+        const int low = pos & ((1 << last) - 1);
+        const int row = static_cast<int>(__brev(static_cast<unsigned>(pos >> last)) >>
+                                         (32 - stages)) << last | low;
+        myzkp::store_planes(out, plane, base + int64_t{row} * B + col, v[i]);
+      }
+    }
+  }
+}
+
+template <int R, int T>
+int launch_leaf_l8_at(const int32_t* x, const int32_t* tw, int32_t* out, int64_t E, int logm,
+                      int stages, int64_t B, int64_t tiles_e, int sms,
+                      const FieldConstsN<4>& c, cudaStream_t stream) {
+  const int smem = static_cast<int>(sizeof(uint32_t) * leaf_l8_smem_words(R, T));
+  int per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(ntt_leaf_l8_kernel<R, T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ntt_leaf_l8_kernel<R, T>, T,
+                                                        smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t tiles = E * tiles_e;
+  const int64_t blocks = std::min<int64_t>(tiles, int64_t{sms} * std::max(per_sm, 1));
+  const int vec = B % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  ntt_leaf_l8_kernel<R, T><<<static_cast<unsigned>(blocks), T, smem, stream>>>(
+      x, tw, out, tiles_e, tiles, logm, stages, B, E * (int64_t{1} << logm) * B, vec, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The block size by the count of 256-thread tiles (kL8Small above).
+template <int R>
+int launch_leaf_l8(const int32_t* x, const int32_t* tw, int32_t* out, int64_t E, int logm,
+                   int stages, int64_t B, const FieldConstsN<4>& c, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t cols = 256 * R >> logm;  // C at T = 256
+  const int64_t tiles_e = (B + cols - 1) / cols;
+  if (E * tiles_e >= int64_t{kL8Small} * sms)
+    return launch_leaf_l8_at<R, 256>(x, tw, out, E, logm, stages, B, tiles_e, sms, c, stream);
+  return launch_leaf_l8_at<R, 128>(x, tw, out, E, logm, stages, B, (B + cols / 2 - 1) / (cols / 2),
+                                   sms, c, stream);
+}
+
+// BN254's instance (N = 8).
 template <int R, int N>
 int launch_leaf(const int32_t* x, const int32_t* tw, int32_t* out, int64_t E,
                 int logm, int stages, int64_t B, const FieldConstsN<N>& c,
@@ -413,12 +609,7 @@ int launch_leaf(const int32_t* x, const int32_t* tw, int32_t* out, int64_t E,
   auto smem_of = [](int rows) {
     return sizeof(uint32_t) * N * (kMaxLeaf + rows * kCols);
   };
-  auto kernel = [] {
-    if constexpr (N == myzkp::kWords)
-      return ntt_leaf_kernel<R>;
-    else
-      return ntt_leaf_l8_kernel<R>;
-  }();
+  auto kernel = ntt_leaf_kernel<R>;
   // granted on the current device at the instantiation's largest leaf, so
   // that launches of any m on any device and thread see the same limit
   const cudaError_t err = cudaFuncSetAttribute(
@@ -450,10 +641,16 @@ int leaf(const int32_t* x, const int32_t* tw, int32_t* out, int64_t E, int m,
   const int logm = __builtin_ctz(static_cast<unsigned>(m));
   if (stages < 1 || stages > logm) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  if (m == 2) return launch_leaf<2, N>(x, tw, out, E, logm, stages, B, consts, s);
-  if (kRadix == 8 && m == 4)
-    return launch_leaf<4, N>(x, tw, out, E, logm, stages, B, consts, s);
-  return launch_leaf<kRadix, N>(x, tw, out, E, logm, stages, B, consts, s);
+  if constexpr (N == myzkp::kWords) {
+    if (m == 2) return launch_leaf<2, N>(x, tw, out, E, logm, stages, B, consts, s);
+    if (kRadix == 8 && m == 4)
+      return launch_leaf<4, N>(x, tw, out, E, logm, stages, B, consts, s);
+    return launch_leaf<kRadix, N>(x, tw, out, E, logm, stages, B, consts, s);
+  } else {
+    if (m == 2) return launch_leaf_l8<2>(x, tw, out, E, logm, stages, B, consts, s);
+    if (m == 4) return launch_leaf_l8<4>(x, tw, out, E, logm, stages, B, consts, s);
+    return launch_leaf_l8<8>(x, tw, out, E, logm, stages, B, consts, s);
+  }
 }
 
 // K5's pair form: butterfly_pallas's own contract, one radix-2 butterfly on

@@ -12,7 +12,9 @@ in a column, so the Montgomery product needs no lo/hi split.
 ``mont_mul`` is kernel K1 (csrc/mont_mul.cu) for CUDA tensors and
 ``mont_mul_ref`` for CPU tensors (the rule of ``_ext.use_kernel``);
 ``pow_const`` (and so ``inv`` and ``batch_inv``'s inversion) is K1's chain
-``mont_pow``, one launch, for CUDA tensors and ``mont_pow_ref`` for CPU ones.
+``mont_pow``, one launch, for CUDA tensors (a lane-pair ladder for a few
+elements, sliding windows for wide batches: ``mont_pow_form``) and
+``mont_pow_ref`` for CPU ones.
 Both kernels come at L = 16 limbs (BN254), L = 8 (M128: ``mont_mul_l8``,
 ``mont_pow_l8``) and L = 4 (M64: ``mont_mul_l4``, ``mont_pow_l4``), picked by
 ``_ext.kernel_name``; a CUDA tensor of any other field raises.  The plain
@@ -353,17 +355,34 @@ def mont_pow_ref(spec: FieldSpec, a, e: int):
 
 def mont_pow_cuda(spec: FieldSpec, a: torch.Tensor, e: int):
     """Launch K1's chain (csrc/mont_mul.cu: mont_pow) on a contiguous CUDA
-    tensor (L, *batch): a^e elementwise in one launch."""
+    tensor (L, *batch): a^e elementwise in one launch, in the form that
+    ``mont_pow_form`` names for its n elements (e's bits and window schedule
+    from ``_ext.exponent``)."""
     _ext.require(a, "a", I32)
     if a.shape[0] != spec.L:
         raise ValueError(f"limb axis {a.shape[0]}, expected {spec.L}")
-    ex = _ext.exponent(e)
+    name = _ext.kernel_name("mont_pow", spec)  # the width check, before the recoding
+    ex = _ext.exponent(e, spec.L)
     out = torch.empty_like(a)
     n = a.numel() // spec.L
     if n:
-        _ext.launch(_ext.kernel_name("mont_pow", spec), a.device, _ext.ptr(a), _ext.ptr(out), n,
+        _ext.launch(name, a.device, _ext.ptr(a), _ext.ptr(out), n,
                     ctypes.c_void_p(ctypes.addressof(ex)), _ext.consts_ptr(spec))
     return out
+
+
+def mont_pow_form(n: int, device=None) -> str:
+    """The form K1's chain runs n elements in on ``device`` (default: the
+    card), by the launcher's own plan (csrc/pow_plan.cuh): "pair" (an
+    element on a lane pair: the latency form) or "wide" (one thread an
+    element, sliding windows: the throughput form).  A query: launches
+    nothing."""
+    form = (ctypes.c_int32 * 1)()
+    with torch.cuda.device(_ext.resolve_device(device)):
+        err = _ext.library().myzkp_mont_pow_plan(n, form)
+    if err:
+        raise RuntimeError(f"mont_pow_plan: CUDA error {err}")
+    return ("pair", "wide")[form[0]]
 
 
 def pow_const(spec: FieldSpec, a, e: int):

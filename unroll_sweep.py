@@ -4,15 +4,16 @@ one GPU.
 
 Run from the repository root:
 
-    python3 unroll_sweep.py [add] [dbl] [mont] [leaf] [ntt] [mixed] [div] [--parent DIR]
+    python3 unroll_sweep.py [add] [dbl] [mont] [leaf] [ntt] [mixed] [div] [pow] [leaf8]
+        [--parent DIR]
 
-The arguments name the families of variants to build and time (all seven if
+The arguments name the families of variants to build and time (all nine if
 none is given).  With --parent DIR (a checkout of an earlier commit, for
 example unpacked with `git archive` into an ignored directory), the ntt,
-mixed and div families also time DIR's package (its K5, K9, K10 and K17
-through the same entry points, built from DIR's sources into DIR's own build
-directory), first and last, around this tree's variants: parent, variants,
-parent.
+mixed, div, pow and leaf8 families also time DIR's package (its K5, K9, K10,
+K17, K1's chain and K6 through the same entry points, built from DIR's
+sources into DIR's own build directory), first and last, around this tree's
+variants: parent, variants, parent.
 
 The constants are the rows of the Montgomery product unrolled in the code of
 K2 and the G1 level (MYZKP_K2_UNROLL, csrc/curve.cu), of the G2 lane pair's
@@ -53,11 +54,27 @@ batched 2^12-point INTT and 2^13-point coset NTT, R = 3, and the 2^13-point
 coset INTT; fast_multiply's 2^9-point transform), and each pass of the
 batched 2^13-point coset NTT.  The
 mont, leaf and ntt families also time the four-word (M128) instances that
-the STARK runs, with the same constants: K1 at (8, 2^20) and its chain on 1
-element (e = p - 2) and on 4,096 (alpha^-1); K6 at (1, 128, 8,192), the top
-leaf of the FastStark prove's 2^20-point coset NTTs; K5 over every Stockham
+the STARK runs: K1 at (8, 2^20) and its chain on 1 element (e = p - 2) and
+on 4,096 (alpha^-1), with the same constants; K6 at (1, 128, 8,192), the top
+leaf of the FastStark prove's 2^20-point coset NTTs (its four-word instance
+has constants of its own: the leaf8 family); K5 over every Stockham
 transform one FastStark prove at 65,528 cycles runs (recorded from a prove
-first), summed with their counts.  The
+first), summed with their counts.  The pow variants (csrc/mont_mul.cu,
+csrc/pow_plan.cuh) are K1's chain with the form forced (MYZKP_K1_PAIR_SM = 0:
+the window form at every n; 2^30: the lane pair) and the window form's
+blocks at MYZKP_K1_POW_THREADS = 64 and 256; each (and the tree, whose
+launcher picks the form) times the chain at POW_NS
+elements for q - 2 (BN254), alpha^-1 and p - 2 (M128) and p - 2 (M64),
+every output held to the plain version (up to 2^12 elements) or to the
+first run's.  The leaf8 variants are K6's four-word instance with its
+block size forced (MYZKP_K6_L8_SMALL = 2^30: 128 threads at every shape; 0:
+256); each (and the tree, whose launcher picks the block size) times K6 at
+the top leaf (also its first 1, 3
+and 5 stages: the memory phases' share) and at every (E, m, B) that one
+FastStark prove at 65,528 cycles runs it at (recorded from a prove first),
+summed with their counts, each held to the plain version; beside them a
+copy of the top leaf's input (torch clone: one read and one write of its
+bytes, the card's practical floor at that access).  The
 mixed variants are K10 (csrc/curve2.cu) at MYZKP_K10_UNROLL = 0 (the carry
 chains, the tree), 1, 2, 4, 8; each times K10 at 32,768 lanes with its mask
 on 1 lane in 32 and at 2^20 lanes without, K7 on the first inputs with Q =
@@ -78,6 +95,7 @@ from __future__ import annotations
 import importlib
 import importlib.util
 import json
+import math
 import random
 import re
 import sys
@@ -122,23 +140,37 @@ DIV_VARIANTS = {"tree": ()} | {
     "k17_t256": ("MYZKP_K17_THREADS=256",),
     "k17_narrow4": ("MYZKP_K17_NARROW=4",),
 }
+POW_VARIANTS = {"tree": (), "pair": ("MYZKP_K1_PAIR_SM=1073741824",),
+                "wide": ("MYZKP_K1_PAIR_SM=0",)} | {
+    f"wide_t{t}": ("MYZKP_K1_PAIR_SM=0", f"MYZKP_K1_POW_THREADS={t}") for t in (64, 256)}
+LEAF8_VARIANTS = {"tree": (), "k6_l8_t128": ("MYZKP_K6_L8_SMALL=1073741824",),
+                  "k6_l8_t256": ("MYZKP_K6_L8_SMALL=0",)}
 FAMILIES = {"add": ADD_VARIANTS, "dbl": DBL_VARIANTS, "mont": MONT_VARIANTS,
             "leaf": LEAF_VARIANTS, "ntt": NTT_VARIANTS, "mixed": MIXED_VARIANTS,
-            "div": DIV_VARIANTS}
+            "div": DIV_VARIANTS, "pow": POW_VARIANTS, "leaf8": LEAF8_VARIANTS}
 GROUP_KERNELS = ("padd_kernel", "padd_mixed_kernel", "padd_seg_level_kernel", "padd2_kernel",
                  "padd2_seg_level_kernel", "pdbl_kernel", "pdbl2_kernel")
 KERNELS = {"add": GROUP_KERNELS, "dbl": GROUP_KERNELS,
            "mont": ("mont_mul_kernel", "mont_pow_kernel", "mont_mul_l8_kernel",
                     "mont_pow_l8_kernel"),
-           "leaf": ("ntt_leaf_kernel<8>", "ntt_leaf_kernel<4>", "ntt_leaf_l8_kernel<8>",
-                    "ntt_leaf_l8_kernel<4>"),
+           "leaf": ("ntt_leaf_kernel<8>", "ntt_leaf_kernel<4>", "ntt_leaf_l8_kernel<8,256>",
+                    "ntt_leaf_l8_kernel<8,128>"),
            "ntt": tuple(f"butterfly{w}_kernel<{e}>" for w in ("", "_l8")
                         for e in (2, 4, 8, 16, 32)),
            "mixed": ("padd_mixed2_kernel", "padd2_kernel", "pdbl2_kernel",
                      "padd2_seg_level_kernel", "padd_mixed_kernel"),
            "div": tuple(k for n in (4, 8) for k in (
                f"div_rows_kernel<{n}>", f"div_chunks_kernel<{n}>", f"div_block_kernel<{n},0>",
-               f"div_block_kernel<{n},1>"))}
+               f"div_block_kernel<{n},1>")),
+           "pow": ("mont_pow_kernel", "mont_pow_l8_kernel", "mont_pow_l4_kernel",
+                   "mont_pow_wide_kernel", "mont_pow_wide_l8_kernel", "mont_pow_wide_l4_kernel"),
+           "leaf8": tuple(f"ntt_leaf_l8_kernel<{r},{t}>" for r in (8, 4, 2) for t in (128, 256))
+           + ("ntt_leaf_kernel<8>", "ntt_leaf_kernel<4>", "ntt_leaf_kernel<2>")}
+# K1's chain: elements on either side of the launcher's threshold (132 SMs x
+# MYZKP_K1_PAIR_SM) up to hash_batch's 2^20
+POW_NS = (2, 1 << 10, 1 << 12, 1 << 13, 1 << 14, 1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 20)
+POW_CHECK_N = 1 << 12  # held to the plain version up to here, above to the first run
+LEAF8_STAGES = (1, 3, 5)  # the top leaf's first s stages too: the memory phases' share
 K2_WIDTHS = (1 << 15, 1 << 22)
 LANES = 1 << 15
 # (points, n, steps) of the chains: a Horner window and a ladder's bases, on
@@ -200,8 +232,8 @@ def main(argv: list[str]) -> int:
     if parent_dir is not None:
         load_parent(parent_dir)
         parent = {k: importlib.import_module(f"parent_port.{k}") for k in
-                  ("_ext", "ops.ntt", "ops.poly", "fields.spec", "curves.bn254",
-                   "curves.curve_kernels")}
+                  ("_ext", "ops.ntt", "ops.poly", "fields.spec", "fields.limb",
+                   "fields.ntt_kernels", "curves.bn254", "curves.curve_kernels")}
         todo.append(lambda: parent["_ext"].build(()))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max(len(todo), 1)) as pool:
@@ -213,7 +245,8 @@ def main(argv: list[str]) -> int:
     if parent is not None:
         print_build("parent", parent["_ext"].library_path(()),
                     GROUP_KERNELS + ("padd_mixed2_kernel", "butterfly_kernel",
-                                     "long_division_kernel", "long_division_l8_kernel"))
+                                     "long_division_kernel", "long_division_l8_kernel")
+                    + KERNELS["pow"] + KERNELS["leaf8"])
 
     dev = torch.device("cuda", 0)
     spec = bn254.q_spec()
@@ -238,6 +271,10 @@ def main(argv: list[str]) -> int:
         time_mixed(runs("mixed"), parent, rng, dev, times)
     if "div" in families:
         time_div(runs("div"), parent, rng, dev, times)
+    if "pow" in families:
+        time_pow(runs("pow"), parent, rng, dev, times)
+    if "leaf8" in families:
+        time_leaf8(runs("leaf8"), parent, rng, dev, times)
     _ext.use_defines(())
     cs.log(json.dumps({"sweep_ms": times}))
     return 0
@@ -245,12 +282,12 @@ def main(argv: list[str]) -> int:
 
 def print_build(label: str, lib, kernels) -> None:
     """ptxas's registers and spills and the SASS counts of kernels in lib
-    (a template instantiation named kernel<N> or kernel<N,flag>)."""
+    (a template instantiation named kernel<N>, kernel<R,T> or kernel<N,flag>)."""
     fn = None
     for line in lib.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            arg = re.search(r"kernelILi(\d+)E(?:Lb(\d)E)?", m.group(1))
+            arg = re.search(r"kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?", m.group(1))
             name = next((k for k in kernels if k.split("<")[0] in m.group(1)), None)
             args = arg and ",".join(g for g in arg.groups() if g is not None)
             fn = name and (f"{name.split('<')[0]}<{args}>" if arg else name)
@@ -442,6 +479,131 @@ def prove_transforms(dev) -> dict:
     finally:
         ntt._stockham_axis = axis
     return seen
+
+
+def time_pow(runs, parent, rng, dev, times) -> None:
+    """K1's chain in each run at POW_NS elements for q - 2 (BN254), alpha^-1
+    and p - 2 (M128) and p - 2 (M64), with the form the run's launcher
+    picks (the tree: pow_plan.cuh; the parent: the lane pair).  A run named
+    parent* goes through the parent's modules."""
+    from myzkp_tpu_torch import _ext
+    from myzkp_tpu_torch.fields import limb
+    from myzkp_tpu_torch.fields.spec import bn254_q_spec, m64_spec
+
+    specs = {"q": bn254_q_spec(), "m128": m128_spec(), "m64": m64_spec()}
+    cases = {"q, q - 2": ("q", specs["q"].p - 2), "m128, alpha^-1": ("m128", ALPHA_INV),
+             "m128, p - 2": ("m128", specs["m128"].p - 2), "m64, p - 2": ("m64", specs["m64"].p - 2)}
+    big = max(POW_NS)
+    xs = {"q": cs.random_fe(rng, big, dev), "m128": m128_fe(rng, big, dev),
+          "m64": cs.random_fe64(rng, big, dev)}
+    xs = {(f, n): x[:, :n].contiguous() for f, x in xs.items() for n in POW_NS}
+    want = {}
+    for case, (f, e) in cases.items():
+        for n in POW_NS:
+            if n <= POW_CHECK_N:
+                want[case, n] = limb.mont_pow_ref(specs[f], xs[f, n], e)
+    for name, defines in runs:
+        if name.startswith("parent"):
+            mod = parent["fields.limb"]
+            sp = {"q": parent["fields.spec"].bn254_q_spec(), "m128": parent["fields.spec"].m128_spec(),
+                  "m64": parent["fields.spec"].m64_spec()}
+        else:
+            _ext.use_defines(defines)
+            mod, sp = limb, specs
+        line = []
+        for case, (f, e) in cases.items():
+            ms = []
+            for n in POW_NS:
+                x = xs[f, n]
+                got = mod.mont_pow_cuda(sp[f], x, e)
+                want.setdefault((case, n), got)
+                check(f"{name}: chain {case} at {n}", [got], [want[case, n]])
+                t = cs.graph_time_ms(lambda: mod.mont_pow_cuda(sp[f], x, e), 5 if n >= 1 << 18 else 20)
+                times[name][f"pow {case} {n}"] = t
+                ms.append(f"{n}: {t:.4f}")
+            line.append(f"{case}: " + ", ".join(ms))
+        if not name.startswith("parent"):
+            forms = {n: limb.mont_pow_form(n, dev) for n in POW_NS}
+            line.append(f"forms {forms}")
+        cs.log(f"# pow {name} (ms): " + "; ".join(line))
+
+
+def leaf_prove_shapes(dev) -> dict:
+    """{(E, m, B, inverse): (count, twiddles)} of the K6 launches of one
+    FastStark prove at STARK_CYCLES, recorded from ntt_kernels.ntt_leaf."""
+    from myzkp_tpu_torch.fields import ntt_kernels as nk
+    from myzkp_tpu_torch.ops import ntt
+    from myzkp_tpu_torch.stark import fast_stark
+
+    spec = m128_spec()
+    st = fast_stark.initialize_fast_stark_m128(4, 2, 2, 1, STARK_CYCLES, 2, dev)
+    trace, air, boundary = cs.squaring_air(spec, STARK_CYCLES)
+    pre = st.preprocess()
+    seen, leaf = {}, nk.ntt_leaf
+    inverse = {ntt._leaf_twiddles(spec, m, True, dev).data_ptr(): True for m in
+               (2 << k for k in range(7))}
+
+    def recorded(sp, x, tw, stages=None):
+        key = tuple(x.shape[1:]) + (inverse.get(tw.data_ptr(), False),)
+        count, _ = seen.get(key, (0, tw))
+        seen[key] = (count + 1, tw)
+        return leaf(sp, x, tw, stages)
+
+    nk.ntt_leaf = recorded
+    try:
+        st.prove(trace, boundary, air, preprocessed=pre, rng=random.Random(cs.STARK_SEED))
+    finally:
+        nk.ntt_leaf = leaf
+    return seen
+
+
+def time_leaf8(runs, parent, rng, dev, times) -> None:
+    """K6's four-word instance in each run at the top leaf and at every
+    shape of one FastStark prove (summed with their counts), each held to
+    the plain version.  A run named parent* goes through the parent's
+    modules."""
+    from myzkp_tpu_torch import _ext
+    from myzkp_tpu_torch.fields import ntt_kernels as nk
+    from myzkp_tpu_torch.ops import ntt
+
+    spec = m128_spec()
+    shapes = leaf_prove_shapes(dev)
+    top = LEAF_SHAPE_M128 + (False,)
+    shapes.setdefault(top, (0, ntt._leaf_twiddles(spec, top[1], False, dev)))
+    x_top = m128_fe(rng, math.prod(top[:3]), dev).reshape(8, *top[:3])
+    want_top = {s: nk.ntt_leaf_ref(spec, x_top, shapes[top][1], s) for s in LEAF8_STAGES}
+    cs.log(f"# leaf8: the prove's {len(shapes) - (shapes[top][0] == 0)} K6 shapes "
+           f"(E, m, B, inverse): count " + json.dumps({str(k): c for k, (c, _) in shapes.items()}))
+    xs = {k: m128_fe(rng, k[0] * k[1] * k[2], dev).reshape(8, *k[:3]) for k in shapes}
+    copy_ms = cs.graph_time_ms(lambda: x_top.clone(), 10)
+    times["copy"] = {"leaf8 top clone": copy_ms}
+    cs.log(f"# leaf8: a copy of the top leaf's input (torch clone, {x_top.numel() * 4} B each "
+           f"way) {copy_ms:.4f} ms")
+    want = {k: nk.ntt_leaf_ref(spec, xs[k], tw) for k, (_, tw) in shapes.items()}
+    for name, defines in runs:
+        if name.startswith("parent"):
+            mod, sp = parent["fields.ntt_kernels"], parent["fields.spec"].m128_spec()
+        else:
+            _ext.use_defines(defines)
+            mod, sp = nk, spec
+        total = 0.0
+        for k, (count, tw) in shapes.items():
+            x = xs[k]
+            check(f"{name}: K6 M128 {k}", [mod.ntt_leaf(sp, x, tw)], [want[k]])
+            t = cs.graph_time_ms(lambda: mod.ntt_leaf(sp, x, tw), 10)
+            times[name][f"leaf8 {k}"] = t
+            total += count * t
+        times[name]["leaf8 prove sum"] = total
+        for s in LEAF8_STAGES:
+            tw = shapes[top][1]
+            check(f"{name}: K6 M128 top leaf, {s} stages", [mod.ntt_leaf(sp, x_top, tw, s)],
+                  [want_top[s]])
+            times[name][f"leaf8 top s{s}"] = cs.graph_time_ms(
+                lambda: mod.ntt_leaf(sp, x_top, tw, s), 10)
+        cs.log(f"# leaf8 {name}: top leaf {LEAF_SHAPE_M128} {times[name][f'leaf8 {top}']:.4f} ms "
+               f"(its first " + ", ".join(f"{s}: {times[name][f'leaf8 top s{s}']:.4f}"
+                                         for s in LEAF8_STAGES)
+               + f" stages); the prove's launches summed {total:.4f} ms")
 
 
 def time_mixed(runs, parent, rng, dev, times) -> None:
