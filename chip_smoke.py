@@ -202,16 +202,25 @@ Phases, one output line each (or more), in order:
                trace interpolation, boundary quotients, codewords + Merkle,
                symbolic AIR, transition quotients, combination, FRI,
                openings), verify accepting, a false boundary's proof
-               rejected, the first prove's launches (K5 gated under 5,940);
-               K5, K6 and K17 at every shape that prove launched them at
-               against their plain versions (K6 also at ragged B, B not a
-               multiple of 4, small m and its first stages only, forward,
+               rejected, the first prove's launches (K5 gated at two a
+               Stockham transform, 228 for the prove's 114, and held to
+               its split's count); K5, K6 and K17 at every shape that prove
+               launched them at against their plain versions (K5 also at
+               K5_L8_EDGES: B = 3, rows off a tile, column counts and B_k
+               that are no powers of two, 10 stages and 1, 9 and 10
+               stages on 8 columns or more (tiles under 8 columns), the
+               four-word edges leading each input and table, path and
+               random tables; K6 also at ragged B, B not a multiple of 4,
+               small m and its first stages only, forward,
                inverse and random tables; K17 past 512 steps a row
                against a = q b + r), then the five four-word kernels and
                K17's BN254 instance timed beside their plain versions and
                bounds (68 multiply-adds a 128-bit product; the chain's bound
                counts its window schedule's products); K6 and K17 timed at
-               each shape of the prove and summed over its launches;
+               each shape of the prove and summed over its launches, and K5
+               at each of the prove's Stockham transforms (k5_shapes: its
+               count, launches a transform, graph-replay time of the whole
+               transform, bound and the passes' tiles; summed);
  14. das       the extension fields and the data-availability models
                (fields/efield.py, codes/reedsolomon.py, das/): K1 and its
                chain at two words (M64: mont_mul_l4, mont_pow_l4) on 2^20
@@ -512,7 +521,7 @@ SASS_KERNELS = ("padd_seg_level_kernel", "padd2_seg_level_kernel", "padd_mixed_k
                 "padd_mixed2_kernel", "padd2_kernel", "pdbl2_kernel", "padd_kernel",
                 "pdbl_kernel", "mont_mul_kernel", "mont_pow_kernel", "ntt_leaf_kernel",
                 "butterfly_kernel", "mont_mul_l8_kernel", "mont_pow_l8_kernel",
-                "ntt_leaf_l8_kernel", "butterfly_l8_kernel", "div_rows_kernel",
+                "ntt_leaf_l8_kernel", "stockham_l8_kernel", "div_rows_kernel",
                 "div_chunks_kernel", "div_block_kernel", "mont_mul_l4_kernel",
                 "mont_pow_l4_kernel", "mont_pow_wide_kernel", "mont_pow_wide_l8_kernel",
                 "mont_pow_wide_l4_kernel")
@@ -2969,7 +2978,10 @@ STARK_PARAMS = (4, 2, 2, 1, STARK_CYCLES, 2)  # initialize_fast_stark_m128's arg
 STARK_SEED = 7
 STARK_X0 = 123456789
 HASH_BATCH = 1 << 20
-K5_STARK_LAUNCHES = 5940  # K5 launches of a prove on a one-stage-a-launch K5
+# K5's launches in a prove: at most two a Stockham transform (its 114:
+# stockham_plan.cuh splits up to 2^10 points into one pass and 2^11 ... 2^13
+# into two, 141 in all); a one-stage-a-launch K5 made 5,940
+K5_STARK_LAUNCHES = 2 * 114
 STARK_KERNELS = ("mont_mul_l8", "mont_pow_l8", "butterfly_l8", "ntt_leaf_l8",
                  "long_division_l8")
 STARK_STAGES = (  # (owner module, attribute, stage): the prove's split
@@ -3190,6 +3202,53 @@ def bitcheck_leaf8_edges(spec, rng, dev) -> int:
     return err
 
 
+# K5 (M128) against its plain version away from the prove's shapes: (R, Bk,
+# c, B, stages, table): B = 3, R off a tile's rows, column counts hq B and
+# Bk that are no powers of two, the longest pass and a one-stage pass, 9 and
+# 10 stages on 8 columns or more (a tile holds only 4 or 2 of them); the
+# table the path's stage rows (entries 0 are R mod p: the j = 0 products
+# skipped) or random (every product made)
+K5_L8_EDGES = (
+    (5, 1, 1024, 3, 10, "path"),     # 10 stages (the plan's most), B = 3
+    (131, 1, 64, 1, 6, "path"),      # 131 rows: the last tile ragged in rows
+    (3, 1, 8192, 3, 7, "random"),    # a 2^13 first pass at B = 3: 192 columns
+    (7, 2, 96, 3, 5, "random"),      # hq B = 9 columns, Bk = 2
+    (3, 5, 32, 2, 5, "path"),        # Bk = 5
+    (9, 2, 8, 6, 3, "random"),
+    (1000, 1, 2, 3, 1, "path"),      # one stage: stored from registers
+    (1, 1, 1024, 1, 10, "random"),   # one group, 2 pairs a thread
+    (1, 1, 1024, 8, 10, "random"),   # 10 stages on 8 columns: tiles of 2
+    (1, 1, 4096, 1, 9, "path"),      # 9 stages on hq = 8 columns: tiles of 4
+    (1, 1, 1 << 17, 1, 9, "path"),   # a 2^17-point transform's first pass (9 + 8)
+)
+
+
+def bitcheck_k5_l8_edges(spec, rng, dev) -> int:
+    """K5 (M128) at K5_L8_EDGES against butterfly_ref, exact: each input
+    (and each random table) leads with the four-word edges (word_edges),
+    the rest random."""
+    from myzkp_tpu_torch.fields import limb, ntt_kernels as nk
+    from myzkp_tpu_torch.ops import ntt
+
+    edges = limb.from_int(spec, word_edges(spec.p, 4), dev)
+    k = edges.shape[1]
+
+    def leading_edges(n: int) -> torch.Tensor:
+        x = random_fe4(rng, n, dev, spec)
+        x[:, :min(k, n)] = edges[:, :min(k, n)]
+        return x
+
+    err = 0
+    for R, Bk, c, B, s, table in K5_L8_EDGES:
+        x = leading_edges(R * Bk * c * B).reshape(8, R, Bk, c, B)
+        tw = (ntt._pass_twiddles(spec, c, 0, s, False, dev) if table == "path"
+              else leading_edges(c - (c >> s)))
+        err = max(err, check_equal(f"butterfly_l8 {(R, Bk, c, B)} s = {s} ({table})",
+                                   [nk.butterfly(spec, x, tw, s)],
+                                   [nk.butterfly_ref(spec, x, tw, s)]))
+    return err
+
+
 def bitcheck_stark_shapes(spec, k5, k6, k17, dev, results: dict) -> None:
     """K5, K6 and K17 at every shape the full-width prove launched them at
     (random inputs of each shape, the path's own tables), against their
@@ -3225,11 +3284,13 @@ def bitcheck_stark_shapes(spec, k5, k6, k17, dev, results: dict) -> None:
                 raise AssertionError(f"long_division_l8 {(rows, na, bd)}: a != q b + r")
             identity.append((rows, na, bd))
     err6 = max(err6, bitcheck_leaf8_edges(spec, rng, dev))
+    err5 = max(err5, bitcheck_k5_l8_edges(spec, rng, dev))
     results["butterfly_l8"]["max_abs_err"] = err5
     results["ntt_leaf_l8"]["max_abs_err"] = err6
     results["long_division_l8"]["max_abs_err"] = err17
-    log(f"# bitcheck butterfly_l8 (M128) at the {len(k5)} (shape, stages) of the prove: "
-        f"exact vs plain")
+    log(f"# bitcheck butterfly_l8 (M128) at the {len(k5)} (shape, stages) of the prove and "
+        f"at {len(K5_L8_EDGES)} edge shapes (R, Bk, c, B, stages, table) {K5_L8_EDGES}, the "
+        f"four-word edges leading each input: exact vs plain")
     log(f"# bitcheck ntt_leaf_l8 (M128) at the {len(k6)} (shape, table) pairs of the prove "
         f"and at {len(LEAF8_EDGES)} edge shapes (E, m, B, stages) {LEAF8_EDGES}, forward, "
         f"inverse and a random table: exact vs plain")
@@ -3356,6 +3417,53 @@ def time_leaf_shapes(spec, k6, counts: dict, dev) -> dict:
     return out
 
 
+def time_stockham_shapes(spec, kt, dev) -> dict:
+    """K5 (M128) over each Stockham transform (R, m, B, inverse) one
+    FastStark prove ran (kt: a recorder of ops/ntt._stockham_axis), on random
+    inputs: the transform's launches timed together (graph_time_ms), its
+    bound (each element read and written once at LIMB_BYTES4 and its m - 1
+    twiddles read, against R B (k m / 2 - m + 1) products at IMAD_PER_MONT4:
+    k = log2 m stages, the j = 0 pair of every block skipped), each pass's
+    tiles (ntt_kernels.butterfly_l8_plan); and the sums over the prove's
+    transforms (each shape's time and bound times its count)."""
+    from myzkp_tpu_torch.fields import ntt_kernels as nk
+    from myzkp_tpu_torch.ops import ntt
+
+    rng = random.Random(SEED + 136)
+    out, total, total_bound, transforms, launches = {}, 0.0, 0.0, 0, 0
+    for (R, m, B, inv), n in sorted(kt.counts.items(), key=lambda kv: (kv[0][1], kv[0][0],
+                                                                       kv[0][3])):
+        if m < 2:
+            continue
+        x = random_fe4(rng, R * m * B, dev, spec).reshape(8, R, m, B)
+        passes = ntt._stockham_passes(m, spec.L)
+        ms = graph_time_ms(lambda: ntt._stockham_axis(spec, x, m, inv), 10)
+        k = m.bit_length() - 1
+        bnd = bound(2 * LIMB_BYTES4 * R * m * B + LIMB_BYTES4 * (m - 1),
+                    R * B * (k * m // 2 - m + 1), IMAD_PER_MONT4)
+        plans, Bk = [], 1
+        for _, s in passes:
+            plans.append(nk.butterfly_l8_plan(R, Bk, m // Bk, B, s, dev))
+            Bk <<= s
+        out[f"{R}x{m}{'x' + str(B) if B > 1 else ''}{'i' if inv else ''}"] = {
+            "count": n, "launches": len(passes), "stages": [s for _, s in passes], "ms": ms,
+            "tiles": [(pl["tile"], pl["threads"], pl["blocks"]) for pl in plans], **bnd}
+        total += n * ms
+        total_bound += n * bnd["bound_ms"]
+        transforms += n
+        launches += n * len(passes)
+    log(f"# time butterfly_l8 by transform (R x m, i: inverse; count, launches a transform, "
+        f"(tile, threads, blocks) a pass): " + ", ".join(
+            f"{key} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}) x {v['count']}, "
+            f"{v['launches']} {v['tiles']}" for key, v in out.items()))
+    log(f"# time butterfly_l8 at the prove's {transforms} Stockham transforms ({len(out)} "
+        f"shapes, {launches} launches): sum {total:.4f} ms against a bound of "
+        f"{total_bound:.4f} ms ({total_bound / total:.1%} of the bound)")
+    out["sum_ms"], out["sum_bound_ms"] = total, total_bound
+    out["transforms"], out["launches"] = transforms, launches
+    return out
+
+
 def rescue_exactness(dev) -> dict:
     """Rescue-Prime (m = 2, 27 rounds, 28 cycles) through Stark and
     FastStark, on the card and on the CPU plain versions from the same
@@ -3402,7 +3510,7 @@ def phase_stark(dev, results: dict) -> None:
     from myzkp_tpu_torch.fields import limb, ntt_kernels as nk
     from myzkp_tpu_torch.fields.fp import Fp
     from myzkp_tpu_torch.fields.spec import m128_spec
-    from myzkp_tpu_torch.ops import poly
+    from myzkp_tpu_torch.ops import ntt, poly
     from myzkp_tpu_torch.stark import fast_stark, rescueprime
 
     t_phase = time.perf_counter()
@@ -3456,6 +3564,9 @@ def phase_stark(dev, results: dict) -> None:
                 k17 = stack.enter_context(recorder(
                     poly, "long_division_cuda",
                     lambda _, a, b, bd: (math.prod(a.shape[1:-1]), a.shape[-1], bd)))
+                kt = stack.enter_context(recorder(
+                    ntt, "_stockham_axis", lambda _, x, m, inverse: (
+                        math.prod(x.shape[1:-2]), m, x.shape[-1], inverse)))
                 _ext.reset_launches()
             proof, sec = timed(lambda: st.prove(trace, boundary, air, preprocessed=pre,
                                                 rng=random.Random(STARK_SEED)))
@@ -3469,8 +3580,13 @@ def phase_stark(dev, results: dict) -> None:
     for k in STARK_KERNELS:
         if counts.get(k, 0) < 1:
             raise AssertionError(f"FastStark prove: {k} never launched: {counts}")
-    if counts["butterfly_l8"] >= K5_STARK_LAUNCHES:
-        raise AssertionError(f"FastStark prove: {counts['butterfly_l8']} K5 launches")
+    k5_transforms = sum(n for (_, m, _, _), n in kt.counts.items() if m > 1)
+    k5_want = sum(n * len(ntt._stockham_passes(m, spec.L))
+                  for (_, m, _, _), n in kt.counts.items() if m > 1)
+    if not counts["butterfly_l8"] == k5_want <= min(2 * k5_transforms, K5_STARK_LAUNCHES):
+        raise AssertionError(f"FastStark prove: {counts['butterfly_l8']} K5 launches for "
+                             f"{k5_transforms} Stockham transforms (the split: {k5_want}; at "
+                             f"most two a transform and {K5_STARK_LAUNCHES})")
     if any(pr != proofs[0] for pr in proofs[1:]):
         raise AssertionError("FastStark: the proves from one seed differ")
     ok, secs["verify"] = timed(lambda: st.verify(proof, air, pre[2], boundary))
@@ -3490,8 +3606,9 @@ def phase_stark(dev, results: dict) -> None:
         f"prove {secs['false_prove']:.3f} s, verify {secs['false_verify']:.4f} s: rejected")
     log(f"# stark prove split (median rep, s): "
         f"{json.dumps({k: round(v, 4) for k, v in med.items()})}")
-    log(f"# stark prove launches: {json.dumps(counts)}; K5 {counts['butterfly_l8']} "
-        f"(under {K5_STARK_LAUNCHES})")
+    log(f"# stark prove launches: {json.dumps(counts)}; K5 {counts['butterfly_l8']} for "
+        f"{k5_transforms} Stockham transforms (at most two a transform: "
+        f"{K5_STARK_LAUNCHES})")
 
     if set(k17.calls) != set(STARK_DIV_SHAPES):
         raise AssertionError(f"FastStark prove: K17 at {sorted(k17.calls)}, not "
@@ -3504,6 +3621,7 @@ def phase_stark(dev, results: dict) -> None:
     time_cases(stark_cases(spec, k5.calls, k6.calls, k17.calls, dev), results)
     k17_shapes = time_div_shapes(spec, dev)
     k6_shapes = time_leaf_shapes(spec, k6.calls, k6.counts, dev)
+    k5_shapes = time_stockham_shapes(spec, kt, dev)
     for k in results:
         if not k.startswith("_"):
             results[k]["stark_launches"] = counts.get(k, 0)
@@ -3513,7 +3631,8 @@ def phase_stark(dev, results: dict) -> None:
     results["_stark"] = {"card": smi, "prove_median": med, "reps": reps, "seconds": secs,
                          "launches": counts, "hash_batch_ms": hb_ms,
                          "hash_batch_reps_ms": hb_reps, "hash_batch_launches": hb_launches,
-                         "k17_shapes": k17_shapes, "k6_shapes": k6_shapes}
+                         "k17_shapes": k17_shapes, "k6_shapes": k6_shapes,
+                         "k5_shapes": k5_shapes}
     log(f"# stark phase {secs['phase']:.1f} s")
 
 

@@ -82,6 +82,7 @@ _SIGNATURES = {
     "butterfly_pair": (_P,) * 5 + (_I64, ctypes.c_int, _P, _P),
     "long_division_plan": (_I64,) * 4 + (_P,),  # a query, not a kernel: launches nothing
     "mont_pow_plan": (_I64, _P),  # a query, not a kernel: launches nothing
+    "butterfly_l8_plan": (_I64,) * 5 + (_P,),  # a query, not a kernel: launches nothing
 }
 _SIGNATURES.update({f"{k}_l8": _SIGNATURES[k] for k in FIELD_KERNELS})
 _SIGNATURES.update({f"{k}_l4": _SIGNATURES[k] for k in L4_KERNELS})

@@ -80,22 +80,61 @@
 //   in plain order the skip diverges: PERF.md).
 //   The ragged edge of B is masked; nothing is padded.
 //
-// K5 comes at two widths from one templated body: N = 8 words (BN254:
-// butterfly_kernel) and N = 4 (M128, the STARK's field: butterfly_l8_kernel,
-// entry points with _l8), with the same radix (unroll_sweep.py ntt times
-// both).  At four words an element is 32 bytes each way and a product about
-// 100 instructions (field.cuh: fe_mul_cc_wide) against eight words' 290, so
-// the K5 shuffles and registers halve.  K6 has a design at each width:
-// BN254's below (ntt_leaf_kernel, one tile a block, bound by its products),
-// and M128's (ntt_leaf_l8_kernel, after it: a persistent grid that loads the
-// next tile while the stages run, bound by device memory), with constants of
-// their own (unroll_sweep.py leaf / leaf8).
+// K5 has a design at each width.  BN254's (eight words, butterfly_kernel)
+// is the one above.  M128's (four words, the STARK's field: the _l8 entry
+// point, stockham_l8_kernel) replaces the same TPU kernel at the same
+// contract, with passes of up to 10 stages instead of log2 MYZKP_K5_RADIX.
+//   Bound on the H100: every transform of a FastStark prove below 2^14
+//   points moves 2^16 or 2^17 elements (its subproduct trees: R m = 2^16 or
+//   2^17), 1.25 or 2.5 us of device memory each way at 32 bytes an element,
+//   against products of 68 multiply-adds (the j = 0 ones skipped) that are
+//   shorter still; the 114 transforms' bound sums to 0.19 ms (chip_smoke.py).
+//   What binds in practice is the integer pipes and the launch: a
+//   butterfly is about 140 integer instructions (the product's ~100, the
+//   add and subtract's ~40), all on 16 lanes a cycle a scheduler, about 0.3
+//   us a stage of 2^16 elements on 132 SMs; and a launch costs about 4 us
+//   of fixed time (a one-stage pass of 2^16 elements: 4.3-4.5 us a launch
+//   in a graph, against 1.3 us for a one-int add and 3.0 us for a copy of
+//   twice its bytes; PERF.md, PR 21 runs I and J).
+//   BN254's body at four words ran three stages a launch in registers, so
+//   a 2^13-point transform made 5 passes over device memory and 5 launches
+//   of 64-thread blocks: 312 launches a prove, 1.47 ms.
+//   Design: at most 10 stages a pass (the caller's split,
+//   ntt_kernels.k5_l8_split), so a transform up to 2^10 points is one
+//   launch and up to 2^13 two balanced ones (7 + 6); a block holds one tile
+//   of whole groups (2^s elements of 8 or more neighbouring columns where
+//   the tile holds them, or of whole rows), the largest that still leaves a
+//   block for each of the 132 SMs (stockham_plan.cuh).  The tile
+//   comes in along memory, 16-byte loads of four elements a limb plane
+//   where its columns run in fours, every load issued before the first
+//   store to shared memory, and is packed into four 32-bit words as it
+//   lands: 16 bytes an element of shared memory, not 32.  The tile's
+//   entries of every stage row (fewer than its elements) come in beside
+//   it.  The stages run two a barrier: a thread takes a quad (elements t,
+//   t + h, t + 2h, t + 3h) through both stages in registers, on
+//   fe_mul_cc's wide carry chains (p > R/2 keeps a carry word), and the
+//   16-byte slots are swizzled so that a quarter warp's quads and the last
+//   step's bit-reversed reads fall in distinct bank groups (tile_slot).
+//   The last step reads the tile in output order, runs the last two stages
+//   in registers and stores along the output; where that leaves runs of
+//   fewer than 8 positions (transforms below 2^5 points) the outputs go
+//   through a second tile and out along memory.  No product at position 0
+//   of a stage row whose entry there is R mod p (the entry itself is
+//   checked), so any table gives the plain version's result.  Dynamic
+//   shared memory, past 48 KB by cudaFuncSetAttribute (at the largest
+//   tiles, kTileMax).
+// K6 has a design at each width too: BN254's below (ntt_leaf_kernel, one
+// tile a block, bound by its products), and M128's (ntt_leaf_l8_kernel,
+// after it: a persistent grid that loads the next tile while the stages
+// run, bound by device memory), with constants of their own
+// (unroll_sweep.py leaf / leaf8).
 #include <cuda_runtime.h>
 
 #include <algorithm>
 
 #include "cp_async.cuh"
 #include "field.cuh"
+#include "stockham_plan.cuh"
 
 using myzkp::FeN;
 using myzkp::FieldConsts;
@@ -204,33 +243,418 @@ __global__ void __launch_bounds__(kK5Threads)
   butterfly_body<E, 8>(x, tw, out, R, Bk, hq, B, c);
 }
 
+// BN254's pass of `stages` stages on the instantiation of 2^stages
+// elements, for stages <= log2 E.
 template <int E>
-__global__ void __launch_bounds__(kK5Threads)
-    butterfly_l8_kernel(const int32_t* __restrict__ x,
-                        const int32_t* __restrict__ tw, int32_t* __restrict__ out,
-                        int64_t R, int64_t Bk, int64_t hq, int64_t B,
-                        FieldConstsN<4> c) {
-  butterfly_body<E, 4>(x, tw, out, R, Bk, hq, B, c);
-}
-
-// The pass of `stages` stages on the instantiation of 2^stages elements,
-// for stages <= log2 E.
-template <int E, int N>
 int launch_butterfly(const int32_t* x, const int32_t* tw, int32_t* out,
                      int64_t R, int64_t Bk, int64_t hq, int64_t B, int stages,
-                     const FieldConstsN<N>& c, cudaStream_t stream) {
+                     const FieldConsts& c, cudaStream_t stream) {
   if constexpr (E > 2) {
     if (stages < __builtin_ctz(E))
-      return launch_butterfly<E / 2, N>(x, tw, out, R, Bk, hq, B, stages, c, stream);
+      return launch_butterfly<E / 2>(x, tw, out, R, Bk, hq, B, stages, c, stream);
   }
   const int64_t blocks = (R * Bk * hq * B * (E / 2) + kK5Threads - 1) / kK5Threads;
-  if constexpr (N == myzkp::kWords)
-    butterfly_kernel<E><<<static_cast<unsigned>(blocks), kK5Threads, 0, stream>>>(
-        x, tw, out, R, Bk, hq, B, c);
-  else
-    butterfly_l8_kernel<E><<<static_cast<unsigned>(blocks), kK5Threads, 0, stream>>>(
-        x, tw, out, R, Bk, hq, B, c);
+  butterfly_kernel<E><<<static_cast<unsigned>(blocks), kK5Threads, 0, stream>>>(
+      x, tw, out, R, Bk, hq, B, c);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K5 at four words (M128): a pass of up to myzkp_stockham::kMaxStages
+// stages a launch on one tile a block in shared memory (the design in the
+// header above; the tiles in stockham_plan.cuh).
+
+// A pass's shape and tile (myzkp_stockham::Tile), by value.  Every index
+// fits 32 bits: the launcher takes at most 2^31 - 1 elements a limb plane.
+struct StockhamPass {
+  uint32_t rows;     // R Bk: the (r, k) blocks
+  uint32_t Bk;
+  uint32_t inner;    // hq B: the columns jb = j B + b of a block
+  uint32_t hq;
+  uint32_t B;
+  uint32_t plane;    // elements of a limb plane, in and out
+  uint32_t ntw;      // entries of a twiddle limb plane: c - hq
+  uint32_t tiles_j;  // tiles across a block's columns
+  int lbk, ltj;      // log2 Bk and log2 tiles_j where they are powers of two, else -1
+  int ls, lw, lq, lkq;
+  int staged_out;    // the output through a second tile (myzkp_stockham::Tile)
+  int vec;           // 16-byte loads (and staged stores) of 4 neighbouring elements a plane
+};
+
+// Four neighbouring elements of (2N, plane) limb planes at i (a multiple of
+// 4, 16-byte aligned): one 16-byte load a plane.
+template <int N>
+__device__ __forceinline__ void load4_planes(const int32_t* __restrict__ base, uint32_t plane,
+                                             uint32_t i, FeN<N>* v) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int4 lo = *reinterpret_cast<const int4*>(base + (2 * k) * static_cast<size_t>(plane) + i);
+    const int4 hi =
+        *reinterpret_cast<const int4*>(base + (2 * k + 1) * static_cast<size_t>(plane) + i);
+    v[0].w[k] = static_cast<uint32_t>(lo.x) | static_cast<uint32_t>(hi.x) << 16;
+    v[1].w[k] = static_cast<uint32_t>(lo.y) | static_cast<uint32_t>(hi.y) << 16;
+    v[2].w[k] = static_cast<uint32_t>(lo.z) | static_cast<uint32_t>(hi.z) << 16;
+    v[3].w[k] = static_cast<uint32_t>(lo.w) | static_cast<uint32_t>(hi.w) << 16;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store4_planes(int32_t* __restrict__ base, uint32_t plane,
+                                              uint32_t i, const FeN<N>* v) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    auto lo16 = [&](int e) { return static_cast<int32_t>(v[e].w[k] & 0xFFFFu); };
+    auto hi16 = [&](int e) { return static_cast<int32_t>(v[e].w[k] >> 16); };
+    *reinterpret_cast<int4*>(base + (2 * k) * static_cast<size_t>(plane) + i) =
+        make_int4(lo16(0), lo16(1), lo16(2), lo16(3));
+    *reinterpret_cast<int4*>(base + (2 * k + 1) * static_cast<size_t>(plane) + i) =
+        make_int4(hi16(0), hi16(1), hi16(2), hi16(3));
+  }
+}
+
+// x / d, by a shift where d = 2^ld (ld >= 0)
+__device__ __forceinline__ uint32_t div_by(uint32_t x, uint32_t d, int ld) {
+  return ld >= 0 ? x >> ld : x / d;
+}
+
+// i with a 0 put in at bit b
+__device__ __forceinline__ uint32_t insert0(uint32_t i, int b) {
+  return (i >> b) << (b + 1) | (i & ((1u << b) - 1));
+}
+
+// The shared-memory slot (16 bytes) of tile index i.  A quarter warp's
+// eight 16-byte accesses are one wavefront when their slots differ in the
+// low three bits.  The swizzle XORs those bits with 7 times bit 3 of i and
+// with the 3-bit pieces of i >> 4 folded together, so that any three
+// neighbouring bits of i from bit 1 up land on three independent patterns:
+// the slots of eight indices that differ in those bits (a stage's pairs
+// across bit lw + bb, the last stage's reads at bit-reversed t or along
+// the blocks) all differ.  A bijection on any power-of-two range from 8 up.
+__device__ __forceinline__ uint32_t tile_slot(uint32_t i) {
+  const uint32_t z = i >> 4;
+  return i ^ (((i >> 3) & 1) * 7) ^ ((z ^ (z >> 3) ^ (z >> 6)) & 7);
+}
+
+__device__ __forceinline__ uint4 fe_pack(const FeN<4>& a) {
+  return make_uint4(a.w[0], a.w[1], a.w[2], a.w[3]);
+}
+
+__device__ __forceinline__ FeN<4> fe_unpack(const uint4& s) {
+  FeN<4> a;
+  a.w[0] = s.x;
+  a.w[1] = s.y;
+  a.w[2] = s.z;
+  a.w[3] = s.w;
+  return a;
+}
+
+// (u, v) <- (u + v, (u - v) w); no product where `unit` (w = R mod p at
+// position 0: the product would leave u - v as it is).
+__device__ __forceinline__ void stockham_pair(FeN<4>& u, FeN<4>& v, const FeN<4>& w, bool unit,
+                                              const FieldConstsN<4>& c) {
+  const FeN<4> d = myzkp::fe_sub_cc(u, v, c);
+  u = myzkp::fe_add_cc(u, v, c);
+  if (unit)
+    v = d;
+  else
+    v = myzkp::fe_mul_cc(d, w, c);
+}
+
+// Two stages on the four elements e[0..3] at in-place positions t, t + h,
+// t + 2h, t + 3h (h = 2^(bb - 1), bit bb - 1 and bb of t clear): stage bb
+// pairs (0, 2) and (1, 3) with twiddles w0, w1, stage bb - 1 pairs (0, 1)
+// and (2, 3), both with w2.
+__device__ __forceinline__ void stockham_quad(FeN<4> (&e)[4], const FeN<4>& w0, bool unit0,
+                                              const FeN<4>& w1, const FeN<4>& w2, bool unit2,
+                                              const FieldConstsN<4>& c) {
+  stockham_pair(e[0], e[2], w0, unit0, c);
+  stockham_pair(e[1], e[3], w1, false, c);
+  stockham_pair(e[0], e[1], w2, unit2, c);
+  stockham_pair(e[2], e[3], w2, unit2, c);
+}
+
+// One tile a block: tile index i = q 2^(ls + lw) + t 2^lw + jl holds
+// element t of column jb0 + jl of block rk0 + q, its group's position t in
+// the in-place DIF order (stage bb pairs t and t + 2^bb, twiddle position
+// j + (t mod 2^bb) hq in the stage row of half-width 2^bb hq).  The tile
+// comes in along memory (index order is memory order along jb, and along
+// the whole tile where W = hq B), so a warp's loads take whole sectors.  A
+// thread runs P pairs a stage, as P / 2 quads (two stages in registers, one
+// barrier) where P is even; the last step reads the tile in output order (t
+// = bitreverse(t')), runs the last one or two stages in registers and
+// stores along the output.  Elements past the ragged edge (rows past R Bk,
+// columns past hq B) are zeros that no product or store touches.
+template <int P>
+__global__ void __launch_bounds__(myzkp_stockham::kThreadsMax)
+    stockham_l8_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ tw,
+                       int32_t* __restrict__ out, StockhamPass a, FieldConstsN<4> c) {
+  using F = FeN<4>;
+  constexpr bool kQuad = P % 2 == 0;
+  constexpr int G = kQuad ? P / 2 : P;  // a thread's units: four elements each, or two
+  constexpr int PU = kQuad ? 2 : 1;     // pairs a unit in a one-stage step
+  extern __shared__ uint4 k5_sm[];
+  const int ls = a.ls, lw = a.lw, lt = a.ls + a.lw;
+  const uint32_t E = 1u << ls, W = 1u << lw, T = blockDim.x;
+  uint4* const xs = k5_sm;  // the tile: 2^(lt + lq) slots (tile_slot)
+  uint4* const ts = k5_sm + (1u << (lt + a.lq));  // stage row bb: (2^bb - 1 + u) W + jl
+  uint4* const ys = ts + ((E - 1) << lw);  // the output tile, in the output's order
+  const uint32_t tr = div_by(blockIdx.x, a.tiles_j, a.ltj);
+  const uint32_t rk0 = tr << a.lq, jb0 = (blockIdx.x - tr * a.tiles_j) << lw;
+  const uint32_t r0 = div_by(rk0, a.Bk, a.lbk), k0 = rk0 - r0 * a.Bk;
+  const uint32_t rows_left = a.rows - rk0, cols_left = a.inner - jb0;
+  auto live = [&](uint32_t i) { return (i >> lt) < rows_left && (i & (W - 1)) < cols_left; };
+  auto col_j = [&](uint32_t jl) { return a.B == 1 ? jb0 + jl : (jb0 + jl) / a.B; };
+  auto at_zero = [&](uint32_t jl) { return jb0 + jl < a.B; };  // j = 0
+  auto in_at = [&](uint32_t i) {
+    const uint32_t q = i >> lt, t = (i >> lw) & (E - 1), jl = i & (W - 1);
+    return ((rk0 + q) * E + t) * a.inner + jb0 + jl;
+  };
+  auto out_at = [&](uint32_t q, uint32_t t, uint32_t jl) {
+    const uint32_t r = r0 + (q >> a.lkq), k = k0 + (q & ((1u << a.lkq) - 1));
+    return ((r * E + t) * a.Bk + k) * a.inner + jb0 + jl;
+  };
+  auto tw_staged = [&](int bb, uint32_t u, uint32_t jl) {
+    return fe_unpack(ts[((1u << bb) - 1 + u) << lw | jl]);
+  };
+  auto get = [&](uint32_t i) { return fe_unpack(xs[tile_slot(i)]); };
+  auto put = [&](uint32_t i, const F& v) { xs[tile_slot(i)] = fe_pack(v); };
+
+  // the tile in the order of memory (runs of W along jb, or the whole tile
+  // where W = hq B), packed into four words as it lands, and every stage
+  // row's entries of the tile's columns ((2^ls - 1) W: fewer than the
+  // tile's 2 P T elements) beside it.  Every load is issued before the
+  // first store to shared memory: an element past the edge reads element
+  // 0 and is zeroed, an entry past the edge entry 0.
+  const uint32_t staged = (E - 1) << lw;
+  F v[2 * P], wv[2 * P];
+  // with vec, thread element n is tile index 4 (tid + (n / 4) T) + n % 4:
+  // runs of 4 in memory, all live or all past the edge
+  auto elem = [&](int n) {
+    return a.vec ? 4 * (threadIdx.x + (n / 4) * T) + n % 4 : threadIdx.x + n * T;
+  };
+  if constexpr (P >= 2) {
+    if (a.vec) {
+#pragma unroll
+      for (int n = 0; n < 2 * P; n += 4) {
+        if (live(elem(n))) load4_planes<4>(x, a.plane, in_at(elem(n)), &v[n]);
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 2 * P; ++n) {
+    const uint32_t i = threadIdx.x + n * T, jl = i & (W - 1);
+    if (!a.vec || P < 2) v[n] = myzkp::load_planes<4>(x, a.plane, live(i) ? in_at(i) : 0);
+    wv[n] = myzkp::fe_zero<4>();
+    if (i < staged && jl < cols_left) {
+      const uint32_t g = (i >> lw) + 1;
+      const int bb = 31 - __clz(g);  // the row of half-width 2^bb hq
+      wv[n] = myzkp::load_planes<4>(
+          tw, a.ntw, (E - (2u << bb)) * a.hq + col_j(jl) + (g - (1u << bb)) * a.hq);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 2 * P; ++n) {
+    const uint32_t i = threadIdx.x + n * T;
+    put(elem(n), live(elem(n)) ? v[n] : myzkp::fe_zero<4>());
+    if (i < staged) ts[i] = fe_pack(wv[n]);
+  }
+  __syncthreads();
+
+  F e[G][4];
+  uint32_t at[G];  // each quad's first tile index
+  int bb = ls - 1;  // the next stage to run
+  // the middle steps, on the tile: quads while two stages lie above the
+  // last step's, then single stages
+  const int last = kQuad && ls >= 2 ? 2 : 1;  // stages of the last step (Tile::last)
+  while (bb >= last) {
+    if (kQuad && bb - 1 >= last) {
+      const int hi = lw + bb;
+#pragma unroll
+      for (int n = 0; n < G; ++n) {
+        const uint32_t i0 = insert0(insert0(threadIdx.x + n * T, hi - 1), hi);
+        const uint32_t h = 1u << (hi - 1), jl = i0 & (W - 1);
+        const uint32_t u = (i0 >> lw) & ((1u << bb) - 1);
+        at[n] = i0;
+        e[n][0] = get(i0);
+        e[n][1] = get(i0 + h);
+        e[n][2] = get(i0 + 2 * h);
+        e[n][3] = get(i0 + 3 * h);
+        const F w0 = tw_staged(bb, u, jl), w1 = tw_staged(bb, u + (1u << (bb - 1)), jl);
+        const F w2 = tw_staged(bb - 1, u, jl);
+        const bool dead = !live(i0), zero = u == 0 && at_zero(jl);
+        stockham_quad(e[n], w0, dead || (zero && fe_is_one(w0, c)), w1, w2,
+                      dead || (zero && fe_is_one(w2, c)), c);
+      }
+#pragma unroll
+      for (int n = 0; n < G; ++n) {
+        const uint32_t h = 1u << (hi - 1);
+#pragma unroll
+        for (int d = 0; d < 4; ++d) put(at[n] + d * h, e[n][d]);
+      }
+      bb -= 2;
+    } else {
+      const int bit = lw + bb;
+      // a thread's G quads' worth of elements as 2 G pairs
+#pragma unroll
+      for (int n = 0; n < G; ++n) {
+#pragma unroll
+        for (int d = 0; d < PU; ++d) {
+          const uint32_t i0 = insert0(threadIdx.x + (n * PU + d) * T, bit);
+          const uint32_t jl = i0 & (W - 1), u = (i0 >> lw) & ((1u << bb) - 1);
+          F& lo = e[n][2 * d];
+          F& hi = e[n][2 * d + 1];
+          lo = get(i0);
+          hi = get(i0 + (1u << bit));
+          const F w = tw_staged(bb, u, jl);
+          stockham_pair(lo, hi, w, !live(i0) || (u == 0 && at_zero(jl) && fe_is_one(w, c)), c);
+          put(i0, lo);
+          put(i0 + (1u << bit), hi);
+        }
+      }
+      bb -= 1;
+    }
+    __syncthreads();
+  }
+
+  // the last step (stages last - 1 ... 0), read in the order of the output:
+  // h = ((rq (E / 2^last) + t') Kq + kq) W + jl takes the in-place
+  // positions t ... t + 2^last - 1, t = bitreverse(t'), bound for t' + {0,
+  // E/2} (one stage) or t' + {0, E/2, E/4, 3E/4} (two); with staged_out, to
+  // the output tile at ((rq E + t') Kq + kq) W + jl, then out along memory
+  const int lkq = a.lkq;
+  auto emit = [&](uint32_t q, uint32_t t, uint32_t jl, const F& v, bool ok) {
+    if (a.staged_out) {
+      const uint32_t kq = q & ((1u << lkq) - 1), rq = q >> lkq;
+      ys[tile_slot(((rq * E + t) << lkq | kq) << lw | jl)] = fe_pack(v);
+    } else if (ok) {
+      myzkp::store_planes(out, a.plane, out_at(q, t, jl), v);
+    }
+  };
+#pragma unroll
+  for (int n = 0; n < G; ++n) {
+#pragma unroll
+    for (int d = 0; d < (last == 1 ? PU : 1); ++d) {
+      const uint32_t hh = threadIdx.x + (n * (last == 1 ? PU : 1) + d) * T;
+      const uint32_t jl = hh & (W - 1), kq = (hh >> lw) & ((1u << lkq) - 1);
+      const uint32_t t2 = (hh >> (lw + lkq)) & ((E >> last) - 1);
+      const uint32_t q = (hh >> (lw + lkq + ls - last)) << lkq | kq;
+      const uint32_t i0 = q << lt | (__brev(t2) >> (32 - ls)) << lw | jl;
+      const bool ok = live(i0);
+      if (last == 2) {
+        F v[4] = {get(i0), get(i0 + W), get(i0 + 2 * W), get(i0 + 3 * W)};
+        const F w0 = tw_staged(1, 0, jl), w1 = tw_staged(1, 1, jl), w2 = tw_staged(0, 0, jl);
+        const bool zero = at_zero(jl);
+        stockham_quad(v, w0, !ok || (zero && fe_is_one(w0, c)), w1, w2,
+                      !ok || (zero && fe_is_one(w2, c)), c);
+        emit(q, t2, jl, v[0], ok);
+        emit(q, t2 + E / 2, jl, v[1], ok);
+        emit(q, t2 + E / 4, jl, v[2], ok);
+        emit(q, t2 + 3 * E / 4, jl, v[3], ok);
+      } else {
+        F u = get(i0), v = get(i0 + W);
+        const F w = tw_staged(0, 0, jl);
+        stockham_pair(u, v, w, !ok || (at_zero(jl) && fe_is_one(w, c)), c);
+        emit(q, t2, jl, u, ok);
+        emit(q, t2 + E / 2, jl, v, ok);
+      }
+    }
+  }
+  if (a.staged_out) {  // the output tile is one run of memory from (q, t, jl) = 0
+    __syncthreads();
+    const uint32_t base = out_at(0, 0, 0);
+    auto row_of = [&](uint32_t o) {
+      return (o >> (lw + lkq + ls)) << lkq | ((o >> lw) & ((1u << lkq) - 1));
+    };
+    if constexpr (P >= 2) {
+      if (a.vec) {
+#pragma unroll
+        for (int n = 0; n < 2 * P; n += 4) {
+          const uint32_t o = elem(n);
+          const F quad[4] = {fe_unpack(ys[tile_slot(o)]), fe_unpack(ys[tile_slot(o + 1)]),
+                             fe_unpack(ys[tile_slot(o + 2)]), fe_unpack(ys[tile_slot(o + 3)])};
+          if (base + o < a.plane) store4_planes<4>(out, a.plane, base + o, quad);
+        }
+        return;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 2 * P; ++n) {
+      const uint32_t o = threadIdx.x + n * T;
+      if (row_of(o) < rows_left)
+        myzkp::store_planes(out, a.plane, base + o, fe_unpack(ys[tile_slot(o)]));
+    }
+  }
+}
+
+// The kernel's view of a pass of `stages` stages on x (R, Bk, c, B) cut
+// into tiles t.
+// `aligned`: x and out lie on 16-byte boundaries, so 16-byte pieces of
+// four elements a plane can be read where the tile's columns run in fours.
+StockhamPass stockham_pass(int64_t R, int64_t Bk, int64_t c, int64_t B,
+                           const myzkp_stockham::Tile& t, bool aligned) {
+  const int64_t hq = c >> t.ls, inner = hq * B, plane = R * Bk * c * B;
+  auto log2_or = [](int64_t v) {
+    return myzkp_stockham::pow2(v) ? myzkp_stockham::floor_log2(v) : -1;
+  };
+  const int64_t W = int64_t{1} << t.lw;
+  const bool vec = aligned && t.pairs >= 2 && plane % 4 == 0 &&
+                   (W == inner || (W >= 4 && inner % 4 == 0));
+  return {static_cast<uint32_t>(R * Bk), static_cast<uint32_t>(Bk),
+          static_cast<uint32_t>(hq * B), static_cast<uint32_t>(hq),
+          static_cast<uint32_t>(B),      static_cast<uint32_t>(R * Bk * c * B),
+          static_cast<uint32_t>(c - hq), static_cast<uint32_t>(t.tiles_j),
+          log2_or(Bk),                   log2_or(t.tiles_j),
+          t.ls,                          t.lw,
+          t.lq,                          t.lkq,
+          t.staged_out,                  vec};
+}
+
+template <int P>
+int launch_stockham_l8(const int32_t* x, const int32_t* tw, int32_t* out, const StockhamPass& a,
+                       const myzkp_stockham::Tile& t, const FieldConstsN<4>& c,
+                       cudaStream_t stream) {
+  if (t.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        stockham_l8_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, t.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  stockham_l8_kernel<P><<<static_cast<unsigned>(t.tiles), t.threads, t.smem, stream>>>(
+      x, tw, out, a, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tiles of a four-word pass on the current card, or an error for a
+// pass the kernel does not take.
+int stockham_l8_tile(int64_t R, int64_t Bk, int64_t c, int64_t B, int stages,
+                     myzkp_stockham::Tile* t) {
+  if (R < 0 || Bk < 1 || B < 1 || stages < 1 || stages > myzkp_stockham::kMaxStages ||
+      c % (int64_t{1} << stages) != 0 || R * Bk * c * B >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *t = myzkp_stockham::plan_tile(R, Bk, c, B, stages, sms);
+  return 0;
+}
+
+int butterfly_l8_pass(const int32_t* x, const int32_t* tw, int32_t* out, int64_t R, int64_t Bk,
+                      int64_t c, int64_t B, int stages, const FieldConstsN<4>& consts,
+                      void* stream) {
+  myzkp_stockham::Tile t;
+  const int err = stockham_l8_tile(R, Bk, c, B, stages, &t);
+  if (err != 0) return err;
+  if (t.tiles == 0)  // a pass with elements always has a tile (plan_tile)
+    return R * Bk * c * B == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const StockhamPass a = stockham_pass(R, Bk, c, B, t, aligned);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (t.pairs) {
+    case 1: return launch_stockham_l8<1>(x, tw, out, a, t, consts, s);
+    case 2: return launch_stockham_l8<2>(x, tw, out, a, t, consts, s);
+    case 4: return launch_stockham_l8<4>(x, tw, out, a, t, consts, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 #ifndef MYZKP_K6_RADIX
@@ -623,14 +1047,13 @@ int launch_leaf(const int32_t* x, const int32_t* tw, int32_t* out, int64_t E,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int N>
 int butterfly_pass(const int32_t* x, const int32_t* tw, int32_t* out, int64_t R,
                    int64_t Bk, int64_t c, int64_t B, int stages,
-                   const FieldConstsN<N>& consts, void* stream) {
+                   const FieldConsts& consts, void* stream) {
   if (stages < 1 || (1 << stages) > kK5Radix || c % (int64_t{1} << stages) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_butterfly<kK5Radix, N>(x, tw, out, R, Bk, c >> stages, B, stages,
-                                       consts, static_cast<cudaStream_t>(stream));
+  return launch_butterfly<kK5Radix>(x, tw, out, R, Bk, c >> stages, B, stages, consts,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 template <int N>
@@ -732,7 +1155,8 @@ extern "C" int myzkp_butterfly_pair_l4(const int32_t* u, const int32_t* v,
 // x (2N, R, Bk, c, B) -> out (2N, R, 2^stages Bk, c / 2^stages, B), 2N = 16
 // limbs (BN254) or 8 (M128, the _l8 entry point); tw (2N, c - c / 2^stages):
 // the stage rows of half-widths c/2, c/4, ..., c / 2^stages, concatenated.
-// 1 <= stages <= log2 MYZKP_K5_RADIX, and 2^stages divides c.
+// 2^stages divides c, and 1 <= stages <= log2 MYZKP_K5_RADIX (BN254) or
+// myzkp_stockham::kMaxStages = 10 (M128); hq B below 2^31.
 extern "C" int myzkp_butterfly(const int32_t* x, const int32_t* tw,
                                int32_t* out, int64_t R, int64_t Bk, int64_t c,
                                int64_t B, int stages, const FieldConsts* consts,
@@ -744,7 +1168,19 @@ extern "C" int myzkp_butterfly_l8(const int32_t* x, const int32_t* tw,
                                   int32_t* out, int64_t R, int64_t Bk, int64_t c,
                                   int64_t B, int stages,
                                   const FieldConstsN<4>* consts, void* stream) {
-  return butterfly_pass(x, tw, out, R, Bk, c, B, stages, *consts, stream);
+  return butterfly_l8_pass(x, tw, out, R, Bk, c, B, stages, *consts, stream);
+}
+
+// The four-word pass's tiles on the current card, without launching: out
+// [stages, lw, lq, lkq, threads, pairs, tiles_j, tiles, smem] (stockham_plan.cuh).
+extern "C" int myzkp_butterfly_l8_plan(int64_t R, int64_t Bk, int64_t c, int64_t B,
+                                       int64_t stages, int64_t* out) {
+  myzkp_stockham::Tile t;
+  const int err = stockham_l8_tile(R, Bk, c, B, static_cast<int>(stages), &t);
+  if (err != 0) return err;
+  const int64_t v[] = {t.ls, t.lw, t.lq, t.lkq, t.threads, t.pairs, t.tiles_j, t.tiles, t.smem};
+  std::copy(v, v + 9, out);
+  return 0;
 }
 
 // x (2N, E, m, B) -> out (2N, E, m, B); tw (2N, m - 1): the stage tables of

@@ -1,7 +1,8 @@
-"""NTT kernels K5 (up to log2 r consecutive radix-2 Stockham stages, r =
-``k5_radix()``), K5's pair form (one butterfly on elementwise triples, DIF
-or DIT) and K6 (a whole NTT of length m <= 128 along one axis), each beside
-its plain PyTorch version.
+"""NTT kernels K5 (consecutive radix-2 Stockham stages: up to log2 r a launch
+at L = 16, r = ``k5_radix()``, and up to ``K5_L8_MAX_STAGES`` at L = 8), K5's
+pair form (one butterfly on elementwise triples, DIF or DIT) and K6 (a whole
+NTT of length m <= 128 along one axis), each beside its plain PyTorch
+version.
 
 Counterparts of ``butterfly_pallas`` and ``ntt_leaf_pallas`` in
 ``myzkp_tpu/fields/limb_pallas.py``: the NTT's path runs K5's Stockham passes
@@ -22,6 +23,8 @@ concatenated, (L, c - c / 2^s): K6's table is the pass of all log2 m stages.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _ext
@@ -31,6 +34,7 @@ from .spec import FieldSpec
 I32 = torch.int32
 MAX_LEAF = 128  # csrc/ntt.cu: kMaxLeaf
 K5_RADIX = 8  # csrc/ntt.cu: MYZKP_K5_RADIX's default
+K5_L8_MAX_STAGES = 10  # csrc/stockham_plan.cuh: kMaxStages, K5's stages a launch at L = 8
 
 
 def k5_radix() -> int:
@@ -38,6 +42,32 @@ def k5_radix() -> int:
     stages.  The -D value of the library in use (``_ext.use_defines``), else
     the source's default; the plain version follows the same value."""
     return _ext.defined("MYZKP_K5_RADIX", K5_RADIX)
+
+
+def k5_l8_split(log_m: int) -> list[int]:
+    """The stages of each K5 pass of a 2^log_m-point transform at L = 8:
+    ceil(log_m / K5_L8_MAX_STAGES) passes of balanced length, the longer
+    first (13 -> [7, 6]).  The launcher takes each pass's stage count from
+    its caller; this is the one split, on the card and on the CPU."""
+    n = -(-log_m // K5_L8_MAX_STAGES)
+    return [log_m // n + (i < log_m % n) for i in range(n)]
+
+
+def butterfly_l8_plan(R: int, Bk: int, c: int, B: int, stages: int, device=None) -> dict:
+    """The tiles K5 takes at L = 8 on ``device`` (default: the card) for a
+    pass of ``stages`` stages on x (8, R, Bk, c, B), by the launcher's own
+    plan (csrc/stockham_plan.cuh): ``tile`` elements a block (``lw``,
+    ``lq``: log2 of the columns and of the (r, k) blocks it holds),
+    ``threads``, ``pairs`` a thread a stage, ``blocks`` and ``smem`` bytes.
+    A query: launches nothing."""
+    out = (ctypes.c_int64 * 9)()
+    with torch.cuda.device(_ext.resolve_device(device)):
+        err = _ext.library().myzkp_butterfly_l8_plan(R, Bk, c, B, stages, out)
+    if err:
+        raise RuntimeError(f"butterfly_l8_plan: CUDA error {err}")
+    ls, lw, lq, _, threads, pairs, _, blocks, smem = out
+    return {"tile": 1 << (ls + lw + lq), "lw": lw, "lq": lq, "threads": threads,
+            "pairs": pairs, "blocks": blocks, "smem": smem}
 
 
 # ---------------------------------------------------------------------------
@@ -109,10 +139,14 @@ def ntt_leaf_ref(spec: FieldSpec, x, tw, stages=None):
 # ---------------------------------------------------------------------------
 
 def butterfly(spec: FieldSpec, x, tw, stages: int = 1):
-    """K5: ``stages`` (1 to log2 ``k5_radix()``) DIF Stockham stages in one
-    launch.  x (L, R, Bk, c, B) int32 contiguous, tw (L, c - c / 2^stages)
-    int32, the stage rows concatenated; returns (L, R, 2^stages Bk,
-    c / 2^stages, B)."""
+    """K5: ``stages`` DIF Stockham stages in one launch: 1 to log2
+    ``k5_radix()`` at L = 16, 1 to ``K5_L8_MAX_STAGES`` at L = 8 (above it
+    raises ValueError, on the card and on the CPU alike).  x (L, R, Bk, c,
+    B) int32 contiguous, tw (L, c - c / 2^stages) int32, the stage rows
+    concatenated; returns (L, R, 2^stages Bk, c / 2^stages, B)."""
+    if spec.L == 8 and stages > K5_L8_MAX_STAGES:
+        raise ValueError(f"stages = {stages}: K5 runs at most {K5_L8_MAX_STAGES} stages a "
+                         f"launch at L = 8")
     if not _ext.use_kernel(x, tw):
         return butterfly_ref(spec, x, tw, stages)
     L, R, Bk, c, B = x.shape

@@ -4,10 +4,12 @@ four-step recursion, the coset transforms and the product of polynomials
 
 Counterpart of ``myzkp_tpu/ops/ntt.py:36-483`` with the same decomposition:
 below ``_FOURSTEP_MIN_N`` points a Stockham transform of log2(n) stages, up
-to log2 r of them in each launch of kernel K5 (r = ``ntt_kernels.k5_radix()``,
-8 by default); from there up a recursive four-step split n = m1 * m2
-whose length-m1 (<= ``_LEAF_M``) transforms are single launches of kernel K6,
-with one twiddle product (K1) and one transpose per level.  Stockham
+to log2 r of them in each launch of kernel K5 at BN254's width (r =
+``ntt_kernels.k5_radix()``, 8 by default) and up to 10 at M128's (one launch
+up to 2^10 points, two balanced passes above); from there up a recursive
+four-step split n = m1 * m2 whose length-m1 (<= ``_LEAF_M``) transforms are
+single launches of kernel K6, with one twiddle product (K1) and one
+transpose per level.  Stockham
 autosorts, so results are in natural order without a bit-reversal gather.
 The values are exact whatever the split; the reference's split keeps the
 launch counts comparable.
@@ -172,23 +174,29 @@ def fourstep_tables(spec: FieldSpec, n: int, inverse: bool,
 # Core transforms (limb tensors; the transform axis is -2, batch B last)
 # ---------------------------------------------------------------------------
 
-def _stockham_passes(m: int) -> list[tuple[int, int]]:
-    """(first stage, stages) of each K5 launch of a length-m transform:
-    log2 r stages a pass (r = ntt_kernels.k5_radix()), the last pass shorter
-    where they do not divide log2 m."""
-    total, per = m.bit_length() - 1, ntt_kernels.k5_radix().bit_length() - 1
+def _stockham_passes(m: int, L: int = 16) -> list[tuple[int, int]]:
+    """(first stage, stages) of each K5 launch of a length-m transform at L
+    limbs.  L = 16: log2 r stages a pass (r = ntt_kernels.k5_radix()), the
+    last pass shorter where they do not divide log2 m.  L = 8:
+    ntt_kernels.k5_l8_split, at most K5_L8_MAX_STAGES stages a pass (one
+    pass up to 2^10 points, two up to 2^20)."""
+    total = m.bit_length() - 1
+    if L == 8:
+        stages = ntt_kernels.k5_l8_split(total)
+        return [(sum(stages[:i]), s) for i, s in enumerate(stages)]
+    per = ntt_kernels.k5_radix().bit_length() - 1
     return [(s0, min(per, total - s0)) for s0 in range(0, total, per)]
 
 
 def _stockham_axis(spec: FieldSpec, x, m: int, inverse: bool):
     """Natural-order NTT over axis -2 of x (L, *lead, m, B): log2(m) DIF
-    Stockham stages, one K5 launch a pass of _stockham_passes(m)."""
+    Stockham stages, one K5 launch a pass of _stockham_passes(m, L)."""
     if m == 1:
         return x
     shape = x.shape
     R = math.prod(shape[1:-2])
     y = x.reshape(spec.L, R, 1, m, shape[-1]).contiguous()
-    for s0, s in _stockham_passes(m):
+    for s0, s in _stockham_passes(m, spec.L):
         y = ntt_kernels.butterfly(
             spec, y, _pass_twiddles(spec, m, s0, s, inverse, x.device), s)
     return y.reshape(shape)

@@ -46,20 +46,23 @@ leaf variants (csrc/ntt.cu) are K6 at r = MYZKP_K6_RADIX = 4, 8 elements a
 thread and MYZKP_K6_COLS = 8, 16, 32 columns a block, plus, at the tree's r
 and columns, the products 4 and 8; each times K6 at E = 3, m = 128,
 B = 16,384 running s = 1, 2, 3, 5 and 7 of its stages.  The ntt variants
-(csrc/ntt.cu) are K5 at r = MYZKP_K5_RADIX = 2, 4, 8, 16, 32 (log2 r stages a
-launch) on the carry-chain product (MYZKP_K5_MUL = 0) and on fe_mul_u<8>
-(8); each times the Stockham transforms of the paths through
-ops/ntt._stockham_axis, its passes in one graph (shifted h at m = 2^12: the
-batched 2^12-point INTT and 2^13-point coset NTT, R = 3, and the 2^13-point
-coset INTT; fast_multiply's 2^9-point transform), and each pass of the
-batched 2^13-point coset NTT.  The
-mont, leaf and ntt families also time the four-word (M128) instances that
-the STARK runs: K1 at (8, 2^20) and its chain on 1 element (e = p - 2) and
-on 4,096 (alpha^-1), with the same constants; K6 at (1, 128, 8,192), the top
-leaf of the FastStark prove's 2^20-point coset NTTs (its four-word instance
-has constants of its own: the leaf8 family); K5 over every Stockham
-transform one FastStark prove at 65,528 cycles runs (recorded from a prove
-first), summed with their counts.  The pow variants (csrc/mont_mul.cu,
+(csrc/ntt.cu) are K5 at BN254's width at r = MYZKP_K5_RADIX = 2, 4, 8, 16,
+32 (log2 r stages a launch) on the carry-chain product (MYZKP_K5_MUL = 0)
+and on fe_mul_u<8> (8); each times the Stockham transforms of the paths
+through ops/ntt._stockham_axis, its passes in one graph (shifted h at m =
+2^12: the batched 2^12-point INTT and 2^13-point coset NTT, R = 3, and the
+2^13-point coset INTT; fast_multiply's 2^9-point transform), and each pass
+of the batched 2^13-point coset NTT.  The mont, leaf and ntt families
+also time the four-word (M128) instances that the STARK runs: K1 at (8,
+2^20) and its chain on 1 element (e = p - 2) and on 4,096 (alpha^-1), with
+the same constants; K6 at (1, 128, 8,192), the top leaf of the FastStark
+prove's 2^20-point coset NTTs (its four-word instance has constants of its
+own: the leaf8 family); the tree and the parent time
+K5's four-word design over every Stockham transform one FastStark prove at
+65,528 cycles runs (recorded from a prove first), each transform's
+launches in one graph, summed with their counts; beside the tree, the
+floors a launch in a graph: a one-int add and a copy of the widest
+transform's input.  The pow variants (csrc/mont_mul.cu,
 csrc/pow_plan.cuh) are K1's chain with the form forced (MYZKP_K1_PAIR_SM = 0:
 the window form at every n; 2^30: the lane pair) and the window form's
 blocks at MYZKP_K1_POW_THREADS = 64 and 256; each (and the tree, whose
@@ -155,8 +158,8 @@ KERNELS = {"add": GROUP_KERNELS, "dbl": GROUP_KERNELS,
                     "mont_pow_l8_kernel"),
            "leaf": ("ntt_leaf_kernel<8>", "ntt_leaf_kernel<4>", "ntt_leaf_l8_kernel<8,256>",
                     "ntt_leaf_l8_kernel<8,128>"),
-           "ntt": tuple(f"butterfly{w}_kernel<{e}>" for w in ("", "_l8")
-                        for e in (2, 4, 8, 16, 32)),
+           "ntt": tuple(f"butterfly_kernel<{e}>" for e in (2, 4, 8, 16, 32))
+           + tuple(f"stockham_l8_kernel<{p}>" for p in (1, 2, 4)),
            "mixed": ("padd_mixed2_kernel", "padd2_kernel", "pdbl2_kernel",
                      "padd2_seg_level_kernel", "padd_mixed_kernel"),
            "div": tuple(k for n in (4, 8) for k in (
@@ -386,9 +389,12 @@ def time_leaf(variants, rng, dev, times) -> None:
 
 
 def time_ntt(runs, parent, rng, dev, times) -> None:
-    """The K5 variants (and the parent's K5) over K5_TRANSFORMS, each
-    transform's passes in one graph, and this tree's variants at each pass of
-    K5_PASSES.  A run named parent* goes through the parent's modules."""
+    """The K5 variants (and the parent's K5) over K5_TRANSFORMS (BN254),
+    each transform's passes in one graph, and this tree's variants at each
+    pass of K5_PASSES; the tree and the parent over every M128 Stockham
+    transform of one FastStark prove, each transform's passes in one graph,
+    summed with their counts.  A run named parent* goes through the
+    parent's modules."""
     from myzkp_tpu_torch import _ext
     from myzkp_tpu_torch.fields import ntt_kernels as nk
     from myzkp_tpu_torch.fields.spec import bn254_r_spec
@@ -413,9 +419,10 @@ def time_ntt(runs, parent, rng, dev, times) -> None:
     for name, defines in runs:
         if name.startswith("parent"):
             mod, sp = parent["ops.ntt"], parent["fields.spec"].bn254_r_spec()
+            msp = parent["fields.spec"].m128_spec()
         else:
             _ext.use_defines(defines)
-            mod, sp = ntt, spec
+            mod, sp, msp = ntt, spec, mspec
         t, line = times[name], []
         for x, want, (R, n, inv) in zip(xs, wants, K5_TRANSFORMS):
             check(f"{name}: K5 transform {(R, n, inv)}",
@@ -423,7 +430,7 @@ def time_ntt(runs, parent, rng, dev, times) -> None:
             key = f"k5_{R}x{n}{'_inv' if inv else ''}"
             t[key] = cs.graph_time_ms(lambda: mod._stockham_axis(sp, x, n, inv), 20)
             line.append(f"{key} {t[key]:.4f} ms")
-        if not name.startswith("parent"):
+        if name == "tree" or name.startswith("k5_r"):
             R, n, inv = K5_PASSES
             y = xs[K5_TRANSFORMS.index(K5_PASSES)].reshape(16, R, 1, n, 1)
             for s0, s in ntt._stockham_passes(n):
@@ -434,15 +441,23 @@ def time_ntt(runs, parent, rng, dev, times) -> None:
                 t[key] = cs.graph_time_ms(lambda: nk.butterfly(spec, y, tw, s), 100)
                 line.append(f"{key} {t[key]:.4f} ms")
                 y = nk.butterfly(spec, y, tw, s)
+        if not name.startswith("k5_r"):
             total = 0.0
             for (R, n, inv), (x4, want4, count) in m128.items():
                 check(f"{name}: M128 K5 transform {(R, n, inv)}",
-                      [ntt._stockham_axis(mspec, x4, n, inv)], [want4])
+                      [mod._stockham_axis(msp, x4, n, inv)], [want4])
                 total += count * cs.graph_time_ms(
-                    lambda: ntt._stockham_axis(mspec, x4, n, inv), 5)
+                    lambda: mod._stockham_axis(msp, x4, n, inv), 10)
             t["k5_m128_prove"] = total
             line.append(f"M128: the prove's {sum(c for *_, c in m128.values())} transforms "
                         f"({len(m128)} shapes) {total:.4f} ms")
+        if name == "tree":  # the floors a launch: a one-int add and a copy of the widest input
+            one = torch.zeros(1, dtype=torch.int32, device=dev)
+            widest = max((x4 for x4, _, _ in m128.values()), key=lambda v: v.numel())
+            t["floor_add"] = cs.graph_time_ms(lambda: one.add_(1), 100)
+            t["floor_copy"] = cs.graph_time_ms(lambda: widest.clone(), 20)
+            line.append(f"floors: a one-int add {t['floor_add']:.4f} ms, a copy of "
+                        f"{tuple(widest.shape)} {t['floor_copy']:.4f} ms a launch")
         cs.log(f"# ntt {name}: " + ", ".join(line))
 
 
