@@ -244,8 +244,7 @@ Phases, one output line each (or more), in order:
                rejected); each stage timed, median of 3.
  15. dense     the dense R1CS / QAP (arith/r1cs.py, arith/qap.py) under
                Pinocchio and Groth16, the host GT pairing and the tutorials,
-               and utils/ and the entry points, each stage in the port's
-               StageMetrics (its report printed): square_chain(2^12)
+               and utils/ and the entry points: square_chain(2^12)
                densified into three (4096, 4098) matrices, the root-of-unity
                QAP: Pinocchio and Groth16 (1 public input) keys equal to the
                sparse QAP's batch for batch and proofs point for point under
@@ -260,8 +259,8 @@ Phases, one output line each (or more), in order:
                ladders as tests/test_tutorial_protocols.py expects; the 2^12
                keys saved and reloaded prove the same proof; msm_resumable
                over 2^20 points in chunks of 2^18 stopped after 2 and resumed
-               equal to msm, its file removed; metrics.trace around a prove
-               writes a trace; python -m myzkp_tpu_torch.snark.cli 12 and
+               equal to msm, its file removed; a prove under torch.profiler
+               shows the port's spans; python -m myzkp_tpu_torch.snark.cli 12 and
                python -m myzkp_tpu_torch.protocols.sumcheck_cli (8 variables)
                exit 0, and snark.cli 12 --mesh 2 (two ranks sharing the
                card), snark.cli --g2 naive is refused; K17 at (1, 1023, 512)
@@ -321,6 +320,7 @@ Neither this script nor the port imports JAX.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -3997,8 +3997,8 @@ def phase_das(dev, results: dict, sass: dict) -> None:
 
 
 # Phase 15: the dense R1CS / QAP under Pinocchio and Groth16, the host GT
-# pairing and the tutorial ladders, and serialize, checkpoint, metrics and
-# the two module entry points.
+# pairing and the tutorial ladders, and serialize, checkpoint, the stage
+# spans and the two module entry points.
 LOG_M_ROU, LOG_M_NAT = 12, 9  # the dense QAP: root-of-unity and natural domains
 DENSE_SEED = SEED + 150
 NAT_DIV = (1, 2 * (1 << LOG_M_NAT) - 1, 1 << LOG_M_NAT)  # h = (ell r - o) / t: K17's shape
@@ -4060,40 +4060,33 @@ def dense_rou(dev, spec, smi: str, out: dict) -> tuple:
     square_chain(2^12), keys and proofs against the sparse QAP's."""
     from myzkp_tpu_torch.snark import groth16 as g16
     from myzkp_tpu_torch.snark import pinocchio as pin
-    from myzkp_tpu_torch.utils.metrics import METRICS
 
     m = 1 << LOG_M_ROU
     torch.cuda.reset_peak_memory_stats()
-    with METRICS.stage("rou: circuit, densify, QAP", torch.empty(0, device=dev)):
-        qap, sqap, asg = dense_case(spec, m, "rou", dev)
+    qap, sqap, asg = dense_case(spec, m, "rou", dev)
     bad = _wrong_witness(asg, m // 2)
     rng = lambda k: random.Random(DENSE_SEED + k)
-    with METRICS.stage("rou: pinocchio setup", asg.mont):
-        (pk, vk), setup_s = timed(lambda: pin.setup(qap, rng(0)))
+    (pk, vk), setup_s = timed(lambda: pin.setup(qap, rng(0)))
     spk, svk = pin.setup(sqap, rng(0))
     if vk != svk or not same_keys(pk, spk):
         raise AssertionError("dense rou 2^12: Pinocchio keys differ from the sparse QAP's")
     torch.cuda.reset_peak_memory_stats()
-    with METRICS.stage("rou: pinocchio prove", asg.mont):
-        proof, counts = counted(lambda: pin.prove(asg, pk, qap, rng(1)))
+    proof, counts = counted(lambda: pin.prove(asg, pk, qap, rng(1)))
     peak_prove = torch.cuda.max_memory_allocated()
     launch_line("rou pinocchio prove", counts)
     if proof != pin.prove(asg, spk, sqap, rng(1)):
         raise AssertionError("dense rou 2^12: the proof differs from the sparse QAP's")
-    with METRICS.stage("rou: pinocchio verify"):
-        ok = pin.verify(proof, vk)
+    ok = pin.verify(proof, vk)
     if not ok or pin.verify(pin.prove(bad, pk, qap, rng(1)), vk):
         raise AssertionError("dense rou 2^12: Pinocchio accepted a wrong witness or "
                              "rejected the witness")
     med, reps = median_ms(lambda: pin.prove(asg, pk, qap, rng(1)), 3)
     smed, sreps = median_ms(lambda: pin.prove(asg, spk, sqap, rng(1)), 3)
-    with METRICS.stage("rou: groth16 setup", asg.mont):
-        gpk, gvk = g16.setup(qap, 1, rng(2))
+    gpk, gvk = g16.setup(qap, 1, rng(2))
     sgpk, sgvk = g16.setup(sqap, 1, rng(2))
     if not (same_keys(gpk, sgpk) and same_keys(gvk, sgvk)):
         raise AssertionError("dense rou 2^12: Groth16 keys differ from the sparse QAP's")
-    with METRICS.stage("rou: groth16 prove", asg.mont):
-        gproof, gcounts = counted(lambda: g16.prove(asg, gpk, qap, rng(3)))
+    gproof, gcounts = counted(lambda: g16.prove(asg, gpk, qap, rng(3)))
     launch_line("rou groth16 prove", gcounts)
     if gproof != g16.prove(asg, sgpk, sqap, rng(3)):
         raise AssertionError("dense rou 2^12: the Groth16 proof differs from the sparse QAP's")
@@ -4126,21 +4119,17 @@ def dense_natural(dev, spec, smi: str, results: dict, out: dict) -> dict:
     plain version at that call; h t = ell r - o at a random s on the host."""
     from myzkp_tpu_torch.ops import poly
     from myzkp_tpu_torch.snark import pinocchio as pin
-    from myzkp_tpu_torch.utils.metrics import METRICS
 
     m = 1 << LOG_M_NAT
     torch.cuda.reset_peak_memory_stats()
-    with METRICS.stage("natural: circuit, densify, QAP", torch.empty(0, device=dev)):
-        (qap, _, asg), qap_s = timed(lambda: dense_case(spec, m, "natural", dev))
+    (qap, _, asg), qap_s = timed(lambda: dense_case(spec, m, "natural", dev))
     peak_qap = torch.cuda.max_memory_allocated()
     rng = lambda k: random.Random(DENSE_SEED + 10 + k)
-    with METRICS.stage("natural: pinocchio setup", asg.mont):
-        (pk, vk), setup_s = timed(lambda: pin.setup(qap, rng(0)))
+    (pk, vk), setup_s = timed(lambda: pin.setup(qap, rng(0)))
     with recorder(poly, "long_division_cuda",
                   lambda _, a, b, bd: (math.prod(a.shape[1:-1]), a.shape[-1], bd)) as k17:
-        with METRICS.stage("natural: pinocchio prove", asg.mont):
-            (proof, counts), prove_s = timed(lambda: counted(
-                lambda: pin.prove(asg, pk, qap, rng(1))))
+        (proof, counts), prove_s = timed(lambda: counted(
+            lambda: pin.prove(asg, pk, qap, rng(1))))
     launch_line("natural pinocchio prove", counts)
     if counts.get("long_division", 0) < 1 or set(k17.calls) != {NAT_DIV}:
         raise AssertionError(f"dense natural 2^{LOG_M_NAT}: K17 at {sorted(k17.calls)}, "
@@ -4150,8 +4139,7 @@ def dense_natural(dev, spec, smi: str, results: dict, out: dict) -> dict:
                       list(poly.long_division_cuda(spec, a, b, bd)),
                       list(poly.long_division_ref(spec, a, b, bd)))
     results["long_division"]["max_abs_err"] = max(results["long_division"]["max_abs_err"], err)
-    with METRICS.stage("natural: pinocchio verify"):
-        ok = pin.verify(proof, vk)
+    ok = pin.verify(proof, vk)
     if not ok or pin.verify(pin.prove(_wrong_witness(asg, m // 2), pk, qap, rng(1)), vk):
         raise AssertionError(f"dense natural 2^{LOG_M_NAT}: Pinocchio accepted a wrong "
                              f"witness or rejected the witness")
@@ -4177,15 +4165,13 @@ def dense_card_vs_cpu(dev, spec) -> None:
     """Setup and prove at m = 2^4 in both domains, on the card and on the CPU
     plain versions from the same seeds: keys and proofs equal."""
     from myzkp_tpu_torch.snark import pinocchio as pin
-    from myzkp_tpu_torch.utils.metrics import METRICS
 
     for domain in ("rou", "natural"):
         runs = []
         for d in (dev, torch.device("cpu")):
-            with METRICS.stage(f"2^{LOG_M_CMP} {domain} on {d.type}: setup + prove"):
-                qap, _, asg = dense_case(spec, 1 << LOG_M_CMP, domain, d)
-                pk, vk = pin.setup(qap, random.Random(DENSE_SEED + 20))
-                runs.append((pin.prove(asg, pk, qap, random.Random(DENSE_SEED + 21)), vk))
+            qap, _, asg = dense_case(spec, 1 << LOG_M_CMP, domain, d)
+            pk, vk = pin.setup(qap, random.Random(DENSE_SEED + 20))
+            runs.append((pin.prove(asg, pk, qap, random.Random(DENSE_SEED + 21)), vk))
         if runs[0] != runs[1] or not pin.verify(*runs[0]):
             raise AssertionError(f"dense {domain} 2^{LOG_M_CMP}: the card's key or proof "
                                  f"differs from the CPU's, or was rejected")
@@ -4271,7 +4257,7 @@ def tutorials_and_pairing() -> None:
 
 
 def utilities(dev, spec, smi: str, rou: tuple, out: dict) -> None:
-    """serialize, checkpoint, metrics.trace and the two module entry points."""
+    """serialize, checkpoint, the stage spans and the two module entry points."""
     import os
     import tempfile
 
@@ -4282,16 +4268,15 @@ def utilities(dev, spec, smi: str, rou: tuple, out: dict) -> None:
     from myzkp_tpu_torch.snark import cli as snark_cli
     from myzkp_tpu_torch.snark import pinocchio as pin
     from myzkp_tpu_torch.utils import checkpoint, serialize
-    from myzkp_tpu_torch.utils.metrics import METRICS, trace
+    from myzkp_tpu_torch.utils.metrics import PREFIX
 
     qap, pk, vk, asg = rou[:4]
     rng = lambda: random.Random(DENSE_SEED + 40)
     with tempfile.TemporaryDirectory() as tmp:
-        with METRICS.stage("serialize: save and load the dense keys"):
-            serialize.save_pinocchio_pk(os.path.join(tmp, "pk.npz"), pk)
-            serialize.save_pinocchio_vk(os.path.join(tmp, "vk.json"), vk)
-            pk2 = serialize.load_pinocchio_pk(os.path.join(tmp, "pk.npz"), dev)
-            vk2 = serialize.load_pinocchio_vk(os.path.join(tmp, "vk.json"))
+        serialize.save_pinocchio_pk(os.path.join(tmp, "pk.npz"), pk)
+        serialize.save_pinocchio_vk(os.path.join(tmp, "vk.json"), vk)
+        pk2 = serialize.load_pinocchio_pk(os.path.join(tmp, "pk.npz"), dev)
+        vk2 = serialize.load_pinocchio_vk(os.path.join(tmp, "vk.json"))
         if vk2 != vk or not same_keys(pk2, pk) or \
                 pin.prove(asg, pk2, qap, rng()) != pin.prove(asg, pk, qap, rng()):
             raise AssertionError("serialize: the reloaded dense keys differ or prove otherwise")
@@ -4325,34 +4310,34 @@ def utilities(dev, spec, smi: str, rou: tuple, out: dict) -> None:
         if saves != [1, 2] or not os.path.exists(path):
             raise AssertionError(f"msm_resumable: saves {saves}, checkpoint present "
                                  f"{os.path.exists(path)}")
-        with METRICS.stage("checkpoint: resume 2 of 4 chunks", ks):
-            got = checkpoint.msm_resumable(F, b3, pts, ks, path, chunk=chunk)
-        with METRICS.stage("checkpoint: msm of the whole set", ks):
-            want = msm.msm(F, b3, pts, ks)
+        got = checkpoint.msm_resumable(F, b3, pts, ks, path, chunk=chunk)
+        want = msm.msm(F, b3, pts, ks)
         both = bn254.g1_points_to_host(wst.point_map(lambda a, b: torch.stack([a, b], 1),
                                                      got, want))
         if both[0] != both[1] or os.path.exists(path):
             raise AssertionError("msm_resumable: the resumed sum differs from msm, or the "
                                  "checkpoint file stayed")
 
-        with trace(os.path.join(tmp, "trace")):
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
             pin.prove(asg, pk, qap, rng())
-        size = os.path.getsize(os.path.join(tmp, "trace", "trace.json"))
-        if not size:
-            raise AssertionError("metrics.trace: the trace file is empty")
+        spans = collections.Counter(e.name()[len(PREFIX):]
+                                    for e in prof.profiler.kineto_results.events()
+                                    if e.name().startswith(PREFIX))
+        if not {"quotient", "host read"} <= set(spans):
+            raise AssertionError(f"spans: a profiled dense prove shows only {dict(spans)}")
     log(f"# utilities ({smi}): the 2^{LOG_M_ROU} dense keys saved and reloaded prove the same "
         f"proof; msm_resumable over 2^{LOG_CKPT} points in chunks of 2^{LOG_CKPT_CHUNK}, "
-        f"stopped after 2 and resumed, == msm, its file removed; metrics.trace around a "
-        f"dense prove wrote {size} bytes")
+        f"stopped after 2 and resumed, == msm, its file removed; the spans of a "
+        f"profiled dense prove: {json.dumps(spans)}")
 
     for argv, env in ((["myzkp_tpu_torch.snark.cli", str(SNARK_CLI_LOG_M)], {}),
                       (["myzkp_tpu_torch.snark.cli", str(SNARK_CLI_LOG_M), "--mesh", "2"], {}),
                       (["myzkp_tpu_torch.protocols.sumcheck_cli"],
                        {"SUMCHECK_VARS": str(SUMCHECK_CLI_VARS)})):
-        with METRICS.stage(f"python -m {argv[0]}"):
-            res = subprocess.run([sys.executable, "-m", *argv], capture_output=True,
-                                 text=True, env={**os.environ, **env}, timeout=300,
-                                 cwd=os.path.dirname(os.path.abspath(__file__)))
+        res = subprocess.run([sys.executable, "-m", *argv], capture_output=True,
+                             text=True, env={**os.environ, **env}, timeout=300,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
         if res.returncode:
             raise AssertionError(f"python -m {' '.join(argv)}: exit {res.returncode}\n"
                                  f"{res.stdout}{res.stderr[-3000:]}")
@@ -4370,18 +4355,15 @@ def utilities(dev, spec, smi: str, rou: tuple, out: dict) -> None:
 def phase_dense(dev, results: dict) -> None:
     from myzkp_tpu_torch.curves import bn254
     from myzkp_tpu_torch.ops import poly
-    from myzkp_tpu_torch.utils.metrics import METRICS, reset_metrics
 
     t_phase = time.perf_counter()
     smi = card()
     spec = bn254.r_spec()
-    reset_metrics()
     out = {"card": smi}
     rou = dense_rou(dev, spec, smi, out)
     nat_counts = dense_natural(dev, spec, smi, results, out)
     dense_card_vs_cpu(dev, spec)
-    with METRICS.stage("pairing and tutorials (host)"):
-        tutorials_and_pairing()
+    tutorials_and_pairing()
     utilities(dev, spec, smi, rou, out)
 
     rows, na, bd = NAT_DIV
@@ -4415,12 +4397,8 @@ def phase_dense(dev, results: dict) -> None:
     for k in results:
         if not k.startswith("_"):
             results[k]["dense_launches"] = total.get(k, 0)
-    out["seconds"] = dict(METRICS.seconds)
     out["phase_s"] = time.perf_counter() - t_phase
     results["_dense"] = out
-    log(f"# dense stages ({smi}):")
-    for line in METRICS.report().splitlines():
-        log(f"#   {line}")
     log(f"# dense phase {out['phase_s']:.1f} s")
 
 

@@ -22,6 +22,7 @@ from ..fields.host import (  # noqa: F401
     B2, Fq, Fq2, PyCurve, PyExt, PyExtField, PyPoint, Q, R, curve_g1, curve_g2,
     g1_generator, g2_generator, get_lambda, miller)
 from ..fields.spec import FieldSpec
+from ..utils.metrics import span
 from . import weierstrass as wst
 from .field_ops import FpOps, Fq2Ops
 
@@ -130,7 +131,8 @@ def g1_points_to_host(pt: wst.Point, axis: int = 0) -> list:
     """(n,) device point batch -> list of host PyPoints."""
     x, y, inf = wst.to_affine(g1_ops(), pt, axis=axis)
     xi, yi = _ints(x, y)
-    infn = inf.cpu().numpy()
+    with span("host read"):
+        infn = inf.cpu().numpy()
     return [curve_g1.infinity() if infn[k]
             else curve_g1.point(Fq(int(xi[k])), Fq(int(yi[k])))
             for k in range(infn.shape[0])]
@@ -140,7 +142,8 @@ def g2_points_to_host(pt: wst.Point, axis: int = 0) -> list:
     """(n,) device G2 point batch -> list of host PyPoints."""
     x, y, inf = wst.to_affine(g2_ops(), pt, axis=axis)
     x0, x1, y0, y1 = _ints(*x, *y)
-    infn = inf.cpu().numpy()
+    with span("host read"):
+        infn = inf.cpu().numpy()
     return [curve_g2.infinity() if infn[k]
             else curve_g2.point(Fq2([int(x0[k]), int(x1[k])]),
                                 Fq2([int(y0[k]), int(y1[k])]))

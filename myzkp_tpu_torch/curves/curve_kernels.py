@@ -36,6 +36,7 @@ import torch
 from .. import _ext
 from ..fields import limb
 from ..fields.spec import FieldSpec
+from ..utils.metrics import span
 
 I32 = torch.int32
 
@@ -532,6 +533,7 @@ def _scan(kernel: str, spec: FieldSpec, table, idx, tag, tgt, b3s, buckets, K: i
     return acc
 
 
+@span("scan")
 def bucket_scan_rows(spec: FieldSpec, table, idx, tag, tgt, b3, buckets, K: int):
     """K4: the G1 segmented bucket scan over the point table read by index in
     step-major order, flushes written into the bucket table in place
@@ -545,6 +547,7 @@ def bucket_scan_rows(spec: FieldSpec, table, idx, tag, tgt, b3, buckets, K: int)
     return _scan("bucket_scan_rows", spec, table, idx, tag, tgt, (b3,), buckets, K)
 
 
+@span("scan")
 def bucket_scan_rows2(spec: FieldSpec, table, idx, tag, tgt, b3, buckets, K: int):
     """K4's G2 instance: table (Nt, 128) int32, b3 a (c0, c1) pair of (L,),
     buckets (S, 128) int32, the rest as bucket_scan_rows.  Returns acc

@@ -25,6 +25,7 @@ import torch
 from .. import _ext
 from ..fields import limb
 from ..fields.spec import FieldSpec
+from ..utils.metrics import span
 from . import curve_kernels, weierstrass as wst
 from .field_ops import Fq2Ops
 from .weierstrass import Point, point_map
@@ -184,6 +185,7 @@ def _scan_inputs(vsort, dsort, num_buckets: int, K: int):
     return sm(v2 >> 1).contiguous(), tag.contiguous(), sm(tgt).int().contiguous()
 
 
+@span("scan inputs")
 def _bucket_accumulate(F, b3, rows, vsort, dsort, num_buckets: int, K: int) -> Point:
     """Bucket sums of G windows: one bucket-scan launch over G * n / K lanes
     (K4 for G1, its G2 instance for G2) that reads the point table ``rows``
@@ -229,6 +231,7 @@ def _check_unique_targets(tgt, num_buckets: int, slots: int) -> None:
         raise RuntimeError("two flushes target one bucket")
 
 
+@span("lane merge")
 def _merge_lane_partials(F, b3, acc: Point, d2, bk_rows, num_buckets: int,
                          slots: int) -> Point:
     """Merge the lanes' end partials (segmented sum across lanes in sorted
@@ -354,6 +357,7 @@ def msm_pippenger(F, b3, points: Point, s_limbs, c: int | None = None,
     return _horner(F, b3, _window_sums(F, b3, buckets, c, signed), c)
 
 
+@span("sort")
 def _sorted_digits(s_limbs, c: int, W_pad: int, signed: bool = True):
     """Each window's digits (signed-digit magnitudes, or the unsigned digits
     with the negate bit never set) sorted (stably) with their packed (index
@@ -376,6 +380,7 @@ def _sorted_digits(s_limbs, c: int, W_pad: int, signed: bool = True):
     return d_sorted, vals.gather(1, order)
 
 
+@span("bucket sum")
 def _window_sums(F, b3, buckets: Point, c: int, signed: bool = True) -> Point:
     """S_w = sum_b b * B_b per window.  Unsigned: the weighted sum over the
     (W_pad, 2^c) bucket batch.  Signed: magnitudes span [0, half] of a
@@ -390,6 +395,7 @@ def _window_sums(F, b3, buckets: Point, c: int, signed: bool = True) -> Point:
     return wst.padd(F, b3, s_w, wst.pdbl(F, b3, top, c - 1))  # (W_pad,)
 
 
+@span("horner")
 def _horner(F, b3, s_w: Point, c: int) -> Point:
     """sum_w 2^(cw) S_w, most significant window first."""
     res = wst.infinity(F, (), wst.leaves(s_w)[0].device)

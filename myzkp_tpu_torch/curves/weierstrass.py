@@ -16,6 +16,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..utils.metrics import span
 from . import curve_kernels
 from .field_ops import Fq2Ops
 
@@ -135,6 +136,7 @@ def peq(F, b3, p: Point, q: Point):
     return (inf_p & inf_q) | (ex & ey & ~(inf_p ^ inf_q))
 
 
+@span("to affine")
 def to_affine(F, p: Point, axis: int = -1):
     """(x, y, inf_mask) with one batch inversion of z along a batch axis."""
     x, y, z = p
@@ -142,6 +144,7 @@ def to_affine(F, p: Point, axis: int = -1):
     return F.mul(x, zinv), F.mul(y, zinv), F.is_zero(z)
 
 
+@span("ladder")
 def scalar_mul_bits(F, b3, p: Point, bits) -> Point:
     """[e]P with e given as an LSB-first (nbits, *batch) bit tensor.  The
     bases P, 2P, ..., 2^(nbits-1) P come from one steps launch of K3 or K8."""

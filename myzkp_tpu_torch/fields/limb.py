@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import _ext
+from ..utils.metrics import span
 from .spec import MASK, W, FieldSpec
 
 I32 = torch.int32
@@ -61,7 +62,8 @@ def from_int(spec: FieldSpec, x, device=None) -> torch.Tensor:
 
 def to_int(spec: FieldSpec, a: torch.Tensor) -> np.ndarray:
     """Limb tensor (standard domain) -> numpy object array of Python ints."""
-    arr = a.detach().cpu().numpy().reshape(spec.L, -1)
+    with span("host read"):
+        arr = a.detach().cpu().numpy().reshape(spec.L, -1)
     raw = np.ascontiguousarray(arr.T.astype("<u2")).tobytes()
     w = 2 * spec.L
     out = np.empty(arr.shape[1], dtype=object)
@@ -73,7 +75,8 @@ def to_int(spec: FieldSpec, a: torch.Tensor) -> np.ndarray:
 def to_bytes_batch(spec: FieldSpec, a: torch.Tensor) -> list:
     """Canonical standard-domain limbs (L, n) -> n little-endian byte
     strings of 2L bytes (Merkle leaves)."""
-    arr = a.detach().cpu().numpy().reshape(spec.L, -1)
+    with span("host read"):
+        arr = a.detach().cpu().numpy().reshape(spec.L, -1)
     raw = np.ascontiguousarray(arr.T.astype("<u2")).tobytes()
     w = 2 * spec.L
     return [raw[i:i + w] for i in range(0, len(raw), w)]

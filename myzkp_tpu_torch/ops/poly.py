@@ -28,6 +28,7 @@ from .. import _ext
 from ..fields import limb
 from ..fields.fp import Fp
 from ..fields.spec import FieldSpec
+from ..utils.metrics import span
 from . import ntt as _ntt
 
 
@@ -277,6 +278,7 @@ def long_division_plan(rows: int, na: int, bd: int, words: int, device=None) -> 
     return plan
 
 
+@span("long division")
 def long_division_cuda(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, bd: int):
     """Launch K17 (csrc/poly.cu, the instance of spec's width) on CUDA
     tensors, the contract of long_division_ref: the rows of a's batch dims in

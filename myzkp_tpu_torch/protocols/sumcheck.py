@@ -38,6 +38,7 @@ from ..fields.spec import FieldSpec
 from ..ops.mpoly import MPoly
 from ..stark.fri import sample_field
 from ..utils.fiat_shamir import FiatShamirTransformer
+from ..utils.metrics import span
 
 
 def bit_combinations(length: int, start: int = 0):
@@ -46,6 +47,7 @@ def bit_combinations(length: int, start: int = 0):
         yield [(n >> i) & 1 for i in range(length)]
 
 
+@span("hypercube")
 def hypercube_points(spec: FieldSpec, length: int, device=None) -> Fp:
     """(V, 2^V) Fp array: column n = LSB-first bits of n, made on the device
     by one select between the zero limbs and R mod p."""

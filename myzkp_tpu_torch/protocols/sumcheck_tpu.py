@@ -16,9 +16,12 @@ whose sums are torch's int64 adds:
   sum :143-154                       ->  pairwise Fp.sum
 
 The host drives the rounds and the Fiat-Shamir transcript; a round's d + 1
-sums each end in one host read.  ``SumCheckProverHost`` is the pure-host
-mirror (the reference's CPU prover) for parity tests.  The device prover
-makes its tables on the card unless ``device`` names another device.
+sums each end in one host read.  Each round runs in a ``round`` span
+(``utils/metrics.span``): d + 1 ``evaluate`` spans (the folds at t, the
+product, the sum and its read), the ``transcript`` and the ``bind`` at r.
+``SumCheckProverHost`` is the pure-host mirror (the reference's CPU prover)
+for parity tests.  The device prover makes its tables on the card unless
+``device`` names another device.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..fields.spec import FieldSpec
 from ..ops.mpoly import MPoly
 from ..stark.fri import _host_interpolate, sample_field
 from ..utils.fiat_shamir import FiatShamirTransformer
+from ..utils.metrics import span
 from .sumcheck import bit_combinations, hypercube_points
 
 
@@ -39,6 +43,7 @@ from .sumcheck import bit_combinations, hypercube_points
 # Device table ops (the five CUDA-kernel equivalents)
 # ---------------------------------------------------------------------------
 
+@span("table build")
 def eval_all_binary_combinations(g: MPoly, num_vars: int, device=None) -> Fp:
     """(2^num_vars,) table of g over the hypercube (sumcheck.cu:4-29)."""
     return g.evaluate_batch(hypercube_points(g.spec, num_vars, device))
@@ -110,21 +115,26 @@ class SumCheckProverTPU:
         tables = [eval_all_binary_combinations(g, num_vars, self.device)
                   for g in factors]
         claimed = int(table_sum(fold_factors_pointwise(tables)).item())
-        _push_ints(fs, [claimed])
+        with span("transcript"):
+            _push_ints(fs, [claimed])
 
         round_polys = []
         eval_points = list(range(self.max_degree + 1))
         for _ in range(num_vars):
-            # s_j(t) for t = 0..d: fold each factor at t, multiply, sum
-            evals = []
-            for t in eval_points:
-                folded = [eval_folded_poly(tab, t) for tab in tables]
-                evals.append(int(table_sum(fold_factors_pointwise(folded)).item()))
-            coeffs = _host_interpolate(eval_points, evals, p)
-            round_polys.append(coeffs)
-            _push_ints(fs, coeffs)
-            r = sample_field(spec, fs.prover_fiat_shamir(32))
-            tables = [fold_into_half(tab, r) for tab in tables]
+            with span("round"):
+                # s_j(t) for t = 0..d: fold each factor at t, multiply, sum
+                evals = []
+                for t in eval_points:
+                    with span("evaluate"):
+                        folded = [eval_folded_poly(tab, t) for tab in tables]
+                        evals.append(int(table_sum(fold_factors_pointwise(folded)).item()))
+                with span("transcript"):
+                    coeffs = _host_interpolate(eval_points, evals, p)
+                    round_polys.append(coeffs)
+                    _push_ints(fs, coeffs)
+                    r = sample_field(spec, fs.prover_fiat_shamir(32))
+                with span("bind"):
+                    tables = [fold_into_half(tab, r) for tab in tables]
         return ProductSumcheckProof(el=num_vars, claimed_sum=claimed,
                                     round_polys=round_polys)
 

@@ -27,6 +27,7 @@ from ..curves import bn254, msm as _msm, weierstrass as wst
 from ..fields.fp import Fp
 from ..fields.host import PyPoint
 from ..ops import ntt as _ntt
+from ..utils.metrics import span
 from .pinocchio import _cat, _g_multi, _mesh_axis, _msms, _single, _split, _stack, _std
 
 
@@ -111,6 +112,7 @@ def setup(qap: SparseQAP | QAP, num_public: int, rng=None
     return pk, vk
 
 
+@span("quotient")
 def _uvh(qap: SparseQAP | QAP, assignment: Fp) -> tuple:
     """u and v's (m,) coefficients, and h = (u v - w) / t's first m - 1
     (zero-padded): one batched INTT and the quotient stage for the sparse

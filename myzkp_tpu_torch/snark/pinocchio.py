@@ -32,6 +32,7 @@ from ..fields.host import PyPoint
 from ..ops import ntt as _ntt
 from ..ops.poly import Poly
 from ..parallel import mesh as pm
+from ..utils.metrics import span
 
 
 @dataclass
@@ -190,6 +191,7 @@ def setup(qap: SparseQAP | QAP, rng=None) -> tuple[PinocchioProofKey, PinocchioV
     return pk, vk
 
 
+@span("quotient")
 def get_shifted_h(qap: SparseQAP | QAP, assignment: Fp, d_ell: int, d_r: int,
                   d_o: int, transform=_ntt.transform) -> Poly:
     """The m + 1 coefficients of H = h + ell d_r + r d_ell + t d_ell d_r - d_o.

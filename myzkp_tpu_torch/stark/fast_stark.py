@@ -20,6 +20,7 @@ from ..fields.fp import Fp
 from ..ops import ntt as _ntt
 from ..ops.poly import Poly
 from ..utils import merkle
+from ..utils.metrics import span
 from .fri import _int_from_le, codeword_bytes
 from .stark import Stark, StarkProof, _verify, m128_params
 
@@ -41,6 +42,7 @@ class FastStark(Stark):
         tz_leaves = codeword_bytes(tz_codeword)
         return tz, tz_codeword, merkle.commit(tz_leaves), tz_leaves
 
+    @span("trace interpolation")
     def _interpolate_trace(self, trace: list) -> Fp:
         """The trace polynomials (S, tlen) through omicron^i by
         divide-and-conquer interpolation, batched over the registers."""
@@ -51,6 +53,7 @@ class FastStark(Stark):
                                 for s in range(self.num_registers)], self.device)
         return _ntt.fast_interpolate(xs, ys)
 
+    @span("transition quotients")
     def _coset_divide(self, transition_polys: list, tz: Poly) -> list:
         """Each transition poly divided by the zerofier pointwise on the FRI
         domain's coset, cut to its quotient's degree."""

@@ -34,6 +34,7 @@ from ..fields.spec import M64, M128, FieldSpec
 from ..ops import ntt as _ntt
 from ..utils import merkle
 from ..utils.fiat_shamir import FiatShamirTransformer
+from ..utils.metrics import span
 
 # ---------------------------------------------------------------------------
 # Index sampling
@@ -199,6 +200,7 @@ class FRI:
         c = ([nxt[i] for i in c_indices], [next_tree.open(i) for i in c_indices])
         return FriQueryLayer(a=a, b=b, c=c)
 
+    @span("FRI")
     def prove(self, codeword: Fp) -> FriProof:
         if codeword.shape[-1] != self.domain_length:
             raise ValueError(f"codeword of {codeword.shape[-1]} points, "

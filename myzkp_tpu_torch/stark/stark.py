@@ -37,6 +37,7 @@ from ..ops import ntt as _ntt
 from ..ops.poly import Poly, from_monomials, lagrange_interpolate
 from ..utils import merkle
 from ..utils.fiat_shamir import FiatShamirTransformer
+from ..utils.metrics import span
 from .fri import (FRI, FriProof, _host_eval, _host_interpolate, _int_from_le, _path_ok,
                   codeword_bytes, sample_field)
 
@@ -126,6 +127,7 @@ class Stark:
         return out
 
     # -- prove stages -----------------------------------------------------------
+    @span("trace interpolation")
     def _interpolate_trace(self, trace: list) -> Fp:
         """The trace polynomials (S, tlen) through omicron^i: one batched
         Lagrange solve over the registers."""
@@ -136,6 +138,7 @@ class Stark:
                                 for s in range(self.num_registers)], self.device)
         return lagrange_interpolate(xs, ys)
 
+    @span("boundary quotients")
     def _boundary_quotients(self, trace_coef: Fp, boundary, tlen: int) -> list:
         """(trace poly - boundary interpolant) / boundary zerofier, per
         register, by poly_divmod."""
@@ -151,11 +154,13 @@ class Stark:
             out.append(q)
         return out
 
+    @span("codewords")
     def _commit_codeword(self, coef: Fp) -> merkle.MerkleTree:
         """The Merkle tree of a polynomial's codeword on the FRI domain."""
         cw = _ntt.coset_evaluate(coef, self.generator, self.fri.domain_length)
         return merkle.MerkleTree(codeword_bytes(cw))
 
+    @span("symbolic AIR")
     def _transition_polys(self, trace_coef: Fp, air: list) -> list:
         """The AIR composed with (X, the trace polys, the trace polys at
         omicron X)."""
@@ -166,6 +171,7 @@ class Stark:
         points += [Poly(trace_coef[s]).scale(omicron) for s in range(self.num_registers)]
         return [a.evaluate_symbolic(points) for a in air]
 
+    @span("transition quotients")
     def _transition_quotients(self, transition_polys: list) -> list:
         """Each transition poly divided by the transition zerofier
         (poly_divmod)."""
@@ -173,6 +179,7 @@ class Stark:
         tz_deg = self.original_trace_length - 1
         return [tp.divmod(tz, divisor_degree=tz_deg)[0] for tp in transition_polys]
 
+    @span("combination")
     def _combined_codeword(self, randomizer_poly: Poly, tqs: list, bqs: list, air,
                            tlen: int, boundary, weights: list) -> Fp:
         """The weighted sum of the randomizer, each quotient and each
@@ -204,6 +211,7 @@ class Stark:
             duplicated.append((i + n_fri // 2) % n_fri)
         return sorted(duplicated)
 
+    @span("openings")
     def _open(self, trees: list, indices: list) -> tuple:
         """(points, paths) of each tree in turn at every index."""
         points, paths = [], []

@@ -18,6 +18,7 @@ from __future__ import annotations
 from concurrent.futures import ThreadPoolExecutor
 
 from .. import native
+from .metrics import span
 
 
 def _check_count(n: int) -> None:
@@ -28,6 +29,7 @@ def _check_count(n: int) -> None:
 class MerkleTree:
     """Stored-level Merkle tree over a power-of-two list of byte leaves."""
 
+    @span("merkle")
     def __init__(self, leaves: list):
         n = len(leaves)
         _check_count(n)

@@ -1,72 +1,91 @@
-"""Per-stage wall-clock metrics and a torch.profiler trace.
+"""Stage spans: named ranges on the profiler's own clock.
 
-Counterpart of ``myzkp_tpu/utils/metrics.py``: a ``StageMetrics`` registry
-whose ``stage`` span synchronizes the card on the tensors it is given before
-it closes, so that a span measures the device's work and not its launch;
-``trace`` records the enclosed block with ``torch.profiler`` (host and CUDA
-activities) and writes a Chrome trace into a directory.
+``span(name)`` marks a stage of the port, as a context manager or as a
+decorator (on functions and methods alike)::
+
+    with span("bind"):
+        tables = [fold_into_half(t, r) for t in tables]
+
+    @span("ladder")
+    def scalar_mul_bits(...): ...
+
+While a ``torch.profiler`` profile records, each entry opens a range named
+``myzkp:<name>`` in it; the ranges share the profiler's clock with the CUDA
+runtime calls and kernels it traces, so every launch and every idle gap of
+the card falls in the innermost span that holds it.  With no profile
+recording, an entry reads one flag and does nothing more: no range, no
+clock, no synchronize.  There is no switch of its own: any profile that
+records turns the spans on.
+
+The ranges are plain host ranges (the profiler's ``cpu_op`` kind, as
+``torch._C._profiler._RecordFunctionFast`` opens them), not
+``record_function``'s user annotations, which kineto would mirror as ranges
+on the device's timeline: a reader of the device's events then sees the
+card's work alone.
 """
 
 from __future__ import annotations
 
-import contextlib
-import os
-import time
-from dataclasses import dataclass, field
+import functools
 
 import torch
+from torch.autograd import profiler as _profiler
+
+PREFIX = "myzkp:"
+
+_Range = torch._C._profiler._RecordFunctionFast
 
 
-@dataclass
-class StageMetrics:
-    """Accumulated wall-clock seconds and hit counts per named stage."""
+class _Off:
+    """A span with no profiler recording: entering it does nothing.  One
+    instance a name, so an entry allocates nothing."""
 
-    seconds: dict = field(default_factory=dict)
-    counts: dict = field(default_factory=dict)
+    __slots__ = ("label",)
 
-    def record(self, name: str, dt: float) -> None:
-        self.seconds[name] = self.seconds.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
+    def __init__(self, label: str):
+        self.label = label
 
-    def reset(self) -> None:
-        self.seconds.clear()
-        self.counts.clear()
+    def __enter__(self) -> None:
+        return None
 
-    def report(self) -> str:
-        width = max((len(k) for k in self.seconds), default=0)
-        return "\n".join(
-            f"{k:<{width}}  {self.seconds[k] * 1e3:10.2f} ms  x{self.counts[k]}"
-            for k in sorted(self.seconds, key=self.seconds.get, reverse=True))
+    def __exit__(self, *exc) -> None:
+        return None
 
-    @contextlib.contextmanager
-    def stage(self, name: str, *sync_tensors: torch.Tensor):
-        """Time a stage; before the span closes, the device of each CUDA
-        tensor given is synchronized (CPU tensors need nothing)."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            for dev in {t.device for t in sync_tensors if t.is_cuda}:
-                torch.cuda.synchronize(dev)
-            self.record(name, time.perf_counter() - t0)
+    def __call__(self, fn):
+        label = self.label
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            if not _profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with _Range(label):
+                return fn(*args, **kwargs)
+
+        return spanned
 
 
-METRICS = StageMetrics()
+class _On(_Off):
+    """A span entered while a profiler records: a range of its own, so that
+    spans of one name nest and threads do not share it."""
+
+    __slots__ = ("_range",)
+
+    def __enter__(self) -> None:
+        self._range = _Range(self.label)
+        self._range.__enter__()
+
+    def __exit__(self, *exc) -> None:
+        self._range.__exit__(*exc)
 
 
-def reset_metrics() -> None:
-    METRICS.reset()
+_off: dict = {}
 
 
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """torch.profiler over the enclosed block (CPU activity, and CUDA where
-    the card is present); its Chrome trace is written to
-    ``log_dir/trace.json``."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+def span(name: str) -> _Off:
+    """The span ``myzkp:<name>``: ``with span(name):`` or ``@span(name)``."""
+    if _profiler._is_profiler_enabled:
+        return _On(PREFIX + name)
+    s = _off.get(name)
+    if s is None:
+        s = _off[name] = _Off(PREFIX + name)
+    return s

@@ -26,41 +26,42 @@ the peak of the call, the kernel launch counts, and the device time by
 kernel name.  The profiler's own overhead is inside the wall time, so the
 idle share is an upper bound.
 
-The prover's stages run inside ``torch.profiler.record_function`` ranges
-named ``stage:<name>`` (set here by wrapping the functions in STAGES for the
-profiled call only): the quotient stage, the digits' sort, the scan's
-inputs (each step's index, tag and target, and the bucket table), the bucket
-scan, the lane merge, the window sums
-(bucket sums), Horner, the double-and-add ladders, and the conversion of
-points to affine (one batch inversion each: the proof's points on their way
-to the host); for the sumcheck prover, the table build (and within it the
-hypercube), the folds, the pointwise products, the table sums, the
-transcript (pushes, hashes, challenges and the round polynomials'
-interpolation on the host) and the rounds (the rest of the prove: the
-loop and its host reads of the sums); for the FastStark prove, the trace
-interpolation, the boundary quotients, the codewords and their Merkle trees,
-the symbolic AIR, the transition quotients, the combination codeword, FRI
-and the openings, with the long divisions (K17) and the Merkle trees' builds
-(host SHA3) as stages of their own inside them.  Each device event is
-put in the innermost stage whose range holds the host call that launched it
-(its CUDA runtime call, matched by correlation id), and each stage's host
-time is its ranges' time less the stages nested in them; the table gives per
-stage the host ms, device busy ms and idle share 1 - busy / host.
+The port marks its stages with spans (``myzkp_tpu_torch/utils/metrics.py``),
+ranges named ``myzkp:<name>`` on the profiler's clock: for Groth16 and
+Pinocchio the quotient stage, the digits' sort, the scan's inputs (with the
+scan and the lane merge inside), the bucket scan, the lane merge, the
+bucket sums, Horner, the ladders, the conversion to affine, and each host
+read; for the sumcheck prover the table build (the hypercube inside), each
+round and in it each evaluation point's fold, product, sum and host read,
+the transcript and the bind at the challenge; for the FastStark prove the
+trace interpolation, the boundary quotients, the codewords, the symbolic
+AIR, the transition quotients, the combination codeword, FRI and the
+openings, with the long divisions (K17), the Merkle trees' builds (host
+SHA3) and the host reads inside them.  The span table gives per span its
+calls, its host ms (the ranges' time, the spans nested in them included),
+the device ms and count of the events launched in it (each put in the
+innermost span holding the CUDA API call that launched it, matched by
+correlation id), and the idle ms (each gap between device events put in the
+innermost span holding its midpoint); "(none)" is what lies outside every
+span.  Last come the device ms matched to no launch call, the span entries
+in the call, and what an entry costs on the host with and without a
+profiler recording.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
-import contextlib
-import importlib
 import json
 import random
 import subprocess
 import time
+import timeit
 
 import numpy as np
 import torch
+
+from myzkp_tpu_torch.utils.metrics import PREFIX, span
 
 
 def _path(name: str, n: int, seed: int, dev):
@@ -134,104 +135,104 @@ def _path(name: str, n: int, seed: int, dev):
             f"shifted_h m = {n}")
 
 
-# (stage, module, attribute): the function whose calls make up the stage; an
-# attribute "Class.method" wraps the method on the class.
-STAGES = (
-    ("quotient", "myzkp_tpu_torch.snark.pinocchio", "get_shifted_h"),
-    ("quotient", "myzkp_tpu_torch.arith.sparse", "SparseQAP.combine_batched"),
-    ("quotient", "myzkp_tpu_torch.arith.sparse", "SparseQAP.quotient"),
-    ("sort", "myzkp_tpu_torch.curves.msm", "_sorted_digits"),
-    ("scan inputs", "myzkp_tpu_torch.curves.msm", "_bucket_accumulate"),
-    ("scan", "myzkp_tpu_torch.curves.curve_kernels", "bucket_scan_rows"),
-    ("scan", "myzkp_tpu_torch.curves.curve_kernels", "bucket_scan_rows2"),
-    ("lane merge", "myzkp_tpu_torch.curves.msm", "_merge_lane_partials"),
-    ("bucket sum", "myzkp_tpu_torch.curves.msm", "_window_sums"),
-    ("horner", "myzkp_tpu_torch.curves.msm", "_horner"),
-    ("ladder", "myzkp_tpu_torch.curves.weierstrass", "scalar_mul_bits"),
-    ("to affine", "myzkp_tpu_torch.curves.weierstrass", "to_affine"),
-    ("rounds", "myzkp_tpu_torch.protocols.sumcheck_tpu", "SumCheckProverTPU.prove"),
-    ("table build", "myzkp_tpu_torch.protocols.sumcheck_tpu", "eval_all_binary_combinations"),
-    ("hypercube", "myzkp_tpu_torch.protocols.sumcheck_tpu", "hypercube_points"),
-    ("fold", "myzkp_tpu_torch.protocols.sumcheck_tpu", "fold_into_half"),
-    ("product", "myzkp_tpu_torch.protocols.sumcheck_tpu", "fold_factors_pointwise"),
-    ("sum", "myzkp_tpu_torch.protocols.sumcheck_tpu", "table_sum"),
-    ("transcript", "myzkp_tpu_torch.protocols.sumcheck_tpu", "_push_ints"),
-    ("transcript", "myzkp_tpu_torch.protocols.sumcheck_tpu", "sample_field"),
-    ("transcript", "myzkp_tpu_torch.protocols.sumcheck_tpu", "_host_interpolate"),
-    ("transcript", "myzkp_tpu_torch.utils.fiat_shamir", "FiatShamirTransformer.prover_fiat_shamir"),
-    ("trace interpolation", "myzkp_tpu_torch.stark.fast_stark", "FastStark._interpolate_trace"),
-    ("boundary quotients", "myzkp_tpu_torch.stark.stark", "Stark._boundary_quotients"),
-    ("codewords", "myzkp_tpu_torch.stark.stark", "Stark._commit_codeword"),
-    ("symbolic AIR", "myzkp_tpu_torch.stark.stark", "Stark._transition_polys"),
-    ("transition quotients", "myzkp_tpu_torch.stark.fast_stark", "FastStark._coset_divide"),
-    ("combination", "myzkp_tpu_torch.stark.stark", "Stark._combined_codeword"),
-    ("FRI", "myzkp_tpu_torch.stark.fri", "FRI.prove"),
-    ("openings", "myzkp_tpu_torch.stark.stark", "Stark._open"),
-    ("long division", "myzkp_tpu_torch.ops.poly", "long_division_cuda"),
-    ("merkle", "myzkp_tpu_torch.utils.merkle", "MerkleTree.__init__"),
-)
-
-
-@contextlib.contextmanager
-def stage_ranges():
-    """Wrap each function of STAGES in a record_function range while the
-    block runs; callers reach them through their module or class, so the
-    wrappers are seen."""
-    saved = []
-    for stage, module, attr in STAGES:
-        owner = importlib.import_module(module)
-        *path, name = attr.split(".")
-        for p in path:
-            owner = getattr(owner, p)
-        fn = owner.__dict__[name]
-
-        def wrapped(*a, _fn=fn, _label=f"stage:{stage}", **k):
-            with torch.profiler.record_function(_label):
-                return _fn(*a, **k)
-
-        saved.append((owner, name, fn))
-        setattr(owner, name, wrapped)
-    try:
-        yield
-    finally:
-        for owner, name, fn in reversed(saved):
-            setattr(owner, name, fn)
-
-
-def stage_split(events, wall_ms: float) -> dict:
-    """{stage: [host ms, device busy ms, device events]} over the profiled
-    call, with "(none)" for what lies outside every stage.  events:
-    prof.events(); the ranges nest (one host thread)."""
+def span_events(prof) -> tuple:
+    """(device events, spans, launch calls, window) of a finished
+    torch.profiler run, in us on the profiler's clock: device events
+    (name, start, end, correlation id), the kernels, copies and memsets;
+    spans (name, start, end), the port's ``myzkp:`` ranges with the prefix
+    cut; launch calls (correlation id, start), the host's CUDA API calls
+    (``cuda*``, ``cu*``); the window from the first event's start to the
+    last one's end."""
     from torch.autograd import DeviceType
 
-    ranges = sorted(((e.time_range.start, e.time_range.end, e.name[len("stage:"):])
-                     for e in events
-                     if e.device_type == DeviceType.CPU and e.name.startswith("stage:")),
-                    key=lambda r: (r[0], -r[1]))
-    out = collections.defaultdict(lambda: [0.0, 0.0, 0])
-    open_ = []  # the ranges holding the current one, outermost first
-    for s0, e0, name in ranges:
-        while open_ and open_[-1][1] <= s0:
-            open_.pop()
-        out[name][0] += (e0 - s0) / 1e3
-        if open_:
-            out[open_[-1][2]][0] -= (e0 - s0) / 1e3
-        open_.append((s0, e0, name))
-    out["(none)"][0] = wall_ms - sum(v[0] for v in out.values())
-    launched = {e.id: e.time_range.start for e in events
-                if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
+    device, spans, launches, t0, t1 = [], [], [], float("inf"), float("-inf")
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        start = ev.start_ns() / 1e3
+        end = start + ev.duration_ns() / 1e3
+        t0, t1 = min(t0, start), max(t1, end)
+        if ev.device_type() == DeviceType.CUDA:
+            device.append((name, start, end, ev.correlation_id()))
+        elif name.startswith(PREFIX):
+            spans.append((name[len(PREFIX):], start, end))
+        elif name.startswith("cu"):
+            launches.append((ev.correlation_id(), start))
+    return device, spans, launches, (t0, t1)
 
-    def innermost(t):
-        held = [r for r in ranges if r[0] <= t <= r[1]]
-        return max(held, key=lambda r: (r[0], -r[1]))[2] if held else "(none)"
 
-    for e in events:
-        if e.device_type == DeviceType.CUDA and not e.name.startswith("stage:"):
-            t = launched.get(e.id)
-            stage = innermost(t) if t is not None else "(unmatched)"
-            out[stage][1] += e.self_device_time_total / 1e3
-            out[stage][2] += 1
-    return dict(out)
+def _innermost(times, spans) -> list:
+    """The name of the innermost span holding each of ``times`` (None
+    outside every span), in the order of ``times``; the spans nest (one
+    host thread)."""
+    ranges = sorted(spans, key=lambda r: (r[1], -r[2]))
+    out = [None] * len(times)
+    stack, i = [], 0
+    for k in sorted(range(len(times)), key=times.__getitem__):
+        t = times[k]
+        while i < len(ranges) and ranges[i][1] <= t:
+            while stack and stack[-1][2] <= ranges[i][1]:
+                stack.pop()
+            stack.append(ranges[i])
+            i += 1
+        while stack and stack[-1][2] < t:
+            stack.pop()
+        out[k] = stack[-1][0] if stack else None
+    return out
+
+
+def span_table(device, spans, launches, window) -> tuple:
+    """({span: {calls, host_ms, device_ms, idle_ms, launches}}, unmatched
+    device ms) over ``window``, from ``span_events``' lists.
+
+    host_ms: the span's ranges' time, inclusive of the spans nested in
+    them.  A device event is put in the innermost span holding the launch
+    call of its correlation id (device_ms, launches); one with no launch
+    call is unmatched.  The idle gaps between the device events (their
+    union inside the window) are put in the innermost span holding each
+    gap's midpoint.  What lies outside every span is the row "(none)"."""
+    w0, w1 = window
+    table = {}
+
+    def row(name):
+        return table.setdefault(name or "(none)", {"calls": 0, "host_ms": 0.0, "device_ms": 0.0,
+                                                  "idle_ms": 0.0, "launches": 0})
+
+    for name, s, e in spans:
+        r = row(name)
+        r["calls"] += 1
+        r["host_ms"] += (e - s) / 1e3
+    at = dict(launches)
+    inside = [(s, e, c) for _, s, e, c in device if min(e, w1) > max(s, w0)]
+    matched = [(s, e, c) for s, e, c in inside if c in at]
+    for (s, e, _), name in zip(matched, _innermost([at[c] for *_, c in matched], spans)):
+        r = row(name)
+        r["device_ms"] += (min(e, w1) - max(s, w0)) / 1e3
+        r["launches"] += 1
+    unmatched = sum(min(e, w1) - max(s, w0) for s, e, c in inside if c not in at) / 1e3
+    gaps, t = [], w0
+    for s, e, _ in sorted(inside):
+        if s > t:
+            gaps.append((t, s))
+        t = max(t, e)
+    if w1 > t:
+        gaps.append((t, w1))
+    for (s, e), name in zip(gaps, _innermost([(s + e) / 2 for s, e in gaps], spans)):
+        row(name)["idle_ms"] += (e - s) / 1e3
+    return table, unmatched
+
+
+def span_cost(acts, n: int = 100_000) -> tuple:
+    """us a ``with span(...)`` entry takes on the host: with no profiler
+    recording, and under one recording ``acts``."""
+
+    def entry():
+        with span("cost"):
+            pass
+
+    off = timeit.timeit(entry, number=n) / n * 1e6
+    with torch.profiler.profile(activities=acts):
+        on = timeit.timeit(entry, number=n // 10) / (n // 10) * 1e6
+    return off, on
 
 
 def main() -> None:
@@ -262,15 +263,14 @@ def main() -> None:
     base_mib = torch.cuda.memory_allocated(dev) / 2**20
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with stage_ranges(), torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = collections.defaultdict(lambda: [0, 0.0])
     for e in prof.events():
-        # the ranges' own device-timeline spans are not device work
-        if e.device_type == DeviceType.CUDA and not e.name.startswith("stage:"):
+        if e.device_type == DeviceType.CUDA:
             by_name[e.name][0] += 1
             by_name[e.name][1] += e.self_device_time_total / 1e3
     busy_ms = sum(ms for _, ms in by_name.values())
@@ -284,13 +284,17 @@ def main() -> None:
     print(f"# {'device ms':>12} {'share':>7} {'calls':>6}  kernel")
     for name, (calls, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
         print(f"# {ms:12.4f} {ms / busy_ms:7.2%} {calls:6d}  {name[:100]}")
-    split = stage_split(prof.events(), wall_ms)
-    print(f"# {'host ms':>12} {'busy ms':>12} {'idle':>7} {'events':>7}  stage")
-    for name, (host, busy, n) in sorted(split.items(), key=lambda kv: -kv[1][0]):
-        idle = f"{1 - busy / host:7.3f}" if host > 0 else f"{'-':>7}"
-        print(f"# {host:12.4f} {busy:12.4f} {idle} {n:7d}  {name}")
-    print(f"# stages {json.dumps(split)}")
-
+    table, unmatched_ms = span_table(*span_events(prof))
+    print(f"# {'calls':>6} {'host ms':>12} {'busy ms':>12} {'idle ms':>12} {'events':>7}  span")
+    for name, r in sorted(table.items(), key=lambda kv: -kv[1]["host_ms"]):
+        print(f"# {r['calls']:6d} {r['host_ms']:12.4f} {r['device_ms']:12.4f} "
+              f"{r['idle_ms']:12.4f} {r['launches']:7d}  {name}")
+    entries = sum(r["calls"] for r in table.values())
+    off_us, on_us = span_cost(acts)
+    print(f"# unmatched device ms {unmatched_ms} ({unmatched_ms / busy_ms:.4%} of busy); "
+          f"{entries} span entries, at {off_us} us each with no profiler recording and "
+          f"{on_us} us under one (host clock)")
+    print(f"# spans {json.dumps(table)}")
 
 if __name__ == "__main__":
     main()

@@ -23,6 +23,7 @@ from myzkp_tpu_torch.curves import bn254 as tbn
 from myzkp_tpu_torch.curves import fixed_base as tfb
 from myzkp_tpu_torch.curves import msm as tmsm
 from myzkp_tpu_torch.curves import weierstrass as tw
+from test_torch_spans import spans_entered  # noqa: F401  (a fixture)
 
 DEV = torch.device("cpu")  # the port's constructors default to the card
 # one intra-op thread: the test processes (pytest-xdist) already share
@@ -138,14 +139,17 @@ def _c14_case(known_multiples):
     return np.asarray(jmsm.scalars_from_int(jbn.r_spec(), ks)), pts_np, exp
 
 
-def test_msm_pippenger_c14_head_dense_matches_host(known_multiples):
+def test_msm_pippenger_c14_head_dense_matches_host(known_multiples, spans_entered):
     """c = 14 over 512 points: nearly every digit starts a bucket segment, the
     head-dense stream under which a step-0 flush corrupted buckets in the
-    reference (myzkp_tpu/curves/msm.py:321-328)."""
+    reference (myzkp_tpu/curves/msm.py:321-328).  The MSM runs in the
+    Pippenger stages' spans, each once."""
     s_np, pts_np, exp = _c14_case(known_multiples)
     got = tmsm.msm_pippenger(tbn.g1_ops(), tbn.g1_b3((), DEV),
                              tw.Point(*interop.point_from_numpy(pts_np, DEV)),
                              interop.limbs_from_numpy(s_np, DEV), c=14)
+    assert sorted(spans_entered) == sorted(["sort", "scan inputs", "scan", "lane merge",
+                                            "bucket sum", "horner"])
     assert _affine(got) == [exp]
 
 

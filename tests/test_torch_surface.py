@@ -95,6 +95,11 @@ LEFT_BEHIND = {
     # whether the optional native library loaded; the port has no Python
     # fallback, so its library() builds the library or raises
     "native/__init__.py": {"available"},
+    # a per-stage timer that synchronizes the card, and a Chrome-trace
+    # writer: the port marks its stages with spans on the profiler's own
+    # clock (utils/metrics.span), and the profiler exports its own traces
+    "utils/metrics.py": {"StageMetrics", "StageMetrics.record", "StageMetrics.report",
+                         "StageMetrics.reset", "StageMetrics.stage", "reset_metrics", "trace"},
 }
 
 

@@ -1,11 +1,11 @@
-"""Port parity: serialize, checkpoint, metrics and the two module entry points.
+"""Port parity: serialize, checkpoint and the two module entry points.
 
 Keys written by ``myzkp_tpu.utils.serialize`` load in the port's
 ``utils/serialize`` (and through ``interop.load_key``) with the same limbs,
 and keys written by the port load in the JAX package with the same limbs and
 host points; ``utils/checkpoint.msm_resumable`` stopped after two of three
 chunks resumes to the host's sum and removes its file (tests/test_curves.py's
-crash-and-resume test); ``StageMetrics`` as in tests/test_fields.py; and
+crash-and-resume test); and
 ``snark.cli`` / ``protocols.sumcheck_cli`` run to exit 0 on the CPU at tiny
 sizes, ``snark.cli --mesh 2`` over two gloo ranks (spawned, and under
 torchrun), while ``--g2 naive`` is refused.  On the CPU the port
@@ -35,7 +35,6 @@ from myzkp_tpu_torch.snark import groth16 as tg16
 from myzkp_tpu_torch.snark import pinocchio as tpin
 from myzkp_tpu_torch.utils import checkpoint as ckpt
 from myzkp_tpu_torch.utils import serialize
-from myzkp_tpu_torch.utils.metrics import StageMetrics
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 DEV = torch.device("cpu")  # the port's constructors default to the card
@@ -155,19 +154,6 @@ def test_msm_resumable_checkpoint(tmp_path):
     got = ckpt.msm_resumable(F, b3, dev_pts, sl, path, chunk=16)
     assert bn254.g1_points_to_host(tw.point_map(lambda a: a[:, None], got))[0] == want
     assert not (tmp_path / "msm.npz").exists()
-
-
-def test_stage_metrics():
-    sm = StageMetrics()
-    x = torch.arange(8)
-    with sm.stage("square", x):
-        y = x * x
-    with sm.stage("square", y):
-        y = y * y
-    assert sm.counts["square"] == 2 and sm.seconds["square"] > 0
-    assert "square" in sm.report()
-    sm.reset()
-    assert not sm.seconds
 
 
 def test_snark_cli(capsys):
