@@ -277,21 +277,26 @@ Phases, one output line each (or more), in order:
                timed beside its plain version, its operations bound and its
                depth bound (511 quotient coefficients one after another, one
                product's latency each);
- 16. mesh      parallel/mesh.py: 4 ranks spawned by run_ranks share the card
-               (gloo, each collective staged through pinned host memory);
-               each runs square_chain(2^20)'s Pinocchio and Groth16 setups
-               (one seed each, a group's key freed before the next), the mesh
-               proves (launch counts and collective bytes set to 0 just
-               before and read just after; seconds and peak memory per rank),
-               verifies them, and rank 0 holds every rank's proof equal point
-               for point to its single-rank prove of the same key and seed;
+ 16. mesh      parallel/mesh.py: 4 ranks spawned by run_ranks, over NCCL on
+               a host of four cards, else sharing the card (gloo, each
+               collective staged through pinned host memory); each runs
+               square_chain(2^20)'s Pinocchio setup and Groth16's split-key
+               setup (its block of the key; one seed each, a group's key
+               freed before the next), the mesh proves (launch counts and
+               collective bytes set to 0 just before and read just after;
+               seconds and peak memory per rank), verifies them, and rank 0
+               holds every rank's proof equal point for point to its
+               single-rank prove of the same toxic waste and seed (Groth16's
+               with the whole key);
                then dist_ntt at 2^20 == ntt, dist_msm over 2^20 G1 points ==
                msm and at c = 14 over 2^16, dist_fold_into_half and
                dist_table_sum over a 2^20 F_r table, dist_fri_fold (two
                rounds) and dist_merkle_tree (root and paths) over a
                2^20-point M128 codeword == fold_codeword and MerkleTree; and
                the mesh Pinocchio prove once at D = 1 on NCCL.  Four ranks on
-               one card give no scaling figure.
+               one card give no scaling figure.  Rank 0's kernel calls in
+               each mesh prove (Groth16's block quotient's included) are
+               held to their plain versions.
  17. surface   the last of the JAX package's surface, driven once with the
                launch counts set to 0 just before and read just after: K5's
                pair form (ntt_kernels.butterfly_pair, the TPU kernel's own
@@ -4615,19 +4620,19 @@ def phase_dense(dev, results: dict) -> None:
 
 
 MESH_SEED = SEED + 160
-MESH_RANKS = 4  # ranks sharing the one card (gloo, staged through host memory)
+MESH_RANKS = 4  # a card each on a host of four, else sharing one (gloo, staged)
 LOG_M_MESH = 20  # square_chain(2^20): m >= D^2 = 16
 # (log2 m, NTT, MSM, MSM at c = 14, sumcheck table, M128 codeword): phase 16's sizes
 MESH_LOGS = (LOG_M_MESH, 20, 20, LOG_N_C14, 20, 20)
 MESH_TIMEOUT = 600  # seconds a rank waits in a collective before it fails
 MERKLE_OPENS = (0, 1, (1 << 19) + 7, (1 << 20) - 1)
-# the kernels each mesh prove must launch on every rank: Pinocchio's quotient
-# runs dist_ntt's 1024-point transforms (K5), Groth16's runs on every rank (K6)
+# the kernels each mesh prove must launch on every rank: both quotients run
+# dist_ntt's 1024-point transforms (K5), Groth16's on the rank's blocks
 MESH_MSM_KERNELS = ("mont_mul", "mont_pow", "padd", "pdbl", "bucket_scan_rows", "padd2", "pdbl2",
                     "bucket_scan_rows2", "padd_seg_level", "padd2_seg_level", "gather_planes",
                     "scatter_rows")
 MESH_NEED = {"pinocchio": MESH_MSM_KERNELS + ("butterfly",),
-             "groth16": MESH_MSM_KERNELS + ("ntt_leaf",)}
+             "groth16": MESH_MSM_KERNELS + ("butterfly",)}
 
 
 def mesh_wrappers() -> list:
@@ -4799,11 +4804,13 @@ def mesh_prove(mesh, name: str, fn) -> tuple:
 
 
 def mesh_snark(mesh, name: str, log_m: int, seed: int, checked: set) -> dict:
-    """Setup (every rank, one seed), the mesh prove timed, its proof
-    verified on every rank and equal on every rank to rank 0's single-rank
-    prove of the same key and seed; the prove once more with rank 0's
-    kernel calls held to their plain versions (``kernel_calls``; the keys
-    in ``checked`` skipped); the key is freed before returning."""
+    """Setup (every rank, one seed; Groth16's the rank's block of the split
+    key), the mesh prove timed, its proof verified on every rank and equal
+    on every rank to rank 0's single-rank prove of the same toxic waste and
+    seed (Groth16's with the whole key, made on rank 0 for it); the prove
+    once more with rank 0's kernel calls held to their plain versions
+    (``kernel_calls``; the keys in ``checked`` skipped); the key is freed
+    before returning."""
     import torch.distributed as dist
     from myzkp_tpu_torch import _ext
     from myzkp_tpu_torch.curves import bn254
@@ -4816,12 +4823,18 @@ def mesh_snark(mesh, name: str, log_m: int, seed: int, checked: set) -> dict:
     if name == "pinocchio":
         pk, vk = pinocchio.setup(qap, random.Random(seed))
         prove = lambda mesh_: pinocchio.prove(asg, pk, qap, random.Random(seed + 1), mesh=mesh_)
+        single = lambda: prove(None)
         verify = lambda pr: pinocchio.verify(pr, vk)
         points = lambda pr: [getattr(pr, f.name) for f in dataclasses.fields(pr)]
     else:
-        pk, vk = groth16.setup(qap, NPUB_G16, random.Random(seed))
+        pk, vk = groth16.setup(qap, NPUB_G16, random.Random(seed), mesh=mesh)
         public = [int(v) for v in asg[:NPUB_G16].to_int()]
         prove = lambda mesh_: groth16.prove(asg, pk, qap, random.Random(seed + 1), mesh=mesh_)
+
+        def single():
+            whole, _ = groth16.setup(qap, NPUB_G16, random.Random(seed))
+            return groth16.prove(asg, whole, qap, random.Random(seed + 1))
+
         verify = lambda pr: groth16.verify(pr, vk, public)
         points = lambda pr: [pr.a, pr.b, pr.c]
     torch.cuda.synchronize()
@@ -4843,7 +4856,7 @@ def mesh_snark(mesh, name: str, log_m: int, seed: int, checked: set) -> dict:
     if [host_ints(p) for p in points(again)] != [host_ints(p) for p in points(proof)]:
         raise AssertionError(f"mesh {name} 2^{log_m}: a second prove differs")
     mine = [host_ints(p) for p in points(proof)]
-    single = ([host_ints(p) for p in points(prove(None))]
+    single = ([host_ints(p) for p in points(single())]
               if mesh.get_local_rank("shard") == 0 else None)
     every = [None] * mesh.size()
     dist.all_gather_object(every, mine, group=mesh.get_group("shard"))
@@ -4974,8 +4987,12 @@ def phase_mesh(dev, results: dict) -> None:
     smi = card()
     every = pm.run_ranks(mesh_rank, MESH_RANKS, MESH_LOGS, timeout=MESH_TIMEOUT)
     nccl = pm.run_ranks(mesh_rank_nccl, 1, LOG_M_MESH, timeout=MESH_TIMEOUT)
-    log(f"# mesh ({smi}): {MESH_RANKS} ranks share one card, backend {every[0]['backend']}; "
-        f"four ranks on one card give no scaling figure: they take turns on its SMs")
+    if every[0]["backend"] == "nccl":
+        log(f"# mesh ({smi}): {MESH_RANKS} ranks, a card each, backend nccl")
+    else:
+        log(f"# mesh ({smi}): {MESH_RANKS} ranks share one card, backend "
+            f"{every[0]['backend']}; four ranks on one card give no scaling figure: they take "
+            f"turns on its SMs")
     for st in every:
         for name in ("pinocchio", "groth16"):
             s = st[name]

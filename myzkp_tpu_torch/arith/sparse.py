@@ -50,6 +50,14 @@ class SparseMatrix:
         return Fp(a.spec, limb.segment_sum_mod(a.spec, prod.mont, self.rows,
                                                self.shape[0]))
 
+    def block(self, rows: torch.Tensor, cols: torch.Tensor, shape: tuple) -> "SparseMatrix":
+        """The entries whose new row and column (``rows``, ``cols``: one
+        index an entry, -1 to leave it out) are both kept, renumbered to
+        them, as a matrix of ``shape``: a block of rows or of columns."""
+        keep = ((rows >= 0) & (cols >= 0)).nonzero().squeeze(1)
+        return SparseMatrix(rows[keep], cols[keep],
+                            Fp(self.vals.spec, self.vals.mont.index_select(-1, keep)), shape)
+
     def col_accumulate(self, weights: Fp) -> Fp:
         """(d,) = M^T @ weights for weights: (m,)."""
         gathered = Fp(weights.spec, weights.mont.index_select(-1, self.rows))
@@ -138,15 +146,31 @@ class SparseQAP:
         scale = (pow(s, m, p) - 1) * pow(m, -1, p) % p
         return wj * denom * Fp.from_int(spec, scale, dev)
 
-    def eval_all_at(self, s: int):
-        """(ell_i(s), r_i(s), o_i(s)) as (d,) batches and t(s) as a scalar Fp:
-        ell_i(s) = sum_j L[j, i] lam_j(s), one weighted column accumulation
-        per matrix, O(nnz)."""
+    def eval_blocks_at(self, s: int, blocks) -> list:
+        """(ell_i(s), r_i(s), o_i(s)) as (hi - lo,) batches for the wires of
+        each [lo, hi) in ``blocks``: lam_j(s) once, then per matrix its
+        entries in the block's columns accumulated against it (ell_i(s) =
+        sum_j L[j, i] lam_j(s)), O(nnz).  A rank's share of a split key's
+        scalars holds no more than its block's entries."""
         lam = self._lagrange_at(s)
-        ell, r, o = (mat.col_accumulate(lam) for mat in
-                     (self.r1cs.left, self.r1cs.right, self.r1cs.out))
+        out = []
+        for lo, hi in blocks:
+            def acc(mat: SparseMatrix) -> Fp:
+                c = mat.cols
+                sub = mat.block(mat.rows, torch.where((c >= lo) & (c < hi), c - lo, -1),
+                                (self.m, hi - lo))
+                return sub.col_accumulate(lam)
+
+            out.append(tuple(acc(mat) for mat in (self.r1cs.left, self.r1cs.right,
+                                                  self.r1cs.out)))
+        return out
+
+    def eval_all_at(self, s: int):
+        """(ell_i(s), r_i(s), o_i(s)) as (d,) batches (``eval_blocks_at``
+        over every wire) and t(s) as a scalar Fp."""
+        (ell, r, o), = self.eval_blocks_at(s, [(0, self.d)])
         spec = self.spec
-        t_s = Fp.from_int(spec, (pow(s, self.m, spec.p) - 1) % spec.p, lam.device)
+        t_s = Fp.from_int(spec, (pow(s, self.m, spec.p) - 1) % spec.p, ell.device)
         return ell, r, o, t_s
 
 

@@ -10,7 +10,9 @@ code on its own block, and the collectives move data between ranks.
   ``jax.sharding.Mesh``); a collective on one axis runs on
   ``mesh.get_group(axis)``.
 - ``run_ranks(fn, D, *args)`` spawns D ranks (or takes them from
-  ``torchrun``), and each calls ``fn(mesh, *args)``.
+  ``torchrun``), and each calls ``fn(mesh, *args)``.  ``RankPool(D)`` keeps
+  D ranks across jobs, the caller's process as rank 0: a prover service
+  on one host.
 - Block and replica rule: each ``dist_*`` takes and returns, on each rank,
   what the JAX function's ``in_specs`` / ``out_specs`` give that rank's
   device: where the spec shards an axis, the rank's block of it (the
@@ -23,7 +25,8 @@ code on its own block, and the collectives move data between ranks.
   and exchanges host tensors only.  The kernels run on the card either
   way.  ``_all_gather``, ``_all_to_all`` and ``_broadcast`` are the only
   places that talk to the backend; they count the bytes each rank sends
-  (``traffic``).
+  (``traffic``), each in a span of its own (``all gather``, ``all to all``,
+  ``broadcast``).
 
 Left behind as TPU-only: ``mesh_dispatch`` and ``_mesh_platform`` (the port
 dispatches by tensor device), and ``make_mesh``'s fallback to CPU devices
@@ -39,6 +42,8 @@ import os
 import queue
 import shutil
 import tempfile
+import threading
+import time
 import traceback
 from dataclasses import dataclass
 
@@ -47,7 +52,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from .. import _ext, native
-from ..arith.sparse import shifted_h_rou
+from ..arith.sparse import SparseR1CS, shifted_h_rou
 from ..curves import msm as _msm, weierstrass as wst
 from ..fields import limb
 from ..fields.fp import Fp
@@ -56,6 +61,7 @@ from ..ops import ntt as _ntt
 from ..protocols.sumcheck_tpu import fold_into_half, table_sum
 from ..stark.fri import fold_codeword
 from ..utils.merkle import DistMerkleTree, MerkleTree
+from ..utils.metrics import span
 
 # calls and bytes this rank sent to other ranks, by collective
 traffic = {k: {"calls": 0, "bytes": 0} for k in ("all_gather", "all_to_all", "broadcast")}
@@ -156,12 +162,10 @@ def _prebuild(plan: _Plan) -> None:
         _ext.library()
 
 
-def _rank_body(rank: int, local_rank: int, world: int, plan: _Plan, init_method: str,
-               timeout: float, fn, args, build: bool = False):
-    """One rank: its card and one intra-op thread first, then the process
-    group and ``fn``.  With ``build`` (torchrun, where no caller built the
-    libraries), the host's first rank builds them while the others wait."""
-    torch.set_num_threads(1)
+def _join(rank: int, local_rank: int, world: int, plan: _Plan, init_method: str,
+          timeout: float) -> torch.device:
+    """This process as one rank: its card, then the process group; returns
+    the rank's device."""
     dev = plan.device(local_rank)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -170,6 +174,16 @@ def _rank_body(rank: int, local_rank: int, world: int, plan: _Plan, init_method:
     dist.init_process_group(plan.backend, init_method=init_method, rank=rank,
                             world_size=world, timeout=datetime.timedelta(seconds=timeout),
                             **bind)
+    return dev
+
+
+def _rank_body(rank: int, local_rank: int, world: int, plan: _Plan, init_method: str,
+               timeout: float, fn, args, build: bool = False):
+    """One rank: its card and one intra-op thread first, then the process
+    group and ``fn``.  With ``build`` (torchrun, where no caller built the
+    libraries), the host's first rank builds them while the others wait."""
+    torch.set_num_threads(1)
+    dev = _join(rank, local_rank, world, plan, init_method, timeout)
     try:
         if build:
             if local_rank == 0:
@@ -262,6 +276,234 @@ def run_ranks(fn, world_size: int, *args, device=None, timeout: float = 600.0):
 
 
 # ---------------------------------------------------------------------------
+# A pool of ranks across jobs: a prover service on one host
+# ---------------------------------------------------------------------------
+
+def _end_with_parent(parent: int) -> None:
+    """Ends this process once its parent is gone."""
+    while os.getppid() == parent:
+        time.sleep(1.0)
+    os._exit(1)
+
+
+def _pool_worker(jobs, results, rank: int, world: int, plan: _Plan, init_method: str,
+                 timeout: float, parent: int) -> None:
+    """Rank ``rank`` of a ``RankPool``: its card and the process group, then
+    each job (fn, args, want) from ``jobs`` as ``fn(mesh, state, *args)``
+    with one ``state`` dict across jobs, each reported to ``results`` as
+    (rank, True, its result if ``want`` else None) or (rank, False, the
+    traceback), until None comes.  A rank whose job raised leaves at once,
+    and one whose parent process is gone ends within a second, even inside
+    a collective (NCCL's wait for a peer that died ends only at the group's
+    timeout)."""
+    torch.set_num_threads(1)
+    threading.Thread(target=_end_with_parent, args=(parent,), daemon=True).start()
+    try:
+        dev = _join(rank, rank, world, plan, init_method, timeout)
+        mesh = make_mesh(world, device=dev.type)
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+        return
+    state = {}
+    while True:
+        job = jobs.get()
+        if job is None:
+            break
+        fn, args, want = job
+        try:
+            out = fn(mesh, state, *args)
+        except BaseException:
+            results.put((rank, False, traceback.format_exc()))
+            return
+        results.put((rank, True, out if want else None))
+    state.clear()
+    dist.destroy_process_group()
+
+
+class _Watch:
+    """Rank 0's watch over one job of a ``RankPool``, in a thread: it takes
+    the workers' reports (``results``: rank -> result), and at a failure
+    report, a worker's exit or the deadline it notes why and stops the pool
+    by force (``_kill``), which ends a collective that rank 0 waits in."""
+
+    def __init__(self, pool: "RankPool", deadline: float):
+        self.pool, self.deadline = pool, deadline
+        self.failure, self.results = None, {}
+        self._done, self._ended = set(), threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _fail(self, why: str) -> None:
+        self.failure = why
+        self.pool._kill()
+
+    def _loop(self) -> None:
+        procs = self.pool._procs
+        world = len(procs) + 1
+        while len(self._done) < len(procs) and not self._ended.is_set():
+            try:
+                rank, ok, payload = self.pool._results.get(timeout=0.2)
+            except queue.Empty:
+                dead = [(r, p.exitcode) for r, p in enumerate(procs, 1)
+                        if r not in self._done and p.exitcode is not None]
+                if dead:
+                    return self._fail(f"rank {dead[0][0]} of {world} exited with code "
+                                      f"{dead[0][1]} and no report")
+                if time.monotonic() > self.deadline:
+                    late = sorted(set(range(1, world)) - self._done)
+                    return self._fail(f"ranks {late} of {world} gave no answer within "
+                                      f"{self.pool.timeout} s")
+                continue
+            if not ok:
+                return self._fail(f"rank {rank} of {world} failed:\n{payload}")
+            self._done.add(rank)
+            self.results[rank] = payload
+
+    def wait(self):
+        """The failure, once every worker reported or one failed; None when
+        all succeeded."""
+        self._thread.join()
+        return self.failure
+
+    def end(self):
+        """Stop watching now; the failure seen so far, or None."""
+        self._ended.set()
+        self._thread.join()
+        return self.failure
+
+
+CLOSE_S = 60.0  # seconds close() gives the workers to destroy their group and end
+
+
+class RankPool:
+    """D ranks that live across jobs, the caller's process as rank 0: a
+    prover service on one host.
+
+    Rank 0 computes on card 0 (or the CPU) and D - 1 spawned workers each
+    on a card of their own (rank r on card r mod count), over the backend
+    that ``_plan`` picks, after ``_prebuild``, as in ``run_ranks``.  Each
+    ``run(fn, *args)`` sends the job to every rank, runs ``fn(mesh, state,
+    *args)`` on each, ``state`` a dict of the rank's own that lives across
+    jobs, and returns rank 0's result; ``run_all`` returns every rank's, in
+    rank order, the workers' sent back through the pool's queue (no
+    collective).  ``fn``, ``args`` and the workers' results are pickled, so
+    ``fn`` is a module-level function.  A rank that raises,
+    a worker that exits, or a job not ended on every rank within
+    ``timeout`` seconds makes ``run`` raise in rank 0: the workers are
+    stopped and the process group aborted, so rank 0 is not left waiting
+    in a collective, and the pool is closed.  ``close()`` (or leaving a
+    ``with`` block) ends the workers and destroys the process group."""
+
+    def __init__(self, world_size: int, device=None, timeout: float = 600.0):
+        if world_size < 1:
+            raise ValueError(f"world size {world_size}")
+        if dist.is_initialized():
+            raise RuntimeError("this process already belongs to a process group")
+        self.timeout = timeout
+        self.plan = _plan(device, world_size)
+        print(self.plan.describe(), flush=True)
+        _prebuild(self.plan)
+        self.state, self.mesh = {}, None
+        self._store = tempfile.mkdtemp(prefix="myzkp_pool_")
+        init = f"file://{self._store}/store"
+        ctx = multiprocessing.get_context("spawn")
+        self._results = ctx.Queue()
+        self._jobs = [ctx.Queue() for _ in range(world_size - 1)]
+        self._procs = [ctx.Process(target=_pool_worker, daemon=True,
+                                   args=(q, self._results, r, world_size, self.plan, init,
+                                         timeout, os.getpid()))
+                       for r, q in enumerate(self._jobs, 1)]
+        try:
+            for p in self._procs:
+                p.start()
+            dev = _join(0, 0, world_size, self.plan, init, timeout)
+            self.mesh = make_mesh(world_size, device=dev.type)
+        except BaseException:
+            self._kill()
+            self._release()
+            raise
+
+    def __enter__(self) -> "RankPool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def run(self, fn, *args):
+        """fn(mesh, state, *args) on every rank; rank 0's result."""
+        return self._run(fn, args, False)[0]
+
+    def run_all(self, fn, *args) -> list:
+        """fn(mesh, state, *args) on every rank; every rank's result."""
+        return self._run(fn, args, True)
+
+    def _run(self, fn, args: tuple, want: bool) -> list:
+        if self.mesh is None:
+            raise RuntimeError("the rank pool is closed")
+        deadline = time.monotonic() + self.timeout
+        with span("job dispatch"):
+            for q in self._jobs:
+                q.put((fn, args, want))
+        watch = _Watch(self, deadline)
+        try:
+            out = fn(self.mesh, self.state, *args)
+        except BaseException as exc:
+            failure = watch.end()
+            self._kill()
+            self._release()
+            raise RuntimeError(failure or f"rank 0 of {len(self._procs) + 1} failed") from exc
+        failure = watch.wait()
+        if failure:
+            self._release()
+            raise RuntimeError(failure)
+        return [out] + [watch.results.get(r) for r in range(1, len(self._procs) + 1)]
+
+    def _kill(self, abort: bool = True) -> None:
+        """Stop every worker by force, remove the store and, with ``abort``,
+        abort rank 0's process group, which ends a collective it waits in."""
+        for p in self._procs:
+            if p.is_alive():
+                p.terminate()
+        for p in self._procs:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(self._store, ignore_errors=True)
+        abort_pg = getattr(dist.distributed_c10d, "_abort_process_group", None)
+        if abort and abort_pg is not None and dist.is_initialized():
+            try:
+                abort_pg()
+            except Exception:  # a backend with no abort: the workers' end ends its waits
+                pass
+
+    def _release(self) -> None:
+        """Rank 0's process group destroyed, the pool closed."""
+        self.mesh = None
+        self.state.clear()
+        if dist.is_initialized():
+            try:
+                dist.destroy_process_group()
+            except Exception:  # already torn down by an abort
+                pass
+
+    def close(self) -> None:
+        """End the workers and destroy the process group on every rank at
+        once (NCCL's destroy is an intra-node collective: rank 0 does not
+        wait for the workers first); a worker that has not ended within
+        ``CLOSE_S`` seconds is stopped."""
+        if self.mesh is not None:
+            for q in self._jobs:
+                q.put(None)
+            self._release()
+            end = time.monotonic() + CLOSE_S
+            for p in self._procs:
+                p.join(max(0.0, end - time.monotonic()))
+        self._kill(abort=False)
+        self._release()
+
+
+# ---------------------------------------------------------------------------
 # Collectives: the only calls into the backend
 # ---------------------------------------------------------------------------
 
@@ -278,6 +520,7 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
 
 
+@span("all gather")
 def _all_gather(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
     """(D, *x.shape): every rank's x, in the axis's order."""
     group = mesh.get_group(axis)
@@ -293,6 +536,7 @@ def _all_gather(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
     return out.to(x.device) if staged else out
 
 
+@span("all to all")
 def _all_to_all(x: torch.Tensor, mesh: DeviceMesh, axis: str, send=None,
                 recv=None) -> torch.Tensor:
     """Exchange along dim 0: ``send[j]`` rows of x (in order) go to rank j
@@ -314,6 +558,7 @@ def _all_to_all(x: torch.Tensor, mesh: DeviceMesh, axis: str, send=None,
     return out.to(x.device) if staged else out
 
 
+@span("broadcast")
 def _broadcast(x: torch.Tensor, src: int, mesh: DeviceMesh, axis: str) -> torch.Tensor:
     """x of the axis's rank ``src`` on every rank of the axis."""
     group = mesh.get_group(axis)
@@ -411,7 +656,9 @@ def dist_ntt(spec: FieldSpec, a: torch.Tensor, mesh: DeviceMesh, axis: str = "sh
     """Natural-order NTT of an (L, [B,] n) Montgomery array over the mesh.
 
     ``a`` is the rank's block (L, [B / Db,] n1, n2 / D) of the (n1, n2)
-    view i = i1 n2 + i2 (``ntt_block``).  Four steps: the length-n1
+    view i = i1 n2 + i2, for any split n = n1 n2 with D dividing n1 and n2
+    (``ntt_block`` makes the reference's; ``block_quotient`` also runs the
+    transposed one, whose input is an output block).  Four steps: the length-n1
     transforms of the rank's columns, the twiddle w_n^(k1 i2) (K1), one
     all_to_all on ``axis`` to (.., n1 / D, n2), the length-n2 transforms
     (``ops/ntt._ntt_natural``: K5 below 2^14 points, K6 leaves above).
@@ -423,9 +670,9 @@ def dist_ntt(spec: FieldSpec, a: torch.Tensor, mesh: DeviceMesh, axis: str = "sh
     D = _axis_size(mesh, axis)
     n1, cols = a.shape[-2], a.shape[-1]
     n = n1 * cols * D
-    if _pick_n2(n, D) != cols * D:
-        raise ValueError(f"block {tuple(a.shape)} is not dist_ntt's block of {n} points "
-                         f"over {D} ranks (ntt_block makes it)")
+    if n & (n - 1) or n1 % D:
+        raise ValueError(f"block {tuple(a.shape)} of {n} points over {D} ranks: the "
+                         f"four-step split takes a power of two with D dividing n1")
     if batch_axis is not None and a.dim() < 4:
         raise ValueError("batch_axis takes an (L, B, n) input")
     x = _ntt._ntt_natural(spec, a.transpose(-1, -2).contiguous(), inverse).transpose(-1, -2)
@@ -565,6 +812,93 @@ def dist_shifted_h_rou(spec: FieldSpec, m: int, u: torch.Tensor, v: torch.Tensor
     if uvw.shape[-1] != m:
         raise ValueError(f"evaluations of {uvw.shape[-1]} points, not m = {m}")
     return shifted_h_rou(uvw, d_ell, d_r, d_o, transform_over(mesh, axis)).coef.mont
+
+
+# ---------------------------------------------------------------------------
+# The block quotient (Groth16's): every stage on the rank's block
+# ---------------------------------------------------------------------------
+#
+# Two layouts of an m-point vector over D ranks, with (n1, n2) dist_ntt's
+# split of m: an evaluation block holds the indices i1 n2 + r n2 / D + j
+# (i1 < n1, j < n2 / D; dist_ntt's input block), a coefficient block the
+# indices r n1 / D + j + n1 k2 (k2 < n2, j < n1 / D; its output block),
+# each row-major.  dist_ntt takes the one to the other either way, so the
+# quotient never gathers a transform, and a split key holds its powers at
+# the coefficient block's indices.
+
+def quotient_split(m: int, D: int) -> tuple:
+    """(n1, n2): dist_ntt's four-step split of m points over D ranks."""
+    n2 = _pick_n2(m, D)
+    return m // n2, n2
+
+
+def coef_index(m: int, D: int, r: int, device=None) -> torch.Tensor:
+    """The coefficient indices of rank r's coefficient block, in its order."""
+    n1, n2 = quotient_split(m, D)
+    c = n1 // D
+    k2 = torch.arange(n2, device=device)[:, None] * n1
+    return (k2 + r * c + torch.arange(c, device=device)).reshape(-1)
+
+
+def power_block(spec: FieldSpec, base: int, m: int, D: int, r: int, device,
+                scale: int = 1) -> torch.Tensor:
+    """(L, m / D) Montgomery scale * base^k at rank r's coefficient indices
+    k (``coef_index``): scale base^(r n1 / D + j) times (base^n1)^k2, two
+    geometric series and one product (K1)."""
+    n1, n2 = quotient_split(m, D)
+    c, p = n1 // D, spec.p
+    head = limb.const(spec, spec.to_mont_int(scale * pow(base, r * c, p) % p), (1,), device)
+    lo = limb.mont_mul(spec, _ntt._geometric_mont(spec, base, c, device), head)
+    hi = _ntt._geometric_mont(spec, pow(base, n1, p), n2, device)
+    return limb.mont_mul(spec, hi[:, :, None].expand(-1, -1, c),
+                         lo[:, None, :].expand(-1, n2, -1)).reshape(spec.L, m // D)
+
+
+def eval_block(r1cs: SparseR1CS, m: int, D: int, r: int) -> SparseR1CS:
+    """The circuit's rows at rank r's evaluation block, renumbered to the
+    block's order: its matrix-vector products are the block's evaluations."""
+    n1, n2 = quotient_split(m, D)
+    c = n2 // D
+
+    def rows(mat):
+        i1, i2 = mat.rows // n2, mat.rows % n2 - r * c
+        local = torch.where((i2 >= 0) & (i2 < c), i1 * c + i2, -1)
+        return mat.block(local, mat.cols, (n1 * c, mat.shape[1]))
+
+    return SparseR1CS(rows(r1cs.left), rows(r1cs.right), rows(r1cs.out))
+
+
+def block_quotient(spec: FieldSpec, uvw: torch.Tensor, m: int, mesh: DeviceMesh,
+                   axis: str = "shard") -> torch.Tensor:
+    """u and v's coefficients and h = (u v - w) / t's, t = X^m - 1, at the
+    rank's coefficient block (``coef_index``): (L, 3, m / D) Montgomery,
+    from the rank's evaluation block (L, 3, m / D) of the constraint
+    evaluations u, v, w (``eval_block``'s products).
+
+    Three transforms, each moving data by its one all_to_all and no rank
+    holding a whole one: the batched INTT of u, v, w (evaluation blocks to
+    coefficient blocks), the coset NTT on g<w_m>, g = w_2m (coefficient
+    blocks to evaluation blocks: dist_ntt on the transposed split), and
+    the coset INTT of u v - w (back to coefficient blocks), whose 1/m, 1/t
+    (t = g^m - 1 = -2 on the whole coset) and g^-k are one product.  h has
+    degree m - 2 at most for a satisfying witness, so the m coset points
+    give it whole: the one-card ``rou_quotient``'s first m - 1
+    coefficients.  Coefficient m - 1 (the last of rank D - 1's block) is
+    set to 0, as the one-card prover drops it.  Needs m >= D^2."""
+    D, r, p, L = _axis_size(mesh, axis), mesh.get_local_rank(axis), spec.p, spec.L
+    n1, n2 = quotient_split(m, D)
+    dev = uvw.device
+    coef, _ = dist_intt(spec, uvw.reshape(L, 3, n1, n2 // D), mesh, axis)  # (L, 3, n2, n1 / D)
+    g = _ntt.nth_root_of_unity(p, 2 * m)
+    shift = power_block(spec, g, m, D, r, dev).reshape(L, 1, n2, n1 // D)
+    ev, _ = dist_ntt(spec, limb.mont_mul(spec, coef, shift.expand(-1, 3, -1, -1)), mesh, axis)
+    num = limb.sub(spec, limb.mont_mul(spec, ev[:, 0], ev[:, 1]), ev[:, 2])
+    h, _ = dist_ntt(spec, num, mesh, axis, inverse=True)  # (L, n2, n1 / D), unscaled
+    back = power_block(spec, pow(g, -1, p), m, D, r, dev, scale=p - pow(2 * m, -1, p))
+    h = limb.mont_mul(spec, h.reshape(L, -1), back)
+    if r == D - 1:
+        h[:, -1] = 0
+    return torch.stack([coef[:, 0].reshape(L, -1), coef[:, 1].reshape(L, -1), h], dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,10 @@ product of four pairings runs on the host (``native/``).  Randomness is drawn
 from ``rng`` in the reference's order, so the same seeded ``random.Random``
 and the same key give the reference's proof, point for point.
 
+With a mesh (``parallel/mesh``) the proving key is split across its ranks
+(DIZK's layout, ePrint 2018/691): each rank holds its block of the four
+long vectors and proves with it, and the quotient runs on blocks.
+
 Conventions: witness index 0 is the constant one-wire; indices
 [0, num_public) are the public inputs, the rest are private.
 """
@@ -21,14 +25,17 @@ from __future__ import annotations
 import random as _random
 from dataclasses import dataclass
 
+import torch
+
 from ..arith.qap import QAP
-from ..arith.sparse import SparseQAP
+from ..arith.sparse import SparseQAP, SparseR1CS
 from ..curves import bn254, msm as _msm, weierstrass as wst
 from ..fields.fp import Fp
 from ..fields.host import PyPoint
 from ..ops import ntt as _ntt
+from ..parallel import mesh as pm
 from ..utils.metrics import span
-from .pinocchio import _cat, _g_multi, _mesh_axis, _msms, _single, _split, _stack, _std
+from .pinocchio import _cat, _g_multi, _mesh_axis, _single, _split, _stack, _std
 
 
 @dataclass
@@ -43,6 +50,21 @@ class Groth16ProvingKey:
     g1_k_priv: wst.Point  # (d - num_public,)  [(beta u_i + alpha v_i + w_i)/delta]G1
     g1_ht: wst.Point      # (m-1,) [x^j t(x)/delta]G1, j = 0..m-2
     num_public: int
+
+
+@dataclass
+class Groth16KeyBlock(Groth16ProvingKey):
+    """A rank's share of a split proving key: g1_xj, g2_xj and g1_ht hold
+    the (m / D,) powers x^j at the rank's coefficient block
+    (``parallel/mesh.coef_index``; j = m - 1 included in g1_ht), g1_k_priv
+    the private wires num_public + [lo, hi); the single points are whole.
+    ``rows``: the circuit's rows at the rank's block of the quotient's
+    evaluations (``parallel/mesh.eval_block``)."""
+    rank: int
+    ranks: int
+    lo: int
+    hi: int
+    rows: SparseR1CS
 
 
 @dataclass
@@ -62,13 +84,22 @@ class Groth16Proof:
     c: PyPoint  # G1
 
 
-def setup(qap: SparseQAP | QAP, num_public: int, rng=None
+def setup(qap: SparseQAP | QAP, num_public: int, rng=None, mesh=None
           ) -> tuple[Groth16ProvingKey, Groth16VerifyingKey]:
     """Trusted setup with toxic waste alpha, beta, gamma, delta, x (drawn
     from ``rng`` in that order).  The G1 scalars are [alpha, beta, delta] ||
     x^j (m) || K_priv / delta (d - num_public) || x^j t(x) / delta (m - 1) ||
     K_pub / gamma (num_public), K_i = beta u_i(x) + alpha v_i(x) + w_i(x);
-    the G2 scalars [beta, gamma, delta] || x^j (m)."""
+    the G2 scalars [beta, gamma, delta] || x^j (m).
+
+    With ``mesh`` (a 1-D ``parallel/mesh`` mesh; called on every rank with
+    the same ``rng`` state) the proving key is the rank's share
+    (``Groth16KeyBlock``): x^j and x^j t(x) / delta at its m / D coefficient
+    indices and K_priv / delta for its block of ceil((d - num_public) / D)
+    private wires, in its own fixed-base batches; the single points and
+    the verifying key are whole on every rank.  The scalars come from
+    lam_j(x) over the whole domain and the column blocks of the circuit
+    (``SparseQAP.eval_blocks_at``).  A SparseQAP with m >= D^2 only."""
     rng = rng or _random
     R = bn254.R
     alpha, beta, gamma, delta = (rng.randrange(1, R) for _ in range(4))
@@ -76,33 +107,72 @@ def setup(qap: SparseQAP | QAP, num_public: int, rng=None
     spec, m, d = qap.spec, qap.m, qap.d
     if not 0 < num_public <= d:
         raise ValueError(f"num_public = {num_public} outside (0, {d}]")
+    # K_i = beta u_i(x) + alpha v_i(x) + w_i(x)
+    kk = lambda u, v, w: (u * Fp.from_int(spec, beta, u.device)
+                          + v * Fp.from_int(spec, alpha, u.device) + w)
+    if mesh is None:
+        u_x, v_x, w_x, t_x_fp = qap.eval_all_at(x)  # (d,) each
+        t_x = int(t_x_fp.to_int())
+        k_all = kk(u_x, v_x, w_x)
+        x_pows = _ntt.geometric_series(spec, x, m, u_x.device)
+        return _keys(spec, (alpha, beta, gamma, delta), t_x, k_all[:num_public],
+                     k_all[num_public:], x_pows, x_pows[:m - 1], num_public, None)
+    with span("key block"):
+        _check_mesh(qap, mesh)
+        D, r = mesh.size(), mesh.get_local_rank(_mesh_axis(mesh))
+        n = d - num_public
+        b = -(-n // D)
+        lo, hi = min(r * b, n), min((r + 1) * b, n)
+        pub, priv = qap.eval_blocks_at(x, [(0, num_public), (num_public + lo, num_public + hi)])
+        x_pows = Fp(spec, pm.power_block(spec, x, m, D, r, pub[0].device))
+        block = {"rank": r, "ranks": D, "lo": lo, "hi": hi,
+                 "rows": pm.eval_block(qap.r1cs, m, D, r)}
+        t_x = (pow(x, m, R) - 1) % R  # t = X^m - 1
+        return _keys(spec, (alpha, beta, gamma, delta), t_x, kk(*pub), kk(*priv), x_pows,
+                     x_pows, num_public, block)
 
-    u_x, v_x, w_x, t_x_fp = qap.eval_all_at(x)  # (d,) each
-    t_x = int(t_x_fp.to_int())
-    dev = u_x.device
+
+def _check_mesh(qap, mesh) -> None:
+    """The split key's circuit: a SparseQAP with m >= D^2 (the quotient's
+    four-step transforms)."""
+    _mesh_axis(mesh)
+    if not isinstance(qap, SparseQAP):
+        raise ValueError(f"the split key takes a SparseQAP (the root-of-unity domain), "
+                         f"not {type(qap).__name__}")
+    D = mesh.size()
+    if qap.m < D * D:
+        raise ValueError(f"m = {qap.m} < D^2 = {D * D}: the quotient's four-step "
+                         f"transforms over {D} ranks need m >= D^2")
+
+
+def _keys(spec, toxic: tuple, t_x: int, k_pub: Fp, k_priv: Fp, x_pows: Fp, ht_pows: Fp,
+          num_public: int, block: dict | None) -> tuple:
+    """The keys from their scalars: one fixed-base batch per group; with
+    ``block`` (``Groth16KeyBlock``'s own fields) the rank's share."""
+    R = bn254.R
+    alpha, beta, gamma, delta = toxic
+    dev = x_pows.device
     gamma_inv, delta_inv = pow(gamma, -1, R), pow(delta, -1, R)
     mk = lambda v: Fp.from_int(spec, v, dev)
-    k_all = u_x * mk(beta) + v_x * mk(alpha) + w_x
-    k_pub = k_all[:num_public] * mk(gamma_inv)
-    k_priv = k_all[num_public:] * mk(delta_inv)
-    x_pows = _ntt.geometric_series(spec, x, m, dev)
-    ht = x_pows[:m - 1] * mk(t_x * delta_inv % R)
-
+    k_pub = k_pub * mk(gamma_inv)
+    k_priv = k_priv * mk(delta_inv)
+    ht = ht_pows * mk(t_x * delta_inv % R)
+    n_x, n_priv = x_pows.shape[-1], k_priv.shape[-1]
     g1_all = _g_multi("g1", _std(_cat(mk([alpha, beta, delta]), x_pows, k_priv,
                                       ht, k_pub)))
     g2_all = _g_multi("g2", _std(_cat(mk([beta, gamma, delta]), x_pows)))
     g1_abd, g1_xj, g1_kpriv, g1_ht, g1_kpub = _split(
-        g1_all, [3, m, d - num_public, m - 1, num_public])
-    g2_bgd, g2_xj = _split(g2_all, [3, m])
+        g1_all, [3, n_x, n_priv, ht.shape[-1], num_public])
+    g2_bgd, g2_xj = _split(g2_all, [3, n_x])
     g1s = _split(g1_abd, [1, 1, 1])
     g2s = _split(g2_bgd, [1, 1, 1])
     h2 = bn254.g2_points_to_host(g2_bgd)
 
-    pk = Groth16ProvingKey(
+    pk = (Groth16ProvingKey if block is None else Groth16KeyBlock)(
         g1_alpha=g1s[0], g1_beta=g1s[1], g1_delta=g1s[2],
         g2_beta=g2s[0], g2_delta=g2s[2],
         g1_xj=g1_xj, g2_xj=g2_xj, g1_k_priv=g1_kpriv, g1_ht=g1_ht,
-        num_public=num_public,
+        num_public=num_public, **(block or {}),
     )
     vk = Groth16VerifyingKey(
         g1_alpha=bn254.g1_points_to_host(g1s[0])[0],
@@ -113,11 +183,18 @@ def setup(qap: SparseQAP | QAP, num_public: int, rng=None
 
 
 @span("quotient")
-def _uvh(qap: SparseQAP | QAP, assignment: Fp) -> tuple:
+def _uvh(qap: SparseQAP | QAP, assignment: Fp, block: Groth16KeyBlock | None = None,
+         mesh=None) -> tuple:
     """u and v's (m,) coefficients, and h = (u v - w) / t's first m - 1
     (zero-padded): one batched INTT and the quotient stage for the sparse
-    QAP; ``QAP.combine`` and ``QAP.h_poly`` for the dense one."""
+    QAP; ``QAP.combine`` and ``QAP.h_poly`` for the dense one.  With a key
+    block, the (m / D,) blocks of the three at the rank's coefficient
+    indices, from its rows' evaluations (``parallel/mesh.block_quotient``)."""
     m = qap.m
+    if block is not None:
+        uvw = torch.stack([x.mont for x in block.rows.matvecs(assignment)], dim=1)
+        out = pm.block_quotient(qap.spec, uvw, m, mesh, _mesh_axis(mesh))
+        return tuple(Fp(qap.spec, out[:, k]) for k in range(3))
     if isinstance(qap, QAP):
         u, v, _ = (poly.coef for poly in qap.combine(assignment))
         h = qap.h_poly(assignment).coef.pad_to(m - 1)
@@ -125,6 +202,16 @@ def _uvh(qap: SparseQAP | QAP, assignment: Fp) -> tuple:
         coef = qap.combine_batched(assignment)  # (3, m): u, v, w
         u, v, h = coef[0], coef[1], qap.quotient(coef)
     return u, v, h[:m - 1]
+
+
+def _msms(F, b3, jobs, shifts, mesh) -> list:
+    """A group's MSMs over the (points, scalars) ``jobs``, then its delta
+    shifts (one point each): one ``msm_many`` call; with a mesh, each job
+    over the rank's key block and the partial sums added over the ranks
+    (``parallel/mesh.dist_msm_many``), the shifts whole on every rank."""
+    if mesh is None:
+        return _msm.msm_many(F, b3, list(jobs) + list(shifts))
+    return pm.dist_msm_many(F, b3, jobs, mesh, _mesh_axis(mesh), shifts)
 
 
 def prove(assignment: Fp, pk: Groth16ProvingKey, qap: SparseQAP | QAP,
@@ -140,20 +227,32 @@ def prove(assignment: Fp, pk: Groth16ProvingKey, qap: SparseQAP | QAP,
     one ``msm_many`` call; [s]A and [r]B1 share one more ladder.
 
     With ``mesh`` (a 1-D ``parallel/mesh`` mesh; called on every rank with
-    the same whole inputs and ``rng`` state) the five MSMs over the
-    assignment and h run split over its ranks (``pinocchio._msms``)
-    and the rest on every rank: the same proof on each, for either QAP and
-    any m."""
+    the whole witness, the same ``rng`` state and the rank's split key from
+    ``setup(..., mesh=mesh)``) the quotient runs on the rank's blocks, each
+    of the five MSMs over the assignment and h on the rank's key block with
+    one all-gather of the partial sums a group (``parallel/mesh.
+    dist_msm_many``), and the rest on every rank: the single-rank prover's
+    proof, on each rank."""
+    block = pk if isinstance(pk, Groth16KeyBlock) else None
+    if (mesh is None) != (block is None):
+        raise ValueError("a split key (setup with a mesh) proves with that mesh, and a "
+                         "whole key without one")
     if mesh is not None:
-        _mesh_axis(mesh)
+        rank = (mesh.get_local_rank(_mesh_axis(mesh)), mesh.size())
+        if rank != (block.rank, block.ranks):
+            raise ValueError(f"rank {rank[0]} of {rank[1]} holds the key block of rank "
+                             f"{block.rank} of {block.ranks}")
     rng = rng or _random
     R = bn254.R
     r_rand, s_rand = rng.randrange(1, R), rng.randrange(1, R)
     dev = assignment.device
     npub = pk.num_public
-    u, v, h = _uvh(qap, assignment)
+    u, v, h = _uvh(qap, assignment, block, mesh)
     u_std, v_std, h_std = _std(u), _std(v), _std(h)
-    a_priv = _std(assignment)[:, npub:]
+    if block is None:
+        a_priv = _std(assignment)[:, npub:]
+    else:
+        a_priv = _std(assignment[npub + block.lo:npub + block.hi])
     sc = lambda k: _msm.scalars_from_int(bn254.r_spec(), [k], dev)
 
     F1, b31 = bn254.g1_ops(), bn254.g1_b3((), dev)

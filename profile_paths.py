@@ -2,7 +2,8 @@
 """Device-time profile of one call of a path of the port on one GPU.
 
 Run from the repository root:
-    python3 profile_paths.py [--path msm|ntt|shifted_h|prove|groth16|sumcheck|stark] [--log-n 20]
+    python3 profile_paths.py [--path msm|ntt|shifted_h|prove|groth16|groth16-mesh|sumcheck|stark]
+                             [--log-n 20] [--ranks 4]
 
 Paths: ``msm``, one BN254 G1 MSM of 2^log_n points (made with
 fixed_base_multi from seeded scalars); ``ntt``, one forward NTT of 2^log_n
@@ -10,7 +11,11 @@ seeded F_r elements; ``shifted_h``, the prover's quotient stage
 get_shifted_h on square_chain(2^log_n); ``prove``, one Pinocchio prove on
 square_chain(2^log_n) with a key from a seeded setup (the setup is not
 profiled); ``groth16``, one Groth16 prove the same way, with 2 public
-inputs; ``sumcheck``, one prove of the table sumcheck prover over a
+inputs; ``groth16-mesh``, one prove of the cell ``mesh-g16-sq25-4chip``'s
+entry (``zkbench/entries/groth16_mesh_prove.py``: the split-key mesh
+Groth16 prover over a ``parallel/mesh.RankPool`` of ``--ranks`` ranks, a
+card each), profiled on rank 0, this process, which also holds card 0;
+``sumcheck``, one prove of the table sumcheck prover over a
 2^log_n-point hypercube (log_n variables), on the sumcheck demo's problem
 (examples/sumcheck_demo.py: three multilinear factors of 8 seeded terms,
 degree 3); ``stark``, one FastStark prove over M128 on the JAX package's
@@ -37,7 +42,9 @@ the transcript and the bind at the challenge; for the FastStark prove the
 trace interpolation, the boundary quotients, the codewords, the symbolic
 AIR, the transition quotients, the combination codeword, FRI and the
 openings, with the long divisions (K17), the Merkle trees' builds (host
-SHA3) and the host reads inside them.  The span table gives per span its
+SHA3) and the host reads inside them; for the mesh prover also its split
+set-up (``key block``), the pool's ``job dispatch`` and each collective
+(``all gather``, ``all to all``, ``broadcast``).  The span table gives per span its
 calls, its host ms (the ranges' time, the spans nested in them included),
 the device ms and count of the events launched in it (each put in the
 innermost span holding the CUDA API call that launched it, matched by
@@ -51,6 +58,7 @@ profiler recording.
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
 import json
 import random
@@ -62,6 +70,25 @@ import numpy as np
 import torch
 
 from myzkp_tpu_torch.utils.metrics import PREFIX, span
+
+
+def _mesh_path(n: int, seed: int, ranks: int, dev):
+    """The cell's entry over a pool of ``ranks`` ranks: the witness chain,
+    the circuit and the split key from the seed, once; the call is one
+    prove of the chain's first statement."""
+    from myzkp_tpu_torch.curves import bn254
+    from myzkp_tpu_torch.parallel import mesh as pm
+    from zkbench.entries import groth16_mesh_prove as entry
+
+    rng = random.Random(seed)
+    toxic = tuple(rng.randrange(1, bn254.R) for _ in range(5))
+    x0, rs = rng.randrange(2, bn254.R), (rng.randrange(1, bn254.R), rng.randrange(1, bn254.R))
+    pool = pm.RankPool(ranks, device=dev, timeout=600)
+    atexit.register(pool.close)
+    pool.run(entry.job_inputs, n, 1, x0)
+    pool.run(entry.job_keys, 2, toxic)
+    return (lambda: pool.run(entry.job_prove, 1, 0, rs),
+            f"groth16 mesh prove m = {n} over {ranks} ranks (rank 0's trace)")
 
 
 def _path(name: str, n: int, seed: int, dev):
@@ -238,10 +265,11 @@ def span_cost(acts, n: int = 100_000) -> tuple:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("msm", "ntt", "shifted_h", "prove", "groth16",
-                                       "sumcheck", "stark"),
+                                       "groth16-mesh", "sumcheck", "stark"),
                     default="msm")
     ap.add_argument("--log-n", type=int, default=20)
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--ranks", type=int, default=4)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_paths: torch.cuda.is_available() is False")
@@ -254,7 +282,10 @@ def main() -> None:
                          text=True, check=True).stdout.strip())
     _ext.build()
     dev = torch.device("cuda", 0)
-    call, what = _path(args.path, 1 << args.log_n, args.seed, dev)
+    if args.path == "groth16-mesh":
+        call, what = _mesh_path(1 << args.log_n, args.seed, args.ranks, dev)
+    else:
+        call, what = _path(args.path, 1 << args.log_n, args.seed, dev)
     for _ in range(2):
         call()
     torch.cuda.synchronize()

@@ -104,9 +104,10 @@ def _msms(mesh, data: dict, out: dict) -> None:
 
 
 def _snarks(mesh, data: dict, out: dict) -> None:
-    """Shifted h, the mesh Pinocchio and Groth16 proves at m = 16, their
-    single-rank proves (on ranks 1 and 2 in parallel), the verifiers (rank
-    3), every rank's mesh proofs, and the mesh prover's refusals."""
+    """Shifted h, the mesh Pinocchio and Groth16 proves at m = 16 (Groth16
+    with the split key), their single-rank proves (on ranks 1 and 2 in
+    parallel), the verifiers (rank 3), every rank's mesh proofs, and the
+    mesh prover's refusals."""
     spec = bn254.r_spec()
     rank = mesh.get_local_rank("shard")
     r1cs, asg = square_chain(spec, 16, device=DEV)
@@ -117,9 +118,13 @@ def _snarks(mesh, data: dict, out: dict) -> None:
                         _np(pinocchio.get_shifted_h(qap, asg, *deltas).coef.mont))
 
     pk, vk = pinocchio.setup(qap, rng=random.Random(11))
-    gpk, gvk = groth16.setup(qap, 2, rng=random.Random(3))
+    # the mesh Groth16 prove takes the rank's block of the split key; the
+    # single-rank prove (rank 2) and the verifier (rank 3) the whole key
+    block, _ = groth16.setup(qap, 2, rng=random.Random(3), mesh=mesh)
+    if rank in (2, 3):
+        gpk, gvk = groth16.setup(qap, 2, rng=random.Random(3))
     pin = pinocchio.prove(asg, pk, qap, rng=random.Random(5), mesh=mesh)
-    g16 = groth16.prove(asg, gpk, qap, rng=random.Random(9), mesh=mesh)
+    g16 = groth16.prove(asg, block, qap, rng=random.Random(9), mesh=mesh)
     pin_t = tuple(_ints(getattr(pin, k)) for k in PROOF_NAMES)
     g16_t = tuple(_ints(p) for p in (g16.a, g16.b, g16.c))
     extra = {}

@@ -12,8 +12,8 @@ held to the JAX package's host group law, the golden that
 ``tests/test_parallel.py`` holds the JAX dist_msm to (the JAX dist_msm costs
 a minute and more of XLA compile a case on the CPU); dist_shifted_h_rou at
 m = 16 to both the JAX package's and the port's single-rank get_shifted_h;
-the mesh provers at m = 16 to the port's single-rank provers under the same
-seeds.
+the mesh provers at m = 16 (Groth16's with the split key) to the port's
+single-rank provers under the same seeds.
 """
 
 import concurrent.futures
@@ -227,6 +227,9 @@ def test_mesh_pinocchio_prove_matches_single_rank(world):
 
 
 def test_mesh_groth16_prove_matches_single_rank(world):
+    """The mesh prove at m = 16 over 4 ranks, each holding its block of the
+    split key, equals the single-rank prove with the whole key under the
+    same seeds, point for point on every rank, and verifies."""
     res = world[1].result()
     assert all(p == res["g16_single"] for p in res["g16_mesh"])
     assert res["verified"][1]
